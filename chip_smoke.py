@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit (``nvidia-smi``) and builds the
+   port's CUDA kernels from the sources in this checkout.
+2. Partitions a scale-20 Graph500 RMAT graph (1,048,576 vertices, 33.5 M
+   directed edges after doubling) into ``BFSServeEngine(th=64, p_rank=1,
+   p_gpu=2)`` -- two emulated partitions on one card.
+3. Kernel phases, at the main path's shapes: the three pulls of one sweep
+   (dd, nd over the dn subgraph, dn over the nd subgraph) on a real
+   mid-BFS frontier, and the delegate OR fold over the p=2 partitions'
+   candidate words. Each kernel must equal its plain PyTorch version
+   exactly (found words and work; both ``mask_reduce`` variants); its
+   time per call (CUDA events), the plain version's time and the bytes
+   bound are printed.
+4. Main path: ``warmup()``, then ``submit_many`` of 64 queries mixing the
+   four bit kinds (at least two lane batches). Launch counts are zeroed
+   just before and read just after; both kernels must have launched, two
+   answers per kind must equal the numpy oracle, and no nn slot may be
+   dropped.
+5. Profiles one more lane batch with ``torch.profiler``: the device busy
+   share and the top operators and kernels by device time.
+6. Prints one JSON line describing every kernel, then, last, the device
+   line ``{"ok": true, "device": {...}}``.
+
+Any failure raises, so the script exits non-zero; it also exits non-zero,
+printing no result, without a CUDA device or without ``src/repro_torch``
+beside it. Imports nothing of JAX or of the reference package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+SCALAR_OPS_PER_S = 67e12       # H100 non-tensor 32-bit peak (data sheet)
+SCALE, TH, P_RANK, P_GPU = 20, 64, 1, 2
+DEVICE = "cuda"
+N_QUERIES = 64
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def time_ms(fn, reps: int, rounds: int = 3) -> float:
+    """Milliseconds per call of ``fn()``: CUDA events around ``reps``
+    back-to-back calls, divided by ``reps``; the median of ``rounds`` such
+    runs, after one warm-up call. A call shorter than its host-side launch
+    cost times at that cost (the profiler's per-launch device time is
+    printed separately)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(stop) / reps)
+    per_call.sort()
+    return per_call[len(per_call) // 2]
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def mid_bfs_inputs(eng, g, sweeps: int = 2):
+    """A real frontier: 32 sources swept ``sweeps`` times on the engine's
+    graph; returns the state and its frontier / unvisited lane masks."""
+    import torch
+    from repro_torch.core import msbfs as M
+    from repro_torch.core.types import INF_LEVEL
+    from repro_torch.graphs.rmat import pick_sources
+
+    cfg = eng.cfg
+    srcs = pick_sources(g, cfg.n_queries, seed=1)
+    st = M.init_multi_state(eng.pg, [int(s) for s in srcs], cfg,
+                            device=eng.device)
+    for _ in range(sweeps):
+        st = M.msbfs_step(eng.pgv, eng.plan, st, cfg)
+    nv = eng.pgv.normal_valid[:, :, None]
+    it = st.it[:, None, None]
+    masks = dict(
+        frontier_n=(st.level_n == it) & nv, frontier_d=st.level_d == it,
+        unvis_n=(st.level_n == int(INF_LEVEL)) & nv,
+        unvis_d=st.level_d == int(INF_LEVEL))
+    torch.cuda.synchronize()
+    return st, masks
+
+
+def kernel_phase_pull(eng, masks):
+    """The three pulls of one sweep, kernel against plain version."""
+    import torch
+    from repro_torch.core.comm import pack_lanes
+    from repro_torch.kernels import ell_pull_multi as K
+
+    pgv, chunk = eng.pgv, eng.cfg.pull_chunk
+    pulls = [
+        ("dd", pgv.dd, masks["unvis_d"] & pgv.dd_src_mask[:, :, None],
+         masks["frontier_d"]),
+        ("nd (walks dn)", pgv.dn, masks["unvis_d"] & pgv.dn_src_mask[:, :, None],
+         masks["frontier_n"]),
+        ("dn (walks nd)", pgv.nd, masks["unvis_n"] & pgv.nd_src_mask[:, :, None],
+         masks["frontier_d"]),
+    ]
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
+    for name, csr, need_rows, front_rows in pulls:
+        need, front = pack_lanes(need_rows), pack_lanes(front_rows)
+        args = (csr.offsets, csr.cols, front, need, chunk)
+        found_k, work_k = K.ell_pull_chunked_cuda(*args)
+        found_p, work_p = K.ell_pull_chunked_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((found_k.long() - found_p.long()).abs().max()),
+                  int((work_k.long() - work_p.long()).abs().max()))
+        check(err == 0, f"ell_pull_multi {name}: kernel != plain")
+        ms = time_ms(lambda: K.ell_pull_chunked_cuda(*args), reps=20)
+        plain_ms = time_ms(lambda: K.ell_pull_chunked_plain(*args), reps=1)
+        p, r1 = csr.offsets.shape
+        nw = need.shape[-1]
+        slots = int(work_k.sum())
+        frontier_bytes = min(front.numel() * 4, slots * nw * 4)
+        nbytes = (p * r1 * 4 + 2 * need.numel() * 4 + work_k.numel() * 4
+                  + slots * 4 + frontier_bytes)
+        b_ms, b_by = bound(nbytes, slots * nw)
+        check(b_by == "bytes", "pull bound is the memory stream")
+        print(f"kernel ell_pull_multi [{name}]: rows={p * (r1 - 1)} "
+              f"E_max={csr.cols.shape[1]} nw={nw} chunk={chunk} "
+              f"slots_entered={slots} found_bits="
+              f"{int(torch.count_nonzero(found_k))} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} exact=True")
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+        total["err"] = max(total["err"], err)
+    return total
+
+
+def kernel_phase_fold(eng, masks):
+    """The delegate OR fold over the p partitions' candidate words (the
+    pushes of a sweep in which every lane pushes), both variants."""
+    import torch
+    from repro_torch.core import msbfs as M
+    from repro_torch.core.comm import pack_lanes
+    from repro_torch.kernels import mask_reduce as K
+
+    pgv, d = eng.pgv, masks["unvis_d"].shape[1]
+    cand = (M._push_multi(pgv.dd, masks["frontier_d"], d)
+            | M._push_multi(pgv.nd, masks["frontier_n"], d))
+    partials = pack_lanes(cand).reshape(cand.shape[0], -1).contiguous()
+    k, nw = partials.shape
+    out = {}
+    for with_count in (False, True):
+        prev = (torch.zeros(nw, dtype=torch.int32, device=partials.device)
+                if not with_count
+                else pack_lanes(~masks["unvis_d"][0]).reshape(-1).contiguous())
+        got = K.mask_reduce_cuda(partials, prev, with_count)
+        want = K.mask_reduce_plain(partials, prev, with_count)
+        torch.cuda.synchronize()
+        err = int((got[0].long() - want[0].long()).abs().max())
+        if with_count:
+            err = max(err, int((got[1].long() - want[1].long()).abs().max()))
+        check(err == 0, f"mask_reduce(with_count={with_count}): kernel != plain")
+        ms = time_ms(lambda: K.mask_reduce_cuda(partials, prev, with_count), 50)
+        plain_ms = time_ms(lambda: K.mask_reduce_plain(partials, prev,
+                                                       with_count), 10)
+        nbytes = (k + 1) * nw * 4 + nw * 4 * (2 if with_count else 1)
+        b_ms, b_by = bound(nbytes, (k + (2 if with_count else 0)) * nw)
+        print(f"kernel mask_reduce [with_count={with_count}]: K={k} NW={nw} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
+              f"new_bits={int(got[1].sum()) if with_count else '-'} exact=True")
+        out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, err=err)
+    return out
+
+
+def ell_contract_check(device) -> None:
+    """The reference kernel's ELL contract (-1 padded parents, one chunk)
+    through the same CUDA kernel, against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ell_pull_multi import (ell_as_csr,
+                                                    ell_pull_chunked_cuda)
+
+    rng = np.random.default_rng(0)
+    for r, k, n, nw in [(7, 4, 40, 1), (256, 32, 500, 2), (33, 70, 100, 3)]:
+        parents = torch.from_numpy(rng.integers(-1, n, (r, k)).astype(np.int32))
+        fw = torch.from_numpy(rng.integers(-2**31, 2**31, (n, nw)).astype(np.int32))
+        aw = torch.from_numpy(rng.integers(-2**31, 2**31, (r, nw)).astype(np.int32))
+        offsets, cols, chunk = ell_as_csr(parents.to(device))
+        got, _ = ell_pull_chunked_cuda(offsets, cols, fw.to(device)[None],
+                                       aw.to(device)[None], chunk)
+        want = ref.ell_pull_multi_ref(parents, fw, aw)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0].cpu(), want), f"ELL contract r={r} k={k}")
+    print("kernel ell_pull_multi [ELL contract, 3 shapes]: exact=True")
+
+
+def profile_batch(eng, queries) -> None:
+    """Where one lane batch's time goes: ``torch.profiler`` over one
+    ``run_batch_queries`` call (after the main path, outside its counts),
+    top device ops by self time and the device busy share of the wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = list(dict.fromkeys(queries))[: eng.cfg.n_queries]
+    sweeps0 = eng.traversal_sweeps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_batch_queries(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sweeps = eng.traversal_sweeps - sweeps0
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    # operator rows (aten::*) carry the device time of the kernels they
+    # launched; the other rows are the kernels and copies themselves
+    ops_rows = [r for r in rows if r[2].startswith("aten::")]
+    dev_rows = [r for r in rows if not r[2].startswith("aten::")]
+    busy_ms = sum(r[0] for r in dev_rows)
+    print(f"profile: one batch of {len(batch)} queries, sweeps={sweeps}, "
+          f"wall_ms={wall_ms:.1f} (profiler on), device time={busy_ms:.1f} ms, "
+          f"device busy share={busy_ms / wall_ms:.3f}")
+    for title, sel in (("operator", ops_rows), ("kernel", dev_rows)):
+        for dev_ms, count, key in sel[:8]:
+            print(f"  profile {title}: {dev_ms:9.3f} ms x{count:<5d} {key[:100]}")
+    for name in ("ell_pull_chunked_kernel", "mask_reduce_kernel"):
+        mine = [r for r in dev_rows if name in r[2]]
+        n = sum(r[1] for r in mine)
+        total = sum(r[0] for r in mine)
+        if n == 0:
+            print(f"  profile port kernel {name}: not in the trace")
+            continue
+        print(f"  profile port kernel {name}: {n} launches, "
+              f"{total:.3f} ms device, {total / n * 1e3:.1f} us per launch")
+
+
+def mixed_queries(g, pg):
+    """64 queries: 16 of each bit kind, interleaved, with duplicates."""
+    import numpy as np
+    from repro_torch.graphs.rmat import pick_sources
+    from repro_torch.serve import Query, QueryKind as K
+
+    srcs = [int(s) for s in pick_sources(g, 60, seed=11)]
+    tg = [int(s) for s in pick_sources(g, 24, seed=12)]
+    per = {
+        K.LEVELS: [Query(s) for s in srcs[0:14]],
+        K.REACHABILITY: [Query(s, K.REACHABILITY) for s in srcs[14:28]],
+        K.DISTANCE_LIMITED: [Query(s, K.DISTANCE_LIMITED, max_depth=1 + i % 3)
+                             for i, s in enumerate(srcs[28:42])],
+        K.MULTI_TARGET: [Query(s, K.MULTI_TARGET,
+                               targets=tuple(tg[(3 * i) % 24:(3 * i) % 24 + 3]))
+                         for i, s in enumerate(srcs[42:56])],
+    }
+    qs = [q for group in zip(*per.values()) for q in group]       # 56 unique
+    dv = int(np.asarray(pg.delegate_vids)[0])
+    qs += [Query(dv), Query(dv, K.REACHABILITY)]                   # delegates
+    qs += qs[:6]                                                   # duplicates
+    check(len(qs) == N_QUERIES, "64 queries")
+    return qs
+
+
+def run() -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import oracle as O
+    from repro_torch.core.types import INF_LEVEL
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serve import BFSServeEngine, QueryKind as K
+
+    print(card_line())
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s (built {built})")
+    for src, log in _build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    g = rmat_graph(SCALE, seed=0)
+    t_gen = time.perf_counter() - t0
+    eng = BFSServeEngine(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU, device=DEVICE)
+    pg = eng.pg
+    print(f"setup: rmat_graph({SCALE}) {t_gen:.1f} s, partition+plan+upload "
+          f"{time.perf_counter() - t0 - t_gen:.1f} s; n={pg.n} m={g.m} "
+          f"p={pg.p} d={pg.d} n_local={pg.n_local} "
+          f"E_max nn/nd/dn/dd={pg.nn.e_max}/{pg.nd.e_max}/{pg.dn.e_max}/"
+          f"{pg.dd.e_max} cap_total={eng.plan.cap_total} "
+          f"cap_peer={eng.plan.cap_peer}")
+
+    # ---- kernel phases at the main path's shapes ---------------------------
+    st, masks = mid_bfs_inputs(eng, g)
+    print(f"mid-BFS state: it={int(st.it[0])} frontier_n="
+          f"{int(masks['frontier_n'].sum())} frontier_d="
+          f"{int(masks['frontier_d'].sum())} (vertex-lane pairs)")
+    pull = kernel_phase_pull(eng, masks)
+    fold = kernel_phase_fold(eng, masks)
+    ell_contract_check(eng.device)
+    print("library_ms: no single PyTorch call computes either function "
+          "(no OR reduction, no early-exit pull), so both are null")
+
+    # ---- main path ---------------------------------------------------------
+    eng.warmup(reachability=True, targets=True)
+    queries = mixed_queries(g, pg)
+    sweeps0 = eng.traversal_sweeps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    answers = eng.submit_many(queries)
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    sweeps = eng.traversal_sweeps - sweeps0
+    s = eng.stats
+    print(f"serve: {len(queries)} queries in {dt:.3f} s = "
+          f"{len(queries) / dt:.1f} queries/s; batches={s.batches} "
+          f"sweeps={sweeps} cache_hits={s.cache_hits} "
+          f"component_hits={s.component_hits} early_stops={s.early_stops} "
+          f"reach_fast_batches={s.reach_fast_batches}")
+    print(f"serve: wire_delegate_bytes={s.wire_delegate_bytes} "
+          f"wire_nn_bytes={s.wire_nn_bytes} nn_overflow={s.nn_overflow} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    print(f"launches: {launches} (3 pulls + 1 fold per sweep)")
+    check(s.batches >= 2, "at least two lane batches")
+    check(s.nn_overflow == 0, "no nn slot dropped")
+    check(all(v > 0 for v in launches.values()), "both kernels launched")
+    check(launches["ell_pull_multi"] == 3 * sweeps
+          and launches["mask_reduce"] == sweeps, "launches per sweep")
+
+    csr = O.csr_from_coo(g)
+    checked = {}
+    for q, a in zip(queries, answers):
+        if checked.get(q.kind, 0) >= 2:
+            continue
+        if q.kind is K.LEVELS:
+            ok = np.array_equal(a, O.bfs_levels(g, q.source, csr))
+        elif q.kind is K.REACHABILITY:
+            ok = np.array_equal(a, O.reachable_mask(g, q.source, csr))
+        elif q.kind is K.DISTANCE_LIMITED:
+            ok = np.array_equal(a, O.bfs_levels_limited(g, q.source,
+                                                        q.max_depth, csr))
+        else:
+            ok = a == O.target_depths(g, q.source, q.targets, csr)
+        check(ok, f"oracle: {q}")
+        checked[q.kind] = checked.get(q.kind, 0) + 1
+    check(all(checked.get(k, 0) >= 2 for k in (K.LEVELS, K.REACHABILITY,
+                                               K.DISTANCE_LIMITED,
+                                               K.MULTI_TARGET)),
+          "two oracle checks per kind")
+    reached = sum(int((a != INF_LEVEL).sum()) for q, a in zip(queries, answers)
+                  if q.kind is K.LEVELS)
+    print(f"oracle: {dict((k.value, v) for k, v in checked.items())} answers "
+          f"exact; LEVELS answers reach {reached} vertex-query pairs")
+
+    profile_batch(eng, queries)
+
+    kernels = [
+        {"name": "ell_pull_multi", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_pull_multi.cu",
+         "replaces": "src/repro/kernels/ell_pull_multi.py:60",
+         "launches": launches["ell_pull_multi"],
+         "max_abs_err": float(pull["err"]), "ms": pull["ms"],
+         "plain_ms": pull["plain_ms"], "bound_ms": pull["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "mask_reduce", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mask_reduce.cu",
+         "replaces": "src/repro/kernels/mask_reduce.py:92",
+         "launches": launches["mask_reduce"],
+         "max_abs_err": float(fold[False]["err"]), "ms": fold[False]["ms"],
+         "plain_ms": fold[False]["plain_ms"],
+         "bound_ms": fold[False]["bound_ms"],
+         "bound_by": fold[False]["bound_by"], "library_ms": None},
+    ]
+    print("ell_pull_multi ms/plain_ms/bound_ms: sum of one sweep's three "
+          "pulls; mask_reduce: the with_count=False fold of the main path")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
+              "from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    run()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

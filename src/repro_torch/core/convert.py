@@ -1,0 +1,68 @@
+"""Carrying a partition, a plan and a traversal state across packages.
+
+The graph is this system's "weights": the partition and the exchange plan
+move between the reference package and the port as plain numpy leaves
+(``*_to_arrays`` read any object with the reference's attribute names), so
+one partition can be fed to both and their states compared leaf by leaf
+(:func:`state_to_numpy`).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .engine import ExchangePlan
+from .msbfs import STATE_LEAVES, MSBFSState
+from .types import CSR, PartitionedGraph
+
+SUBGRAPHS = ("nn", "nd", "dn", "dd")
+CSR_ARRAYS = ("offsets", "cols", "rowids", "m", "eidx")
+CSR_META = ("n_rows", "e_max")
+PG_ARRAYS = ("nn_owner", "delegate_vids", "normal_valid", "nd_src_mask",
+             "dn_src_mask", "dd_src_mask")
+PG_META = ("n", "p", "p_rank", "p_gpu", "d", "n_local", "th")
+PLAN_ARRAYS = ("perm", "seg_ids", "seg_owner", "seg_pos", "seg_local",
+               "recv_local")
+PLAN_META = ("cap_peer", "cap_total")
+
+
+def partition_to_arrays(pg) -> tuple[dict, dict]:
+    """``(arrays, meta)`` of a host partition: arrays keyed ``"nn.offsets"``
+    ... and ``"nn_owner"`` ..., meta the integer fields (including each
+    CSR's ``"nn.n_rows"`` / ``"nn.e_max"``)."""
+    arrays = {k: np.asarray(getattr(pg, k)) for k in PG_ARRAYS}
+    meta = {k: int(getattr(pg, k)) for k in PG_META}
+    for s in SUBGRAPHS:
+        csr = getattr(pg, s)
+        for a in CSR_ARRAYS:
+            arrays[f"{s}.{a}"] = np.asarray(getattr(csr, a))
+        for m in CSR_META:
+            meta[f"{s}.{m}"] = int(getattr(csr, m))
+    return arrays, meta
+
+
+def partition_from_arrays(arrays: dict, meta: dict) -> PartitionedGraph:
+    """The port's host :class:`PartitionedGraph` from numpy leaves."""
+    csrs = {s: CSR(**{a: np.asarray(arrays[f"{s}.{a}"]) for a in CSR_ARRAYS},
+                   **{m: int(meta[f"{s}.{m}"]) for m in CSR_META})
+            for s in SUBGRAPHS}
+    return PartitionedGraph(
+        **{k: int(meta[k]) for k in PG_META},
+        **{k: np.asarray(arrays[k]) for k in PG_ARRAYS}, **csrs)
+
+
+def plan_to_arrays(plan) -> tuple[dict, dict]:
+    return ({k: np.asarray(getattr(plan, k)) for k in PLAN_ARRAYS},
+            {k: int(getattr(plan, k)) for k in PLAN_META})
+
+
+def plan_from_arrays(arrays: dict, meta: dict) -> ExchangePlan:
+    """The port's host :class:`ExchangePlan` from numpy leaves."""
+    return ExchangePlan(**{k: np.asarray(arrays[k]) for k in PLAN_ARRAYS},
+                        **{k: int(meta[k]) for k in PLAN_META})
+
+
+def state_to_numpy(state: MSBFSState) -> dict:
+    """Every :class:`MSBFSState` leaf as a host numpy array (lane words
+    stay int32 bit patterns; ``.view(np.uint32)`` gives the reference's
+    uint32)."""
+    return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_LEAVES}

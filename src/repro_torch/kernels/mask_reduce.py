@@ -1,0 +1,72 @@
+"""Delegate bitmask combine: word-wise OR of K partial masks into ``prev``,
+plus (``with_count``) the per-word popcount of the newly set bits.
+
+The local phase of the paper's delegate reduction (Section V-A): the
+all-gathered partial masks of every partition are OR-folded into one. The
+CUDA kernel is ``csrc/mask_reduce.cu``; :func:`mask_reduce_plain` beside it
+computes the same function in plain PyTorch (the CPU path and the
+reference the kernel is held against on the card). Words are int32 bit
+patterns.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_void_p]
+
+
+def or_fold(words: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise OR of int32 ``words`` along ``dim`` (an unrolled word-OR
+    chain: PyTorch has no OR reduction)."""
+    out = words.new_zeros(words.shape[:dim] + words.shape[dim + 1:])
+    for j in range(words.shape[dim]):
+        out |= words.select(dim, j)
+    return out
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Per-word set-bit count of int32 bit patterns -> int32."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[..., None] >> shifts) & 1).sum(-1, dtype=torch.int32)
+
+
+def mask_reduce_plain(partials: torch.Tensor, prev: torch.Tensor,
+                      with_count: bool = True):
+    """Plain PyTorch ``mask_reduce``: ``(prev | OR_k partials[k],
+    popcount(combined & ~prev) or None)``."""
+    combined = prev | or_fold(partials, 0)
+    if not with_count:
+        return combined, None
+    return combined, popcount(combined & ~prev)
+
+
+def mask_reduce_cuda(partials: torch.Tensor, prev: torch.Tensor,
+                     with_count: bool = True):
+    """Launch ``csrc/mask_reduce.cu`` on the current stream. Inputs are
+    checked here (the kernel trusts them); raises if the launch fails."""
+    if partials.dim() != 2 or prev.dim() != 1 or prev.shape[0] != partials.shape[1]:
+        raise ValueError(f"mask_reduce: partials [K, NW] and prev [NW], got "
+                         f"{tuple(partials.shape)} and {tuple(prev.shape)}")
+    for name, t in (("partials", partials), ("prev", prev)):
+        if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"mask_reduce: {name} must be a contiguous int32 "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+    if partials.device != prev.device:
+        raise ValueError("mask_reduce: inputs on different devices")
+    k, nw = partials.shape
+    out = torch.empty_like(prev)
+    count = torch.empty_like(prev) if with_count else None
+    fn = _build.load("mask_reduce").mask_reduce
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(partials.data_ptr(), prev.data_ptr(), out.data_ptr(),
+                 count.data_ptr() if with_count else None, k, nw, stream)
+    if err:
+        raise RuntimeError(f"mask_reduce launch failed: cudaError {err}")
+    return out, count

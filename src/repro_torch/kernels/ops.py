@@ -1,0 +1,66 @@
+"""Dispatching wrappers for the port's kernels.
+
+A wrapper launches its CUDA kernel for CUDA tensors and takes the kernel's
+plain PyTorch version for CPU tensors -- chosen only by where the tensors
+lie. There is no fallback: a CUDA launch that fails raises, and tensors on
+any other device raise.
+
+``LAUNCHES`` counts kernel launches per kernel (a plain integer each,
+incremented exactly where a wrapper launches), so a run can show that its
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
+                             ell_pull_chunked_plain)
+from .mask_reduce import mask_reduce_cuda, mask_reduce_plain
+
+LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"kernel inputs on {sorted(kinds)}: CUDA tensors launch "
+                     "the kernel, CPU tensors take its plain version")
+
+
+def ell_pull_chunked(offsets, cols, frontier, need, chunk: int):
+    """Main-path pull of one subgraph for every stacked partition:
+    ``(found [p, R, nw], work [p, R])`` (see
+    :mod:`repro_torch.kernels.ell_pull_multi`)."""
+    if _on_cuda(offsets, cols, frontier, need):
+        out = ell_pull_chunked_cuda(offsets, cols, frontier, need, chunk)
+        LAUNCHES["ell_pull_multi"] += 1
+        return out
+    return ell_pull_chunked_plain(offsets, cols, frontier, need, chunk)
+
+
+def ell_pull_multi(parents, frontier_words, active_words):
+    """The reference kernel's ELL contract: ``parents [R, K]`` int32 (-1
+    padded), ``frontier_words [N, NW]``, ``active_words [R, NW]`` ->
+    ``(OR of valid parents' words) & active`` ``[R, NW]``."""
+    offsets, cols, chunk = ell_as_csr(parents)
+    found, _ = ell_pull_chunked(offsets, cols, frontier_words[None],
+                                active_words[None], chunk)
+    return found[0]
+
+
+def mask_reduce(partials, prev, *, with_count: bool = True):
+    """K-way OR of ``partials [K, NW]`` into ``prev [NW]`` -> ``(or_mask,
+    new_bits_per_word or None)``."""
+    if _on_cuda(partials, prev):
+        out = mask_reduce_cuda(partials, prev, with_count)
+        LAUNCHES["mask_reduce"] += 1
+        return out
+    return mask_reduce_plain(partials, prev, with_count)

@@ -1,0 +1,50 @@
+"""The port's runtime import rule: ``repro_torch`` imports neither JAX nor
+any module of the reference package ``repro``; its entry points default
+to the card and raise without one."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import repro_torch
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+assert sys.modules["jax"] is None
+print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    assert int(out.stdout.split()[1]) >= 20      # every module was imported
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    from repro_torch.core import msbfs as TM
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.serve import BFSServeEngine
+
+    g = rmat_graph(6, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BFSServeEngine(g)
+    pg = partition_graph(g, th=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_multi_state(pg, [0], TM.MSBFSConfig())
+    eng = BFSServeEngine(g, device="cpu")
+    assert eng.query_one(int(np.nonzero(g.out_degrees())[0][0])).shape == (g.n,)
