@@ -7,22 +7,35 @@
    port's CUDA kernels from the sources in this checkout.
 2. Partitions a scale-20 Graph500 RMAT graph (1,048,576 vertices, 33.5 M
    directed edges after doubling) into ``BFSServeEngine(th=64, p_rank=1,
-   p_gpu=2)`` -- two emulated partitions on one card.
-3. Kernel phases, at the main path's shapes: the three pulls of one sweep
-   (dd, nd over the dn subgraph, dn over the nd subgraph) on a real
-   mid-BFS frontier, and the delegate OR fold over the p=2 partitions'
-   candidate words. Each kernel must equal its plain PyTorch version
-   exactly (found words and work; both ``mask_reduce`` variants); its
-   time per call (CUDA events), the plain version's time and the bytes
+   p_gpu=2)`` -- two emulated partitions on one card. Both paths below run
+   on this one partition.
+3. msBFS kernel phases, at the serving path's shapes: the three pulls of
+   one sweep (dd, nd over the dn subgraph, dn over the nd subgraph) on a
+   real mid-BFS frontier, and the delegate OR fold over the p=2
+   partitions' candidate words. Each kernel must equal its plain PyTorch
+   version exactly (found words and work; both ``mask_reduce`` variants);
+   its time per call (CUDA events), the plain version's time and the bytes
    bound are printed.
-4. Main path: ``warmup()``, then ``submit_many`` of 64 queries mixing the
+4. Serving path: ``warmup()``, then ``submit_many`` of 64 queries mixing the
    four bit kinds (at least two lane batches). Launch counts are zeroed
    just before and read just after; both kernels must have launched, two
    answers per kind must equal the numpy oracle, and no nn slot may be
-   dropped.
-5. Profiles one more lane batch with ``torch.profiler``: the device busy
-   share and the top operators and kernels by device time.
-6. Prints one JSON line describing every kernel, then, last, the device
+   dropped. Then one more lane batch under ``torch.profiler``.
+5. Single-source kernel phases: the three bit pulls of one sweep on a real
+   mid-BFS frontier (2 sweeps from the highest-degree vertex) and the
+   delegate min fold of the p=2 partitions' level candidates (both
+   variants), each against its plain version, exactly; the ELL contract
+   of the pull against its oracle on 3 random shapes.
+6. Single-source path, Graph500 style: one warm-up BFS, then 16 search
+   keys through ``run_bfs_emulated`` with the ``bfs-rmat`` FULL config
+   (DO, pull_chunk=64, binned nn exchange, int32 min combine); each answer
+   must equal the numpy oracle; per-BFS time, sweeps, TEPS and their
+   harmonic mean are printed. Then 4 of the keys under OPT2
+   (``delegate_u8``, static exchange) and 4 under ``delegate="allgather"``:
+   answers equal the FULL run's. Each run zeroes the launch counts before
+   and reads them after: 3 bit pulls per sweep, one min fold per sweep in
+   the allgather run only. One FULL BFS under ``torch.profiler``.
+7. Prints one JSON line describing every kernel, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
@@ -43,6 +56,7 @@ SCALAR_OPS_PER_S = 67e12       # H100 non-tensor 32-bit peak (data sheet)
 SCALE, TH, P_RANK, P_GPU = 20, 64, 1, 2
 DEVICE = "cuda"
 N_QUERIES = 64
+N_KEYS, N_VARIANT_KEYS = 16, 4      # Graph500 search keys; keys per variant
 
 
 def check(cond, what: str) -> None:
@@ -219,6 +233,43 @@ def ell_contract_check(device) -> None:
     print("kernel ell_pull_multi [ELL contract, 3 shapes]: exact=True")
 
 
+def report_profile(prof, wall_ms: float, header: str, names) -> dict:
+    """Print the device busy share and the top operators and kernels of a
+    ``torch.profiler`` run, and each port kernel's per-launch device time
+    (``names``: substrings of the kernel symbols). Returns
+    ``{name: us per launch}``."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    # operator rows (aten::*) carry the device time of the kernels they
+    # launched; the other rows are the kernels and copies themselves
+    ops_rows = [r for r in rows if r[2].startswith("aten::")]
+    dev_rows = [r for r in rows if not r[2].startswith("aten::")]
+    busy_ms = sum(r[0] for r in dev_rows)
+    print(f"profile: {header}, wall_ms={wall_ms:.1f} (profiler on), device "
+          f"time={busy_ms:.1f} ms, device busy share={busy_ms / wall_ms:.3f}")
+    for title, sel in (("operator", ops_rows), ("kernel", dev_rows)):
+        for dev_ms, count, key in sel[:8]:
+            print(f"  profile {title}: {dev_ms:9.3f} ms x{count:<5d} {key[:100]}")
+    per_launch = {}
+    for name in names:
+        mine = [r for r in dev_rows if name in r[2]]
+        n = sum(r[1] for r in mine)
+        total = sum(r[0] for r in mine)
+        if n == 0:
+            print(f"  profile port kernel {name}: not in the trace")
+            continue
+        per_launch[name] = total / n * 1e3
+        print(f"  profile port kernel {name}: {n} launches, "
+              f"{total:.3f} ms device, {per_launch[name]:.1f} us per launch")
+    return per_launch
+
+
 def profile_batch(eng, queries) -> None:
     """Where one lane batch's time goes: ``torch.profiler`` over one
     ``run_batch_queries`` call (after the main path, outside its counts),
@@ -236,34 +287,9 @@ def profile_batch(eng, queries) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sweeps = eng.traversal_sweeps - sweeps0
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    # operator rows (aten::*) carry the device time of the kernels they
-    # launched; the other rows are the kernels and copies themselves
-    ops_rows = [r for r in rows if r[2].startswith("aten::")]
-    dev_rows = [r for r in rows if not r[2].startswith("aten::")]
-    busy_ms = sum(r[0] for r in dev_rows)
-    print(f"profile: one batch of {len(batch)} queries, sweeps={sweeps}, "
-          f"wall_ms={wall_ms:.1f} (profiler on), device time={busy_ms:.1f} ms, "
-          f"device busy share={busy_ms / wall_ms:.3f}")
-    for title, sel in (("operator", ops_rows), ("kernel", dev_rows)):
-        for dev_ms, count, key in sel[:8]:
-            print(f"  profile {title}: {dev_ms:9.3f} ms x{count:<5d} {key[:100]}")
-    for name in ("ell_pull_chunked_kernel", "mask_reduce_kernel"):
-        mine = [r for r in dev_rows if name in r[2]]
-        n = sum(r[1] for r in mine)
-        total = sum(r[0] for r in mine)
-        if n == 0:
-            print(f"  profile port kernel {name}: not in the trace")
-            continue
-        print(f"  profile port kernel {name}: {n} launches, "
-              f"{total:.3f} ms device, {total / n * 1e3:.1f} us per launch")
+    report_profile(prof, wall_ms,
+                   f"one batch of {len(batch)} queries, sweeps={sweeps}",
+                   ("ell_pull_chunked_kernel", "mask_reduce_kernel"))
 
 
 def mixed_queries(g, pg):
@@ -289,6 +315,286 @@ def mixed_queries(g, pg):
     qs += qs[:6]                                                   # duplicates
     check(len(qs) == N_QUERIES, "64 queries")
     return qs
+
+
+def bfs_configs():
+    """The ``bfs-rmat`` configurations the single-source phases run: FULL
+    (the paper's path), OPT2 (1-byte delegate masks, static bitmask nn
+    exchange) and FULL under the all-gathered delegate combine."""
+    from dataclasses import replace
+
+    from repro_torch.core import bfs as TB
+    from repro_torch.core.comm import CommConfig
+
+    full = TB.BFSConfig(max_iters=64, enable_do=True, uniquify=False,
+                        pull_chunk=64)
+    opt2 = TB.BFSConfig(max_iters=64, enable_do=True, pull_chunk=64,
+                        delegate_u8=True, static_exchange=True)
+    return {"FULL": full, "OPT2": opt2,
+            "allgather": replace(full, comm=CommConfig(delegate="allgather"))}
+
+
+def ss_mid_bfs(eng, g, cfg, sweeps: int = 2):
+    """A real single-source frontier: the first Graph500 search key whose
+    state after ``sweeps`` sweeps leaves rows to scan in all three pulls
+    (from a typical key, that state is the sweep where direction
+    optimization turns to pulling). Returns the key, the state and its
+    frontier / unvisited masks."""
+    import torch
+    from repro_torch.core import bfs as TB
+    from repro_torch.core.types import INF_LEVEL
+    from repro_torch.graphs.rmat import pick_sources
+
+    pgv = eng.pgv
+    for src in (int(s) for s in pick_sources(g, N_KEYS, seed=2)):
+        st = TB.init_state(eng.pg, src, cfg, device=eng.device)
+        for _ in range(sweeps):
+            st = TB.bfs_step(pgv, st, cfg)
+        it = st.it[:, None]
+        masks = dict(
+            frontier_n=(st.level_n == it) & pgv.normal_valid,
+            frontier_d=st.level_d == it,
+            unvis_n=(st.level_n == int(INF_LEVEL)) & pgv.normal_valid,
+            unvis_d=st.level_d == int(INF_LEVEL))
+        rows = (masks["unvis_d"] & pgv.dd_src_mask, masks["unvis_d"] & pgv.dn_src_mask,
+                masks["unvis_n"] & pgv.nd_src_mask)
+        if all(bool(r.any()) for r in rows) and bool(masks["frontier_d"].any()):
+            torch.cuda.synchronize()
+            return src, st, masks
+    raise RuntimeError("chip_smoke check failed: no search key leaves rows "
+                       f"to pull after {sweeps} sweeps")
+
+
+def kernel_phase_bit_pull(eng, masks, chunk: int):
+    """The three single-source pulls of one sweep, every row that the
+    reference's pull scans active, kernel against plain version."""
+    import torch
+    from repro_torch.core.comm import pack_lanes
+    from repro_torch.kernels import ell_pull as K
+
+    pgv = eng.pgv
+    pulls = [
+        ("dd", pgv.dd, masks["unvis_d"] & pgv.dd_src_mask, masks["frontier_d"]),
+        ("nd (walks dn)", pgv.dn, masks["unvis_d"] & pgv.dn_src_mask,
+         masks["frontier_n"]),
+        ("dn (walks nd)", pgv.nd, masks["unvis_n"] & pgv.nd_src_mask,
+         masks["frontier_d"]),
+    ]
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
+    for name, csr, rows, front in pulls:
+        mask, active = pack_lanes(front), rows.to(torch.int32)
+        args = (csr.offsets, csr.cols, mask, active, chunk)
+        found_k, work_k = K.ell_pull_bits_cuda(*args)
+        found_p, work_p = K.ell_pull_bits_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((found_k.long() - found_p.long()).abs().max()),
+                  int((work_k.long() - work_p.long()).abs().max()))
+        check(err == 0, f"ell_pull {name}: kernel != plain")
+        ms = time_ms(lambda: K.ell_pull_bits_cuda(*args), reps=20)
+        plain_ms = time_ms(lambda: K.ell_pull_bits_plain(*args), reps=1)
+        p, r1 = csr.offsets.shape
+        slots = int(work_k.sum())
+        nbytes = (p * r1 * 4 + 3 * active.numel() * 4 + slots * 4
+                  + min(mask.numel() * 4, slots * 4))
+        b_ms, b_by = bound(nbytes, slots)
+        check(b_by == "bytes", "pull bound is the memory stream")
+        print(f"kernel ell_pull [{name}]: rows={p * (r1 - 1)} "
+              f"active={int(active.sum())} E_max={csr.cols.shape[1]} "
+              f"chunk={chunk} slots_entered={slots} found="
+              f"{int(found_k.sum())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} exact=True")
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+        total["err"] = max(total["err"], err)
+    return total
+
+
+def kernel_phase_min_fold(eng, st, masks):
+    """The delegate min fold of the p=2 partitions' int32 level candidates
+    (the pushes of the mid-BFS sweep), both variants; the library yardstick
+    is one ``torch.amin`` over the pre-stacked ``[K + 1, NW]``."""
+    import torch
+    from repro_torch.core import bfs as TB
+    from repro_torch.core.types import INF_LEVEL
+    from repro_torch.kernels import mask_reduce as K
+
+    pgv, d = eng.pgv, masks["unvis_d"].shape[1]
+    cand = (TB._push_fused(pgv.dd, masks["frontier_d"], d)
+            | TB._push_fused(pgv.nd, masks["frontier_n"], d))
+    partials = torch.where(cand & masks["unvis_d"], st.it[:, None] + 1,
+                           int(INF_LEVEL)).to(torch.int32).contiguous()
+    k, nw = partials.shape
+    out = {}
+    for with_count in (False, True):
+        prev = (torch.full((nw,), int(INF_LEVEL), dtype=torch.int32,
+                           device=partials.device)
+                if not with_count else st.level_d[0].contiguous())
+        got = K.payload_min_fold_cuda(partials, prev, with_count)
+        want = K.payload_min_fold_plain(partials, prev, with_count)
+        torch.cuda.synchronize()
+        err = int((got[0].long() - want[0].long()).abs().max())
+        if with_count:
+            err = max(err, int((got[1].long() - want[1].long()).abs().max()))
+        check(err == 0, f"payload_min_fold(with_count={with_count}): "
+              "kernel != plain")
+        ms = time_ms(lambda: K.payload_min_fold_cuda(partials, prev,
+                                                     with_count), 50)
+        plain_ms = time_ms(lambda: K.payload_min_fold_plain(
+            partials, prev, with_count), 10)
+        stacked = torch.cat([prev[None], partials])
+        check(torch.equal(stacked.amin(0), got[0]), "amin yardstick")
+        lib_ms = time_ms(lambda: stacked.amin(0), 50)
+        nbytes = (k + 1) * nw * 4 + nw * 4 * (2 if with_count else 1)
+        b_ms, b_by = bound(nbytes, (k + (1 if with_count else 0)) * nw)
+        print(f"kernel payload_min_fold [with_count={with_count}]: K={k} "
+              f"NW={nw} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms(amin)={lib_ms:.4f} bound_ms={b_ms:.6f} "
+              f"improved={int(got[1].sum()) if with_count else '-'} "
+              "exact=True")
+        out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms, err=err)
+    return out
+
+
+def ell_pull_contract_check(device) -> int:
+    """The reference kernel's ELL contract (-1 padded parents, bit-packed
+    mask, one chunk) through the CUDA kernel, against its oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ell_pull import ell_pull_bits_cuda
+    from repro_torch.kernels.ell_pull_multi import ell_as_csr
+
+    rng = np.random.default_rng(1)
+    for r, w, n in [(7, 4, 40), (256, 32, 1000), (300, 70, 333)]:
+        parents = torch.from_numpy(rng.integers(-1, n, (r, w)).astype(np.int32))
+        mask = ref.pack_bitmask(torch.from_numpy(rng.random(n) < 0.3))
+        active = torch.from_numpy(rng.integers(0, 2, r).astype(np.int32))
+        offsets, cols, chunk = ell_as_csr(parents.to(device))
+        got, _ = ell_pull_bits_cuda(offsets, cols, mask.to(device)[None],
+                                    active.to(device)[None], chunk)
+        want = ref.ell_pull_ref(parents, mask, active)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0].cpu(), want), f"ELL contract r={r} w={w}")
+    print("kernel ell_pull [ELL contract, 3 shapes]: exact=True")
+    return 0
+
+
+def run_bfs_keys(eng, g, cfg, keys, csr, want_levels=None):
+    """BFS from each key with the launch counts zeroed before and read
+    after each run; each answer is held against the numpy oracle (or the
+    given levels). Returns per-key records."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bfs as TB
+    from repro_torch.core import oracle as O
+    from repro_torch.kernels import ops
+
+    plan = eng.plan if cfg.static_exchange else None
+    recs = []
+    for i, src in enumerate(keys):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = TB.run_bfs_emulated(
+            eng.pgv, TB.init_state(eng.pg, src, cfg, device=eng.device), cfg,
+            plan)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        levels = TB.gather_levels(eng.pg, out)
+        want = (O.bfs_levels(g, src, csr) if want_levels is None
+                else want_levels[i])
+        check(np.array_equal(levels, want), f"levels of key {src}")
+        sweeps = int(out.it[0])
+        check(int(out.nn_overflow.sum()) == 0, "no nn id dropped")
+        recs.append(dict(
+            src=src, time_s=dt, sweeps=sweeps, levels=levels,
+            edges=O.traversed_edges(g, levels), launches=launches,
+            work_fwd=int(out.work_fwd.sum()), work_bwd=int(out.work_bwd.sum()),
+            nn_sent=int(out.nn_sent.sum()),
+            wire_delegate=int(out.wire_delegate.sum()),
+            wire_nn=int(out.wire_nn.sum())))
+    return recs
+
+
+def check_bfs_launches(recs, name: str) -> None:
+    for r in recs:
+        la = r["launches"]
+        check(la["ell_pull"] == 3 * r["sweeps"],
+              f"{name}: ell_pull launches == 3 x sweeps")
+        check(la["payload_min_fold"] == (r["sweeps"] if name == "allgather"
+                                         else 0),
+              f"{name}: payload_min_fold launches")
+        check(la["ell_pull_multi"] == 0 and la["mask_reduce"] == 0,
+              f"{name}: no msBFS kernel on the single-source path")
+
+
+def single_source_path(eng, g, csr):
+    """The Graph500-style search-key runs (FULL, then OPT2 and allgather
+    on the first keys); returns the FULL and allgather launch totals."""
+    from repro_torch.graphs.rmat import pick_sources
+
+    cfgs = bfs_configs()
+    keys = [int(s) for s in pick_sources(g, N_KEYS, seed=2)]
+    run_bfs_keys(eng, g, cfgs["FULL"], keys[:1], csr)          # warm-up
+    full = run_bfs_keys(eng, g, cfgs["FULL"], keys, csr)
+    check_bfs_launches(full, "FULL")
+    teps = []
+    for r in full:
+        t = r["edges"] / r["time_s"]
+        if r["sweeps"] > 1:                    # Graph500: skip <=1 sweep
+            teps.append(t)
+        print(f"bfs FULL key={r['src']}: {r['time_s'] * 1e3:.1f} ms "
+              f"sweeps={r['sweeps']} edges={r['edges']} TEPS={t:.4e} "
+              f"work_fwd={r['work_fwd']} work_bwd={r['work_bwd']} "
+              f"nn_sent={r['nn_sent']} wire_delegate={r['wire_delegate']} "
+              f"wire_nn={r['wire_nn']} launches={r['launches']}")
+    check(len(teps) > 0, "at least one multi-sweep search key")
+    hmean = len(teps) / sum(1.0 / t for t in teps)
+    times = sorted(r["time_s"] for r in full)
+    print(f"bfs FULL: {len(full)} keys exact vs oracle, harmonic-mean "
+          f"TEPS={hmean:.4e} over {len(teps)} keys, median time "
+          f"{times[len(times) // 2] * 1e3:.1f} ms, sweeps "
+          f"{sorted(r['sweeps'] for r in full)}")
+    def summed(recs):
+        return {k: sum(r["launches"][k] for r in recs) for k in
+                recs[0]["launches"]}
+
+    totals = {"FULL": summed(full)}
+    for name in ("OPT2", "allgather"):
+        sub = full[:N_VARIANT_KEYS]
+        recs = run_bfs_keys(eng, g, cfgs[name], [r["src"] for r in sub], csr,
+                            want_levels=[r["levels"] for r in sub])
+        check_bfs_launches(recs, name)
+        totals[name] = summed(recs)
+        print(f"bfs {name}: {len(recs)} keys equal the FULL run; ms "
+              f"{[round(r['time_s'] * 1e3, 1) for r in recs]} sweeps "
+              f"{[r['sweeps'] for r in recs]} wire_delegate "
+              f"{[r['wire_delegate'] for r in recs]} wire_nn "
+              f"{[r['wire_nn'] for r in recs]}")
+    print(f"launches per single-source run set: {totals}")
+    return full[0]["src"], totals
+
+
+def profile_bfs(eng, src: int) -> dict:
+    """``torch.profiler`` over one FULL single-source BFS."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import bfs as TB
+
+    cfg = bfs_configs()["FULL"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = TB.run_bfs_emulated(
+            eng.pgv, TB.init_state(eng.pg, src, cfg, device=eng.device), cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return report_profile(prof, wall_ms,
+                          f"one FULL BFS from {src}, sweeps={int(out.it[0])}",
+                          ("ell_pull_bits_kernel", "payload_min_fold_kernel"))
 
 
 def run() -> None:
@@ -359,7 +665,10 @@ def run() -> None:
     print(f"launches: {launches} (3 pulls + 1 fold per sweep)")
     check(s.batches >= 2, "at least two lane batches")
     check(s.nn_overflow == 0, "no nn slot dropped")
-    check(all(v > 0 for v in launches.values()), "both kernels launched")
+    check(launches["ell_pull_multi"] > 0 and launches["mask_reduce"] > 0,
+          "both kernels launched")
+    check(launches["ell_pull"] == 0 and launches["payload_min_fold"] == 0,
+          "no single-source kernel on the serving path")
     check(launches["ell_pull_multi"] == 3 * sweeps
           and launches["mask_reduce"] == sweeps, "launches per sweep")
 
@@ -390,6 +699,21 @@ def run() -> None:
 
     profile_batch(eng, queries)
 
+    # ---- single-source path: kernel phases, then Graph500 search keys ----
+    chunk = bfs_configs()["FULL"].pull_chunk
+    ss_src, ss_st, ss_masks = ss_mid_bfs(eng, g, bfs_configs()["FULL"])
+    print(f"single-source mid-BFS state: source={ss_src} "
+          f"it={int(ss_st.it[0])} frontier_n="
+          f"{int(ss_masks['frontier_n'].sum())} frontier_d="
+          f"{int(ss_masks['frontier_d'].sum())} unvisited_n="
+          f"{int(ss_masks['unvis_n'].sum())} unvisited_d="
+          f"{int(ss_masks['unvis_d'][0].sum())}")
+    bit_pull = kernel_phase_bit_pull(eng, ss_masks, chunk)
+    min_fold = kernel_phase_min_fold(eng, ss_st, ss_masks)
+    ell_pull_contract_check(eng.device)
+    prof_src, ss_launches = single_source_path(eng, g, csr)
+    profile_bfs(eng, prof_src)
+
     kernels = [
         {"name": "ell_pull_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_pull_multi.cu",
@@ -406,9 +730,28 @@ def run() -> None:
          "plain_ms": fold[False]["plain_ms"],
          "bound_ms": fold[False]["bound_ms"],
          "bound_by": fold[False]["bound_by"], "library_ms": None},
+        {"name": "ell_pull", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_pull.cu",
+         "replaces": "src/repro/kernels/ell_pull.py:54",
+         "launches": ss_launches["FULL"]["ell_pull"],
+         "max_abs_err": float(bit_pull["err"]), "ms": bit_pull["ms"],
+         "plain_ms": bit_pull["plain_ms"], "bound_ms": bit_pull["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "payload_min_fold", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mask_reduce.cu",
+         "replaces": "src/repro/kernels/mask_reduce.py:145",
+         "launches": ss_launches["allgather"]["payload_min_fold"],
+         "max_abs_err": float(min_fold[False]["err"]),
+         "ms": min_fold[False]["ms"], "plain_ms": min_fold[False]["plain_ms"],
+         "bound_ms": min_fold[False]["bound_ms"],
+         "bound_by": min_fold[False]["bound_by"],
+         "library_ms": min_fold[False]["library_ms"]},
     ]
-    print("ell_pull_multi ms/plain_ms/bound_ms: sum of one sweep's three "
-          "pulls; mask_reduce: the with_count=False fold of the main path")
+    print("ell_pull_multi / ell_pull ms, plain_ms, bound_ms: sum of one "
+          "sweep's three pulls; mask_reduce / payload_min_fold: the "
+          "with_count=False fold of the path. Launches: ell_pull_multi and "
+          "mask_reduce over the 64-query serving run, ell_pull over the 16 "
+          "FULL search keys, payload_min_fold over the 4 allgather keys")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,17 +1,120 @@
-"""Device placement and the direction-optimization pieces shared with the
-single-source traversal (paper Section IV-B).
+"""Distributed BFS / direction-optimized BFS on the four-subgraph
+representation (paper Sections IV and V): the single-source traversal.
 
-Only what the batched msBFS path needs is here: the device view of a
-partitioned graph, row degrees, and the per-lane push/pull decision.
+One superstep processes the four subgraphs:
+
+  ``nn``  forward push only (paper: DO is never used for nn), producing
+          remote normal-vertex updates -> binned all_to_all exchange (or
+          the static slot bitmask exchange);
+  ``nd``  push from the normal frontier into delegate candidates, or pull
+          (via the dn subgraph) for unvisited delegates  -> delegate reduce;
+  ``dd``  push/pull among delegates                       -> delegate reduce;
+  ``dn``  push from the delegate frontier into local normals, or pull (via
+          the nd subgraph) for unvisited normals          -> local only.
+
+The per-subgraph direction is chosen by the paper's workload estimates:
+FV = sum of frontier out-degrees, BV ~= |U| (q + s) / q, with two switch
+factors per DO subgraph, in float32 with the reference's expression order.
+
+Every function works on the *stacked* partition axis (the emulated
+backend -- the reference's ``vmap(axis_name="p")``): tensors carry a
+leading ``p`` dimension and the collectives run over it. Pushes are
+edge-parallel gathers and scatter-ORs; each pull is one launch of the
+fused chunked bit-pull kernel (``kernels.ops.ell_pull_bits``) for every
+partition, so no host round trip happens per chunk. The host driver
+:func:`run_bfs_emulated` reads one scalar per sweep for its loop
+condition. The state has the reference's leaves, shapes and dtypes, so
+states compare leaf by leaf after every sweep.
+
+This module also holds the device placement, the direction decision and
+the scatter / slot-binning helpers the batched msBFS path shares (they
+take an optional trailing lane axis).
 """
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass, fields
+from typing import Any
 
 import numpy as np
 import torch
 
-from .types import CSR, PartitionedGraph
+from . import comm
+from .comm import pack_lanes
+from .types import CSR, INF_LEVEL, PartitionedGraph, PartitionLayout
+from repro_torch.kernels import ops
+
+# The delegate level reduction is the "min" combine: its identity is
+# INF_LEVEL, so unvisited candidates ride the reduction as the identity.
+_MIN_SPEC = comm.COMBINE_SPECS["min"]
+assert int(_MIN_SPEC.identity) == int(INF_LEVEL)
+
+_DEFERRED = "ROADMAP.md queue A, item A10 (memory and telemetry modes)"
+
+
+# -----------------------------------------------------------------------------
+# Config / state
+
+
+@dataclass(frozen=True)
+class BFSConfig:
+    max_iters: int = 64
+    cap_nn: int = 0          # per-peer a2a capacity; 0 -> E_nn_max (safe but
+                             # p-times oversized); <0 -> |cap_nn| * E_nn_max / p
+    enable_do: bool = True
+    delegate_u8: bool = False  # communicate the delegate update as a uint8
+                               # OR-mask (1 B/delegate) instead of int32
+                               # levels (4 B) -- levels derived locally
+    static_exchange: bool = False  # nn exchange as 1-bit masks over the
+                                   # static (owner, local) slot layout of an
+                                   # ExchangePlan: no runtime sort
+    uniquify: bool = False
+    pull_chunk: int = 32
+    # direction-switch factors (paper Section VI-B): factor0 switches
+    # forward->backward, factor1 switches back. Order: (dd, dn, nd).
+    factor0: tuple = (0.5, 0.05, 1e-7)
+    factor1: tuple = (1e-3, 1e-4, 1e-9)
+    comm: comm.CommConfig = comm.CommConfig()
+    # the reference's out-of-core sweep mode and device telemetry; only the
+    # defaults (0, False) are ported
+    edge_chunk: int = 0
+    telemetry: bool = False
+
+    def __post_init__(self):
+        if self.edge_chunk > 0:
+            raise NotImplementedError(
+                f"edge_chunk > 0 is not ported yet: {_DEFERRED}")
+        if self.telemetry:
+            raise NotImplementedError(
+                f"telemetry=True is not ported yet: {_DEFERRED}")
+
+
+@dataclass
+class BFSState:
+    """Single-source traversal state (leaves, shapes and dtypes as in the
+    reference package). The telemetry leaves are zero-width, as the
+    reference keeps them when telemetry is off."""
+
+    level_n: Any      # [p, n_local] int32
+    level_d: Any      # [p, d] int32 (replicated content)
+    backward: Any     # [p, 3] bool -- current direction per (dd, dn, nd)
+    it: Any           # [p] int32
+    done: Any         # [p] bool
+    # per-iteration statistics [p, max_iters] int32:
+    work_fwd: Any     # edges examined by pushes
+    work_bwd: Any     # parent checks by pulls
+    nn_sent: Any      # normal vertices sent (post-binning)
+    nn_overflow: Any  # dropped by capacity (must be 0 for a valid run)
+    delegate_round: Any  # 1 if the delegate reduction carried updates
+    wire_delegate: Any   # per-device bytes per sweep (comm/base.py)
+    wire_nn: Any
+    nn_sparse: Any    # 1 if the nn exchange shipped the sparse format
+    tm_frontier_n: Any  # [p, 0] int32 (telemetry off)
+    tm_frontier_d: Any  # [p, 0] int32
+    tm_backward: Any    # [p, 0] int32
+
+
+STATE_LEAVES = tuple(f.name for f in fields(BFSState))
 
 
 def resolve_device(device) -> torch.device:
@@ -58,9 +161,133 @@ def device_view(pg: PartitionedGraph, device="cuda") -> PartitionedGraph:
         dn_src_mask=put(pg.dn_src_mask), dd_src_mask=put(pg.dd_src_mask))
 
 
+def init_state(pg: PartitionedGraph, source: int, cfg: BFSConfig,
+               device="cuda") -> BFSState:
+    """Seed one source vertex (built on the host, then placed on
+    ``device``)."""
+    dev = resolve_device(device)
+    if not 0 <= int(source) < pg.n:
+        raise ValueError(f"source id {source} out of range [0, {pg.n})")
+    layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
+    p, nl = pg.p, pg.n_local
+    d = max(pg.d, 1)
+    level_n = np.full((p, nl), INF_LEVEL, dtype=np.int32)
+    level_d = np.full((p, d), INF_LEVEL, dtype=np.int32)
+    dvids = np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]
+    pos = int(np.searchsorted(dvids, source))
+    if pos < pg.d and dvids[pos] == source:
+        level_d[:, pos] = 0
+    else:
+        level_n[int(layout.part_of(np.int64(source))),
+                int(layout.local_of(np.int64(source)))] = 0
+    i32 = lambda *s: np.zeros(s, dtype=np.int32)
+    mi = cfg.max_iters
+    host = dict(
+        level_n=level_n, level_d=level_d,
+        backward=np.zeros((p, 3), dtype=bool), it=i32(p),
+        done=np.zeros((p,), dtype=bool),
+        work_fwd=i32(p, mi), work_bwd=i32(p, mi), nn_sent=i32(p, mi),
+        nn_overflow=i32(p, mi), delegate_round=i32(p, mi),
+        wire_delegate=i32(p, mi), wire_nn=i32(p, mi), nn_sparse=i32(p, mi),
+        tm_frontier_n=i32(p, 0), tm_frontier_d=i32(p, 0),
+        tm_backward=i32(p, 0))
+    return BFSState(**{k: torch.from_numpy(v).to(dev)
+                       for k, v in host.items()})
+
+
+# -----------------------------------------------------------------------------
+# Traversal primitives (stacked over the partition axis)
+
+
 def _row_degrees(csr: CSR) -> torch.Tensor:
     """Per-row out-degree ``[p, n_rows]`` int32 of a stacked device CSR."""
     return csr.offsets[..., 1:] - csr.offsets[..., :-1]
+
+
+def _edge_active(csr: CSR, frontier_rows: torch.Tensor) -> torch.Tensor:
+    """Edge-parallel frontier gather: ``[p, E]`` active flag per (padded)
+    edge slot (padding edges, rowid = R, gather an all-False row)."""
+    p = frontier_rows.shape[0]
+    ext = torch.cat([frontier_rows, frontier_rows.new_zeros((p, 1))], 1)
+    return ext.reshape(-1)[csr.flat_rows].reshape(p, -1)
+
+
+def _scatter_or(n_out: int, index: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """Scatter-OR of bool rows ``vals [E, ...]`` onto ``[n_out, ...]`` (an
+    int32 scatter-add then ``> 0``: OR is order-free, so this is
+    deterministic)."""
+    out = torch.zeros((n_out,) + vals.shape[1:], dtype=torch.int32,
+                      device=vals.device)
+    out.index_add_(0, index, vals.to(torch.int32))
+    return out > 0
+
+
+def _push_fused(csr: CSR, frontier_rows: torch.Tensor,
+                n_dst: int) -> torch.Tensor:
+    """Push: gather + scatter-OR of the frontier along every edge ->
+    ``[p, n_dst]`` bool."""
+    p = frontier_rows.shape[0]
+    act = _edge_active(csr, frontier_rows)
+    return _scatter_or(p * n_dst, csr.flat_cols,
+                       act.reshape(-1)).reshape(p, n_dst)
+
+
+def _nn_slots_bits(csr: CSR, frontier_rows: torch.Tensor, plan):
+    """Sender-side unique-slot occupancy for the static-exchange nn path:
+    ``(sa [p, cap_total] bool, act_sum [p] int32)`` with ``act_sum`` the
+    active nn edge count (``plan.perm`` is a permutation, so the permuted
+    sum is identical)."""
+    p = frontier_rows.shape[0]
+    act = _edge_active(csr, frontier_rows).gather(1, plan.perm.long())
+    sa = _scatter_or(p * (plan.cap_total + 1), plan.flat_seg, act.reshape(-1))
+    return (sa.reshape(p, -1)[:, : plan.cap_total],
+            act.sum(1, dtype=torch.int32))
+
+
+def _dense_slots(plan, sa: torch.Tensor) -> torch.Tensor:
+    """Each sender's unique slots ``sa [p, cap_total, ...]`` binned by
+    owner peer: ``[p_send, p_recv, cap_peer, ...]`` bool (invalid slots
+    drop out)."""
+    p, lanes = sa.shape[0], sa.shape[2:]
+    owner = plan.seg_owner.long()
+    ok = (owner < p).reshape(owner.shape + (1,) * len(lanes))
+    idx = (torch.arange(p, device=sa.device)[:, None] * p
+           + owner.clamp(max=p - 1)) * plan.cap_peer + plan.seg_pos.long()
+    dense = _scatter_or(p * p * plan.cap_peer, idx.reshape(-1),
+                        (sa & ok).reshape((-1,) + lanes))
+    return dense.reshape((p, p, plan.cap_peer) + lanes)
+
+
+def _pull_chunked(csr: CSR, rows_active: torch.Tensor,
+                  col_frontier: torch.Tensor, chunk: int):
+    """Bottom-up pull, one kernel launch for every partition: rows scan
+    their parent lists chunk by chunk and drop out after the first chunk
+    holding a frontier parent (paper Section IV-B). ``col_frontier [p, N]``
+    ships as its bit-packed mask. Returns ``(found [p, R] bool, work [p]
+    int32)``."""
+    found, work = ops.ell_pull_bits(
+        csr.offsets, csr.cols, pack_lanes(col_frontier),
+        rows_active.to(torch.int32), chunk)
+    return found > 0, work.sum(1, dtype=torch.int32)
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """Popcount of ``mask`` over axis 1 (rows) -> int32."""
+    return mask.sum(1, dtype=torch.int32)
+
+
+def _degree_sum(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """Frontier out-degree sum (the FV estimate) over axis 1 -> int32."""
+    return (mask.to(torch.int32) * deg).sum(1, dtype=torch.int32)
+
+
+def _bv_estimate(q, s, u):
+    """BV ~= u (q + s) / max(q, 1) in float32, inf where q == 0."""
+    qf = q.to(torch.float32)
+    sf = s.to(torch.float32)
+    return torch.where(q > 0, u.to(torch.float32) * (qf + sf) / qf.clamp(min=1.0),
+                       torch.inf)
 
 
 def _decide_direction(backward, fv, bv, f0, f1):
@@ -71,3 +298,189 @@ def _decide_direction(backward, fv, bv, f0, f1):
     go_back = (~backward) & (fv.to(torch.float32) > f0 * bv)
     go_fwd = backward & (fv.to(torch.float32) < f1 * bv)
     return (backward | go_back) & ~go_fwd
+
+
+# -----------------------------------------------------------------------------
+# One superstep over the stacked partitions
+
+
+def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
+             plan=None) -> BFSState:
+    """One sweep of every partition. ``pgv`` is a device view
+    (:func:`device_view`); ``plan`` (:func:`~repro_torch.core.engine.
+    device_plan`) is needed only with ``cfg.static_exchange``."""
+    p, nl = pgv.p, pgv.n_local
+    d = state.level_d.shape[1]
+    it = state.it
+    cplan = comm.plan_for(cfg.comm, p)
+    chunk = cfg.pull_chunk
+
+    at_it = it[:, None]
+    unvis_n = (state.level_n == INF_LEVEL) & pgv.normal_valid
+    unvis_d = state.level_d == INF_LEVEL
+    frontier_n = (state.level_n == at_it) & pgv.normal_valid
+    frontier_d = state.level_d == at_it
+    nd_m, dn_m, dd_m = pgv.nd_src_mask, pgv.dn_src_mask, pgv.dd_src_mask
+
+    # ---- direction decisions (per subgraph and partition) -----------------
+    fv_dd = _degree_sum(frontier_d, _row_degrees(pgv.dd))
+    fv_dn = _degree_sum(frontier_d, _row_degrees(pgv.dn))
+    fv_nd = _degree_sum(frontier_n, _row_degrees(pgv.nd))
+    if cfg.enable_do:
+        bv_dd = _bv_estimate(_count(frontier_d & dd_m), _count(unvis_d & dd_m),
+                             _count(unvis_d & dd_m))
+        bv_dn = _bv_estimate(_count(frontier_d & dn_m), _count(unvis_d & dn_m),
+                             _count(unvis_n & nd_m))
+        bv_nd = _bv_estimate(_count(frontier_n & nd_m), _count(unvis_n & nd_m),
+                             _count(unvis_d & dn_m))
+        f0, f1 = cfg.factor0, cfg.factor1
+        backward = torch.stack([
+            _decide_direction(state.backward[:, 0], fv_dd, bv_dd, f0[0], f1[0]),
+            _decide_direction(state.backward[:, 1], fv_dn, bv_dn, f0[1], f1[1]),
+            _decide_direction(state.backward[:, 2], fv_nd, bv_nd, f0[2], f1[2]),
+        ], dim=1)
+    else:
+        backward = torch.zeros((p, 3), dtype=torch.bool, device=it.device)
+    bwd_dd, bwd_dn, bwd_nd = (backward[:, i, None] for i in range(3))
+
+    # The reference computes every pull and push and selects by direction.
+    # Here each pull's active rows are masked by its partition's direction,
+    # so a forward partition's rows exit at once: the same found rows where
+    # the pull is selected, and work 0 exactly where the reference discards
+    # it. Three launches per sweep either way.
+    # ---- dd: delegate -> delegate ----------------------------------------
+    push_dd = _push_fused(pgv.dd, frontier_d, d)
+    pull_dd, work_dd_b = _pull_chunked(pgv.dd, unvis_d & dd_m & bwd_dd,
+                                       frontier_d, chunk)
+    cand_dd = torch.where(bwd_dd, pull_dd, push_dd)
+
+    # ---- nd: normal -> delegate (pull walks the dn subgraph) --------------
+    push_nd = _push_fused(pgv.nd, frontier_n, d)
+    pull_nd, work_nd_b = _pull_chunked(pgv.dn, unvis_d & dn_m & bwd_nd,
+                                       frontier_n, chunk)
+    cand_nd = torch.where(bwd_nd, pull_nd, push_nd)
+
+    # ---- dn: delegate -> normal (pull walks the nd subgraph) --------------
+    push_dn = _push_fused(pgv.dn, frontier_d, nl)
+    pull_dn, work_dn_b = _pull_chunked(pgv.nd, unvis_n & nd_m & bwd_dn,
+                                       frontier_d, chunk)
+    new_n_local = torch.where(bwd_dn, pull_dn, push_dn)
+
+    # ---- nn: normal -> normal, forward only, remote exchange --------------
+    if cfg.static_exchange:
+        # 1 bit per unique (owner, local) slot of the static plan
+        sa, act_nn_sum = _nn_slots_bits(pgv.nn, frontier_n, plan)
+        recv_mask, nn_bytes, nn_sparse, ovf = comm.nn_exchange_bits(
+            cplan, _dense_slots(plan, sa), plan.recv_local, nl)
+        sent = _count(sa)
+    else:
+        # legacy runtime-binned path: active destination ids sorted into
+        # per-owner bins of `cap` int32 ids
+        act_nn = _edge_active(pgv.nn, frontier_n)
+        act_nn_sum = _count(act_nn)
+        if cfg.cap_nn > 0:
+            cap = cfg.cap_nn
+        elif cfg.cap_nn < 0:
+            cap = max(-cfg.cap_nn * pgv.nn.e_max // p, 8)
+        else:
+            cap = pgv.nn.e_max
+        buf, ovf, sent = comm.bin_by_owner(
+            pgv.nn_owner, pgv.nn.cols, act_nn, p=p, cap=cap,
+            uniquify=cfg.uniquify)
+        recv = comm.exchange_normal(buf).reshape(p, -1)
+        ridx = (recv.long().clamp(0, nl - 1)
+                + torch.arange(p, device=it.device)[:, None] * nl)
+        recv_mask = _scatter_or(p * nl, ridx.reshape(-1),
+                                (recv >= 0).reshape(-1)).reshape(p, nl)
+        nn_bytes = cplan.a2a_bytes(cap * 4)     # [p, cap] int32 ids
+        nn_sparse = 0
+
+    # ---- delegate global reduction ----------------------------------------
+    cand_d = cand_dd | cand_nd
+    nxt = (it + 1)[:, None]
+    if cfg.delegate_u8:
+        # 1 B/delegate OR-mask (max over {0, 1} == OR); every partition
+        # sets level = it + 1 locally
+        delta, d_bytes = comm.delegate_combine(
+            cplan, (cand_d & unvis_d).to(torch.uint8), "max")
+        newly = (delta > 0) & unvis_d
+        new_level_d = torch.where(newly, nxt, state.level_d)
+        new_d_any = newly.any(1)
+    else:
+        cand_levels = torch.where(cand_d & unvis_d, nxt,
+                                  _MIN_SPEC.identity).to(torch.int32)
+        reduced, d_bytes = comm.delegate_combine(cplan, cand_levels, "min")
+        new_level_d = torch.minimum(state.level_d, reduced)
+        new_d_any = (new_level_d < state.level_d).any(1)
+
+    # ---- normal level updates ---------------------------------------------
+    new_n_mask = (new_n_local | recv_mask) & unvis_n
+    new_level_n = torch.where(new_n_mask, nxt, state.level_n)
+    updated = comm.any_reduce(new_n_mask.any(1) | new_d_any)
+
+    # ---- statistics (int32, the reference's wraparound included) ----------
+    w_fwd = (torch.where(bwd_dd[:, 0], 0, fv_dd)
+             + torch.where(bwd_nd[:, 0], 0, fv_nd)
+             + torch.where(bwd_dn[:, 0], 0, fv_dn) + act_nn_sum)
+    w_bwd = work_dd_b + work_nd_b + work_dn_b
+    at = (torch.arange(p, device=it.device),
+          it.clamp(0, cfg.max_iters - 1).long())
+
+    def put(buf, val):
+        out = buf.clone()
+        out[at] = torch.as_tensor(val, device=buf.device).to(torch.int32)
+        return out
+
+    def add(buf, val):
+        out = buf.clone()
+        out[at] += val
+        return out
+
+    return BFSState(
+        level_n=new_level_n,
+        level_d=new_level_d,
+        backward=backward,
+        it=it + 1,
+        done=~updated,
+        work_fwd=put(state.work_fwd, w_fwd),
+        work_bwd=put(state.work_bwd, w_bwd),
+        nn_sent=put(state.nn_sent, sent),
+        nn_overflow=put(state.nn_overflow, ovf),
+        delegate_round=put(state.delegate_round, new_d_any),
+        wire_delegate=add(state.wire_delegate, d_bytes),
+        wire_nn=add(state.wire_nn, nn_bytes),
+        nn_sparse=add(state.nn_sparse, nn_sparse),
+        tm_frontier_n=state.tm_frontier_n,
+        tm_frontier_d=state.tm_frontier_d,
+        tm_backward=state.tm_backward,
+    )
+
+
+# -----------------------------------------------------------------------------
+# Drivers
+
+
+def run_bfs_emulated(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
+                     plan=None) -> BFSState:
+    """Sweep until every partition reports done or ``max_iters`` is hit:
+    the reference's loop condition ``~all(done) & all(it < max_iters)``,
+    read as one scalar per sweep."""
+    if cfg.static_exchange and plan is None:
+        raise ValueError("static_exchange=True needs the device ExchangePlan "
+                         "(plan=)")
+    while bool((~state.done.all()) & (state.it < cfg.max_iters).all()):
+        state = bfs_step(pgv, state, cfg, plan)
+    return state
+
+
+def gather_levels(pg: PartitionedGraph, state: BFSState) -> np.ndarray:
+    """Assemble global hop distances ``[n]`` int32 from partition-local and
+    delegate levels."""
+    layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
+    level_n = state.level_n.cpu().numpy()
+    level_d = state.level_d[0].cpu().numpy()
+    vids = np.arange(pg.n, dtype=np.int64)
+    out = level_n[layout.part_of(vids), layout.local_of(vids)].copy()
+    if pg.d:
+        out[np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]] = level_d[: pg.d]
+    return out

@@ -4,9 +4,11 @@ axis.
 Two classes of traffic, exactly as the paper prescribes:
 
 * **delegates** -- visited status combined with a global bitwise-OR
-  reduction (all-gather + the ``mask_reduce`` fold kernel, :mod:`.reduce`);
+  reduction (all-gather + the ``mask_reduce`` fold kernel), or, on the
+  single-source path, levels with a min reduction (:mod:`.reduce`);
 * **normal vertices** -- newly visited vertices of cutting nn edges
-  exchanged point-to-point over the static slot plan (:mod:`.exchange`).
+  exchanged point-to-point, over the static slot plan or in runtime-binned
+  id lists (:mod:`.exchange`).
 
 :mod:`.base` holds the strategy config and the wire-byte formulas,
 :mod:`.wire` the lane-word packing that is the wire format itself.
@@ -20,13 +22,15 @@ from .base import (
     CommPlan,
     plan_for,
 )
-from .exchange import nn_exchange_words
-from .reduce import delegate_combine, lane_any_reduce
+from .exchange import (bin_by_owner, exchange_normal, nn_exchange_bits,
+                       nn_exchange_words)
+from .reduce import any_reduce, delegate_combine, lane_any_reduce
 from .wire import n_words, pack_lanes, unpack_lanes
 
 __all__ = [
     "COMBINE_SPECS", "DELEGATE_STRATEGIES", "NN_FORMATS", "CombineSpec",
-    "CommConfig", "CommPlan", "delegate_combine", "lane_any_reduce",
-    "n_words", "nn_exchange_words", "pack_lanes", "plan_for",
+    "CommConfig", "CommPlan", "any_reduce", "bin_by_owner",
+    "delegate_combine", "exchange_normal", "lane_any_reduce", "n_words",
+    "nn_exchange_bits", "nn_exchange_words", "pack_lanes", "plan_for",
     "unpack_lanes",
 ]

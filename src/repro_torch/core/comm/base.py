@@ -72,10 +72,12 @@ COMBINE_SPECS = {
 class CommConfig:
     """Strategy selection for one traversal layer.
 
-    ``delegate``: ``"auto"`` (bitwise OR has no native reduction, so it
-    all-gathers and folds) or ``"allgather"`` -- in the port the K-way OR
-    fold always runs through ``kernels.ops.mask_reduce``. ``nn``:
-    ``"dense"``, one bit per (slot, query) in fixed-volume lane words.
+    ``delegate``: ``"auto"`` (native reductions for min/max; bitwise OR
+    has none, so it all-gathers and folds) or ``"allgather"`` -- in the
+    port the K-way OR fold always runs through ``kernels.ops.mask_reduce``,
+    and the all-gathered int32 min through
+    ``kernels.ops.payload_min_fold``. ``nn``: ``"dense"``, one bit per
+    (slot, query) in fixed-volume lane words.
     ``hier_split`` and ``sparse_cap`` only parameterize the byte formulas
     of the deferred strategies.
     """

@@ -4,12 +4,14 @@ The graph is this system's "weights": the partition and the exchange plan
 move between the reference package and the port as plain numpy leaves
 (``*_to_arrays`` read any object with the reference's attribute names), so
 one partition can be fed to both and their states compared leaf by leaf
-(:func:`state_to_numpy`).
+(:func:`state_to_numpy` for the msBFS state, :func:`bfs_state_to_numpy`
+for the single-source state).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .bfs import STATE_LEAVES as BFS_STATE_LEAVES, BFSState
 from .engine import ExchangePlan
 from .msbfs import STATE_LEAVES, MSBFSState
 from .types import CSR, PartitionedGraph
@@ -66,3 +68,10 @@ def state_to_numpy(state: MSBFSState) -> dict:
     stay int32 bit patterns; ``.view(np.uint32)`` gives the reference's
     uint32)."""
     return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_LEAVES}
+
+
+def bfs_state_to_numpy(state: BFSState) -> dict:
+    """Every :class:`~repro_torch.core.bfs.BFSState` leaf
+    (``BFS_STATE_LEAVES``) as a host numpy array."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in BFS_STATE_LEAVES}

@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from . import comm
-from .bfs import _decide_direction, _row_degrees, resolve_device
+from .bfs import (_bv_estimate, _count, _decide_direction, _dense_slots,
+                  _row_degrees, _scatter_or, resolve_device)
 from .comm import n_words, pack_lanes, unpack_lanes
 from .types import CSR, INF_LEVEL, PartitionedGraph, PartitionLayout
 from repro_torch.kernels import ops
@@ -244,16 +245,6 @@ def _extended(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([rows, rows.new_zeros((p, 1, w))], 1).reshape(-1, w)
 
 
-def _scatter_or(n_out: int, index: torch.Tensor,
-                vals: torch.Tensor) -> torch.Tensor:
-    """Scatter-OR of bool rows ``vals [E, W]`` onto ``[n_out, W]`` (an int32
-    scatter-add then ``> 0``: OR is order-free, so this is deterministic)."""
-    out = torch.zeros((n_out, vals.shape[-1]), dtype=torch.int32,
-                      device=vals.device)
-    out.index_add_(0, index, vals.to(torch.int32))
-    return out > 0
-
-
 def _push_multi(csr: CSR, frontier_rows: torch.Tensor,
                 n_dst: int) -> torch.Tensor:
     """Push: gather each edge's source lane word, scatter-OR it onto the
@@ -276,19 +267,6 @@ def _nn_slots_multi(csr: CSR, frontier_rows: torch.Tensor, plan):
     return sa, act.reshape(p, -1).sum(1)
 
 
-def _dense_slots(plan, sa: torch.Tensor) -> torch.Tensor:
-    """Each sender's unique slots binned by owner peer:
-    ``[p_send, p_recv, cap_peer, W]`` bool (invalid slots drop out)."""
-    p, cap_total, w = sa.shape
-    owner = plan.seg_owner.long()
-    ok = owner < p
-    idx = (torch.arange(p, device=sa.device)[:, None] * p
-           + owner.clamp(max=p - 1)) * plan.cap_peer + plan.seg_pos.long()
-    dense = _scatter_or(p * p * plan.cap_peer, idx.reshape(-1),
-                        (sa & ok[..., None]).reshape(-1, w))
-    return dense.reshape(p, p, plan.cap_peer, w)
-
-
 def _pull_chunked_multi(csr: CSR, rows_need: torch.Tensor,
                         col_frontier: torch.Tensor, chunk: int):
     """Chunked bottom-up pull with word-OR early exit, one kernel launch
@@ -302,21 +280,9 @@ def _pull_chunked_multi(csr: CSR, rows_need: torch.Tensor,
     return unpack_lanes(found, w), work.sum(1)
 
 
-def _lane_count(mask: torch.Tensor) -> torch.Tensor:
-    """Per-lane popcount of ``[p, rows, W]`` -> ``[p, W]`` int32."""
-    return mask.sum(1, dtype=torch.int32)
-
-
 def _lane_degree_sum(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     """Per-lane frontier out-degree sum (FV estimate) -> ``[p, W]`` int32."""
     return (mask.to(torch.int32) * deg[..., None]).sum(1, dtype=torch.int32)
-
-
-def _bv_estimate_lane(q, s, u):
-    qf = q.to(torch.float32)
-    sf = s.to(torch.float32)
-    return torch.where(q > 0, u.to(torch.float32) * (qf + sf) / qf.clamp(min=1.0),
-                       torch.inf)
 
 
 # -----------------------------------------------------------------------------
@@ -364,15 +330,12 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     fv_dn = _lane_degree_sum(frontier_d, deg_dn)
     fv_nd = _lane_degree_sum(frontier_n, deg_nd)
     if cfg.enable_do:
-        bv_dd = _bv_estimate_lane(_lane_count(frontier_d & dd_m),
-                                  _lane_count(unvis_d & dd_m),
-                                  _lane_count(unvis_d & dd_m))
-        bv_dn = _bv_estimate_lane(_lane_count(frontier_d & dn_m),
-                                  _lane_count(unvis_d & dn_m),
-                                  _lane_count(unvis_n & nd_m))
-        bv_nd = _bv_estimate_lane(_lane_count(frontier_n & nd_m),
-                                  _lane_count(unvis_n & nd_m),
-                                  _lane_count(unvis_d & dn_m))
+        bv_dd = _bv_estimate(_count(frontier_d & dd_m), _count(unvis_d & dd_m),
+                             _count(unvis_d & dd_m))
+        bv_dn = _bv_estimate(_count(frontier_d & dn_m), _count(unvis_d & dn_m),
+                             _count(unvis_n & nd_m))
+        bv_nd = _bv_estimate(_count(frontier_n & nd_m), _count(unvis_n & nd_m),
+                             _count(unvis_d & dn_m))
         f0, f1 = cfg.factor0, cfg.factor1
         backward = torch.stack([
             _decide_direction(state.backward[:, 0], fv_dd, bv_dd, f0[0], f1[0]),

@@ -63,3 +63,10 @@ def target_depths(g: COOGraph, source: int, targets, csr=None) -> dict:
     unreached targets (the MULTI_TARGET query kind's oracle)."""
     levels = bfs_levels(g, source, csr)
     return {int(t): int(levels[int(t)]) for t in targets}
+
+
+def traversed_edges(g: COOGraph, levels: np.ndarray) -> int:
+    """Edges in the connected component of the source (for TEPS, counted on
+    the undirected graph as m_component / 2)."""
+    reached = levels[g.src] != INF_LEVEL
+    return int(reached.sum()) // 2

@@ -1,12 +1,17 @@
-"""Delegate bitmask combine: word-wise OR of K partial masks into ``prev``,
-plus (``with_count``) the per-word popcount of the newly set bits.
+"""Delegate combine folds, the local phase of the paper's delegate
+reduction (Section V-A): the all-gathered partials of every partition are
+folded into one.
 
-The local phase of the paper's delegate reduction (Section V-A): the
-all-gathered partial masks of every partition are OR-folded into one. The
-CUDA kernel is ``csrc/mask_reduce.cu``; :func:`mask_reduce_plain` beside it
-computes the same function in plain PyTorch (the CPU path and the
-reference the kernel is held against on the card). Words are int32 bit
-patterns.
+* :func:`mask_reduce_cuda` -- word-wise OR of K partial masks into
+  ``prev``, plus (``with_count``) the per-word popcount of the newly set
+  bits (the bit-plane OR combine);
+* :func:`payload_min_fold_cuda` -- elementwise int32 min of K partials
+  into ``prev``, plus (``with_count``) a 0/1 "improved" flag (the ``min``
+  combine of the single-source path's delegate levels).
+
+Both launch ``csrc/mask_reduce.cu``; ``*_plain`` beside them compute the
+same functions in plain PyTorch (the CPU path and the reference the
+kernels are held against on the card). Words are int32 bit patterns.
 """
 from __future__ import annotations
 
@@ -45,28 +50,53 @@ def mask_reduce_plain(partials: torch.Tensor, prev: torch.Tensor,
     return combined, popcount(combined & ~prev)
 
 
-def mask_reduce_cuda(partials: torch.Tensor, prev: torch.Tensor,
-                     with_count: bool = True):
-    """Launch ``csrc/mask_reduce.cu`` on the current stream. Inputs are
-    checked here (the kernel trusts them); raises if the launch fails."""
+def payload_min_fold_plain(partials: torch.Tensor, prev: torch.Tensor,
+                           with_count: bool = True):
+    """Plain PyTorch ``payload_min_fold``: ``(min(prev, min_k partials[k]),
+    (combined < prev) as int32 or None)``."""
+    combined = prev
+    for k in range(partials.shape[0]):
+        combined = torch.minimum(combined, partials[k])
+    if not with_count:
+        return combined, None
+    return combined, (combined < prev).to(torch.int32)
+
+
+def _fold_cuda(entry: str, partials: torch.Tensor, prev: torch.Tensor,
+               with_count: bool):
+    """Launch the ``entry`` fold of ``csrc/mask_reduce.cu`` on the current
+    stream. Inputs are checked here (the kernel trusts them); raises if the
+    launch fails."""
     if partials.dim() != 2 or prev.dim() != 1 or prev.shape[0] != partials.shape[1]:
-        raise ValueError(f"mask_reduce: partials [K, NW] and prev [NW], got "
+        raise ValueError(f"{entry}: partials [K, NW] and prev [NW], got "
                          f"{tuple(partials.shape)} and {tuple(prev.shape)}")
     for name, t in (("partials", partials), ("prev", prev)):
         if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"mask_reduce: {name} must be a contiguous int32 "
+            raise ValueError(f"{entry}: {name} must be a contiguous int32 "
                              f"CUDA tensor, got {t.dtype} on {t.device}")
     if partials.device != prev.device:
-        raise ValueError("mask_reduce: inputs on different devices")
+        raise ValueError(f"{entry}: inputs on different devices")
     k, nw = partials.shape
     out = torch.empty_like(prev)
     count = torch.empty_like(prev) if with_count else None
-    fn = _build.load("mask_reduce").mask_reduce
+    fn = getattr(_build.load("mask_reduce"), entry)
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(prev.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(partials.data_ptr(), prev.data_ptr(), out.data_ptr(),
                  count.data_ptr() if with_count else None, k, nw, stream)
     if err:
-        raise RuntimeError(f"mask_reduce launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out, count
+
+
+def mask_reduce_cuda(partials: torch.Tensor, prev: torch.Tensor,
+                     with_count: bool = True):
+    """The OR fold on the card -> ``(or_mask, new_bits_per_word or None)``."""
+    return _fold_cuda("mask_reduce", partials, prev, with_count)
+
+
+def payload_min_fold_cuda(partials: torch.Tensor, prev: torch.Tensor,
+                          with_count: bool = True):
+    """The int32 min fold on the card -> ``(combined, improved or None)``."""
+    return _fold_cuda("payload_min_fold", partials, prev, with_count)

@@ -13,11 +13,14 @@ from __future__ import annotations
 
 import torch
 
+from .ell_pull import ell_pull_bits_cuda, ell_pull_bits_plain
 from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
                              ell_pull_chunked_plain)
-from .mask_reduce import mask_reduce_cuda, mask_reduce_plain
+from .mask_reduce import (mask_reduce_cuda, mask_reduce_plain,
+                          payload_min_fold_cuda, payload_min_fold_plain)
 
-LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0}
+LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0, "ell_pull": 0,
+            "payload_min_fold": 0}
 
 
 def reset_launches() -> None:
@@ -56,6 +59,27 @@ def ell_pull_multi(parents, frontier_words, active_words):
     return found[0]
 
 
+def ell_pull_bits(offsets, cols, mask, active, chunk: int):
+    """Main-path single-bit pull of one subgraph for every stacked
+    partition: ``(found [p, R], work [p, R])`` int32 (see
+    :mod:`repro_torch.kernels.ell_pull`)."""
+    if _on_cuda(offsets, cols, mask, active):
+        out = ell_pull_bits_cuda(offsets, cols, mask, active, chunk)
+        LAUNCHES["ell_pull"] += 1
+        return out
+    return ell_pull_bits_plain(offsets, cols, mask, active, chunk)
+
+
+def ell_pull(parents, frontier_mask, active):
+    """The reference kernel's ELL contract: ``parents [R, W]`` int32 (-1
+    padded), ``frontier_mask [ceil(N/32)]`` int32 bit patterns, ``active
+    [R]`` int32 (1 = row active) -> ``found [R]`` int32 0/1."""
+    offsets, cols, chunk = ell_as_csr(parents)
+    found, _ = ell_pull_bits(offsets, cols, frontier_mask[None],
+                             active[None], chunk)
+    return found[0]
+
+
 def mask_reduce(partials, prev, *, with_count: bool = True):
     """K-way OR of ``partials [K, NW]`` into ``prev [NW]`` -> ``(or_mask,
     new_bits_per_word or None)``."""
@@ -64,3 +88,13 @@ def mask_reduce(partials, prev, *, with_count: bool = True):
         LAUNCHES["mask_reduce"] += 1
         return out
     return mask_reduce_plain(partials, prev, with_count)
+
+
+def payload_min_fold(partials, prev, *, with_count: bool = True):
+    """K-way int32 elementwise min of ``partials [K, NW]`` into ``prev
+    [NW]`` -> ``(combined, improved 0/1 or None)``."""
+    if _on_cuda(partials, prev):
+        out = payload_min_fold_cuda(partials, prev, with_count)
+        LAUNCHES["payload_min_fold"] += 1
+        return out
+    return payload_min_fold_plain(partials, prev, with_count)

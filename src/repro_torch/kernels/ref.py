@@ -1,12 +1,24 @@
-"""Plain PyTorch oracle of the ELL-contract pull, under the reference
-package's ``repro.kernels.ref`` name: written directly over the ``[R, K]``
-tile, independent of the chunked plain version the wrapper runs on the
-CPU. Words are int32 bit patterns."""
+"""Plain PyTorch oracles of the kernels' reference contracts, under the
+reference package's ``repro.kernels.ref`` names: written directly over the
+``[R, K]`` ELL tile (or the ``[K, NW]`` partials), independent of the
+chunked plain versions the wrappers run on the CPU. Words are int32 bit
+patterns."""
 from __future__ import annotations
 
 import torch
 
 from .mask_reduce import or_fold
+
+
+def ell_pull_ref(parents: torch.Tensor, frontier_mask: torch.Tensor,
+                 active: torch.Tensor) -> torch.Tensor:
+    """Single-bit pull over an ELL tile: 1 where ``active == 1`` and some
+    valid (>= 0) parent u has bit u of ``frontier_mask`` set, else 0."""
+    valid = parents >= 0
+    safe = parents.clamp(min=0).long()
+    bit = (frontier_mask[safe >> 5] >> (safe & 31).to(torch.int32)) & 1
+    hit = valid & (bit == 1)
+    return (hit.any(1) & (active == 1)).to(torch.int32)
 
 
 def ell_pull_multi_ref(parents: torch.Tensor, frontier_words: torch.Tensor,
@@ -17,3 +29,26 @@ def ell_pull_multi_ref(parents: torch.Tensor, frontier_words: torch.Tensor,
     w = frontier_words[parents.clamp(min=0).long()]       # [R, K, NW]
     w = torch.where(valid[..., None], w, 0)
     return or_fold(w, 1) & active_words
+
+
+def payload_min_fold_ref(partials: torch.Tensor, prev: torch.Tensor,
+                         with_count: bool = True):
+    """K-way elementwise min into ``prev`` plus a 0/1 improved flag (one
+    reduction over the stacked ``[K + 1, NW]``)."""
+    combined = torch.cat([prev[None], partials]).amin(0)
+    if not with_count:
+        return combined, None
+    return combined, (combined < prev).to(torch.int32)
+
+
+def pack_bitmask(flags: torch.Tensor) -> torch.Tensor:
+    """bool ``[n]`` -> int32 ``[ceil(n/32)]`` with bit v (of word v // 32,
+    LSB first) = ``flags[v]``."""
+    n = flags.shape[0]
+    nw = -(-n // 32)
+    padded = torch.zeros(nw * 32, dtype=torch.int64, device=flags.device)
+    padded[:n] = flags.to(torch.int64)
+    words = (padded.reshape(nw, 32)
+             << torch.arange(32, device=flags.device)).sum(1)
+    # two's-complement int32 bit pattern of each unsigned 32-bit word
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)

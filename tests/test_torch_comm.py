@@ -61,6 +61,42 @@ def test_delegate_or_combine_matches_reference_vmap(delegate, p, rows, nw):
     assert nbytes == seen["bytes"]
 
 
+@pytest.mark.parametrize("delegate", ["auto", "allgather"])
+@pytest.mark.parametrize("p,d", [(1, 7), (2, 9), (4, 33)])
+def test_delegate_min_max_combine_matches_reference_vmap(delegate, p, d):
+    """The single-source path's two level combines: int32 ``"min"`` over
+    candidate levels (identity 2**30 where nothing was found) and uint8
+    ``"max"`` over {0, 1} visited bytes -- values and byte counts."""
+    rng = np.random.default_rng(p * 100 + d)
+    levels = np.where(rng.random((p, d)) < 0.4,
+                      rng.integers(1, 9, (p, d)), 2**30).astype(np.int32)
+    bits = (rng.random((p, d)) < 0.3).astype(np.uint8)
+    for op, x in (("min", levels), ("max", bits)):
+        seen = {}
+
+        def ref(v):
+            out, seen["bytes"] = RC.delegate_combine(
+                RC.plan_for(RC.CommConfig(delegate=delegate), "p"), v, op)
+            return out
+
+        want = np.asarray(jax.vmap(ref, axis_name="p")(jnp.asarray(x)))
+        got, nbytes = TC.delegate_combine(
+            TC.plan_for(TC.CommConfig(delegate=delegate), p),
+            torch.from_numpy(x), op)
+        assert got.dtype == torch.from_numpy(x).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert nbytes == seen["bytes"], (op, nbytes, seen["bytes"])
+
+
+def test_any_reduce_matches_reference_vmap():
+    for flags in ([False, False, True, False], [False] * 3, [True]):
+        f = np.array(flags)
+        want = np.asarray(jax.vmap(lambda v: RC.any_reduce(v, "p"),
+                                   axis_name="p")(jnp.asarray(f)))
+        np.testing.assert_array_equal(
+            TC.any_reduce(torch.from_numpy(f)).numpy(), want)
+
+
 def test_lane_any_reduce_matches_reference_vmap():
     rng = np.random.default_rng(5)
     flags = rng.random((4, 2, 32)) < 0.1
@@ -89,6 +125,63 @@ def test_dense_nn_exchange_matches_reference_vmap(p_rank, p_gpu):
     got = TC.nn_exchange_words(TC.plan_for(TC.CommConfig(nn="dense"), p),
                                torch.from_numpy(dense),
                                torch.from_numpy(recv_local), pg.n_local)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[0].any()
+    for k in range(p):        # bytes, sparse flag, overflow per partition
+        assert (got[1], got[2], got[3]) == tuple(int(np.asarray(x)[k])
+                                                 for x in want[1:])
+
+
+# ------------------------------------------- legacy binned nn exchange
+@pytest.mark.parametrize("uniquify", [False, True])
+@pytest.mark.parametrize("cap", [None, 4])
+def test_bin_by_owner_and_exchange_match_reference_vmap(uniquify, cap):
+    """Real owner / local tables of a scale-9 p=4 partition with a random
+    active edge set: bins, overflow and sent counts equal the reference's
+    sort-and-scatter (``cap=4`` overflows), and the all_to_all of the bins
+    equals ``lax.all_to_all``."""
+    pg = partition_graph(rmat_graph(9, seed=3), th=32, p_rank=2, p_gpu=2)
+    p, e = pg.p, pg.nn.e_max
+    cap = cap or e
+    owner, local = np.asarray(pg.nn_owner), np.asarray(pg.nn.cols)
+    rng = np.random.default_rng(cap + uniquify)
+    active = rng.random((p, e)) < 0.4
+    active &= np.arange(e)[None, :] < np.asarray(pg.nn.m)[:, None]
+    want = jax.vmap(lambda o, l, a: RC.bin_by_owner(
+        o, l, a, p=p, cap=cap, uniquify=uniquify), axis_name="p")(
+        jnp.asarray(owner), jnp.asarray(local), jnp.asarray(active))
+    got = TC.bin_by_owner(torch.from_numpy(owner), torch.from_numpy(local),
+                          torch.from_numpy(active), p=p, cap=cap,
+                          uniquify=uniquify)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[2].sum()) > 0
+    assert (int(got[1].sum()) > 0) == (cap == 4)
+    recv = jax.vmap(lambda b: RC.exchange_normal(b, "p"),
+                    axis_name="p")(want[0])
+    np.testing.assert_array_equal(TC.exchange_normal(got[0]).numpy(),
+                                  np.asarray(recv))
+
+
+@pytest.mark.parametrize("p_rank,p_gpu", [(1, 2), (2, 2)])
+def test_dense_nn_exchange_bits_matches_reference_vmap(p_rank, p_gpu):
+    """The single-source slot bitmask exchange: real receive tables of a
+    scale-9 plan, random sender slot occupancy."""
+    pg = partition_graph(rmat_graph(9, seed=3), th=32, p_rank=p_rank,
+                         p_gpu=p_gpu)
+    plan = RE.build_exchange_plan(pg)
+    p, cap = pg.p, plan.cap_peer
+    rng = np.random.default_rng(p + 7)
+    active = rng.random((p, p, cap)) < 0.2
+    recv_local = np.asarray(plan.recv_local)
+    cfg = RC.CommConfig(nn="dense")
+    want = jax.vmap(
+        lambda a, r: RC.nn_exchange_bits(RC.plan_for(cfg, "p"), a, r,
+                                         pg.n_local),
+        axis_name="p")(jnp.asarray(active), jnp.asarray(recv_local))
+    got = TC.nn_exchange_bits(TC.plan_for(TC.CommConfig(nn="dense"), p),
+                              torch.from_numpy(active),
+                              torch.from_numpy(recv_local), pg.n_local)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     assert got[0].any()
     for k in range(p):        # bytes, sparse flag, overflow per partition
