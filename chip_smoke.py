@@ -35,7 +35,26 @@
    answers equal the FULL run's. Each run zeroes the launch counts before
    and reads them after: 3 bit pulls per sweep, one min fold per sweep in
    the allgather run only. One FULL BFS under ``torch.profiler``.
-7. Prints one JSON line describing every kernel, then, last, the device
+7. Recsys path (xDeepFM ``FULL``: 39 fields, D=10, CIN 200-200-200, MLP
+   400-400, 2^18 hot and 2^25 cold rows, seeded random weights), with
+   TF32 off for matmuls and cuDNN (printed). ``ClickStream(39, 2^25,
+   hot_fraction=0.005, seed=0)`` makes the data; its row counts must fit
+   the tables. The ``cin_fused`` kernel phase holds each CIN layer of a
+   real ``serve_p99`` batch (B=512) against its plain version and times
+   it beside its flop bound, the plain version and cuBLAS on the
+   materialised outer product. Serving: ``serve_p99`` (20 batches of 512
+   after a warm-up; median and p99 ms per batch, host indices to host
+   logits) and ``serve_bulk`` (3 batches of 262,144; samples/s, peak
+   memory); launch counts zeroed before and read after each run: 3
+   ``cin_fused`` per forward and nothing else. Logits of one p99 batch and
+   of a 2,048-sample slice of one bulk batch are held against the same
+   forward on the plain CIN. Retrieval: one query against 1,000,000
+   seeded candidates of width 64, top 100, against a plain sort of the
+   full score row. Then ``segment_bag`` and ``ell_pull_payload`` (no path
+   of the reference runs them) against their plain versions at the
+   reference tests' shapes and one large shape each, and one
+   ``serve_p99`` forward under ``torch.profiler``.
+8. Prints one JSON line describing every kernel, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
@@ -57,6 +76,19 @@ SCALE, TH, P_RANK, P_GPU = 20, 64, 1, 2
 DEVICE = "cuda"
 N_QUERIES = 64
 N_KEYS, N_VARIANT_KEYS = 16, 4      # Graph500 search keys; keys per variant
+# recsys path: RECSYS_SHAPES of the xdeepfm config (serve_p99, serve_bulk,
+# retrieval_cand); the ClickStream's total vocabulary is the cold table size
+P99_BATCH, N_P99_BATCHES = 512, 20
+BULK_BATCH, N_BULK_BATCHES, BULK_SLICE = 262144, 3, 2048
+N_CANDIDATES, TOP_K = 1_000_000, 100
+HOT_FRACTION = 0.005
+BAG_WIDTH = 8                       # segment_bag large shape: bags of 8 slots
+# Tolerances of the float kernels against their plain versions (float32
+# sums in another order; see PERF.md): CIN |kernel - plain| <= CIN_TOL *
+# max|plain| per layer; logits |kernel - plain| <= LOGIT_ATOL + LOGIT_RTOL *
+# |plain|; segment_bag float32 1e-6 + 1e-5 |plain|, bfloat16 2**-7 |plain|
+CIN_TOL = 1e-4
+LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 
 
 def check(cond, what: str) -> None:
@@ -597,6 +629,431 @@ def profile_bfs(eng, src: int) -> dict:
                           ("ell_pull_bits_kernel", "payload_min_fold_kernel"))
 
 
+# ---------------------------------------------------------------- recsys path
+def recsys_setup():
+    """TF32 off, the FULL xDeepFM with seeded random weights on the card,
+    and the ClickStream whose hot / cold row ids index its tables."""
+    import torch
+    from repro_torch.configs.xdeepfm import FULL
+    from repro_torch.data.recsys_data import ClickStream
+    from repro_torch.models.recsys import XDeepFM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card settings: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    t0 = time.perf_counter()
+    model = XDeepFM(FULL, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = ClickStream(n_fields=FULL.n_sparse, total_vocab=FULL.n_cold,
+                     hot_fraction=HOT_FRACTION, seed=0)
+    t_data = time.perf_counter() - t0
+    n_hot, n_cold = cs.hot_cold.n_hot, cs.hot_cold.n_cold
+    print(f"recsys setup: XDeepFM({FULL.name}) n_sparse={FULL.n_sparse} "
+          f"embed_dim={FULL.embed_dim} cin={FULL.cin_layers} "
+          f"mlp={FULL.mlp_layers} table bytes="
+          f"{sum(p.numel() * 4 for p in model.parameters())} in "
+          f"{t_model:.1f} s; ClickStream(total_vocab={FULL.n_cold}) "
+          f"{t_data:.1f} s: n_hot={n_hot} (table {FULL.n_hot}) "
+          f"n_cold={n_cold} (table {FULL.n_cold}) "
+          f"hot_lookup_fraction={cs.hot_lookup_fraction:.4f}")
+    check(n_hot <= FULL.n_hot and n_cold <= FULL.n_cold,
+          "ClickStream row ids fit the tables")
+    return model, cs
+
+
+def on_card(batch):
+    import torch
+
+    return (torch.from_numpy(batch["hot_idx"]).to(DEVICE),
+            torch.from_numpy(batch["cold_idx"]).to(DEVICE))
+
+
+def kernel_phase_cin(model, batch):
+    """Each CIN layer of a real serve_p99 batch: kernel against plain
+    version, timed beside its flop bound, the plain version and cuBLAS on
+    the outer product materialised beforehand (not timed)."""
+    import torch
+    from repro_torch.kernels import cin_fused as K
+    from repro_torch.models.recsys import embed_lookup
+
+    params = model.params()
+    hot, cold = on_card(batch)
+    x0 = embed_lookup(params, hot, cold, "emb")
+    b, f0, d = x0.shape
+    xk = x0
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0)
+    for i in range(len(model.cfg.cin_layers)):
+        w = params[f"cin_w{i}"]
+        fk, h = xk.shape[1], w.shape[0]
+        got = K.cin_fused_cuda(x0, xk, w)
+        want = K.cin_fused_plain(x0, xk, w)
+        z = torch.einsum("bid,bjd->ijbd", x0, xk).reshape(f0 * fk, b * d)
+        lib = (w @ z).reshape(h, b, d).permute(1, 0, 2)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        lib_err = float((lib - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"cin layer {i}: finite")
+        check(err <= CIN_TOL * scale, f"cin layer {i}: kernel != plain "
+              f"({err} > {CIN_TOL} x {scale})")
+        check(lib_err <= CIN_TOL * scale, f"cin layer {i}: cuBLAS != plain")
+        ms = time_ms(lambda: K.cin_fused_cuda(x0, xk, w), reps=20)
+        plain_ms = time_ms(lambda: K.cin_fused_plain(x0, xk, w), reps=5)
+        lib_ms = time_ms(lambda: w @ z, reps=20)
+        flops = 2 * h * f0 * fk * d * b
+        nbytes = 4 * (x0.numel() + xk.numel() + w.numel() + got.numel())
+        b_ms, b_by = bound(nbytes, flops)
+        check(b_by == "operations", "cin bound is the float32 rate")
+        print(f"kernel cin_fused [layer {i}]: B={b} F0={f0} Fk={fk} H={h} "
+              f"D={d} K={f0 * fk} flops={flops} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms(cuBLAS w @ Z)="
+              f"{lib_ms:.4f} bound_ms={b_ms:.5f} max_abs_err={err:.3e} "
+              f"max|plain|={scale:.3e} cuBLAS_err={lib_err:.3e} "
+              f"achieved={flops / ms / 1e9:.2f} TFLOP/s")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                     ("library_ms", lib_ms)):
+            total[k] += v
+        total["err"] = max(total["err"], err)
+        xk = got
+        del z, lib, want
+    print(f"kernel cin_fused [one forward, 3 layers]: ms={total['ms']:.4f} "
+          f"plain_ms={total['plain_ms']:.4f} library_ms="
+          f"{total['library_ms']:.4f} bound_ms={total['bound_ms']:.5f}")
+    return total
+
+
+def serve_batch(model, batch):
+    """One scoring request: host indices -> card -> logits -> host."""
+    import torch
+
+    with torch.no_grad():
+        hot, cold = on_card(batch)
+        return model(hot, cold).cpu()
+
+
+def check_logits(model, batch, got, what: str) -> float:
+    """``got`` (host logits of ``batch``) against the same forward with the
+    plain CIN, on the card."""
+    import torch
+    from repro_torch.kernels.cin_fused import cin_fused_plain
+    from repro_torch.models.recsys import xdeepfm_logits
+
+    with torch.no_grad():
+        want = xdeepfm_logits(model.cfg, model.params(), *on_card(batch),
+                              cin_op=cin_fused_plain).cpu()
+    check(got.shape == want.shape == (batch["hot_idx"].shape[0],),
+          f"{what}: logits shape")
+    check(bool(torch.isfinite(got).all()), f"{what}: logits finite")
+    err = (got - want).abs()
+    check(bool((err <= LOGIT_ATOL + LOGIT_RTOL * want.abs()).all()),
+          f"{what}: kernel logits != plain logits")
+    print(f"{what}: {got.shape[0]} logits within {LOGIT_ATOL} + "
+          f"{LOGIT_RTOL} |plain| of the plain forward (max_abs_err="
+          f"{float(err.max()):.3e}, logits in [{float(want.min()):.4f}, "
+          f"{float(want.max()):.4f}])")
+    return float(err.max())
+
+
+def serve_run(model, batches, name: str):
+    """Score ``batches`` (after ``batches[0]`` as a warm-up), launch counts
+    zeroed before and read after; returns per-batch seconds, the logits and
+    the launches."""
+    import torch
+    from repro_torch.kernels import ops
+
+    serve_batch(model, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    times, logits = [], []
+    for bt in batches[1:]:
+        t0 = time.perf_counter()
+        logits.append(serve_batch(model, bt))
+        times.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    n = len(batches) - 1
+    check(launches["cin_fused"] == len(model.cfg.cin_layers) * n,
+          f"{name}: 3 cin_fused launches per forward")
+    check(all(v == 0 for k, v in launches.items() if k != "cin_fused"),
+          f"{name}: no other kernel on the recsys path")
+    return times, logits, launches
+
+
+def serving_phase(model, cs):
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    p99 = [cs.batch(1 + s, P99_BATCH) for s in range(N_P99_BATCHES + 1)]
+    print(f"serve_p99: {len(p99)} batches made on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    times, logits, la_p99 = serve_run(model, p99, "serve_p99")
+    ms = np.array(times) * 1e3
+    print(f"serve_p99: B={P99_BATCH} x {N_P99_BATCHES} batches: median "
+          f"{np.median(ms):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms, max "
+          f"{ms.max():.3f} ms per batch (host indices to host logits); "
+          f"{P99_BATCH * N_P99_BATCHES / sum(times):.1f} samples/s; "
+          f"launches {la_p99}")
+    err_p99 = check_logits(model, p99[1], logits[0], "serve_p99 batch 1")
+
+    t0 = time.perf_counter()
+    bulk = [cs.batch(1000 + s, BULK_BATCH) for s in range(N_BULK_BATCHES)]
+    print(f"serve_bulk: {len(bulk)} batches made on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    times, logits, la_bulk = serve_run(model, [bulk[0]] + bulk, "serve_bulk")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve_bulk: B={BULK_BATCH} x {N_BULK_BATCHES} batches: ms "
+          f"{[round(t * 1e3, 1) for t in times]}, "
+          f"{BULK_BATCH * N_BULK_BATCHES / sum(times):.1f} samples/s; "
+          f"max_memory_allocated={peak} B; launches {la_bulk}")
+    head = {k: v[:BULK_SLICE] for k, v in bulk[0].items()}
+    err_bulk = check_logits(model, head, logits[0][:BULK_SLICE],
+                            f"serve_bulk batch 0, first {BULK_SLICE}")
+    return dict(p99_batch=p99[1], launches_p99=la_p99,
+                launches_bulk=la_bulk, err=max(err_p99, err_bulk))
+
+
+def retrieval_phase(model, cs) -> None:
+    """retrieval_cand: one query against seeded candidates, top-k against
+    a plain sort of the full score row (scores compared; indices only
+    where the scores differ)."""
+    import torch
+    from repro_torch.models.recsys import embed_lookup, retrieval_scores
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    cands = torch.randn((N_CANDIDATES, model.cfg.d_query), generator=gen,
+                        device=DEVICE)
+    hot, cold = on_card(cs.batch(5000, 1))
+    with torch.no_grad():
+        vals, idx = retrieval_scores(model, hot, cold, cands, top_k=TOP_K)
+        p = model.params()
+        q = embed_lookup(p, hot, cold, "emb").reshape(1, -1)
+        q = torch.relu(q @ p["q_w0"] + p["q_b0"]) @ p["q_w1"]
+        scores = (q @ cands.T)[0]
+        srt, order = torch.sort(scores, descending=True)
+    torch.cuda.synchronize()
+    check(vals.shape == idx.shape == (1, TOP_K), "retrieval shapes")
+    check(bool(torch.isfinite(vals).all()), "retrieval scores finite")
+    tol = 1e-6 * float(srt.abs().max())
+    check(float((vals[0] - srt[:TOP_K]).abs().max()) <= tol,
+          "retrieval top-k scores == sorted full row")
+    differ = idx[0] != order[:TOP_K]
+    if bool(differ.any()):
+        gap = (scores[idx[0][differ]] - scores[order[:TOP_K][differ]]).abs()
+        check(float(gap.max()) <= tol,
+              "retrieval indices differ only at tied scores")
+    ms = time_ms(lambda: retrieval_scores(model, hot, cold, cands,
+                                          top_k=TOP_K), reps=20)
+    print(f"retrieval_cand: 1 query x {N_CANDIDATES} candidates x "
+          f"d={model.cfg.d_query}, top {TOP_K}: {ms:.4f} ms per call "
+          f"(CUDA events); top score {float(vals[0, 0]):.4f}, "
+          f"{int(differ.sum())} indices differ from the sort (ties)")
+
+
+def bag_bound(table, idx, w, out) -> tuple:
+    """Bytes and flops one EmbeddingBag call needs: indices and weights,
+    each distinct valid row once, the output; 2 flops per value summed."""
+    import torch
+
+    valid = idx[idx >= 0]
+    rows = int(torch.unique(valid).numel())
+    item = table.element_size()
+    nbytes = (idx.numel() * 4 + w.numel() * w.element_size()
+              + rows * table.shape[1] * item + out.numel() * item)
+    return bound(nbytes, 2 * int(valid.numel()) * table.shape[1])
+
+
+def kernel_phase_segment_bag(model, batches) -> dict:
+    """segment_bag (on no path of the reference) against its plain version
+    at the reference tests' shapes and at the model's own hot table
+    [262144, 10] with 512 x 39 bags of 8 hot ids (a quarter padded),
+    float32 and bfloat16; launches counted over the phase's parity calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_bag as K
+
+    rng = np.random.default_rng(0)
+    cases = []
+    for b, l, v, d, dt in [(5, 3, 50, 8, torch.float32),
+                           (130, 7, 200, 130, torch.float32),
+                           (64, 1, 10, 16, torch.float32),
+                           (3, 20, 1000, 10, torch.bfloat16)]:
+        table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
+        idx = torch.from_numpy(rng.integers(-1, v, (b, l)).astype(np.int32))
+        wgt = torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32))
+        cases.append((f"{b}x{l} V={v} D={d} {dt}", table.to(DEVICE, dt),
+                      idx.to(DEVICE), wgt.to(DEVICE, dt)))
+    pool = np.concatenate([bt["hot_idx"][bt["hot_idx"] >= 0] for bt in batches])
+    n_bags = P99_BATCH * model.cfg.n_sparse
+    big_idx = rng.choice(pool, (n_bags, BAG_WIDTH)).astype(np.int32)
+    big_idx[rng.random(big_idx.shape) < 0.25] = -1
+    big_idx = torch.from_numpy(big_idx).to(DEVICE)
+    big_w = torch.from_numpy(rng.normal(size=(n_bags, BAG_WIDTH))
+                             .astype(np.float32)).to(DEVICE)
+    emb_hot = model.params()["emb_hot"]
+    big = {torch.float32: (emb_hot, big_w),
+           torch.bfloat16: (emb_hot.to(torch.bfloat16),
+                            big_w.to(torch.bfloat16))}
+    for dt, (table, w) in big.items():
+        cases.append((f"{n_bags}x{BAG_WIDTH} emb_hot {tuple(table.shape)} {dt}",
+                      table, big_idx, w))
+    ops.reset_launches()
+    out = {}
+    for name, table, idx, w in cases:
+        got = ops.segment_bag(table, idx, w)
+        want = K.segment_bag_plain(table, idx, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = (2.0**-7 * want.float().abs() if table.dtype == torch.bfloat16
+               else 1e-6 + 1e-5 * want.float().abs())
+        check(bool((err <= tol).all()), f"segment_bag {name}: kernel != plain")
+        out[name] = float(err.max())
+    launches = ops.LAUNCHES["segment_bag"]
+    check(launches == len(cases), "segment_bag launches of the phase")
+    print(f"kernel segment_bag: {len(cases)} shapes within tolerance of the "
+          f"plain version: {out}")
+    res = {}
+    for dt, (table, w) in big.items():
+        ms = time_ms(lambda: K.segment_bag_cuda(table, big_idx, w), reps=50)
+        plain_ms = time_ms(lambda: K.segment_bag_plain(table, big_idx, w),
+                           reps=20)
+        valid = big_idx >= 0
+        safe = big_idx.clamp(min=0)
+        psw = torch.where(valid, w, 0)
+        lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=psw)
+        want = K.segment_bag_plain(table, big_idx, w)
+        torch.cuda.synchronize()
+        check(bool(((lib.float() - want.float()).abs()
+                    <= 2.0**-7 * want.float().abs() + 1e-6).all()),
+              f"segment_bag {dt}: embedding_bag yardstick agrees")
+        lib_ms = time_ms(lambda: F.embedding_bag(
+            safe, table, mode="sum", per_sample_weights=psw), reps=50)
+        b_ms, b_by = bag_bound(table, big_idx, w, want)
+        print(f"kernel segment_bag [{n_bags} bags x {BAG_WIDTH}, "
+              f"emb_hot {tuple(table.shape)} {dt}]: valid slots="
+              f"{int(valid.sum())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms(embedding_bag)={lib_ms:.4f} bound_ms={b_ms:.6f} "
+              f"({b_by})")
+        res[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+    big_name = [n for n in out if "emb_hot" in n and "float32" in n][0]
+    return dict(res[torch.float32], launches=launches, err=out[big_name])
+
+
+def kernel_phase_payload(g, csr) -> dict:
+    """ell_pull_payload (on no path of the reference) against its plain
+    version, exactly: the reference test's shape and the ELL of partition
+    0's rows with 1..TH parents of the scale-20 graph, W = 32."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import PartitionLayout
+    from repro_torch.kernels import ell_pull_payload as K
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(5)
+    small = rng.integers(-1, 40, size=(64, 5)).astype(np.int32)
+    payload = rng.integers(0, 50, size=(40, 8)).astype(np.int32)
+    payload[rng.random((40, 8)) < 0.3] = 2**30
+    cases = [("64x5 W=8 (reference test)", small, payload,
+              rng.integers(1, 16, size=(64, 5)).astype(np.int32),
+              (rng.random((64, 8)) < 0.7).astype(np.int32))]
+    offsets, dst = csr
+    deg = np.diff(offsets)
+    layout = PartitionLayout(g.n, P_RANK, P_GPU)
+    rows = np.flatnonzero((layout.part_of(np.arange(g.n)) == 0)
+                          & (deg >= 1) & (deg <= TH))
+    parents = np.full((rows.size, TH), -1, np.int32)
+    rdeg = deg[rows]
+    r_of = np.repeat(np.arange(rows.size), rdeg)
+    slot = np.arange(r_of.size) - np.repeat(np.cumsum(rdeg) - rdeg, rdeg)
+    parents[r_of, slot] = dst[np.repeat(offsets[rows], rdeg) + slot]
+    w = 32
+    p_big = rng.integers(0, 50, size=(g.n, w)).astype(np.int32)
+    p_big[rng.random((g.n, w)) < 0.3] = 2**30
+    a_big = (rng.random((rows.size, w)) < 0.7).astype(np.int32)
+    big_name = f"scale-{SCALE} partition 0, {rows.size} rows x {TH}, W={w}"
+    cases.append((big_name, parents, p_big,
+                  rng.integers(1, 16, size=parents.shape).astype(np.int32),
+                  a_big))
+    ops.reset_launches()
+    for name, *arrays in cases:
+        args = tuple(torch.from_numpy(a).to(DEVICE) for a in arrays)
+        got = ops.ell_pull_payload(*args)
+        want = K.ell_pull_payload_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"ell_pull_payload {name}: kernel != plain")
+        del want
+    launches = ops.LAUNCHES["ell_pull_payload"]
+    check(launches == len(cases), "ell_pull_payload launches of the phase")
+    big_args = args                                 # the large case, last
+    ms = time_ms(lambda: K.ell_pull_payload_cuda(*big_args), reps=20)
+    plain_ms = time_ms(lambda: K.ell_pull_payload_plain(*big_args), reps=2)
+    valid = parents[parents >= 0]
+    nbytes = (parents.size * 8 + 2 * a_big.size * 4
+              + np.unique(valid).size * w * 4)
+    b_ms, b_by = bound(nbytes, 2 * valid.size * w)
+    print(f"kernel ell_pull_payload: {len(cases)} shapes exact; [{big_name}]: "
+          f"valid slots={valid.size} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.6f} ({b_by}); library_ms: null (no single "
+          "PyTorch call computes a min-plus gather)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                launches=launches, err=0.0)
+
+
+def profile_serve(model, batch) -> dict:
+    """``torch.profiler`` over one serve_p99 forward."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    hot, cold = on_card(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model(hot, cold)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return report_profile(prof, wall_ms,
+                          f"one serve_p99 forward, B={hot.shape[0]}",
+                          ("cin_fused_kernel",))
+
+
+def recsys_path(g, csr) -> dict:
+    """The recsys phases; returns the three new kernels' JSON fields."""
+    model, cs = recsys_setup()
+    probe = cs.batch(0, P99_BATCH)
+    cin = kernel_phase_cin(model, probe)
+    served = serving_phase(model, cs)
+    retrieval_phase(model, cs)
+    bag = kernel_phase_segment_bag(model, [probe, served["p99_batch"]])
+    pay = kernel_phase_payload(g, csr)
+    profile_serve(model, served["p99_batch"])
+    cin_launches = (served["launches_p99"]["cin_fused"]
+                    + served["launches_bulk"]["cin_fused"])
+    return {
+        "cin_fused": dict(launches=cin_launches, max_abs_err=cin["err"],
+                          ms=cin["ms"], plain_ms=cin["plain_ms"],
+                          bound_ms=cin["bound_ms"], bound_by="operations",
+                          library_ms=cin["library_ms"]),
+        "segment_bag": dict(launches=bag["launches"], max_abs_err=bag["err"],
+                            ms=bag["ms"], plain_ms=bag["plain_ms"],
+                            bound_ms=bag["bound_ms"], bound_by=bag["bound_by"],
+                            library_ms=bag["library_ms"]),
+        "ell_pull_payload": dict(launches=pay["launches"],
+                                 max_abs_err=pay["err"], ms=pay["ms"],
+                                 plain_ms=pay["plain_ms"],
+                                 bound_ms=pay["bound_ms"],
+                                 bound_by=pay["bound_by"], library_ms=None),
+    }
+
+
 def run() -> None:
     import numpy as np
     import torch
@@ -714,6 +1171,9 @@ def run() -> None:
     prof_src, ss_launches = single_source_path(eng, g, csr)
     profile_bfs(eng, prof_src)
 
+    # ---- recsys path: xDeepFM scoring and retrieval, then B5 / B6 ----------
+    recsys = recsys_path(g, csr)
+
     kernels = [
         {"name": "ell_pull_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_pull_multi.cu",
@@ -746,12 +1206,30 @@ def run() -> None:
          "bound_ms": min_fold[False]["bound_ms"],
          "bound_by": min_fold[False]["bound_by"],
          "library_ms": min_fold[False]["library_ms"]},
+        {"name": "cin_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/cin_fused.cu",
+         "replaces": "src/repro/kernels/cin_fused.py:57",
+         **recsys["cin_fused"]},
+        {"name": "segment_bag", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/segment_bag.cu",
+         "replaces": "src/repro/kernels/segment_bag.py:55",
+         **recsys["segment_bag"]},
+        {"name": "ell_pull_payload", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ell_pull_payload.cu",
+         "replaces": "src/repro/kernels/ell_pull_payload.py:64",
+         **recsys["ell_pull_payload"]},
     ]
     print("ell_pull_multi / ell_pull ms, plain_ms, bound_ms: sum of one "
           "sweep's three pulls; mask_reduce / payload_min_fold: the "
           "with_count=False fold of the path. Launches: ell_pull_multi and "
           "mask_reduce over the 64-query serving run, ell_pull over the 16 "
-          "FULL search keys, payload_min_fold over the 4 allgather keys")
+          "FULL search keys, payload_min_fold over the 4 allgather keys. "
+          "cin_fused (path: recsys serving): ms, plain_ms, bound_ms, "
+          "library_ms summed over the 3 CIN layers of one serve_p99 forward "
+          "(library: cuBLAS w @ Z on Z materialised beforehand, not timed); "
+          "launches over the 20 serve_p99 and 3 serve_bulk batches. "
+          "segment_bag and ell_pull_payload (path: none in the reference): "
+          "times at their large shapes, launches over their parity phases")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,19 +1,24 @@
-"""Carrying a partition, a plan and a traversal state across packages.
+"""Carrying a partition, a plan, a traversal state and model weights
+across packages.
 
 The graph is this system's "weights": the partition and the exchange plan
 move between the reference package and the port as plain numpy leaves
 (``*_to_arrays`` read any object with the reference's attribute names), so
 one partition can be fed to both and their states compared leaf by leaf
 (:func:`state_to_numpy` for the msBFS state, :func:`bfs_state_to_numpy`
-for the single-source state).
+for the single-source state). The xDeepFM parameters keep the reference's
+names and layouts, so they carry across by name
+(:func:`xdeepfm_params_from_numpy`).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .bfs import STATE_LEAVES as BFS_STATE_LEAVES, BFSState
 from .engine import ExchangePlan
 from .msbfs import STATE_LEAVES, MSBFSState
+from repro_torch.models.recsys import XDeepFM, XDeepFMConfig
 from .types import CSR, PartitionedGraph
 
 SUBGRAPHS = ("nn", "nd", "dn", "dd")
@@ -75,3 +80,14 @@ def bfs_state_to_numpy(state: BFSState) -> dict:
     (``BFS_STATE_LEAVES``) as a host numpy array."""
     return {k: getattr(state, k).detach().cpu().numpy()
             for k in BFS_STATE_LEAVES}
+
+
+def xdeepfm_params_from_numpy(params: dict, cfg: XDeepFMConfig,
+                              device="cuda") -> XDeepFM:
+    """The port's :class:`XDeepFM` computing the same function as the
+    reference's parameter dict ``params`` (``{name: np.ndarray}``, e.g.
+    ``jax.tree.map(np.asarray, materialize(xdeepfm_param_specs(cfg)))``):
+    same names, same layouts, nothing transposed."""
+    return XDeepFM(cfg, device=device,
+                   params={k: torch.from_numpy(np.array(v))
+                           for k, v in params.items()})

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ell_pull_multi", "mask_reduce", "ell_pull")
+SOURCES = ("ell_pull_multi", "mask_reduce", "ell_pull", "cin_fused",
+           "segment_bag", "ell_pull_payload")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

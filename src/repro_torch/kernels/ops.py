@@ -13,14 +13,18 @@ from __future__ import annotations
 
 import torch
 
+from .cin_fused import cin_fused_cuda, cin_fused_plain
 from .ell_pull import ell_pull_bits_cuda, ell_pull_bits_plain
 from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
                              ell_pull_chunked_plain)
+from .ell_pull_payload import ell_pull_payload_cuda, ell_pull_payload_plain
 from .mask_reduce import (mask_reduce_cuda, mask_reduce_plain,
                           payload_min_fold_cuda, payload_min_fold_plain)
+from .segment_bag import segment_bag_cuda, segment_bag_plain
 
 LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0, "ell_pull": 0,
-            "payload_min_fold": 0}
+            "payload_min_fold": 0, "cin_fused": 0, "segment_bag": 0,
+            "ell_pull_payload": 0}
 
 
 def reset_launches() -> None:
@@ -98,3 +102,36 @@ def payload_min_fold(partials, prev, *, with_count: bool = True):
         LAUNCHES["payload_min_fold"] += 1
         return out
     return payload_min_fold_plain(partials, prev, with_count)
+
+
+def cin_fused(x0, xk, w):
+    """One CIN step: ``x0 [B, F0, D]``, ``xk [B, Fk, D]``, ``w [H, F0*Fk]``
+    float32 -> ``[B, H, D]`` (see :mod:`repro_torch.kernels.cin_fused`)."""
+    if _on_cuda(x0, xk, w):
+        out = cin_fused_cuda(x0, xk, w)
+        LAUNCHES["cin_fused"] += 1
+        return out
+    return cin_fused_plain(x0, xk, w)
+
+
+def segment_bag(table, indices, weights=None):
+    """EmbeddingBag: ``table [V, D]`` float32 or bfloat16, ``indices [B, L]``
+    int32 (-1 padded), ``weights [B, L]`` or None (ones) -> ``[B, D]`` in
+    the table's dtype (see :mod:`repro_torch.kernels.segment_bag`)."""
+    tensors = (table, indices) if weights is None else (table, indices, weights)
+    if _on_cuda(*tensors):
+        out = segment_bag_cuda(table, indices, weights)
+        LAUNCHES["segment_bag"] += 1
+        return out
+    return segment_bag_plain(table, indices, weights)
+
+
+def ell_pull_payload(parents, payload, weights, active):
+    """Min-plus pull: ``parents [R, K]`` int32 (-1 padded), ``payload
+    [N, W]``, ``weights [R, K]``, ``active [R, W]`` int32 -> ``[R, W]``
+    (see :mod:`repro_torch.kernels.ell_pull_payload`)."""
+    if _on_cuda(parents, payload, weights, active):
+        out = ell_pull_payload_cuda(parents, payload, weights, active)
+        LAUNCHES["ell_pull_payload"] += 1
+        return out
+    return ell_pull_payload_plain(parents, payload, weights, active)

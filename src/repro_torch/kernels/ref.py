@@ -2,12 +2,22 @@
 reference package's ``repro.kernels.ref`` names: written directly over the
 ``[R, K]`` ELL tile (or the ``[K, NW]`` partials), independent of the
 chunked plain versions the wrappers run on the CPU. Words are int32 bit
-patterns."""
+patterns.
+
+For ``cin_fused``, ``segment_bag`` and ``ell_pull_payload`` the plain
+version beside the kernel is already the direct formula over the
+reference's contract, so the oracle is that function under the reference
+name.
+"""
 from __future__ import annotations
 
 import torch
 
+from .cin_fused import cin_fused_plain as cin_fused_ref  # noqa: F401
+from .ell_pull_payload import (  # noqa: F401
+    ell_pull_payload_plain as ell_pull_payload_ref)
 from .mask_reduce import or_fold
+from .segment_bag import segment_bag_plain as segment_bag_ref  # noqa: F401
 
 
 def ell_pull_ref(parents: torch.Tensor, frontier_mask: torch.Tensor,

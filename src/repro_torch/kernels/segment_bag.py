@@ -1,0 +1,89 @@
+"""EmbeddingBag: ragged gather + per-bag weighted sum.
+
+    out[b, :] = sum_{l : indices[b, l] >= 0} weights[b, l] * table[indices[b, l], :]
+
+Bags are padded to a fixed width L (index -1 = padding); ``weights=None``
+means ones. The table is ``[V, D]`` float32 or bfloat16, the output is in
+the table's dtype; sums accumulate in float32 and round once.
+
+* :func:`segment_bag_cuda` launches ``csrc/segment_bag.cu`` (one warp per
+  bag, columns across the lanes);
+* :func:`segment_bag_plain` computes the same function in plain PyTorch
+  (the CPU path and the version the kernel is held against on the card).
+
+No path of the reference runs it (``repro.kernels.segment_bag`` has no
+caller in ``src/``); it is ported with parity alone.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+_ENTRY = {torch.float32: "segment_bag_f32", torch.bfloat16: "segment_bag_bf16"}
+
+
+def _check(table, indices, weights) -> None:
+    if table.dim() != 2 or indices.dim() != 2:
+        raise ValueError("segment_bag: table [V, D] and indices [B, L] "
+                         "expected")
+    if weights is not None and weights.shape != indices.shape:
+        raise ValueError(f"segment_bag: weights {tuple(weights.shape)} != "
+                         f"indices {tuple(indices.shape)}")
+    if table.dtype not in _ENTRY:
+        raise ValueError(f"segment_bag: table dtype {table.dtype} not in "
+                         f"{sorted(map(str, _ENTRY))}")
+    if indices.dtype != torch.int32:
+        raise ValueError(f"segment_bag: indices must be int32, got "
+                         f"{indices.dtype}")
+    if weights is not None and weights.dtype not in (torch.float32,
+                                                     table.dtype):
+        raise ValueError(f"segment_bag: weights must be float32 or "
+                         f"{table.dtype}, got {weights.dtype}")
+
+
+def segment_bag_plain(table: torch.Tensor, indices: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch EmbeddingBag (float32 sums, rounded once)."""
+    _check(table, indices, weights)
+    valid = indices >= 0
+    rows = table[indices.clamp(min=0).long()].float()          # [B, L, D]
+    w = (torch.ones(indices.shape, dtype=torch.float32, device=table.device)
+         if weights is None else weights.float())
+    w = torch.where(valid, w, 0.0)[..., None]
+    return (rows * w).sum(1).to(table.dtype)
+
+
+def segment_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
+                     weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``csrc/segment_bag.cu`` on the current stream -> ``[B, D]``.
+    Inputs are checked here (the kernel trusts the indices: each must be
+    -1 or a row of ``table``); raises if the launch fails."""
+    _check(table, indices, weights)
+    tensors = [("table", table), ("indices", indices)]
+    if weights is not None:
+        weights = weights.float()            # exact from bfloat16
+        tensors.append(("weights", weights))
+    for name, t in tensors:
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"segment_bag: {name} must be a contiguous CUDA "
+                             f"tensor, got one on {t.device}")
+        if t.device != table.device:
+            raise ValueError("segment_bag: inputs on different devices")
+    b, l = indices.shape
+    d = table.shape[1]
+    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+    fn = getattr(_build.load("segment_bag"), _ENTRY[table.dtype])
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), indices.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 out.data_ptr(), b, l, d, stream)
+    if err:
+        raise RuntimeError(f"segment_bag launch failed: cudaError {err}")
+    return out

@@ -1,8 +1,9 @@
 """The port's CUDA kernels and serving path on the card, held against the
-plain PyTorch versions on the same inputs (exact equality: every compared
-quantity is an integer). Every test here needs an NVIDIA GPU and ``nvcc``
-and skips without one; the file imports no JAX, so it runs on a machine
-that has PyTorch for CUDA only:
+plain PyTorch versions on the same inputs (exact equality for the integer
+kernels; stated tolerances for the float kernels ``cin_fused`` and
+``segment_bag``, whose sums run in another order). Every test here needs
+an NVIDIA GPU and ``nvcc`` and skips without one; the file imports no JAX,
+so it runs on a machine that has PyTorch for CUDA only:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -10,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.xdeepfm import SMOKE
 from repro_torch.core import bfs as TB, comm as TC, convert, engine as TE
 from repro_torch.core.partition import partition_graph
 from repro_torch.graphs.rmat import pick_sources, rmat_graph
 from repro_torch.kernels import ops
+from repro_torch.models.recsys import XDeepFM
 from repro_torch.serve import BFSServeEngine, Query, QueryKind
 
 pytestmark = pytest.mark.cuda
@@ -211,3 +214,129 @@ def test_engine_on_card_equals_engine_on_cpu(card):
             assert x == y
         else:
             np.testing.assert_array_equal(x, y)
+
+
+# ------------------------------------------------------------ recsys kernels
+def on(card, *arrays):
+    return tuple(torch.from_numpy(a).to(card) for a in arrays)
+
+
+@pytest.mark.parametrize("b,f0,fk,h,d", [
+    (4, 3, 3, 5, 8), (70, 39, 20, 200, 10), (1, 2, 7, 3, 16),
+    (33, 39, 39, 200, 10), (7, 39, 200, 200, 10), (5, 4, 5, 130, 7),
+    (3, 1, 1, 1, 1), (130, 6, 8, 64, 33)])
+def test_cin_fused_cuda_matches_plain(card, b, f0, fk, h, d):
+    """Ragged (b, d) columns, H and K not multiples of the tiles, the FULL
+    layer shapes. float32 sums of up to 7,800 products in another order:
+    |kernel - plain| <= 1e-4 * max|plain|."""
+    rng = np.random.default_rng(b * 7 + d)
+    x0, xk, w = on(card, rng.normal(size=(b, f0, d)).astype(np.float32),
+                   rng.normal(size=(b, fk, d)).astype(np.float32),
+                   rng.normal(size=(h, f0 * fk)).astype(np.float32))
+    want = ops.cin_fused(x0.cpu(), xk.cpu(), w.cpu())
+    before = ops.LAUNCHES["cin_fused"]
+    got = ops.cin_fused(x0, xk, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cin_fused"] == before + 1
+    assert got.shape == (b, h, d) and got.dtype == torch.float32
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("b,l,v,d", [(5, 3, 50, 8), (130, 7, 200, 130),
+                                     (64, 1, 10, 16), (3, 20, 1000, 10),
+                                     (9, 40, 300, 32), (4, 0, 5, 3)])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_segment_bag_cuda_matches_plain(card, b, l, v, d, dt, weighted):
+    """float32: rtol 1e-5, atol 1e-6 (float32 sums in another order).
+    bfloat16: both sum in float32 and round once, so they differ by at most
+    one bfloat16 rounding step: |kernel - plain| <= 2**-7 * |plain|."""
+    rng = np.random.default_rng(b * 3 + l)
+    dtype = getattr(torch, dt)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.integers(-1, v, (b, l)).astype(np.int32))
+    wgt = (torch.from_numpy(rng.normal(size=(b, l)).astype(np.float32)).to(dtype)
+           if weighted else None)
+    want = ops.segment_bag(table, idx, wgt).float()
+    before = ops.LAUNCHES["segment_bag"]
+    got = ops.segment_bag(table.to(card), idx.to(card),
+                          None if wgt is None else wgt.to(card))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_bag"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, d)
+    got = got.cpu().float()
+    if dt == "float32":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        assert ((got - want).abs() <= 2.0**-7 * want.abs()).all()
+
+
+@pytest.mark.parametrize("r,k,n,w", [(64, 5, 40, 8), (256, 32, 500, 32),
+                                     (33, 70, 100, 40), (7, 1, 3, 1),
+                                     (100, 0, 10, 32), (300, 64, 5000, 32)])
+def test_ell_pull_payload_cuda_matches_plain(card, r, k, n, w):
+    """Exact; payloads over the whole int32 range, so payload + weight
+    wraps."""
+    rng = np.random.default_rng(r + k)
+    parents = rng.integers(-1, n, size=(r, k)).astype(np.int32)
+    payload = rng.integers(0, 50, size=(n, w)).astype(np.int32)
+    payload[rng.random((n, w)) < 0.3] = 2**30
+    payload[rng.random((n, w)) < 0.1] = 2**31 - 1
+    payload[rng.random((n, w)) < 0.1] = -2**31
+    weights = rng.integers(1, 16, size=(r, k)).astype(np.int32)
+    active = (rng.random((r, w)) < 0.7).astype(np.int32)
+    args = tuple(map(torch.from_numpy, (parents, payload, weights, active)))
+    want = ops.ell_pull_payload(*args)
+    before = ops.LAUNCHES["ell_pull_payload"]
+    got = ops.ell_pull_payload(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_pull_payload"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_xdeepfm_on_card_equals_cpu(card):
+    """SMOKE: the same parameters on the card (kernel) and on the CPU
+    (plain version); logits within rtol 1e-5, atol 1e-6, one cin_fused
+    launch per CIN layer."""
+    cpu_model = XDeepFM(SMOKE, device="cpu", seed=4)
+    card_model = XDeepFM(SMOKE, device=card, params=cpu_model.params())
+    rng = np.random.default_rng(0)
+    hot = rng.integers(-1, SMOKE.n_hot, (37, SMOKE.n_sparse)).astype(np.int32)
+    cold = np.where(hot < 0, rng.integers(0, SMOKE.n_cold, hot.shape),
+                    -1).astype(np.int32)
+    hot, cold = torch.from_numpy(hot), torch.from_numpy(cold)
+    want = cpu_model(hot, cold)
+    ops.reset_launches()
+    got = card_model(hot.to(card), cold.to(card))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cin_fused"] == len(SMOKE.cin_layers)
+    assert sum(ops.LAUNCHES.values()) == len(SMOKE.cin_layers)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_recsys_wrappers_reject_bad_inputs(card):
+    x = torch.zeros((2, 3, 4), device=card)
+    w = torch.zeros((5, 9), device=card)
+    with pytest.raises(ValueError):
+        ops.cin_fused(x.double(), x.double(), w.double())
+    with pytest.raises(ValueError):
+        ops.cin_fused(x.transpose(0, 1), x, w)
+    with pytest.raises(ValueError):
+        ops.cin_fused(x, x.cpu(), w)
+    with pytest.raises(RuntimeError, match="backward"):
+        ops.cin_fused(x, x, w.clone().requires_grad_())
+    with pytest.raises(ValueError):
+        ops.cin_fused(torch.zeros((2, 400, 4), device=card),
+                      torch.zeros((2, 500, 4), device=card),
+                      torch.zeros((1, 200000), device=card))
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        ops.segment_bag(torch.zeros((4, 2), device=card), idx.long())
+    with pytest.raises(ValueError):
+        ops.segment_bag(torch.zeros((4, 2), device=card), idx,
+                        torch.zeros((2, 4), device=card))
+    with pytest.raises(ValueError):
+        ops.ell_pull_payload(idx, idx, idx, idx.t())

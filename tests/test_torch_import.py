@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -20,6 +21,12 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert sys.modules["jax"] is None
+recsys = ["repro_torch.configs.xdeepfm", "repro_torch.models.recsys",
+          "repro_torch.data.recsys_data", "repro_torch.kernels.cin_fused",
+          "repro_torch.kernels.segment_bag",
+          "repro_torch.kernels.ell_pull_payload"]
+missing = [m for m in recsys if m not in sys.modules]
+assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
 
@@ -30,7 +37,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 20      # every module was imported
+    assert int(out.stdout.split()[1]) >= 30      # every module was imported
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -48,3 +55,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         TM.init_multi_state(pg, [0], TM.MSBFSConfig())
     eng = BFSServeEngine(g, device="cpu")
     assert eng.query_one(int(np.nonzero(g.out_degrees())[0][0])).shape == (g.n,)
+
+
+def test_recsys_entry_point_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    from repro_torch.configs.xdeepfm import SMOKE
+    from repro_torch.models.recsys import XDeepFM
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        XDeepFM(SMOKE)
+    hot = np.zeros((2, SMOKE.n_sparse), np.int32)
+    logits = XDeepFM(SMOKE, device="cpu")(
+        torch.from_numpy(hot), torch.from_numpy(hot - 1))
+    assert logits.shape == (2,)

@@ -3,10 +3,15 @@
 On the CPU the port's wrappers take the kernels' plain PyTorch versions;
 they must equal the Pallas kernels (run in interpret mode, as
 tests/test_kernels.py runs them) and the reference's own chunked pull
-exactly -- every compared quantity is an integer (the CUDA kernels are
-held against the plain versions on the card by tests/test_torch_cuda.py).
-Lane words are int32 bit patterns in the port and
-uint32 in the reference; they compare through ``.view(np.uint32)``.
+exactly -- every compared quantity of the traversal kernels is an integer
+(the CUDA kernels are held against the plain versions on the card by
+tests/test_torch_cuda.py). Lane words are int32 bit patterns in the port
+and uint32 in the reference; they compare through ``.view(np.uint32)``.
+
+The float kernels (``cin_fused``, ``segment_bag``) compare within stated
+tolerances: float32 sums taken in another order (XLA's against
+PyTorch's), and for bfloat16 tables the reference's bfloat16 arithmetic
+against the port's float32 sums rounded once.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +22,16 @@ from repro.core import bfs as RB, msbfs as RM
 from repro.core.partition import partition_graph
 from repro.core.types import CSR as RCSR
 from repro.graphs.rmat import rmat_graph
+from _hypo import given, settings, st
 from repro.kernels import ref as rref
+from repro.kernels.cin_fused import cin_fused as pallas_cin_fused
 from repro.kernels.ell_pull import ell_pull as pallas_ell_pull
 from repro.kernels.ell_pull_multi import ell_pull_multi as pallas_ell_pull_multi
+from repro.kernels.ell_pull_payload import (
+    ell_pull_payload as pallas_ell_pull_payload)
 from repro.kernels.mask_reduce import mask_reduce as pallas_mask_reduce
 from repro.kernels.mask_reduce import payload_min_fold as pallas_min_fold
+from repro.kernels.segment_bag import segment_bag as pallas_segment_bag
 from repro_torch.core import comm as TC
 from repro_torch.kernels import ops, ref as tref
 
@@ -227,10 +237,180 @@ def test_cpu_tensors_never_count_launches():
 def test_single_source_wrappers_never_count_launches_on_cpu():
     before = dict(ops.LAUNCHES)
     assert set(before) == {"ell_pull_multi", "mask_reduce", "ell_pull",
-                           "payload_min_fold"}
+                           "payload_min_fold", "cin_fused", "segment_bag",
+                           "ell_pull_payload"}
     z = torch.zeros((2, 3), dtype=torch.int32)
     ops.payload_min_fold(z, z[0])
     ops.ell_pull(z, z[0, :1], z[:, 0])
     ops.ell_pull_bits(torch.zeros((1, 3), dtype=torch.int32), z[:1],
                       z[:1, :1], z[:1, :2], 4)
     assert ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------------- cin_fused
+def cin_inputs(rng, b, f0, fk, h, d):
+    return (rng.normal(size=(b, f0, d)).astype(np.float32),
+            rng.normal(size=(b, fk, d)).astype(np.float32),
+            rng.normal(size=(h, f0 * fk)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,f0,fk,h,d", [(4, 3, 3, 5, 8), (70, 39, 20, 200, 10),
+                                         (1, 2, 7, 3, 16)])
+def test_cin_fused_plain_matches_pallas(b, f0, fk, h, d):
+    """The shapes of tests/test_kernels.py, with its tolerance (float32
+    sums of up to F0*Fk = 780 products in another order)."""
+    x0, xk, w = cin_inputs(np.random.default_rng(b), b, f0, fk, h, d)
+    want = np.asarray(pallas_cin_fused(jnp.asarray(x0), jnp.asarray(xk),
+                                       jnp.asarray(w), tile_b=32,
+                                       interpret=True))
+    tx0, txk, tw = map(torch.from_numpy, (x0, xk, w))
+    for got in (ops.cin_fused(tx0, txk, tw), tref.cin_fused_ref(tx0, txk, tw)):
+        assert got.dtype == torch.float32 and got.shape == (b, h, d)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@settings(max_examples=6, deadline=None)
+@given(b=st.integers(1, 9), f0=st.integers(1, 6), fk=st.integers(1, 6),
+       h=st.integers(1, 9), d=st.integers(1, 12), seed=st.integers(0, 99))
+def test_cin_fused_plain_property(b, f0, fk, h, d, seed):
+    x0, xk, w = cin_inputs(np.random.default_rng(seed), b, f0, fk, h, d)
+    want = np.asarray(pallas_cin_fused(jnp.asarray(x0), jnp.asarray(xk),
+                                       jnp.asarray(w), tile_b=4,
+                                       interpret=True))
+    got = ops.cin_fused(*map(torch.from_numpy, (x0, xk, w)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# -------------------------------------------------------------- segment_bag
+@pytest.mark.parametrize("b,l,v,d,dt", [
+    (5, 3, 50, 8, "float32"), (130, 7, 200, 130, "float32"),
+    (64, 1, 10, 16, "float32"), (3, 20, 1000, 10, "bfloat16")])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_segment_bag_plain_matches_pallas(b, l, v, d, dt, weighted):
+    """The shapes of tests/test_kernels.py. float32: rtol = atol = 1e-5 (sums
+    of at most 7 products in another order). bfloat16: the reference
+    multiplies and sums in bfloat16, the port sums in float32 and rounds
+    once; they agree within the error of the reference's bfloat16
+    arithmetic, (L + 1) * 2**-8 of the slot magnitudes summed, plus one
+    bfloat16 rounding of the result."""
+    rng = np.random.default_rng(b + l)
+    jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    table = jnp.asarray(rng.normal(size=(v, d)), jdt)
+    idx = jnp.asarray(rng.integers(-1, v, (b, l)), jnp.int32)
+    wgt = jnp.asarray(rng.normal(size=(b, l)), jdt) if weighted else None
+    want = np.asarray(pallas_segment_bag(table, idx, wgt, tile_bags=32,
+                                         tile_dim=64, interpret=True),
+                      np.float32)
+    ttable = torch.from_numpy(np.array(table, np.float32)).to(getattr(torch, dt))
+    tidx = torch.from_numpy(np.array(idx))
+    twgt = (None if wgt is None else
+            torch.from_numpy(np.array(wgt, np.float32)).to(getattr(torch, dt)))
+    for got in (ops.segment_bag(ttable, tidx, twgt),
+                tref.segment_bag_ref(ttable, tidx, twgt)):
+        assert got.dtype == getattr(torch, dt) and got.shape == (b, d)
+        got = got.float().numpy()
+        if dt == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            w_abs = np.abs(np.asarray(wgt, np.float32)) if weighted else 1.0
+            valid = np.asarray(idx) >= 0
+            mag = (np.abs(np.asarray(table, np.float32))[np.maximum(np.asarray(idx), 0)]
+                   * (w_abs * valid)[..., None]).sum(1)
+            tol = (l + 1) * 2.0**-8 * mag + 2.0**-8 * np.abs(want)
+            assert (np.abs(got - want) <= tol).all()
+
+
+@settings(max_examples=6, deadline=None)
+@given(b=st.integers(1, 40), l=st.integers(0, 9), v=st.integers(2, 99),
+       d=st.integers(1, 40), seed=st.integers(0, 99))
+def test_segment_bag_plain_property(b, l, v, d, seed):
+    """Random shapes, weights None (ones) and -1 padding; L = 0 gives
+    zeros (the Pallas kernel takes L >= 1, so L = 0 is held against
+    zeros)."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(-1, v, (b, l)).astype(np.int32)
+    got = ops.segment_bag(torch.from_numpy(table), torch.from_numpy(idx))
+    if l == 0:
+        np.testing.assert_array_equal(got.numpy(), np.zeros((b, d), np.float32))
+        return
+    want = np.asarray(pallas_segment_bag(jnp.asarray(table), jnp.asarray(idx),
+                                         None, tile_bags=16, tile_dim=16,
+                                         interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------- ell_pull_payload
+def payload_inputs(rng, r, k, n, w, ident=2**30):
+    """The construction of tests/test_payload_kinds.py::
+    test_payload_kernel_parity at any shape."""
+    parents = rng.integers(-1, n, size=(r, k)).astype(np.int32)
+    payload = rng.integers(0, 50, size=(n, w)).astype(np.int32)
+    payload[rng.random((n, w)) < 0.3] = ident
+    weights = rng.integers(1, 16, size=(r, k)).astype(np.int32)
+    active = (rng.random((r, w)) < 0.7).astype(np.int32)
+    return parents, payload, weights, active
+
+
+def pallas_payload(parents, payload, weights, active, **kw):
+    return np.asarray(pallas_ell_pull_payload(
+        *map(jnp.asarray, (parents, payload, weights, active)),
+        interpret=True, **kw))
+
+
+@pytest.mark.parametrize("r,k,n,w", [(64, 5, 40, 8), (256, 32, 500, 32),
+                                     (33, 36, 100, 40), (7, 1, 3, 1)])
+def test_ell_pull_payload_plain_matches_pallas(r, k, n, w):
+    """The shape of tests/test_payload_kinds.py (64, 5, 40, 8) and three
+    more (W = 32, the warp width; K > 32 and W > 32; single column)."""
+    args = payload_inputs(np.random.default_rng(5 + r), r, k, n, w)
+    want = pallas_payload(*args)
+    np.testing.assert_array_equal(
+        want, np.asarray(rref.ell_pull_payload_ref(*map(jnp.asarray, args))))
+    targs = tuple(map(torch.from_numpy, args))
+    for got in (ops.ell_pull_payload(*targs), tref.ell_pull_payload_ref(*targs)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@settings(max_examples=6, deadline=None)
+@given(r=st.integers(1, 60), k=st.integers(0, 12), n=st.integers(1, 50),
+       w=st.integers(1, 40), seed=st.integers(0, 99))
+def test_ell_pull_payload_plain_property(r, k, n, w, seed):
+    """Random shapes with payloads over the whole int32 range, so payload +
+    weight wraps as the reference's int32 add does; K = 0 gives the
+    identity everywhere (as the reference's early return)."""
+    rng = np.random.default_rng(seed)
+    parents, payload, weights, active = payload_inputs(rng, r, k, n, w)
+    payload[rng.random((n, w)) < 0.2] = 2**31 - 1
+    payload[rng.random((n, w)) < 0.2] = -2**31
+    want = pallas_payload(parents, payload, weights, active, tile_rows=16)
+    got = ops.ell_pull_payload(*map(torch.from_numpy,
+                                    (parents, payload, weights, active)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_recsys_wrappers_never_count_launches_on_cpu():
+    before = dict(ops.LAUNCHES)
+    z = torch.zeros((2, 3, 4))
+    ops.cin_fused(z, z, torch.zeros((5, 9)))
+    ops.segment_bag(torch.zeros((4, 2)), torch.zeros((2, 3), dtype=torch.int32))
+    zi = torch.zeros((2, 3), dtype=torch.int32)
+    ops.ell_pull_payload(zi, zi, zi, zi)
+    assert ops.LAUNCHES == before
+
+
+def test_recsys_wrappers_reject_mixed_devices_and_bad_shapes():
+    z = torch.zeros((2, 3, 4))
+    with pytest.raises(ValueError):
+        ops.cin_fused(z, z.to("meta"), torch.zeros((5, 9)))
+    with pytest.raises(ValueError):
+        ops.cin_fused(z, z, torch.zeros((5, 8)))
+    with pytest.raises(ValueError):
+        ops.segment_bag(torch.zeros((4, 2)), torch.zeros((2, 3)))   # float ids
+    with pytest.raises(ValueError):
+        ops.segment_bag(torch.zeros((4, 2), dtype=torch.float16),
+                        torch.zeros((2, 3), dtype=torch.int32))
+    zi = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.ell_pull_payload(zi, zi, zi, torch.zeros((2, 4), dtype=torch.int32))
