@@ -39,10 +39,14 @@
    400-400, 2^18 hot and 2^25 cold rows, seeded random weights), with
    TF32 off for matmuls and cuDNN (printed). ``ClickStream(39, 2^25,
    hot_fraction=0.005, seed=0)`` makes the data; its row counts must fit
-   the tables. The ``cin_fused`` kernel phase holds each CIN layer of a
-   real ``serve_p99`` batch (B=512) against its plain version and times
-   it beside its flop bound, the plain version and cuBLAS on the
-   materialised outer product. Serving: ``serve_p99`` (20 batches of 512
+   the tables. The ``cin_fused`` kernel phase prints the kernel's
+   registers and spills (``-Xptxas -v``) and counts the tensor-core MMA
+   instructions in its SASS (``cuobjdump``; there must be some), then
+   holds each CIN layer of a real ``serve_p99`` batch (B=512) against its
+   plain version, checks that a second launch gives bit-equal output, and
+   times it beside its two bounds (3xTF32 on the TF32 tensor cores, the
+   reported one, and float32 on the CUDA cores), the plain version and
+   cuBLAS on the materialised outer product. Serving: ``serve_p99`` (20 batches of 512
    after a warm-up; median and p99 ms per batch, host indices to host
    logits) and ``serve_bulk`` (3 batches of 262,144; samples/s, peak
    memory); launch counts zeroed before and read after each run: 3
@@ -54,7 +58,14 @@
    of the reference runs them) against their plain versions at the
    reference tests' shapes and one large shape each, and one
    ``serve_p99`` forward under ``torch.profiler``.
-8. Prints one JSON line describing every kernel, then, last, the device
+8. Launch cost: for each of the seven wrappers at its path's shapes, and
+   for ``torch.amin`` on the min fold's inputs, the host microseconds per
+   call (host clock over 300 calls, then one synchronize); for the folds
+   also the profiler's device microseconds per call. The folds and
+   ``torch.amin`` are also measured right after set-up, on seeded words of
+   the fold's shape, before any profiler session (which raises the
+   wrappers' host cost for the rest of the process).
+9. Prints one JSON line describing every kernel, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
@@ -72,6 +83,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 non-tensor 32-bit peak (data sheet)
+TF32_OPS_PER_S = 495e12        # H100 dense TF32 tensor-core peak (data sheet)
+TF32_PASSES = 3                # cin_fused: 3xTF32, three products per product
 SCALE, TH, P_RANK, P_GPU = 20, 64, 1, 2
 DEVICE = "cuda"
 N_QUERIES = 64
@@ -89,6 +102,12 @@ BAG_WIDTH = 8                       # segment_bag large shape: bags of 8 slots
 # |plain|; segment_bag float32 1e-6 + 1e-5 |plain|, bfloat16 2**-7 |plain|
 CIN_TOL = 1e-4
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
+LAUNCH_REPS, FOLD_PROFILE_REPS = 300, 50
+#: one call of each wrapper (and of torch.amin) at its path's shapes, filled
+#: by the kernel phases for the launch-cost phase: {name: fn}
+LAUNCH_CASES: dict = {}
+#: the folds, whose device time is printed beside their host cost
+FOLD_CASES = ("mask_reduce", "payload_min_fold", "torch.amin")
 
 
 def check(cond, what: str) -> None:
@@ -120,9 +139,10 @@ def time_ms(fn, reps: int, rounds: int = 3) -> float:
     return per_call[len(per_call) // 2]
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float,
+          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -162,6 +182,7 @@ def kernel_phase_pull(eng, masks):
     import torch
     from repro_torch.core.comm import pack_lanes
     from repro_torch.kernels import ell_pull_multi as K
+    from repro_torch.kernels import ops
 
     pgv, chunk = eng.pgv, eng.cfg.pull_chunk
     pulls = [
@@ -178,6 +199,9 @@ def kernel_phase_pull(eng, masks):
         args = (csr.offsets, csr.cols, front, need, chunk)
         found_k, work_k = K.ell_pull_chunked_cuda(*args)
         found_p, work_p = K.ell_pull_chunked_plain(*args)
+        if name == "dd":
+            LAUNCH_CASES["ell_pull_multi [dd]"] = (
+                lambda a=args: ops.ell_pull_chunked(*a))
         torch.cuda.synchronize()
         err = max(int((found_k.long() - found_p.long()).abs().max()),
                   int((work_k.long() - work_p.long()).abs().max()))
@@ -211,6 +235,7 @@ def kernel_phase_fold(eng, masks):
     from repro_torch.core import msbfs as M
     from repro_torch.core.comm import pack_lanes
     from repro_torch.kernels import mask_reduce as K
+    from repro_torch.kernels import ops
 
     pgv, d = eng.pgv, masks["unvis_d"].shape[1]
     cand = (M._push_multi(pgv.dd, masks["frontier_d"], d)
@@ -224,6 +249,9 @@ def kernel_phase_fold(eng, masks):
                 else pack_lanes(~masks["unvis_d"][0]).reshape(-1).contiguous())
         got = K.mask_reduce_cuda(partials, prev, with_count)
         want = K.mask_reduce_plain(partials, prev, with_count)
+        if not with_count:
+            LAUNCH_CASES["mask_reduce"] = (
+                lambda a=(partials, prev): ops.mask_reduce(*a, with_count=False))
         torch.cuda.synchronize()
         err = int((got[0].long() - want[0].long()).abs().max())
         if with_count:
@@ -403,6 +431,7 @@ def kernel_phase_bit_pull(eng, masks, chunk: int):
     import torch
     from repro_torch.core.comm import pack_lanes
     from repro_torch.kernels import ell_pull as K
+    from repro_torch.kernels import ops
 
     pgv = eng.pgv
     pulls = [
@@ -418,6 +447,9 @@ def kernel_phase_bit_pull(eng, masks, chunk: int):
         args = (csr.offsets, csr.cols, mask, active, chunk)
         found_k, work_k = K.ell_pull_bits_cuda(*args)
         found_p, work_p = K.ell_pull_bits_plain(*args)
+        if name == "dd":
+            LAUNCH_CASES["ell_pull [dd]"] = (
+                lambda a=args: ops.ell_pull_bits(*a))
         torch.cuda.synchronize()
         err = max(int((found_k.long() - found_p.long()).abs().max()),
                   int((work_k.long() - work_p.long()).abs().max()))
@@ -450,6 +482,7 @@ def kernel_phase_min_fold(eng, st, masks):
     from repro_torch.core import bfs as TB
     from repro_torch.core.types import INF_LEVEL
     from repro_torch.kernels import mask_reduce as K
+    from repro_torch.kernels import ops
 
     pgv, d = eng.pgv, masks["unvis_d"].shape[1]
     cand = (TB._push_fused(pgv.dd, masks["frontier_d"], d)
@@ -477,11 +510,17 @@ def kernel_phase_min_fold(eng, st, masks):
         stacked = torch.cat([prev[None], partials])
         check(torch.equal(stacked.amin(0), got[0]), "amin yardstick")
         lib_ms = time_ms(lambda: stacked.amin(0), 50)
+        if not with_count:
+            LAUNCH_CASES["payload_min_fold"] = (
+                lambda a=(partials, prev): ops.payload_min_fold(
+                    *a, with_count=False))
+            LAUNCH_CASES["torch.amin"] = lambda t=stacked: t.amin(0)
         nbytes = (k + 1) * nw * 4 + nw * 4 * (2 if with_count else 1)
         b_ms, b_by = bound(nbytes, (k + (1 if with_count else 0)) * nw)
         print(f"kernel payload_min_fold [with_count={with_count}]: K={k} "
               f"NW={nw} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms(amin)={lib_ms:.4f} bound_ms={b_ms:.6f} "
+              f"library_ms(amin)={lib_ms:.4f} kernel/amin={ms / lib_ms:.3f} "
+              f"bound_ms={b_ms:.6f} "
               f"improved={int(got[1].sum()) if with_count else '-'} "
               "exact=True")
         out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -673,20 +712,49 @@ def on_card(batch):
             torch.from_numpy(batch["cold_idx"]).to(DEVICE))
 
 
+def cin_build_report() -> None:
+    """Registers and spills of the cin_fused kernels (``-Xptxas -v``, from
+    this process's build) and the tensor-core MMA instructions in the
+    library's SASS (``cuobjdump``)."""
+    import shutil
+    from repro_torch.kernels import _build
+
+    lines = [ln.strip() for ln in _build.BUILD_LOG.get("cin_fused", "")
+             .splitlines() if "registers" in ln or "spill" in ln
+             or "entry function" in ln]
+    for ln in lines or ["no ptxas report (library built by another process)"]:
+        print(f"  ptxas cin_fused: {ln}")
+    cob = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cob).is_file():
+        print("  sass cin_fused: cuobjdump not available")
+        return
+    sass = subprocess.run([cob, "-sass", str(_build.library_path("cin_fused"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    mma = [ln for ln in sass.splitlines() if "HGMMA" in ln or "HMMA" in ln]
+    kinds = sorted({w for ln in mma for w in ln.split()
+                    if w.startswith(("HGMMA", "HMMA"))})
+    print(f"  sass cin_fused: {len(mma)} tensor-core MMA instructions {kinds}")
+    check(len(mma) > 0, "cin_fused runs on the tensor cores (HGMMA in SASS)")
+
+
 def kernel_phase_cin(model, batch):
     """Each CIN layer of a real serve_p99 batch: kernel against plain
-    version, timed beside its flop bound, the plain version and cuBLAS on
-    the outer product materialised beforehand (not timed)."""
+    version, timed beside its two bounds (3xTF32 on the tensor cores, the
+    reported one, and float32 on the CUDA cores), the plain version and
+    cuBLAS on the outer product materialised beforehand (not timed)."""
     import torch
     from repro_torch.kernels import cin_fused as K
+    from repro_torch.kernels import ops
     from repro_torch.models.recsys import embed_lookup
 
+    cin_build_report()
     params = model.params()
     hot, cold = on_card(batch)
     x0 = embed_lookup(params, hot, cold, "emb")
     b, f0, d = x0.shape
     xk = x0
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_f32_ms=0.0,
+                 library_ms=0.0, err=0.0)
     for i in range(len(model.cfg.cin_layers)):
         w = params[f"cin_w{i}"]
         fk, h = xk.shape[1], w.shape[0]
@@ -702,28 +770,45 @@ def kernel_phase_cin(model, batch):
         check(err <= CIN_TOL * scale, f"cin layer {i}: kernel != plain "
               f"({err} > {CIN_TOL} x {scale})")
         check(lib_err <= CIN_TOL * scale, f"cin layer {i}: cuBLAS != plain")
+        again = K.cin_fused_cuda(x0, xk, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"cin layer {i}: deterministic")
+        del again
         ms = time_ms(lambda: K.cin_fused_cuda(x0, xk, w), reps=20)
         plain_ms = time_ms(lambda: K.cin_fused_plain(x0, xk, w), reps=5)
         lib_ms = time_ms(lambda: w @ z, reps=20)
         flops = 2 * h * f0 * fk * d * b
         nbytes = 4 * (x0.numel() + xk.numel() + w.numel() + got.numel())
-        b_ms, b_by = bound(nbytes, flops)
-        check(b_by == "operations", "cin bound is the float32 rate")
+        b_ms, b_by = bound(nbytes, TF32_PASSES * flops, TF32_OPS_PER_S)
+        f32_ms, f32_by = bound(nbytes, flops)
+        check(b_by == "operations" and f32_by == "operations",
+              "cin bounds are the tensor-core and float32 rates")
+        n_split = K.splits(x0.device.index, b * d, f0, fk, h)
         print(f"kernel cin_fused [layer {i}]: B={b} F0={f0} Fk={fk} H={h} "
-              f"D={d} K={f0 * fk} flops={flops} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms(cuBLAS w @ Z)="
-              f"{lib_ms:.4f} bound_ms={b_ms:.5f} max_abs_err={err:.3e} "
-              f"max|plain|={scale:.3e} cuBLAS_err={lib_err:.3e} "
-              f"achieved={flops / ms / 1e9:.2f} TFLOP/s")
+              f"D={d} K={f0 * fk} flops={flops} splits={n_split} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(cuBLAS w @ Z)="
+              f"{lib_ms:.4f} bound_ms(3xTF32 at {TF32_OPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s)={b_ms:.5f} bound_ms(float32 at "
+              f"{SCALAR_OPS_PER_S / 1e12:.0f} TFLOP/s)={f32_ms:.5f} "
+              f"max_abs_err={err:.3e} max|plain|={scale:.3e} "
+              f"err/max|plain|={err / scale:.3e} cuBLAS_err={lib_err:.3e} "
+              f"achieved={flops / ms / 1e9:.2f} TFLOP/s (float32 products), "
+              f"{b_ms / ms:.3f} of the 3xTF32 bound")
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("library_ms", lib_ms)):
+                     ("bound_f32_ms", f32_ms), ("library_ms", lib_ms)):
             total[k] += v
         total["err"] = max(total["err"], err)
+        xk_last, w_last = xk, w
         xk = got
         del z, lib, want
     print(f"kernel cin_fused [one forward, 3 layers]: ms={total['ms']:.4f} "
           f"plain_ms={total['plain_ms']:.4f} library_ms="
-          f"{total['library_ms']:.4f} bound_ms={total['bound_ms']:.5f}")
+          f"{total['library_ms']:.4f} bound_ms(3xTF32)="
+          f"{total['bound_ms']:.5f} bound_ms(float32)="
+          f"{total['bound_f32_ms']:.5f} kernel/library="
+          f"{total['ms'] / total['library_ms']:.3f}")
+    LAUNCH_CASES["cin_fused [layer 2]"] = (
+        lambda: ops.cin_fused(x0, xk_last, w_last))
     return total
 
 
@@ -935,6 +1020,9 @@ def kernel_phase_segment_bag(model, batches) -> dict:
               f"segment_bag {dt}: embedding_bag yardstick agrees")
         lib_ms = time_ms(lambda: F.embedding_bag(
             safe, table, mode="sum", per_sample_weights=psw), reps=50)
+        if dt == torch.float32:
+            LAUNCH_CASES["segment_bag [float32]"] = (
+                lambda a=(table, big_idx, w): ops.segment_bag(*a))
         b_ms, b_by = bag_bound(table, big_idx, w, want)
         print(f"kernel segment_bag [{n_bags} bags x {BAG_WIDTH}, "
               f"emb_hot {tuple(table.shape)} {dt}]: valid slots="
@@ -993,6 +1081,7 @@ def kernel_phase_payload(g, csr) -> dict:
     launches = ops.LAUNCHES["ell_pull_payload"]
     check(launches == len(cases), "ell_pull_payload launches of the phase")
     big_args = args                                 # the large case, last
+    LAUNCH_CASES["ell_pull_payload"] = lambda: ops.ell_pull_payload(*big_args)
     ms = time_ms(lambda: K.ell_pull_payload_cuda(*big_args), reps=20)
     plain_ms = time_ms(lambda: K.ell_pull_payload_plain(*big_args), reps=2)
     valid = parents[parents >= 0]
@@ -1022,7 +1111,70 @@ def profile_serve(model, batch) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     return report_profile(prof, wall_ms,
                           f"one serve_p99 forward, B={hot.shape[0]}",
-                          ("cin_fused_kernel",))
+                          ("cin_w_split_kernel", "cin_fused_kernel",
+                           "cin_split_sum_kernel"))
+
+
+def fold_cases(k: int, nw: int) -> dict:
+    """The fold calls of the launch-cost phase on seeded words of the
+    delegate fold's shape ``[k, nw]``: both wrappers and ``torch.amin``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    parts = torch.randint(0, 2**30, (k, nw), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    prev = torch.randint(0, 2**30, (nw,), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    stacked = torch.cat([prev[None], parts])
+    return {"mask_reduce": lambda: ops.mask_reduce(parts, prev,
+                                                   with_count=False),
+            "payload_min_fold": lambda: ops.payload_min_fold(
+                parts, prev, with_count=False),
+            "torch.amin": lambda: stacked.amin(0)}
+
+
+def launch_cost_phase(cases: dict, when: str) -> None:
+    """Host cost of one call of each of ``cases`` ({name: fn}): host clock
+    over LAUNCH_REPS calls, then one synchronize (also printed: the time
+    per call up to that synchronize). Then, for the folds, the profiler's
+    device time per call, so launch cost and device time stand apart (the
+    host times come first: a profiler session raises the wrappers' host
+    cost for the rest of the process)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    host = {}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_REPS):
+            fn()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_sync = time.perf_counter() - t0
+        host[name] = t_host / LAUNCH_REPS * 1e6
+        print(f"launch cost ({when}) [{name}]: host_us={host[name]:.2f} per "
+              f"call ({LAUNCH_REPS} calls, host clock), "
+              f"{t_sync / LAUNCH_REPS * 1e6:.2f} us per call up to the sync")
+    for name in (n for n in cases if n in FOLD_CASES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(FOLD_PROFILE_REPS):
+                cases[name]()
+            torch.cuda.synchronize()
+        dev_us = 0.0
+        for ev in prof.key_averages():
+            if ev.key.startswith("aten::"):
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            dev_us += ev.self_cuda_time_total if us is None else us
+        print(f"launch cost ({when}) [{name}]: device_us="
+              f"{dev_us / FOLD_PROFILE_REPS:.2f} per call (profiler)")
+    if "payload_min_fold" in host and "torch.amin" in host:
+        print(f"launch cost ({when}): payload_min_fold / torch.amin host "
+              f"time = {host['payload_min_fold'] / host['torch.amin']:.3f}")
 
 
 def recsys_path(g, csr) -> dict:
@@ -1086,6 +1238,9 @@ def run() -> None:
           f"E_max nn/nd/dn/dd={pg.nn.e_max}/{pg.nd.e_max}/{pg.dn.e_max}/"
           f"{pg.dd.e_max} cap_total={eng.plan.cap_total} "
           f"cap_peer={eng.plan.cap_peer}")
+
+    # ---- launch cost in a fresh process, before any profiler session ------
+    launch_cost_phase(fold_cases(pg.p, pg.d), "fresh process")
 
     # ---- kernel phases at the main path's shapes ---------------------------
     st, masks = mid_bfs_inputs(eng, g)
@@ -1173,6 +1328,7 @@ def run() -> None:
 
     # ---- recsys path: xDeepFM scoring and retrieval, then B5 / B6 ----------
     recsys = recsys_path(g, csr)
+    launch_cost_phase(LAUNCH_CASES, "after the paths")
 
     kernels = [
         {"name": "ell_pull_multi", "route": "cuda",
@@ -1226,7 +1382,9 @@ def run() -> None:
           "FULL search keys, payload_min_fold over the 4 allgather keys. "
           "cin_fused (path: recsys serving): ms, plain_ms, bound_ms, "
           "library_ms summed over the 3 CIN layers of one serve_p99 forward "
-          "(library: cuBLAS w @ Z on Z materialised beforehand, not timed); "
+          "(bound_ms: 3xTF32, three TF32 tensor-core products per float32 "
+          "product at 495 TFLOP/s; library: cuBLAS w @ Z in float32 on Z "
+          "materialised beforehand, not timed); "
           "launches over the 20 serve_p99 and 3 serve_bulk batches. "
           "segment_bag and ell_pull_payload (path: none in the reference): "
           "times at their large shapes, launches over their parity phases")

@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels and load them with ``ctypes``.
+"""Build the port's CUDA kernels, load them with ``ctypes`` and launch them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
@@ -7,16 +7,27 @@ source and the flags -- an edited source rebuilds, an unchanged one is
 reused. The first use builds every missing library, one ``nvcc`` per
 source, all started together. Nothing is built or loaded at import time:
 the CPU test suite imports these modules on machines without ``nvcc``.
+
+Every wrapper launches through the same three helpers, so a launch costs
+one pass over its tensors and one ``ctypes`` call: :func:`require` checks
+dtype, device and contiguity in one pass, :func:`function` hands out each
+C entry prototyped once at load (``argtypes`` / ``restype`` are never set
+per call), and :func:`launch` passes the card's current stream and
+raises on a nonzero ``cudaError``, entering a device guard only when the
+tensors lie on another card than the current one.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -88,3 +99,49 @@ def load(name: str) -> ctypes.CDLL:
         build()
         lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str, entry: str, argtypes: tuple,
+             restype=ctypes.c_int):
+    """The C function ``entry`` of ``csrc/<name>.cu`` (built and loaded on
+    first use), its prototype set once here: pointers and the stream as
+    ``c_void_p``, so ctypes never cuts a 64-bit address."""
+    fn = getattr(load(name), entry)
+    fn.argtypes, fn.restype = list(argtypes), restype
+    return fn
+
+
+def require(what: str, dtype, names: tuple, *tensors) -> int:
+    """One pass over ``tensors`` (named by ``names``): each must be a
+    contiguous CUDA tensor of ``dtype`` (any dtype where ``dtype`` is None)
+    on the first one's card. Returns that card's index; raises ValueError."""
+    idx = tensors[0].get_device()
+    if idx < 0 or not tensors[0].is_cuda:
+        raise ValueError(f"{what}: {names[0]} must be a CUDA tensor, got one "
+                         f"on {tensors[0].device}")
+    for name, t in zip(names, tensors):
+        if t.get_device() != idx:          # -1 off the cards
+            raise ValueError(f"{what}: inputs on different devices ({name} "
+                             f"on {t.device}, not cuda:{idx})")
+        if (dtype is not None and t.dtype != dtype) or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{dtype or 'CUDA'} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    return idx
+
+
+def launch(what: str, fn, idx: int, *args) -> None:
+    """``fn(*args, stream)`` with card ``idx``'s current stream; raises if
+    it returns a nonzero ``cudaError`` (a refused launch never runs, and a
+    later synchronize would not report it). The stream comes from
+    ``torch._C._cuda_getCurrentRawStream``, the raw handle behind
+    ``torch.cuda.current_stream(idx).cuda_stream`` without the Stream
+    object that costs a few microseconds a call."""
+    if idx == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

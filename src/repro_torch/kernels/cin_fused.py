@@ -7,9 +7,15 @@ One CIN step computes, per sample b and output channel h:
 an outer product of field embeddings followed by a 1x1 compression.
 
 * :func:`cin_fused_cuda` launches ``csrc/cin_fused.cu``: the product
-  ``W [H, F0*Fk] . Z [F0*Fk, B*D]`` in float32 with the outer product Z
-  never formed, as ``sum_i x0[i] * (W_i . xk)`` -- one register-tiled GEMM
-  over j per field i, from x0 and xk staged in shared memory;
+  ``Z^T [(b, d), F0*Fk] . W^T [F0*Fk, H]`` on the TF32 tensor cores
+  (``wgmma``) in 3xTF32 (Z and W split into TF32 hi and lo parts, ``lo*hi
+  + hi*lo + hi*hi`` summed in float32; float32-grade results), with each Z
+  element formed in registers from x0 and xk staged in shared memory, so
+  the outer product Z never reaches device memory. A first kernel splits
+  W into hi and lo in the order the MMAs read it; where the output tiles
+  cannot fill the card (B = 512) the k steps are split over blocks whose
+  partial sums a last kernel adds in a fixed order: two calls on the same
+  inputs give bit-equal outputs. One call counts as one launch;
 * :func:`cin_fused_plain` computes the same function in plain PyTorch with
   the reference oracle's two einsums (``repro.kernels.ref.cin_fused_ref``),
   which materialise the ``[B, F0*Fk, D]`` outer product -- the CPU path and
@@ -21,16 +27,46 @@ float32 -> ``[B, H, D]`` float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) \
+    + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 #: shared memory of one block may not exceed this (sm_90); the kernel
-#: stages F0 + Fk rows of 64 columns (see csrc/cin_fused.cu)
+#: stages F0 + Fk rows of 128 columns (see csrc/cin_fused.cu)
 MAX_SMEM_BYTES = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes(f0: int, fk: int) -> int:
+    """Shared memory one block of the kernel needs for these field counts
+    (asked of the library once per pair)."""
+    fn = _build.function("cin_fused", "cin_fused_smem_bytes",
+                         (ctypes.c_int, ctypes.c_int), ctypes.c_longlong)
+    return fn(f0, fk)
+
+
+@functools.lru_cache(maxsize=None)
+def splits(device_index: int, ncols: int, f0: int, fk: int, h: int) -> int:
+    """Blocks that share one output tile's k steps on this card (1 once the
+    tiles fill its multiprocessors); asked of the library once per shape."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    fn = _build.function("cin_fused", "cin_fused_splits",
+                         (ctypes.c_longlong,) + (ctypes.c_int,) * 4)
+    return fn(ncols, f0, fk, h, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def work_floats(b: int, f0: int, fk: int, h: int, d: int, n_split: int) -> int:
+    """Scratch floats of one launch: W split into TF32 hi and lo, and the
+    partial sums where the k steps are split (asked once per shape)."""
+    fn = _build.function("cin_fused", "cin_fused_work_floats",
+                         (ctypes.c_longlong,) + (ctypes.c_int,) * 5,
+                         ctypes.c_longlong)
+    return fn(b, f0, fk, h, d, n_split)
 
 
 def _check(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> None:
@@ -59,32 +95,24 @@ def cin_fused_cuda(x0: torch.Tensor, xk: torch.Tensor,
     Inputs are checked here; raises if the launch fails. There is no
     backward yet, so inputs that require grad are refused."""
     _check(x0, xk, w)
-    for name, t in (("x0", x0), ("xk", xk), ("w", w)):
-        if (t.dtype != torch.float32 or not t.is_cuda
-                or not t.is_contiguous()):
-            raise ValueError(f"cin_fused: {name} must be a contiguous float32 "
-                             f"CUDA tensor, got {t.dtype} on {t.device}")
-        if t.device != x0.device:
-            raise ValueError("cin_fused: inputs on different devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x0, xk, w)):
+    dev = _build.require("cin_fused", torch.float32, ("x0", "xk", "w"), x0,
+                         xk, w)
+    if torch.is_grad_enabled() and (x0.requires_grad or xk.requires_grad
+                                    or w.requires_grad):
         raise RuntimeError("cin_fused: the CUDA kernel has no backward yet; "
                            "call it under torch.no_grad()")
     b, f0, d = x0.shape
     fk, h = xk.shape[1], w.shape[0]
-    lib = _build.load("cin_fused")
-    smem = lib.cin_fused_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
-    if smem(f0, fk) > MAX_SMEM_BYTES:
+    if smem_bytes(f0, fk) > MAX_SMEM_BYTES:
         raise ValueError(f"cin_fused: F0 + Fk = {f0 + fk} fields need "
-                         f"{smem(f0, fk)} bytes of shared memory per block, "
-                         f"more than {MAX_SMEM_BYTES}")
+                         f"{smem_bytes(f0, fk)} bytes of shared memory per "
+                         f"block, more than {MAX_SMEM_BYTES}")
     out = torch.empty((b, h, d), dtype=torch.float32, device=x0.device)
-    fn = lib.cin_fused
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x0.data_ptr(), xk.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 b, f0, fk, h, d, stream)
-    if err:
-        raise RuntimeError(f"cin_fused launch failed: cudaError {err}")
+    n_split = splits(dev, b * d, f0, fk, h)
+    work = torch.empty(work_floats(b, f0, fk, h, d, n_split),
+                       dtype=torch.float32, device=x0.device)
+    _build.launch("cin_fused",
+                  _build.function("cin_fused", "cin_fused", _ARGTYPES), dev,
+                  x0.data_ptr(), xk.data_ptr(), w.data_ptr(), out.data_ptr(),
+                  work.data_ptr(), b, f0, fk, h, d, n_split)
     return out

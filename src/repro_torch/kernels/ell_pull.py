@@ -32,9 +32,9 @@ import torch
 from . import _build
 from .ell_pull_multi import ell_pull_chunked_plain
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p)
 
 
 def _check_stacked(offsets, cols, mask, active, chunk):
@@ -77,23 +77,15 @@ def ell_pull_bits_cuda(offsets: torch.Tensor, cols: torch.Tensor,
     Inputs are checked here (the kernel trusts them, column ids included:
     each must be < 32 * mask.shape[1]); raises if the launch fails."""
     _check_stacked(offsets, cols, mask, active, chunk)
-    for name, t in (("offsets", offsets), ("cols", cols), ("mask", mask),
-                    ("active", active)):
-        if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"ell_pull: {name} must be a contiguous int32 "
-                             f"CUDA tensor, got {t.dtype} on {t.device}")
-        if t.device != offsets.device:
-            raise ValueError("ell_pull: inputs on different devices")
+    dev = _build.require("ell_pull", torch.int32,
+                         ("offsets", "cols", "mask", "active"), offsets,
+                         cols, mask, active)
     p, r1 = offsets.shape
     found = torch.empty_like(active)
     work = torch.empty_like(active)
-    fn = _build.load("ell_pull").ell_pull_bits
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(active.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(offsets.data_ptr(), cols.data_ptr(), mask.data_ptr(),
-                 active.data_ptr(), found.data_ptr(), work.data_ptr(),
-                 p, r1 - 1, cols.shape[1], mask.shape[1], chunk, stream)
-    if err:
-        raise RuntimeError(f"ell_pull launch failed: cudaError {err}")
+    _build.launch("ell_pull",
+                  _build.function("ell_pull", "ell_pull_bits", _ARGTYPES), dev,
+                  offsets.data_ptr(), cols.data_ptr(), mask.data_ptr(),
+                  active.data_ptr(), found.data_ptr(), work.data_ptr(),
+                  p, r1 - 1, cols.shape[1], mask.shape[1], chunk)
     return found, work

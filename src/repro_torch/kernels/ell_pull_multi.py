@@ -32,10 +32,10 @@ from .mask_reduce import or_fold
 
 MAX_WORDS = 4      # lane words per vertex the kernel is instantiated for
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_void_p)
 
 
 def _check_stacked(offsets, cols, frontier, need):
@@ -98,13 +98,9 @@ def ell_pull_chunked_cuda(offsets: torch.Tensor, cols: torch.Tensor,
     work). Inputs are checked here (the kernel trusts them); raises if the
     launch fails."""
     _check_stacked(offsets, cols, frontier, need)
-    for name, t in (("offsets", offsets), ("cols", cols),
-                    ("frontier", frontier), ("need", need)):
-        if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"ell_pull: {name} must be a contiguous int32 "
-                             f"CUDA tensor, got {t.dtype} on {t.device}")
-        if t.device != offsets.device:
-            raise ValueError("ell_pull: inputs on different devices")
+    dev = _build.require("ell_pull_multi", torch.int32,
+                         ("offsets", "cols", "frontier", "need"), offsets,
+                         cols, frontier, need)
     p, r1 = offsets.shape
     nw = frontier.shape[2]
     if not 1 <= nw <= MAX_WORDS:
@@ -114,16 +110,11 @@ def ell_pull_chunked_cuda(offsets: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"ell_pull: chunk must be > 0, got {chunk}")
     found = torch.empty_like(need)
     work = torch.empty((p, r1 - 1), dtype=torch.int32, device=need.device)
-    fn = _build.load("ell_pull_multi").ell_pull_chunked
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(need.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(offsets.data_ptr(), cols.data_ptr(), frontier.data_ptr(),
-                 need.data_ptr(), found.data_ptr(), work.data_ptr(),
-                 p, r1 - 1, cols.shape[1], frontier.shape[1], nw, chunk,
-                 stream)
-    if err:
-        raise RuntimeError(f"ell_pull_multi launch failed: cudaError {err}")
+    _build.launch("ell_pull_multi", _build.function(
+        "ell_pull_multi", "ell_pull_chunked", _ARGTYPES), dev,
+        offsets.data_ptr(), cols.data_ptr(), frontier.data_ptr(),
+        need.data_ptr(), found.data_ptr(), work.data_ptr(),
+        p, r1 - 1, cols.shape[1], frontier.shape[1], nw, chunk)
     return found, work
 
 

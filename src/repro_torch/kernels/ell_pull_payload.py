@@ -30,8 +30,8 @@ import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p)
 
 
 def identity() -> int:
@@ -86,22 +86,13 @@ def ell_pull_payload_cuda(parents: torch.Tensor, payload: torch.Tensor,
     ``[R, W]``. Inputs are checked here (the kernel trusts the parent ids:
     each must be -1 or a row of ``payload``); raises if the launch fails."""
     _check(parents, payload, weights, active)
-    for name, t in (("parents", parents), ("payload", payload),
-                    ("weights", weights), ("active", active)):
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"ell_pull_payload: {name} must be a contiguous "
-                             f"CUDA tensor, got one on {t.device}")
-        if t.device != parents.device:
-            raise ValueError("ell_pull_payload: inputs on different devices")
+    dev = _build.require("ell_pull_payload", None,
+                         ("parents", "payload", "weights", "active"),
+                         parents, payload, weights, active)
     r, k = parents.shape
     out = torch.empty_like(active)
-    fn = _build.load("ell_pull_payload").ell_pull_payload
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(parents.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(parents.data_ptr(), payload.data_ptr(), weights.data_ptr(),
-                 active.data_ptr(), out.data_ptr(), r, k, active.shape[1],
-                 stream)
-    if err:
-        raise RuntimeError(f"ell_pull_payload launch failed: cudaError {err}")
+    _build.launch("ell_pull_payload", _build.function(
+        "ell_pull_payload", "ell_pull_payload", _ARGTYPES), dev,
+        parents.data_ptr(), payload.data_ptr(), weights.data_ptr(),
+        active.data_ptr(), out.data_ptr(), r, k, active.shape[1])
     return out

@@ -21,8 +21,8 @@ import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_void_p)
 
 
 def or_fold(words: torch.Tensor, dim: int) -> torch.Tensor:
@@ -67,26 +67,18 @@ def _fold_cuda(entry: str, partials: torch.Tensor, prev: torch.Tensor,
     """Launch the ``entry`` fold of ``csrc/mask_reduce.cu`` on the current
     stream. Inputs are checked here (the kernel trusts them); raises if the
     launch fails."""
-    if partials.dim() != 2 or prev.dim() != 1 or prev.shape[0] != partials.shape[1]:
+    shape = partials.shape
+    if len(shape) != 2 or prev.shape != shape[1:]:
         raise ValueError(f"{entry}: partials [K, NW] and prev [NW], got "
                          f"{tuple(partials.shape)} and {tuple(prev.shape)}")
-    for name, t in (("partials", partials), ("prev", prev)):
-        if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{entry}: {name} must be a contiguous int32 "
-                             f"CUDA tensor, got {t.dtype} on {t.device}")
-    if partials.device != prev.device:
-        raise ValueError(f"{entry}: inputs on different devices")
-    k, nw = partials.shape
+    dev = _build.require(entry, torch.int32, ("partials", "prev"), partials,
+                         prev)
+    k, nw = shape
     out = torch.empty_like(prev)
     count = torch.empty_like(prev) if with_count else None
-    fn = getattr(_build.load("mask_reduce"), entry)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(prev.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(partials.data_ptr(), prev.data_ptr(), out.data_ptr(),
-                 count.data_ptr() if with_count else None, k, nw, stream)
-    if err:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    _build.launch(entry, _build.function("mask_reduce", entry, _ARGTYPES), dev,
+                  partials.data_ptr(), prev.data_ptr(), out.data_ptr(),
+                  count.data_ptr() if with_count else None, k, nw)
     return out, count
 
 

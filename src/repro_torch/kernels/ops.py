@@ -32,14 +32,23 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+def _on_cuda(first: torch.Tensor, *rest: torch.Tensor) -> bool:
+    """True where the first tensor lies on a card: the CUDA wrapper then
+    checks every tensor's device itself, in its one pass. CPU tensors must
+    all be on the CPU."""
+    if first.is_cuda:
         return True
-    if kinds == {"cpu"}:
-        return False
-    raise ValueError(f"kernel inputs on {sorted(kinds)}: CUDA tensors launch "
-                     "the kernel, CPU tensors take its plain version")
+    kind = first.device.type
+    for t in rest:
+        if t.device.type != kind:
+            kind = None
+            break
+    if kind != "cpu":
+        raise ValueError(
+            f"kernel inputs on {sorted({t.device.type for t in (first, *rest)})}"
+            ": CUDA tensors launch the kernel, CPU tensors take its plain "
+            "version")
+    return False
 
 
 def ell_pull_chunked(offsets, cols, frontier, need, chunk: int):

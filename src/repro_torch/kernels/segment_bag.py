@@ -22,8 +22,8 @@ import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p)
 _ENTRY = {torch.float32: "segment_bag_f32", torch.bfloat16: "segment_bag_bf16"}
 
 
@@ -64,26 +64,18 @@ def segment_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     Inputs are checked here (the kernel trusts the indices: each must be
     -1 or a row of ``table``); raises if the launch fails."""
     _check(table, indices, weights)
-    tensors = [("table", table), ("indices", indices)]
+    tensors = (table, indices)
     if weights is not None:
         weights = weights.float()            # exact from bfloat16
-        tensors.append(("weights", weights))
-    for name, t in tensors:
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"segment_bag: {name} must be a contiguous CUDA "
-                             f"tensor, got one on {t.device}")
-        if t.device != table.device:
-            raise ValueError("segment_bag: inputs on different devices")
+        tensors += (weights,)
+    dev = _build.require("segment_bag", None, ("table", "indices", "weights"),
+                         *tensors)
     b, l = indices.shape
     d = table.shape[1]
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
-    fn = getattr(_build.load("segment_bag"), _ENTRY[table.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), indices.data_ptr(),
-                 None if weights is None else weights.data_ptr(),
-                 out.data_ptr(), b, l, d, stream)
-    if err:
-        raise RuntimeError(f"segment_bag launch failed: cudaError {err}")
+    _build.launch("segment_bag", _build.function(
+        "segment_bag", _ENTRY[table.dtype], _ARGTYPES), dev,
+        table.data_ptr(), indices.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr(),
+        b, l, d)
     return out

@@ -16,6 +16,8 @@ from repro_torch.core import bfs as TB, comm as TC, convert, engine as TE
 from repro_torch.core.partition import partition_graph
 from repro_torch.graphs.rmat import pick_sources, rmat_graph
 from repro_torch.kernels import ops
+from repro_torch.kernels.cin_fused import cin_fused_plain
+from repro_torch.kernels.cin_fused import splits as cin_splits
 from repro_torch.models.recsys import XDeepFM
 from repro_torch.serve import BFSServeEngine, Query, QueryKind
 
@@ -192,6 +194,27 @@ def test_wrappers_reject_bad_inputs(card):
                         torch.zeros(8, dtype=torch.int32, device=card))
 
 
+def test_launch_helpers(card):
+    """Each C entry is prototyped once and handed out from a cache; the
+    one-pass check refuses wrong dtype, non-contiguous and mixed-device
+    inputs; a nonzero cudaError from a launch raises."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mask_reduce import _ARGTYPES
+    fn = _build.function("mask_reduce", "payload_min_fold", _ARGTYPES)
+    assert fn is _build.function("mask_reduce", "payload_min_fold", _ARGTYPES)
+    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 7
+    x = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    names = ("partials", "prev")
+    assert _build.require("f", torch.int32, names, x, x[0]) == x.get_device()
+    for bad in (x[0].long(), x[:, 0], x[0].cpu()):
+        with pytest.raises(ValueError):
+            _build.require("f", torch.int32, names, x, bad)
+    with pytest.raises(RuntimeError, match="cudaError 7"):
+        _build.launch("f", lambda *args: 7, x.get_device())
+
+
 def test_engine_on_card_equals_engine_on_cpu(card):
     """The whole serving path: answers and every ServeStats counter equal
     between the card (kernels) and the CPU (plain versions)."""
@@ -221,19 +244,35 @@ def on(card, *arrays):
     return tuple(torch.from_numpy(a).to(card) for a in arrays)
 
 
-@pytest.mark.parametrize("b,f0,fk,h,d", [
-    (4, 3, 3, 5, 8), (70, 39, 20, 200, 10), (1, 2, 7, 3, 16),
-    (33, 39, 39, 200, 10), (7, 39, 200, 200, 10), (5, 4, 5, 130, 7),
-    (3, 1, 1, 1, 1), (130, 6, 8, 64, 33)])
-def test_cin_fused_cuda_matches_plain(card, b, f0, fk, h, d):
+@pytest.mark.parametrize("b,f0,fk,h,d,plain_on", [
+    (4, 3, 3, 5, 8, "cpu"), (70, 39, 20, 200, 10, "cpu"),
+    (1, 2, 7, 3, 16, "cpu"), (33, 39, 39, 200, 10, "cpu"),
+    (7, 39, 200, 200, 10, "cpu"), (5, 4, 5, 130, 7, "cpu"),
+    (3, 1, 1, 1, 1, "cpu"), (130, 6, 8, 64, 33, "cpu"),
+    # B*D not a multiple of the 128-column tile
+    (13, 39, 200, 200, 10, "cpu"), (301, 5, 16, 24, 3, "cpu"),
+    # H not a multiple of 8, and H over one 208-channel tile
+    (9, 4, 5, 1, 10, "cpu"), (50, 6, 9, 5, 10, "cpu"),
+    (40, 12, 17, 130, 10, "cpu"), (20, 5, 6, 300, 10, "cpu"),
+    # K not a multiple of the 8-deep k step, F0 = 1
+    (30, 1, 3, 16, 10, "cpu"), (25, 7, 13, 24, 3, "cpu"),
+    (17, 1, 200, 200, 10, "cpu"),
+    # FULL widths on the split-k path (B = 64, B = 512), and at B = 2048
+    (64, 39, 200, 200, 10, "cpu"), (512, 39, 39, 200, 10, "card"),
+    (2048, 39, 200, 200, 10, "card")])
+def test_cin_fused_cuda_matches_plain(card, b, f0, fk, h, d, plain_on):
     """Ragged (b, d) columns, H and K not multiples of the tiles, the FULL
-    layer shapes. float32 sums of up to 7,800 products in another order:
+    layer shapes with and without the split k sum. 3xTF32 on the tensor
+    cores against float32 sums of up to 7,800 products in another order:
     |kernel - plain| <= 1e-4 * max|plain|."""
     rng = np.random.default_rng(b * 7 + d)
     x0, xk, w = on(card, rng.normal(size=(b, f0, d)).astype(np.float32),
                    rng.normal(size=(b, fk, d)).astype(np.float32),
                    rng.normal(size=(h, f0 * fk)).astype(np.float32))
-    want = ops.cin_fused(x0.cpu(), xk.cpu(), w.cpu())
+    if plain_on == "cpu":
+        want = ops.cin_fused(x0.cpu(), xk.cpu(), w.cpu())
+    else:
+        want = cin_fused_plain(x0, xk, w).cpu()
     before = ops.LAUNCHES["cin_fused"]
     got = ops.cin_fused(x0, xk, w)
     torch.cuda.synchronize()
@@ -241,6 +280,23 @@ def test_cin_fused_cuda_matches_plain(card, b, f0, fk, h, d):
     assert got.shape == (b, h, d) and got.dtype == torch.float32
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("b,fk", [(64, 200), (512, 39), (512, 200),
+                                  (2048, 200)])
+def test_cin_fused_cuda_is_deterministic(card, b, fk):
+    """Two launches on the same inputs give bit-equal outputs, on the split
+    k path (partial sums added in a fixed order) and off it."""
+    rng = np.random.default_rng(b + fk)
+    x0, xk, w = on(card, rng.normal(size=(b, 39, 10)).astype(np.float32),
+                   rng.normal(size=(b, fk, 10)).astype(np.float32),
+                   rng.normal(size=(200, 39 * fk)).astype(np.float32))
+    n_split = cin_splits(card.index or 0, b * 10, 39, fk, 200)
+    assert (n_split > 1) == (b <= 512)
+    first = ops.cin_fused(x0, xk, w)
+    second = ops.cin_fused(x0, xk, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("b,l,v,d", [(5, 3, 50, 8), (130, 7, 200, 130),

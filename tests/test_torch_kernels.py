@@ -247,6 +247,16 @@ def test_single_source_wrappers_never_count_launches_on_cpu():
     assert ops.LAUNCHES == before
 
 
+def test_launch_helper_refuses_tensors_off_the_card():
+    """The one-pass check every CUDA wrapper runs before its launch: a CPU
+    tensor never reaches a kernel."""
+    from repro_torch.kernels import _build
+    z = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        _build.require("payload_min_fold", torch.int32, ("partials", "prev"),
+                       z[None], z)
+
+
 # ---------------------------------------------------------------- cin_fused
 def cin_inputs(rng, b, f0, fk, h, d):
     return (rng.normal(size=(b, f0, d)).astype(np.float32),
@@ -279,6 +289,77 @@ def test_cin_fused_plain_property(b, f0, fk, h, d, seed):
                                        interpret=True))
     got = ops.cin_fused(*map(torch.from_numpy, (x0, xk, w)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to TF32's 10 mantissa bits,
+    to nearest with ties away from zero, on the int32 bit pattern."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def cin_tf32(x0, xk, w, passes: int = 3):
+    """The arithmetic of the CUDA ``cin_fused`` kernel in PyTorch: Z formed
+    in float32 as x0 * xk, Z and W split into hi = rna(x) and lo = rna(x -
+    hi), ``lo*hi + hi*lo + hi*hi`` summed in float32 (``passes=1``: hi*hi
+    alone, single-pass TF32)."""
+    b, f0, d = x0.shape
+    z = torch.einsum("bid,bjd->bijd", x0, xk).reshape(b, -1, d)
+    zh, wh = tf32_rna(z), tf32_rna(w)
+    terms = [(wh, zh)]
+    if passes == 3:
+        terms = [(wh, tf32_rna(z - zh)), (tf32_rna(w - wh), zh)] + terms
+    return sum(torch.einsum("hf,bfd->bhd", a, c) for a, c in terms)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-12,
+                      1 + 2**-10 + 2**-11, 3.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0,
+                         1 + 2**-9, 3.0, -0.0], dtype=torch.float32)
+    assert torch.equal(tf32_rna(x), want)
+    hi = tf32_rna(x * 1.2345)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+
+
+@pytest.mark.parametrize("b,f0,fk,h", [(3, 39, 39, 200), (2, 39, 200, 200)])
+def test_cin_3xtf32_matches_pallas_at_full_widths(b, f0, fk, h):
+    """The CUDA kernel's 3xTF32 arithmetic, emulated, against the reference
+    Pallas kernel at the FULL layer widths (D = 10) within the card tests'
+    tolerance, 1e-4 * max|reference|; single-pass TF32 misses it there."""
+    x0, xk, w = cin_inputs(np.random.default_rng(b + fk), b, f0, fk, h, 10)
+    want = np.asarray(pallas_cin_fused(jnp.asarray(x0), jnp.asarray(xk),
+                                       jnp.asarray(w), tile_b=2,
+                                       interpret=True))
+    tx0, txk, tw = map(torch.from_numpy, (x0, xk, w))
+    scale = float(np.abs(want).max())
+    err3 = float(np.abs(cin_tf32(tx0, txk, tw).numpy() - want).max())
+    err1 = float(np.abs(cin_tf32(tx0, txk, tw, passes=1).numpy()
+                        - want).max())
+    assert err3 <= 1e-4 * scale, (err3, scale)
+    assert err3 <= 1e-5 * scale and err1 > 1e-4 * scale, (err3, err1, scale)
+
+
+def test_cin_3xtf32_smoke_logits_match_reference():
+    """xDeepFM SMOKE with the emulated kernel arithmetic in every CIN layer
+    against the reference forward, at the SMOKE logits tolerance (rtol
+    1e-5, atol 1e-6)."""
+    import jax.numpy as jnp_
+    from repro.configs import xdeepfm as RX
+    from repro.models import recsys as R
+    from repro_torch.configs import xdeepfm as TX
+    from repro_torch.core import convert
+    from repro_torch.models import recsys as TR
+    from test_torch_recsys import make_batch, numpy_params
+
+    params = numpy_params(RX.SMOKE, 1)
+    tparams = convert.xdeepfm_params_from_numpy(params, TX.SMOKE, "cpu").params()
+    hot, cold = make_batch(RX.SMOKE, 16, seed=3)
+    want = R.xdeepfm_logits(RX.SMOKE, params, {"hot_idx": jnp_.asarray(hot),
+                                               "cold_idx": jnp_.asarray(cold)})
+    got = TR.xdeepfm_logits(TX.SMOKE, tparams, torch.from_numpy(hot),
+                            torch.from_numpy(cold), cin_op=cin_tf32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
 
 
 # -------------------------------------------------------------- segment_bag
