@@ -11,11 +11,13 @@
    on this one partition.
 3. msBFS kernel phases, at the serving path's shapes: the three pulls of
    one sweep (dd, nd over the dn subgraph, dn over the nd subgraph) on a
-   real mid-BFS frontier, and the delegate OR fold over the p=2
-   partitions' candidate words. Each kernel must equal its plain PyTorch
-   version exactly (found words and work; both ``mask_reduce`` variants);
-   its time per call (CUDA events), the plain version's time and the bytes
-   bound are printed.
+   real mid-BFS frontier, in one launch of the sweep entry, and the
+   delegate OR fold over the p=2 partitions' candidate words. Each kernel
+   must equal its plain PyTorch version exactly (found words and work;
+   both ``mask_reduce`` variants) and a second pull launch the first; the
+   sweep launch's time (CUDA events), each pull's time alone, the plain
+   version's time, the bytes bound and each subgraph's row schedule
+   (rows and slots per length class, longest row) are printed.
 4. Serving path: ``warmup()``, then ``submit_many`` of 64 queries mixing the
    four bit kinds (at least two lane batches). Launch counts are zeroed
    just before and read just after; both kernels must have launched, two
@@ -24,8 +26,8 @@
 5. Single-source kernel phases: the three bit pulls of one sweep on a real
    mid-BFS frontier (2 sweeps from the highest-degree vertex) and the
    delegate min fold of the p=2 partitions' level candidates (both
-   variants), each against its plain version, exactly; the ELL contract
-   of the pull against its oracle on 3 random shapes.
+   variants), each against its plain version, exactly, timed as in 3; the
+   ELL contract of the pull against its oracle on 4 random shapes.
 6. Single-source path, Graph500 style: one warm-up BFS, then 16 search
    keys through ``run_bfs_emulated`` with the ``bfs-rmat`` FULL config
    (DO, pull_chunk=64, binned nn exchange, int32 min combine); each answer
@@ -33,8 +35,8 @@
    harmonic mean are printed. Then 4 of the keys under OPT2
    (``delegate_u8``, static exchange) and 4 under ``delegate="allgather"``:
    answers equal the FULL run's. Each run zeroes the launch counts before
-   and reads them after: 3 bit pulls per sweep, one min fold per sweep in
-   the allgather run only. One FULL BFS under ``torch.profiler``.
+   and reads them after: one pull launch (three pulls) per sweep, one min
+   fold per sweep in the allgather run only. One FULL BFS under ``torch.profiler``.
 7. Recsys path (xDeepFM ``FULL``: 39 fields, D=10, CIN 200-200-200, MLP
    400-400, 2^18 hot and 2^25 cold rows, seeded random weights), with
    TF32 off for matmuls and cuDNN (printed). ``ClickStream(39, 2^25,
@@ -58,7 +60,8 @@
    of the reference runs them) against their plain versions at the
    reference tests' shapes and one large shape each, and one
    ``serve_p99`` forward under ``torch.profiler``.
-8. Launch cost: for each of the seven wrappers at its path's shapes, and
+8. Launch cost: for each of the seven wrappers at its path's shapes (the
+   pulls both for one subgraph and as the sweep entry), and
    for ``torch.amin`` on the min fold's inputs, the host microseconds per
    call (host clock over 300 calls, then one synchronize); for the folds
    also the profiler's device microseconds per call. The folds and
@@ -139,6 +142,22 @@ def time_ms(fn, reps: int, rounds: int = 3) -> float:
     return per_call[len(per_call) // 2]
 
 
+def device_us(fn, name: str, reps: int = 30) -> float:
+    """The profiler's device microseconds per call of ``fn()`` in kernels
+    whose name holds ``name`` (after one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if name in ev.key) / reps
+
+
 def bound(nbytes: float, nops: float,
           ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -177,55 +196,125 @@ def mid_bfs_inputs(eng, g, sweeps: int = 2):
     return st, masks
 
 
+def schedule_line(csr) -> str:
+    """Class row counts, the slots in each class and the longest row of a
+    device CSR's pull schedule."""
+    from repro_torch.kernels import pull_schedule as PS
+
+    deg = (csr.offsets[:, 1:] - csr.offsets[:, :-1]).reshape(-1).long()
+    order = csr.sched.order.long()
+    parts, at = [], 0
+    for c, name in ((PS.LONG, "long"), (PS.MEDIUM, "medium"),
+                    (PS.SHORT, "short"), (PS.EMPTY, "empty")):
+        n = csr.sched.counts[c]
+        slots = int(deg[order[at:at + n]].sum())
+        parts.append(f"{name}={n} rows/{slots} slots")
+        at += n
+    return f"schedule {' '.join(parts)} longest={int(deg.max())}"
+
+
+def pull_sweep_phase(kernel: str, pulls, chunk: int, cuda_sweep, cuda_one,
+                     plain, nbytes_fn, sweep_case: str):
+    """The three pulls of one sweep: one launch of the sweep entry held
+    against the plain version of each pull, exactly (found and work), a
+    second launch bit-equal to the first; then the sweep launch timed, and
+    each pull alone (one launch each) for the table. ``pulls``: (name,
+    csr, frontier, need); returns the totals for the JSON line."""
+    import torch
+    from repro_torch.kernels import ops
+
+    args = [(csr.offsets, csr.cols, csr.sched, f, n) for _, csr, f, n in pulls]
+    got = cuda_sweep(args, chunk)
+    again = cuda_sweep(args, chunk)
+    wants = [plain(csr.offsets, csr.cols, f, n, chunk) for _, csr, f, n in pulls]
+    torch.cuda.synchronize()
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0, one_ms=0.0)
+    for (name, csr, f, n), (fk, wk), (fa, wa), (fp, wp) in zip(
+            pulls, got, again, wants):
+        err = max(int((fk.long() - fp.long()).abs().max()),
+                  int((wk.long() - wp.long()).abs().max()))
+        check(err == 0, f"{kernel} {name}: kernel != plain")
+        check(torch.equal(fk, fa) and torch.equal(wk, wa),
+              f"{kernel} {name}: two launches equal")
+        a = (csr.offsets, csr.cols, f, n, chunk)
+        one_ms = time_ms(lambda: cuda_one(*a, sched=csr.sched), reps=20)
+        plain_ms = time_ms(lambda: plain(*a), reps=1)
+        slots = int(wk.sum())
+        b_ms, b_by = bound(*nbytes_fn(csr, f, n, wk, slots))
+        check(b_by == "bytes", "pull bound is the memory stream")
+        p, r1 = csr.offsets.shape
+        print(f"kernel {kernel} [{name}]: rows={p * (r1 - 1)} "
+              f"active={int((n != 0).reshape(p, r1 - 1, -1).any(-1).sum())} "
+              f"E_max={csr.cols.shape[1]} chunk={chunk} slots_entered={slots} "
+              f"found_bits={int(torch.count_nonzero(fk))} ms(alone)="
+              f"{one_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+              f"exact=True; {schedule_line(csr)}")
+        total["one_ms"] += one_ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+        total["err"] = max(total["err"], err)
+    total["ms"] = time_ms(lambda: cuda_sweep(args, chunk), reps=20)
+    sweep_us = device_us(lambda: cuda_sweep(args, chunk), "pull_rows_kernel")
+    print(f"kernel {kernel} [sweep, one launch for 3 pulls]: ms="
+          f"{total['ms']:.4f} (3 launches alone: {total['one_ms']:.4f}) "
+          f"device_us={sweep_us:.1f} (profiler) plain_ms={total['plain_ms']:.4f} "
+          f"bound_ms={total['bound_ms']:.5f} "
+          f"ms/bound={total['ms'] / total['bound_ms']:.1f}")
+    # the critical path of the longest row: the dd pull with every other
+    # row's need cleared, against the same launch with no row active
+    _, csr, f, n = pulls[0]
+    p, r1 = csr.offsets.shape
+    flat = int(csr.sched.order[0])
+    rows = n.reshape(p * (r1 - 1), -1)
+    one = torch.zeros_like(rows)
+    one[flat] = rows[flat]
+    one, none = one.reshape(n.shape), torch.zeros_like(n)
+    run = lambda nd: lambda: cuda_one(csr.offsets, csr.cols, f, nd, chunk,
+                                      sched=csr.sched)
+    print(f"kernel {kernel} [{pulls[0][0]}, longest row only]: length="
+          f"{int(csr.sched.span[0, 1])} device_us="
+          f"{device_us(run(one), 'pull_rows_kernel'):.1f}; no row active: "
+          f"device_us={device_us(run(none), 'pull_rows_kernel'):.1f}; every "
+          f"row: device_us={device_us(run(n), 'pull_rows_kernel'):.1f}")
+    sweep = (ops.ell_pull_chunked_sweep if kernel == "ell_pull_multi"
+             else ops.ell_pull_bits_sweep)
+    ops_args = [(csr, f, n) for _, csr, f, n in pulls]
+    LAUNCH_CASES[sweep_case] = lambda: sweep(ops_args, chunk)
+    return total
+
+
 def kernel_phase_pull(eng, masks):
     """The three pulls of one sweep, kernel against plain version."""
-    import torch
     from repro_torch.core.comm import pack_lanes
     from repro_torch.kernels import ell_pull_multi as K
     from repro_torch.kernels import ops
 
     pgv, chunk = eng.pgv, eng.cfg.pull_chunk
+    words_d = pack_lanes(masks["frontier_d"])
     pulls = [
-        ("dd", pgv.dd, masks["unvis_d"] & pgv.dd_src_mask[:, :, None],
-         masks["frontier_d"]),
-        ("nd (walks dn)", pgv.dn, masks["unvis_d"] & pgv.dn_src_mask[:, :, None],
-         masks["frontier_n"]),
-        ("dn (walks nd)", pgv.nd, masks["unvis_n"] & pgv.nd_src_mask[:, :, None],
-         masks["frontier_d"]),
+        ("dd", pgv.dd, words_d,
+         pack_lanes(masks["unvis_d"] & pgv.dd_src_mask[:, :, None])),
+        ("nd (walks dn)", pgv.dn, pack_lanes(masks["frontier_n"]),
+         pack_lanes(masks["unvis_d"] & pgv.dn_src_mask[:, :, None])),
+        ("dn (walks nd)", pgv.nd, words_d,
+         pack_lanes(masks["unvis_n"] & pgv.nd_src_mask[:, :, None])),
     ]
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
-    for name, csr, need_rows, front_rows in pulls:
-        need, front = pack_lanes(need_rows), pack_lanes(front_rows)
-        args = (csr.offsets, csr.cols, front, need, chunk)
-        found_k, work_k = K.ell_pull_chunked_cuda(*args)
-        found_p, work_p = K.ell_pull_chunked_plain(*args)
-        if name == "dd":
-            LAUNCH_CASES["ell_pull_multi [dd]"] = (
-                lambda a=args: ops.ell_pull_chunked(*a))
-        torch.cuda.synchronize()
-        err = max(int((found_k.long() - found_p.long()).abs().max()),
-                  int((work_k.long() - work_p.long()).abs().max()))
-        check(err == 0, f"ell_pull_multi {name}: kernel != plain")
-        ms = time_ms(lambda: K.ell_pull_chunked_cuda(*args), reps=20)
-        plain_ms = time_ms(lambda: K.ell_pull_chunked_plain(*args), reps=1)
+    dd = pulls[0]
+    LAUNCH_CASES["ell_pull_multi [dd]"] = (
+        lambda: ops.ell_pull_chunked(dd[1].offsets, dd[1].cols, dd[2], dd[3],
+                                     chunk, dd[1].sched))
+
+    def nbytes(csr, front, need, work, slots):
         p, r1 = csr.offsets.shape
         nw = need.shape[-1]
-        slots = int(work_k.sum())
         frontier_bytes = min(front.numel() * 4, slots * nw * 4)
-        nbytes = (p * r1 * 4 + 2 * need.numel() * 4 + work_k.numel() * 4
-                  + slots * 4 + frontier_bytes)
-        b_ms, b_by = bound(nbytes, slots * nw)
-        check(b_by == "bytes", "pull bound is the memory stream")
-        print(f"kernel ell_pull_multi [{name}]: rows={p * (r1 - 1)} "
-              f"E_max={csr.cols.shape[1]} nw={nw} chunk={chunk} "
-              f"slots_entered={slots} found_bits="
-              f"{int(torch.count_nonzero(found_k))} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} exact=True")
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += b_ms
-        total["err"] = max(total["err"], err)
-    return total
+        return (p * r1 * 4 + 2 * need.numel() * 4 + work.numel() * 4
+                + slots * 4 + frontier_bytes), slots * nw
+
+    return pull_sweep_phase("ell_pull_multi", pulls, chunk,
+                            K.ell_pull_chunked_sweep_cuda,
+                            K.ell_pull_chunked_cuda, K.ell_pull_chunked_plain,
+                            nbytes, "ell_pull_multi [sweep]")
 
 
 def kernel_phase_fold(eng, masks):
@@ -280,17 +369,18 @@ def ell_contract_check(device) -> None:
                                                     ell_pull_chunked_cuda)
 
     rng = np.random.default_rng(0)
-    for r, k, n, nw in [(7, 4, 40, 1), (256, 32, 500, 2), (33, 70, 100, 3)]:
+    for r, k, n, nw in [(7, 4, 40, 1), (256, 32, 500, 2), (33, 70, 100, 3),
+                        (9, 3000, 700, 4)]:
         parents = torch.from_numpy(rng.integers(-1, n, (r, k)).astype(np.int32))
         fw = torch.from_numpy(rng.integers(-2**31, 2**31, (n, nw)).astype(np.int32))
         aw = torch.from_numpy(rng.integers(-2**31, 2**31, (r, nw)).astype(np.int32))
-        offsets, cols, chunk = ell_as_csr(parents.to(device))
+        offsets, cols, chunk, sched = ell_as_csr(parents.to(device))
         got, _ = ell_pull_chunked_cuda(offsets, cols, fw.to(device)[None],
-                                       aw.to(device)[None], chunk)
+                                       aw.to(device)[None], chunk, sched)
         want = ref.ell_pull_multi_ref(parents, fw, aw)
         torch.cuda.synchronize()
         check(torch.equal(got[0].cpu(), want), f"ELL contract r={r} k={k}")
-    print("kernel ell_pull_multi [ELL contract, 3 shapes]: exact=True")
+    print("kernel ell_pull_multi [ELL contract, 4 shapes]: exact=True")
 
 
 def report_profile(prof, wall_ms: float, header: str, names) -> dict:
@@ -349,7 +439,7 @@ def profile_batch(eng, queries) -> None:
     sweeps = eng.traversal_sweeps - sweeps0
     report_profile(prof, wall_ms,
                    f"one batch of {len(batch)} queries, sweeps={sweeps}",
-                   ("ell_pull_chunked_kernel", "mask_reduce_kernel"))
+                   ("pull_rows_kernel<pull::WordGather", "mask_reduce_kernel"))
 
 
 def mixed_queries(g, pg):
@@ -434,44 +524,28 @@ def kernel_phase_bit_pull(eng, masks, chunk: int):
     from repro_torch.kernels import ops
 
     pgv = eng.pgv
+    mask_d = pack_lanes(masks["frontier_d"])
+    act = lambda rows: rows.to(torch.int32)
     pulls = [
-        ("dd", pgv.dd, masks["unvis_d"] & pgv.dd_src_mask, masks["frontier_d"]),
-        ("nd (walks dn)", pgv.dn, masks["unvis_d"] & pgv.dn_src_mask,
-         masks["frontier_n"]),
-        ("dn (walks nd)", pgv.nd, masks["unvis_n"] & pgv.nd_src_mask,
-         masks["frontier_d"]),
+        ("dd", pgv.dd, mask_d, act(masks["unvis_d"] & pgv.dd_src_mask)),
+        ("nd (walks dn)", pgv.dn, pack_lanes(masks["frontier_n"]),
+         act(masks["unvis_d"] & pgv.dn_src_mask)),
+        ("dn (walks nd)", pgv.nd, mask_d,
+         act(masks["unvis_n"] & pgv.nd_src_mask)),
     ]
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
-    for name, csr, rows, front in pulls:
-        mask, active = pack_lanes(front), rows.to(torch.int32)
-        args = (csr.offsets, csr.cols, mask, active, chunk)
-        found_k, work_k = K.ell_pull_bits_cuda(*args)
-        found_p, work_p = K.ell_pull_bits_plain(*args)
-        if name == "dd":
-            LAUNCH_CASES["ell_pull [dd]"] = (
-                lambda a=args: ops.ell_pull_bits(*a))
-        torch.cuda.synchronize()
-        err = max(int((found_k.long() - found_p.long()).abs().max()),
-                  int((work_k.long() - work_p.long()).abs().max()))
-        check(err == 0, f"ell_pull {name}: kernel != plain")
-        ms = time_ms(lambda: K.ell_pull_bits_cuda(*args), reps=20)
-        plain_ms = time_ms(lambda: K.ell_pull_bits_plain(*args), reps=1)
+    dd = pulls[0]
+    LAUNCH_CASES["ell_pull [dd]"] = (
+        lambda: ops.ell_pull_bits(dd[1].offsets, dd[1].cols, dd[2], dd[3],
+                                  chunk, dd[1].sched))
+
+    def nbytes(csr, mask, active, work, slots):
         p, r1 = csr.offsets.shape
-        slots = int(work_k.sum())
-        nbytes = (p * r1 * 4 + 3 * active.numel() * 4 + slots * 4
-                  + min(mask.numel() * 4, slots * 4))
-        b_ms, b_by = bound(nbytes, slots)
-        check(b_by == "bytes", "pull bound is the memory stream")
-        print(f"kernel ell_pull [{name}]: rows={p * (r1 - 1)} "
-              f"active={int(active.sum())} E_max={csr.cols.shape[1]} "
-              f"chunk={chunk} slots_entered={slots} found="
-              f"{int(found_k.sum())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.5f} exact=True")
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += b_ms
-        total["err"] = max(total["err"], err)
-    return total
+        return (p * r1 * 4 + 3 * active.numel() * 4 + slots * 4
+                + min(mask.numel() * 4, slots * 4)), slots
+
+    return pull_sweep_phase("ell_pull", pulls, chunk,
+                            K.ell_pull_bits_sweep_cuda, K.ell_pull_bits_cuda,
+                            K.ell_pull_bits_plain, nbytes, "ell_pull [sweep]")
 
 
 def kernel_phase_min_fold(eng, st, masks):
@@ -538,17 +612,18 @@ def ell_pull_contract_check(device) -> int:
     from repro_torch.kernels.ell_pull_multi import ell_as_csr
 
     rng = np.random.default_rng(1)
-    for r, w, n in [(7, 4, 40), (256, 32, 1000), (300, 70, 333)]:
+    for r, w, n in [(7, 4, 40), (256, 32, 1000), (300, 70, 333),
+                    (9, 3000, 700)]:
         parents = torch.from_numpy(rng.integers(-1, n, (r, w)).astype(np.int32))
         mask = ref.pack_bitmask(torch.from_numpy(rng.random(n) < 0.3))
         active = torch.from_numpy(rng.integers(0, 2, r).astype(np.int32))
-        offsets, cols, chunk = ell_as_csr(parents.to(device))
+        offsets, cols, chunk, sched = ell_as_csr(parents.to(device))
         got, _ = ell_pull_bits_cuda(offsets, cols, mask.to(device)[None],
-                                    active.to(device)[None], chunk)
+                                    active.to(device)[None], chunk, sched)
         want = ref.ell_pull_ref(parents, mask, active)
         torch.cuda.synchronize()
         check(torch.equal(got[0].cpu(), want), f"ELL contract r={r} w={w}")
-    print("kernel ell_pull [ELL contract, 3 shapes]: exact=True")
+    print("kernel ell_pull [ELL contract, 4 shapes]: exact=True")
     return 0
 
 
@@ -593,8 +668,8 @@ def run_bfs_keys(eng, g, cfg, keys, csr, want_levels=None):
 def check_bfs_launches(recs, name: str) -> None:
     for r in recs:
         la = r["launches"]
-        check(la["ell_pull"] == 3 * r["sweeps"],
-              f"{name}: ell_pull launches == 3 x sweeps")
+        check(la["ell_pull"] == r["sweeps"],
+              f"{name}: ell_pull launches == sweeps (one for 3 pulls)")
         check(la["payload_min_fold"] == (r["sweeps"] if name == "allgather"
                                          else 0),
               f"{name}: payload_min_fold launches")
@@ -665,7 +740,8 @@ def profile_bfs(eng, src: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     return report_profile(prof, wall_ms,
                           f"one FULL BFS from {src}, sweeps={int(out.it[0])}",
-                          ("ell_pull_bits_kernel", "payload_min_fold_kernel"))
+                          ("pull_rows_kernel<pull::BitGather>",
+                           "payload_min_fold_kernel"))
 
 
 # ---------------------------------------------------------------- recsys path
@@ -1274,14 +1350,14 @@ def run() -> None:
     print(f"serve: wire_delegate_bytes={s.wire_delegate_bytes} "
           f"wire_nn_bytes={s.wire_nn_bytes} nn_overflow={s.nn_overflow} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
-    print(f"launches: {launches} (3 pulls + 1 fold per sweep)")
+    print(f"launches: {launches} (1 pull launch + 1 fold per sweep)")
     check(s.batches >= 2, "at least two lane batches")
     check(s.nn_overflow == 0, "no nn slot dropped")
     check(launches["ell_pull_multi"] > 0 and launches["mask_reduce"] > 0,
           "both kernels launched")
     check(launches["ell_pull"] == 0 and launches["payload_min_fold"] == 0,
           "no single-source kernel on the serving path")
-    check(launches["ell_pull_multi"] == 3 * sweeps
+    check(launches["ell_pull_multi"] == sweeps
           and launches["mask_reduce"] == sweeps, "launches per sweep")
 
     csr = O.csr_from_coo(g)
@@ -1375,8 +1451,8 @@ def run() -> None:
          "replaces": "src/repro/kernels/ell_pull_payload.py:64",
          **recsys["ell_pull_payload"]},
     ]
-    print("ell_pull_multi / ell_pull ms, plain_ms, bound_ms: sum of one "
-          "sweep's three pulls; mask_reduce / payload_min_fold: the "
+    print("ell_pull_multi / ell_pull ms: one launch of a sweep's three "
+          "pulls; plain_ms, bound_ms: sum of the three; mask_reduce / payload_min_fold: the "
           "with_count=False fold of the path. Launches: ell_pull_multi and "
           "mask_reduce over the 64-query serving run, ell_pull over the 16 "
           "FULL search keys, payload_min_fold over the 4 allgather keys. "

@@ -19,9 +19,10 @@ factors per DO subgraph, in float32 with the reference's expression order.
 Every function works on the *stacked* partition axis (the emulated
 backend -- the reference's ``vmap(axis_name="p")``): tensors carry a
 leading ``p`` dimension and the collectives run over it. Pushes are
-edge-parallel gathers and scatter-ORs; each pull is one launch of the
-fused chunked bit-pull kernel (``kernels.ops.ell_pull_bits``) for every
-partition, so no host round trip happens per chunk. The host driver
+edge-parallel gathers and scatter-ORs; the three pulls of a sweep are
+one launch of the fused chunked bit-pull kernel
+(``kernels.ops.ell_pull_bits_sweep``) for every partition, so no host
+round trip happens per chunk. The host driver
 :func:`run_bfs_emulated` reads one scalar per sweep for its loop
 condition. The state has the reference's leaves, shapes and dtypes, so
 states compare leaf by leaf after every sweep.
@@ -43,6 +44,7 @@ from . import comm
 from .comm import pack_lanes
 from .types import CSR, INF_LEVEL, PartitionedGraph, PartitionLayout
 from repro_torch.kernels import ops
+from repro_torch.kernels.pull_schedule import build_schedule
 
 # The delegate level reduction is the "min" combine: its identity is
 # INF_LEVEL, so unvisited candidates ride the reduction as the identity.
@@ -130,21 +132,23 @@ def resolve_device(device) -> torch.device:
 
 def _csr_view(csr: CSR, n_dst: int, device) -> CSR:
     put = lambda a: torch.as_tensor(np.asarray(a)).to(device)
-    rowids, cols = put(csr.rowids), put(csr.cols)
+    rowids, cols, offsets = put(csr.rowids), put(csr.cols), put(csr.offsets)
     p = rowids.shape[0]
     ks = torch.arange(p, device=rowids.device)[:, None]
     return CSR(
-        offsets=put(csr.offsets), cols=cols, rowids=rowids, m=put(csr.m),
+        offsets=offsets, cols=cols, rowids=rowids, m=put(csr.m),
         eidx=None, n_rows=csr.n_rows, e_max=csr.e_max,
         flat_rows=(rowids.long() + ks * (csr.n_rows + 1)).reshape(-1),
-        flat_cols=(cols.long() + ks * n_dst).reshape(-1))
+        flat_cols=(cols.long() + ks * n_dst).reshape(-1),
+        sched=build_schedule(offsets))
 
 
 def device_view(pg: PartitionedGraph, device="cuda") -> PartitionedGraph:
     """All data leaves as tensors on ``device``, with a leading partition
     axis (delegate ids tiled to ``[p, d]`` int32); the host-only edge index
     (``eidx``) is stripped. Each CSR also carries its flattened sweep
-    indices (see :class:`~repro_torch.core.types.CSR`)."""
+    indices and its pull schedule (see
+    :class:`~repro_torch.core.types.CSR`)."""
     dev = resolve_device(device)
     put = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
     dslots = max(pg.d, 1)
@@ -259,17 +263,17 @@ def _dense_slots(plan, sa: torch.Tensor) -> torch.Tensor:
     return dense.reshape((p, p, plan.cap_peer) + lanes)
 
 
-def _pull_chunked(csr: CSR, rows_active: torch.Tensor,
-                  col_frontier: torch.Tensor, chunk: int):
-    """Bottom-up pull, one kernel launch for every partition: rows scan
-    their parent lists chunk by chunk and drop out after the first chunk
-    holding a frontier parent (paper Section IV-B). ``col_frontier [p, N]``
-    ships as its bit-packed mask. Returns ``(found [p, R] bool, work [p]
-    int32)``."""
-    found, work = ops.ell_pull_bits(
-        csr.offsets, csr.cols, pack_lanes(col_frontier),
-        rows_active.to(torch.int32), chunk)
-    return found > 0, work.sum(1, dtype=torch.int32)
+def _pull_sweep(pulls, chunk: int):
+    """The bottom-up pulls of a sweep, one kernel launch for all three
+    subgraphs and every partition: rows scan their parent lists chunk by
+    chunk and drop out after the first chunk holding a frontier parent
+    (paper Section IV-B). ``pulls`` holds ``(csr, rows_active [p, R] bool,
+    col_mask [p, ceil(N/32)])``, the column domain's frontier bit-packed.
+    Returns ``(found [p, R] bool, work [p] int32)`` per pull."""
+    out = ops.ell_pull_bits_sweep(
+        [(csr, mask, act.to(torch.int32)) for csr, act, mask in pulls], chunk)
+    return [(found > 0, work.sum(1, dtype=torch.int32))
+            for found, work in out]
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -347,23 +351,24 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
     # Here each pull's active rows are masked by its partition's direction,
     # so a forward partition's rows exit at once: the same found rows where
     # the pull is selected, and work 0 exactly where the reference discards
-    # it. Three launches per sweep either way.
+    # it. One launch pulls all three subgraphs: dd, nd (walks the dn
+    # subgraph), dn (walks the nd subgraph).
+    mask_d = pack_lanes(frontier_d)
+    (pull_dd, work_dd_b), (pull_nd, work_nd_b), (pull_dn, work_dn_b) = \
+        _pull_sweep([(pgv.dd, unvis_d & dd_m & bwd_dd, mask_d),
+                     (pgv.dn, unvis_d & dn_m & bwd_nd, pack_lanes(frontier_n)),
+                     (pgv.nd, unvis_n & nd_m & bwd_dn, mask_d)], chunk)
+
     # ---- dd: delegate -> delegate ----------------------------------------
     push_dd = _push_fused(pgv.dd, frontier_d, d)
-    pull_dd, work_dd_b = _pull_chunked(pgv.dd, unvis_d & dd_m & bwd_dd,
-                                       frontier_d, chunk)
     cand_dd = torch.where(bwd_dd, pull_dd, push_dd)
 
-    # ---- nd: normal -> delegate (pull walks the dn subgraph) --------------
+    # ---- nd: normal -> delegate -------------------------------------------
     push_nd = _push_fused(pgv.nd, frontier_n, d)
-    pull_nd, work_nd_b = _pull_chunked(pgv.dn, unvis_d & dn_m & bwd_nd,
-                                       frontier_n, chunk)
     cand_nd = torch.where(bwd_nd, pull_nd, push_nd)
 
-    # ---- dn: delegate -> normal (pull walks the nd subgraph) --------------
+    # ---- dn: delegate -> normal -------------------------------------------
     push_dn = _push_fused(pgv.dn, frontier_d, nl)
-    pull_dn, work_dn_b = _pull_chunked(pgv.nd, unvis_n & nd_m & bwd_dn,
-                                       frontier_d, chunk)
     new_n_local = torch.where(bwd_dn, pull_dn, push_dn)
 
     # ---- nn: normal -> normal, forward only, remote exchange --------------

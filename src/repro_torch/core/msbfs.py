@@ -7,9 +7,9 @@ visited/frontier bit):
 
 * **push** is a scatter-OR of lane words along edges;
 * **pull** is the chunked parent scan with *word-OR early exit*, fused
-  into one kernel launch per subgraph (``kernels.ops.ell_pull_chunked``):
-  a row stops scanning once its accumulated parent word covers all of its
-  still-unvisited lanes;
+  into one kernel launch for the three subgraphs of a sweep
+  (``kernels.ops.ell_pull_chunked_sweep``): a row stops scanning once its
+  accumulated parent word covers all of its still-unvisited lanes;
 * **delegate reduction** packs the candidate lanes to ``[d, n_words]``
   words and OR-combines them over the partitions (all-gather + the
   ``mask_reduce`` fold kernel);
@@ -267,17 +267,16 @@ def _nn_slots_multi(csr: CSR, frontier_rows: torch.Tensor, plan):
     return sa, act.reshape(p, -1).sum(1)
 
 
-def _pull_chunked_multi(csr: CSR, rows_need: torch.Tensor,
-                        col_frontier: torch.Tensor, chunk: int):
-    """Chunked bottom-up pull with word-OR early exit, one kernel launch
-    for every partition: ``rows_need [p, R, W]`` lanes each row still
-    wants, ``col_frontier [p, N, W]`` the frontier of the column domain.
-    Returns ``(found [p, R, W] bool, work [p])``."""
-    w = rows_need.shape[-1]
-    found, work = ops.ell_pull_chunked(
-        csr.offsets, csr.cols, pack_lanes(col_frontier),
-        pack_lanes(rows_need), chunk)
-    return unpack_lanes(found, w), work.sum(1)
+def _pull_sweep_multi(pulls, chunk: int):
+    """The chunked bottom-up pulls of a sweep with word-OR early exit, one
+    kernel launch for all three subgraphs and every partition: ``pulls``
+    holds ``(csr, rows_need [p, R, W], col_words [p, N, n_words(W)])``,
+    the lanes each row still wants and the column domain's packed frontier
+    words. Returns ``(found [p, R, W] bool, work [p])`` per pull."""
+    w = pulls[0][1].shape[-1]
+    out = ops.ell_pull_chunked_sweep(
+        [(csr, words, pack_lanes(need)) for csr, need, words in pulls], chunk)
+    return [(unpack_lanes(found, w), work.sum(1)) for found, work in out]
 
 
 def _lane_degree_sum(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
@@ -350,23 +349,27 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     bwd_dd, bwd_dn, bwd_nd = (backward[:, i, None, :] for i in range(3))
 
     # Lanes in forward mode push their frontier word; lanes in backward
-    # mode pull into their unvisited word; the per-lane merge is an OR.
+    # mode pull into their unvisited word; the per-lane merge is an OR. One
+    # launch pulls all three subgraphs: dd, nd (walks the dn subgraph), dn
+    # (walks the nd subgraph).
+    words_d = pack_lanes(frontier_d)
+    (pull_dd, work_dd_b), (pull_nd, work_nd_b), (pull_dn, work_dn_b) = \
+        _pull_sweep_multi([(pgv.dd, unvis_d & dd_m & bwd_dd, words_d),
+                           (pgv.dn, unvis_d & dn_m & bwd_nd,
+                            pack_lanes(frontier_n)),
+                           (pgv.nd, unvis_n & nd_m & bwd_dn, words_d)],
+                          cfg.pull_chunk)
+
     # ---- dd: delegate -> delegate ----------------------------------------
     push_dd = _push_multi(pgv.dd, frontier_d & ~bwd_dd, d)
-    pull_dd, work_dd_b = _pull_chunked_multi(
-        pgv.dd, unvis_d & dd_m & bwd_dd, frontier_d, cfg.pull_chunk)
     cand_dd = push_dd | pull_dd
 
-    # ---- nd: normal -> delegate (pull walks the dn subgraph) --------------
+    # ---- nd: normal -> delegate -------------------------------------------
     push_nd = _push_multi(pgv.nd, frontier_n & ~bwd_nd, d)
-    pull_nd, work_nd_b = _pull_chunked_multi(
-        pgv.dn, unvis_d & dn_m & bwd_nd, frontier_n, cfg.pull_chunk)
     cand_nd = push_nd | pull_nd
 
-    # ---- dn: delegate -> normal (pull walks the nd subgraph) --------------
+    # ---- dn: delegate -> normal -------------------------------------------
     push_dn = _push_multi(pgv.dn, frontier_d & ~bwd_dn, nl)
-    pull_dn, work_dn_b = _pull_chunked_multi(
-        pgv.nd, unvis_n & nd_m & bwd_dn, frontier_d, cfg.pull_chunk)
     cand_dn = push_dn | pull_dn
 
     # ---- nn: normal -> normal, forward only, static slot exchange ---------

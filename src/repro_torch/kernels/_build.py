@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``build/repro_torch/`` at the repository root, named by a hash of the
-source and the flags -- an edited source rebuilds, an unchanged one is
-reused. The first use builds every missing library, one ``nvcc`` per
+source, the shared headers (``csrc/*.cuh``) and the flags -- an edited
+source or header rebuilds, an unchanged one is reused. The first use builds every missing library, one ``nvcc`` per
 source, all started together. Nothing is built or loaded at import time:
 the CPU test suite imports these modules on machines without ``nvcc``.
 
@@ -55,7 +55,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

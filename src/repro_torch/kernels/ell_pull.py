@@ -8,13 +8,17 @@ parent:
                has bit (u & 31) of word (u >> 5) of the mask set
     work[r]  = in-row parent slots of every chunk entered
 
-Two entry points share one CUDA kernel (``csrc/ell_pull.cu``):
+Three entry points share one CUDA kernel (``csrc/ell_pull.cu``, the bit
+instantiation of ``csrc/pull_rows.cuh``), scheduled by row length
+(:mod:`~repro_torch.kernels.pull_schedule`):
 
-* :func:`ell_pull_bits_cuda` -- the main path: a stacked CSR (offsets
-  ``[p, R+1]``, cols ``[p, E]``), the column domain's frontier mask
-  ``[p, ceil(N/32)]`` (packed by ``core.comm.pack_lanes`` over the vertex
-  axis) and active rows ``[p, R]``; returns found ``[p, R]`` and work
-  ``[p, R]``. One launch pulls one subgraph for every emulated partition.
+* :func:`ell_pull_bits_sweep_cuda` -- the main path: the three pulls of a
+  sweep in one launch, each a stacked CSR (offsets ``[p, R+1]``, cols
+  ``[p, E]``, its schedule), the column domain's frontier mask ``[p,
+  ceil(N/32)]`` (packed by ``core.comm.pack_lanes`` over the vertex axis)
+  and active rows ``[p, R]``; returns found ``[p, R]`` and work ``[p, R]``
+  for each.
+* :func:`ell_pull_bits_cuda` -- one subgraph, every emulated partition.
 * the reference kernel's ELL contract (parents ``[R, W]`` -1 padded, one
   chunk of width W, negative columns skipped), through
   :func:`~repro_torch.kernels.ell_pull_multi.ell_as_csr` in ``ops.ell_pull``.
@@ -25,16 +29,10 @@ card). All tensors are int32; mask words are int32 bit patterns.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import _build
+from . import pull_schedule
 from .ell_pull_multi import ell_pull_chunked_plain
-
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p)
 
 
 def _check_stacked(offsets, cols, mask, active, chunk):
@@ -71,21 +69,34 @@ def ell_pull_bits_plain(offsets: torch.Tensor, cols: torch.Tensor,
     return found[..., 0], work
 
 
+def ell_pull_bits_sweep_cuda(pulls, chunk: int):
+    """Launch ``csrc/ell_pull.cu`` once over ``pulls`` (one to three
+    ``(offsets, cols, sched, mask, active)``; ``sched`` None builds the
+    schedule here, with one host read) on the current stream -> a list of
+    ``(found, work)``. Inputs are checked here (the kernel trusts them,
+    column ids included: each must be < 32 * mask.shape[1]); raises if the
+    launch fails."""
+    if not 1 <= len(pulls) <= pull_schedule.MAX_GRAPHS:
+        raise ValueError(f"ell_pull: 1..{pull_schedule.MAX_GRAPHS} pulls a "
+                         f"launch, got {len(pulls)}")
+    graphs, masks, actives, outs = [], [], [], []
+    for offsets, cols, sched, mask, active in pulls:
+        _check_stacked(offsets, cols, mask, active, chunk)
+        if sched is None:
+            sched = pull_schedule.build_schedule(offsets)
+        graphs.append((offsets, cols, sched))
+        masks.append(mask)
+        actives.append(active)
+        outs.append((torch.empty_like(active), torch.empty_like(active)))
+    pull_schedule.launch("ell_pull", "ell_pull_bits_sweep", graphs, masks,
+                         actives, outs, chunk, 1, [m.shape[1] for m in masks])
+    return outs
+
+
 def ell_pull_bits_cuda(offsets: torch.Tensor, cols: torch.Tensor,
-                       mask: torch.Tensor, active: torch.Tensor, chunk: int):
-    """Launch ``csrc/ell_pull.cu`` on the current stream -> (found, work).
-    Inputs are checked here (the kernel trusts them, column ids included:
-    each must be < 32 * mask.shape[1]); raises if the launch fails."""
-    _check_stacked(offsets, cols, mask, active, chunk)
-    dev = _build.require("ell_pull", torch.int32,
-                         ("offsets", "cols", "mask", "active"), offsets,
-                         cols, mask, active)
-    p, r1 = offsets.shape
-    found = torch.empty_like(active)
-    work = torch.empty_like(active)
-    _build.launch("ell_pull",
-                  _build.function("ell_pull", "ell_pull_bits", _ARGTYPES), dev,
-                  offsets.data_ptr(), cols.data_ptr(), mask.data_ptr(),
-                  active.data_ptr(), found.data_ptr(), work.data_ptr(),
-                  p, r1 - 1, cols.shape[1], mask.shape[1], chunk)
-    return found, work
+                       mask: torch.Tensor, active: torch.Tensor, chunk: int,
+                       sched=None):
+    """One subgraph through :func:`ell_pull_bits_sweep_cuda` -> (found,
+    work)."""
+    return ell_pull_bits_sweep_cuda([(offsets, cols, sched, mask, active)],
+                                    chunk)[0]

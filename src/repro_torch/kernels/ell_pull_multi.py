@@ -7,15 +7,19 @@ needs:
     found[r] = (OR_{u in parents(r), chunks entered} frontier[u]) & need[r]
     work[r]  = parent slots of every chunk entered
 
-Two entry points share one CUDA kernel (``csrc/ell_pull_multi.cu``):
+Three entry points share one CUDA kernel (``csrc/ell_pull_multi.cu``, the
+word instantiation of ``csrc/pull_rows.cuh``), scheduled by row length
+(:mod:`~repro_torch.kernels.pull_schedule`):
 
-* :func:`ell_pull_chunked_cuda` -- the main path: a stacked CSR (offsets
-  ``[p, R+1]``, cols ``[p, E]``), frontier words ``[p, N, nw]``, need words
-  ``[p, R, nw]``; returns found ``[p, R, nw]`` and work ``[p, R]``. One
-  launch pulls one subgraph for every emulated partition.
-* :func:`ell_pull_multi_cuda` -- the reference kernel's ELL contract
-  (parents ``[R, K]`` -1 padded, one chunk of width K, negative columns
-  skipped): ``(OR of valid parents) & active``.
+* :func:`ell_pull_chunked_sweep_cuda` -- the main path: the three pulls of
+  a sweep in one launch, each a stacked CSR (offsets ``[p, R+1]``, cols
+  ``[p, E]``, its schedule), frontier words ``[p, N, nw]`` and need words
+  ``[p, R, nw]``; returns found ``[p, R, nw]`` and work ``[p, R]`` for
+  each.
+* :func:`ell_pull_chunked_cuda` -- one subgraph, every emulated partition.
+* the reference kernel's ELL contract (parents ``[R, K]`` -1 padded, one
+  chunk of width K, negative columns skipped): ``(OR of valid parents) &
+  active``, through :func:`ell_as_csr` in ``ops.ell_pull_multi``.
 
 :func:`ell_pull_chunked_plain` computes the main-path function in plain
 PyTorch (the CPU path and the reference the kernel is held against on the
@@ -23,19 +27,12 @@ card). Words are int32 bit patterns.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import _build
+from . import pull_schedule
 from .mask_reduce import or_fold
 
 MAX_WORDS = 4      # lane words per vertex the kernel is instantiated for
-
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p)
 
 
 def _check_stacked(offsets, cols, frontier, need):
@@ -91,37 +88,57 @@ def ell_pull_chunked_plain(offsets: torch.Tensor, cols: torch.Tensor,
     return (acc & need_f).reshape(p, r, nw), work.reshape(p, r)
 
 
-def ell_pull_chunked_cuda(offsets: torch.Tensor, cols: torch.Tensor,
-                          frontier: torch.Tensor, need: torch.Tensor,
-                          chunk: int):
-    """Launch ``csrc/ell_pull_multi.cu`` on the current stream -> (found,
-    work). Inputs are checked here (the kernel trusts them); raises if the
-    launch fails."""
-    _check_stacked(offsets, cols, frontier, need)
-    dev = _build.require("ell_pull_multi", torch.int32,
-                         ("offsets", "cols", "frontier", "need"), offsets,
-                         cols, frontier, need)
-    p, r1 = offsets.shape
-    nw = frontier.shape[2]
+def ell_pull_chunked_sweep_cuda(pulls, chunk: int):
+    """Launch ``csrc/ell_pull_multi.cu`` once over ``pulls`` (one to three
+    ``(offsets, cols, sched, frontier, need)`` with one word count;
+    ``sched`` None builds the schedule here, with one host read) on the
+    current stream -> a list of ``(found, work)``. Inputs are checked here
+    (the kernel trusts them); raises if the launch fails."""
+    if not 1 <= len(pulls) <= pull_schedule.MAX_GRAPHS:
+        raise ValueError(f"ell_pull: 1..{pull_schedule.MAX_GRAPHS} pulls a "
+                         f"launch, got {len(pulls)}")
+    if chunk <= 0:
+        raise ValueError(f"ell_pull: chunk must be > 0, got {chunk}")
+    nw = pulls[0][3].shape[-1] if pulls[0][3].dim() == 3 else 0
     if not 1 <= nw <= MAX_WORDS:
         raise ValueError(f"ell_pull: {nw} lane words per vertex; the kernel "
                          f"takes 1..{MAX_WORDS} (W <= {32 * MAX_WORDS})")
-    if chunk <= 0:
-        raise ValueError(f"ell_pull: chunk must be > 0, got {chunk}")
-    found = torch.empty_like(need)
-    work = torch.empty((p, r1 - 1), dtype=torch.int32, device=need.device)
-    _build.launch("ell_pull_multi", _build.function(
-        "ell_pull_multi", "ell_pull_chunked", _ARGTYPES), dev,
-        offsets.data_ptr(), cols.data_ptr(), frontier.data_ptr(),
-        need.data_ptr(), found.data_ptr(), work.data_ptr(),
-        p, r1 - 1, cols.shape[1], frontier.shape[1], nw, chunk)
-    return found, work
+    graphs, fronts, needs, outs = [], [], [], []
+    for offsets, cols, sched, frontier, need in pulls:
+        _check_stacked(offsets, cols, frontier, need)
+        if frontier.shape[2] != nw:
+            raise ValueError("ell_pull: the pulls of one launch share their "
+                             f"word count, got {nw} and {frontier.shape[2]}")
+        if sched is None:
+            sched = pull_schedule.build_schedule(offsets)
+        graphs.append((offsets, cols, sched))
+        fronts.append(frontier)
+        needs.append(need)
+        outs.append((torch.empty_like(need),
+                     torch.empty(need.shape[:2], dtype=torch.int32,
+                                 device=need.device)))
+    pull_schedule.launch("ell_pull_multi", "ell_pull_words_sweep", graphs,
+                         fronts, needs, outs, chunk, nw,
+                         [f.shape[1] for f in fronts])
+    return outs
+
+
+def ell_pull_chunked_cuda(offsets: torch.Tensor, cols: torch.Tensor,
+                          frontier: torch.Tensor, need: torch.Tensor,
+                          chunk: int, sched=None):
+    """One subgraph through :func:`ell_pull_chunked_sweep_cuda` -> (found,
+    work)."""
+    return ell_pull_chunked_sweep_cuda(
+        [(offsets, cols, sched, frontier, need)], chunk)[0]
 
 
 def ell_as_csr(parents: torch.Tensor):
     """The ELL contract as a one-partition stacked CSR: every row owns K
-    consecutive slots (-1 padding included), pulled as one chunk of K."""
+    consecutive slots (-1 padding included), pulled as one chunk of K.
+    Returns ``(offsets, cols, chunk, sched)``, the schedule built on the
+    fly (every row in one class)."""
     r, k = parents.shape
     offsets = (torch.arange(r + 1, device=parents.device,
                             dtype=torch.int32) * k)[None]
-    return offsets, parents.reshape(1, r * k), max(k, 1)
+    return (offsets, parents.reshape(1, r * k), max(k, 1),
+            pull_schedule.uniform_schedule(1, r, k, parents.device))

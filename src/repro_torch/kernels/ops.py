@@ -14,9 +14,11 @@ from __future__ import annotations
 import torch
 
 from .cin_fused import cin_fused_cuda, cin_fused_plain
-from .ell_pull import ell_pull_bits_cuda, ell_pull_bits_plain
+from .ell_pull import (ell_pull_bits_cuda, ell_pull_bits_plain,
+                       ell_pull_bits_sweep_cuda)
 from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
-                             ell_pull_chunked_plain)
+                             ell_pull_chunked_plain,
+                             ell_pull_chunked_sweep_cuda)
 from .ell_pull_payload import ell_pull_payload_cuda, ell_pull_payload_plain
 from .mask_reduce import (mask_reduce_cuda, mask_reduce_plain,
                           payload_min_fold_cuda, payload_min_fold_plain)
@@ -51,45 +53,76 @@ def _on_cuda(first: torch.Tensor, *rest: torch.Tensor) -> bool:
     return False
 
 
-def ell_pull_chunked(offsets, cols, frontier, need, chunk: int):
+def ell_pull_chunked(offsets, cols, frontier, need, chunk: int, sched=None):
     """Main-path pull of one subgraph for every stacked partition:
     ``(found [p, R, nw], work [p, R])`` (see
-    :mod:`repro_torch.kernels.ell_pull_multi`)."""
+    :mod:`repro_torch.kernels.ell_pull_multi`); ``sched`` is the CSR's row
+    schedule (built on the fly where None)."""
     if _on_cuda(offsets, cols, frontier, need):
-        out = ell_pull_chunked_cuda(offsets, cols, frontier, need, chunk)
+        out = ell_pull_chunked_cuda(offsets, cols, frontier, need, chunk,
+                                    sched)
         LAUNCHES["ell_pull_multi"] += 1
         return out
     return ell_pull_chunked_plain(offsets, cols, frontier, need, chunk)
+
+
+def ell_pull_chunked_sweep(pulls, chunk: int):
+    """The three pulls of an msBFS sweep in one launch: ``pulls`` holds
+    ``(csr, frontier [p, N, nw], need [p, R, nw])`` per subgraph (``csr`` a
+    device CSR: offsets, cols and its schedule ``sched``) -> a list of
+    ``(found, work)``, as :func:`ell_pull_chunked` gives each."""
+    if _on_cuda(*(t for c, f, n in pulls for t in (c.offsets, c.cols, f, n))):
+        out = ell_pull_chunked_sweep_cuda(
+            [(c.offsets, c.cols, c.sched, f, n) for c, f, n in pulls], chunk)
+        LAUNCHES["ell_pull_multi"] += 1
+        return out
+    return [ell_pull_chunked_plain(c.offsets, c.cols, f, n, chunk)
+            for c, f, n in pulls]
 
 
 def ell_pull_multi(parents, frontier_words, active_words):
     """The reference kernel's ELL contract: ``parents [R, K]`` int32 (-1
     padded), ``frontier_words [N, NW]``, ``active_words [R, NW]`` ->
     ``(OR of valid parents' words) & active`` ``[R, NW]``."""
-    offsets, cols, chunk = ell_as_csr(parents)
+    offsets, cols, chunk, sched = ell_as_csr(parents)
     found, _ = ell_pull_chunked(offsets, cols, frontier_words[None],
-                                active_words[None], chunk)
+                                active_words[None], chunk, sched)
     return found[0]
 
 
-def ell_pull_bits(offsets, cols, mask, active, chunk: int):
+def ell_pull_bits(offsets, cols, mask, active, chunk: int, sched=None):
     """Main-path single-bit pull of one subgraph for every stacked
     partition: ``(found [p, R], work [p, R])`` int32 (see
-    :mod:`repro_torch.kernels.ell_pull`)."""
+    :mod:`repro_torch.kernels.ell_pull`); ``sched`` is the CSR's row
+    schedule (built on the fly where None)."""
     if _on_cuda(offsets, cols, mask, active):
-        out = ell_pull_bits_cuda(offsets, cols, mask, active, chunk)
+        out = ell_pull_bits_cuda(offsets, cols, mask, active, chunk, sched)
         LAUNCHES["ell_pull"] += 1
         return out
     return ell_pull_bits_plain(offsets, cols, mask, active, chunk)
+
+
+def ell_pull_bits_sweep(pulls, chunk: int):
+    """The three pulls of a single-source sweep in one launch: ``pulls``
+    holds ``(csr, mask [p, ceil(N/32)], active [p, R])`` per subgraph
+    (``csr`` a device CSR: offsets, cols and its schedule ``sched``) -> a
+    list of ``(found, work)``, as :func:`ell_pull_bits` gives each."""
+    if _on_cuda(*(t for c, m, a in pulls for t in (c.offsets, c.cols, m, a))):
+        out = ell_pull_bits_sweep_cuda(
+            [(c.offsets, c.cols, c.sched, m, a) for c, m, a in pulls], chunk)
+        LAUNCHES["ell_pull"] += 1
+        return out
+    return [ell_pull_bits_plain(c.offsets, c.cols, m, a, chunk)
+            for c, m, a in pulls]
 
 
 def ell_pull(parents, frontier_mask, active):
     """The reference kernel's ELL contract: ``parents [R, W]`` int32 (-1
     padded), ``frontier_mask [ceil(N/32)]`` int32 bit patterns, ``active
     [R]`` int32 (1 = row active) -> ``found [R]`` int32 0/1."""
-    offsets, cols, chunk = ell_as_csr(parents)
+    offsets, cols, chunk, sched = ell_as_csr(parents)
     found, _ = ell_pull_bits(offsets, cols, frontier_mask[None],
-                             active[None], chunk)
+                             active[None], chunk, sched)
     return found[0]
 
 

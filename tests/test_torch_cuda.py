@@ -15,9 +15,11 @@ from repro_torch.configs.xdeepfm import SMOKE
 from repro_torch.core import bfs as TB, comm as TC, convert, engine as TE
 from repro_torch.core.partition import partition_graph
 from repro_torch.graphs.rmat import pick_sources, rmat_graph
+from repro_torch.core.types import CSR
 from repro_torch.kernels import ops
 from repro_torch.kernels.cin_fused import cin_fused_plain
 from repro_torch.kernels.cin_fused import splits as cin_splits
+from repro_torch.kernels.pull_schedule import build_schedule
 from repro_torch.models.recsys import XDeepFM
 from repro_torch.serve import BFSServeEngine, Query, QueryKind
 
@@ -38,7 +40,7 @@ def words(rng, shape):
 
 @pytest.mark.parametrize("r,k,n,nw", [(7, 4, 40, 1), (256, 32, 500, 2),
                                       (33, 7, 100, 3), (1, 1, 32, 1),
-                                      (40, 70, 300, 4)])
+                                      (40, 70, 300, 4), (9, 3000, 700, 2)])
 def test_ell_pull_multi_cuda_matches_plain(card, r, k, n, nw):
     rng = np.random.default_rng(r * 100 + k)
     parents = torch.from_numpy(rng.integers(-1, n, (r, k)).astype(np.int32))
@@ -126,7 +128,8 @@ def test_bit_pull_cuda_matches_plain(card, p, chunk):
 
 
 @pytest.mark.parametrize("r,w,n", [(7, 4, 40), (256, 32, 1000),
-                                   (300, 7, 333), (1, 1, 32), (40, 1100, 64)])
+                                   (300, 7, 333), (1, 1, 32), (40, 1100, 64),
+                                   (9, 3000, 700)])
 def test_ell_pull_cuda_matches_plain(card, r, w, n):
     rng = np.random.default_rng(r * 1000 + w)
     parents = torch.from_numpy(rng.integers(-1, n, (r, w)).astype(np.int32))
@@ -136,6 +139,126 @@ def test_ell_pull_cuda_matches_plain(card, r, w, n):
     got = ops.ell_pull(parents.to(card), mask.to(card), active.to(card))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------ scheduled pulls (csrc/pull_rows.cuh)
+def scheduled_case(rng, chunk, nw, n=3000, p=2):
+    """A stacked CSR whose rows have the class boundary lengths (0, 1,
+    chunk +- 1, the short and medium limits +- 1, 40 times the medium
+    limit) and 200 random ones, sparse frontier words with lane 31 set on
+    some vertices, need words with some rows 0 and some lane 31 only.
+    ``nw`` 0: the bit gather (mask and active rows)."""
+    from repro_torch.kernels import pull_schedule as PS
+    lim, sm = PS.MEDIUM_MAX, PS.SHORT_MAX
+    lengths = ([0, 1, sm - 1, sm, sm + 1, chunk - 1, chunk, chunk + 1,
+                lim - 1, lim, lim + 1, 2 * lim + 7, 40 * lim]
+               + list(rng.integers(0, 3 * chunk, 200)))
+    deg = np.stack([rng.permutation(lengths) for _ in range(p)])
+    offsets = np.zeros((p, len(lengths) + 1), np.int32)
+    offsets[:, 1:] = np.cumsum(deg, axis=1)
+    cols = rng.integers(0, n, (p, int(offsets[:, -1].max())),
+                        dtype=np.int64).astype(np.int32)
+    if nw == 0:
+        front = TC.pack_lanes(torch.from_numpy(rng.random((p, n)) < 0.0005))
+        need = torch.from_numpy(
+            (rng.random((p, len(lengths))) < 0.8).astype(np.int32))
+    else:
+        live = torch.from_numpy(rng.random((p, n, 1)) < 0.002)
+        front = torch.where(live, words(rng, (p, n, nw)), 0)
+        front[:, ::97, -1] |= -2**31                  # lane 31 of some words
+        need = words(rng, (p, len(lengths), nw))
+        need[:, ::5] = 0
+        need[:, 1::7] = 0
+        need[:, 1::7, -1] = -2**31                    # lane 31 only
+    return torch.from_numpy(offsets), torch.from_numpy(cols), front, need
+
+
+def scheduled_pull(nw):
+    if nw == 0:
+        return ops.ell_pull_bits, ops.ell_pull_bits_sweep, "ell_pull"
+    return ops.ell_pull_chunked, ops.ell_pull_chunked_sweep, "ell_pull_multi"
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("nw", [0, 1, 2, 3, 4])
+def test_scheduled_pull_matches_plain_on_synthetic_csr(card, chunk, nw):
+    """Both gathers, every length class, exact found and work; two launches
+    give equal outputs."""
+    rng = np.random.default_rng(chunk * 10 + nw)
+    args = scheduled_case(rng, chunk, nw)
+    one, _, name = scheduled_pull(nw)
+    want = one(*args, chunk)
+    dev = [a.to(card) for a in args]
+    before = ops.LAUNCHES[name]
+    got = one(*dev, chunk)
+    again = one(*dev, chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 2
+    for g, a, w in zip(got, again, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+        assert torch.equal(g, a)
+    assert int(want[1].max()) > 2048 and int(want[0].ne(0).sum()) > 0
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("nw", [0, 1, 4])
+def test_scheduled_pull_stops_at_step_edges(card, chunk, nw):
+    """The covering slot first or last of a group's step (16 / nw slots a
+    short row, 32 x 4 a medium one, 256 x 8 a long one) and of the row: one
+    frontier parent per row, every other parent off the frontier."""
+    n, p = 64, 1
+    spots = [(16, 0), (16, 15), (64, 63), (40, 15), (40, 16), (40, 32),
+             (100, 0), (100, 99), (200, 128), (200, 127),
+             (300, 255), (5000, 0), (5000, 2047), (5000, 2048), (5000, 4095),
+             (5000, 4999), (1500, 1024), (1500, 1023)]
+    deg = np.array([[ln for ln, _ in spots]])
+    offsets = np.zeros((p, len(spots) + 1), np.int32)
+    offsets[:, 1:] = np.cumsum(deg, axis=1)
+    cols = np.full((p, int(offsets[0, -1])), 5, np.int32)
+    for r, (_, at) in enumerate(spots):
+        cols[0, offsets[0, r] + at] = 7                # the one hit
+    onfront = np.zeros((p, n), bool)
+    onfront[0, 7] = True
+    if nw == 0:
+        front = TC.pack_lanes(torch.from_numpy(onfront))
+        need = torch.ones((p, len(spots)), dtype=torch.int32)
+    else:
+        front = torch.zeros((p, n, nw), dtype=torch.int32)
+        front[0, 7] = -2**31                           # lane 31 only
+        need = torch.zeros((p, len(spots), nw), dtype=torch.int32)
+        need[..., -1] = -2**31
+    args = (torch.from_numpy(offsets), torch.from_numpy(cols), front, need)
+    one, _, _ = scheduled_pull(nw)
+    want = one(*args, chunk)
+    got = one(*(a.to(card) for a in args), chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    expect = [min(ln, (at // chunk + 1) * chunk) for ln, at in spots]
+    assert want[1][0].tolist() == expect
+
+
+@pytest.mark.parametrize("nw", [0, 2])
+def test_sweep_entry_is_one_launch(card, nw):
+    """The sweep entry pulls three subgraphs (with shared long rows) in
+    one counted launch and equals three single calls."""
+    rng = np.random.default_rng(nw)
+    cases = [scheduled_case(rng, 32, nw, n=n) for n in (500, 3000, 800)]
+    one, sweep, name = scheduled_pull(nw)
+    pulls, wants = [], []
+    for offsets, cols, front, need in cases:
+        csr = CSR(offsets=offsets.to(card), cols=cols.to(card), rowids=None,
+                  m=None)
+        csr.sched = build_schedule(csr.offsets)
+        pulls.append((csr, front.to(card), need.to(card)))
+        wants.append(one(offsets, cols, front, need, 32))
+    before = ops.LAUNCHES[name]
+    got = sweep(pulls, 32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    for (gf, gw), (wf, ww) in zip(got, wants):
+        np.testing.assert_array_equal(gf.cpu().numpy(), wf.numpy())
+        np.testing.assert_array_equal(gw.cpu().numpy(), ww.numpy())
 
 
 @pytest.mark.parametrize("k,nw", [(1, 5), (1, 257), (2, 60561), (8, 513)])
@@ -180,7 +303,7 @@ def test_single_source_bfs_on_card_equals_cpu(card, kw):
     for k in convert.BFS_STATE_LEAVES:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     sweeps = int(a["it"][0])
-    assert la["ell_pull"] == 3 * sweeps and lb["ell_pull"] == 0
+    assert la["ell_pull"] == sweeps and lb["ell_pull"] == 0
     assert la["payload_min_fold"] == (sweeps if "comm" in kw else 0)
     assert la["ell_pull_multi"] == la["mask_reduce"] == 0
 
