@@ -15,9 +15,10 @@
    delegate OR fold over the p=2 partitions' candidate words. Each kernel
    must equal its plain PyTorch version exactly (found words and work;
    both ``mask_reduce`` variants) and a second pull launch the first; the
-   sweep launch's time (CUDA events), each pull's time alone, the plain
-   version's time, the bytes bound and each subgraph's row schedule
-   (rows and slots per length class, longest row) are printed.
+   sweep launch's time (CUDA events), each pull's time alone (events and
+   the profiler's device time), the plain version's time, the bytes bound
+   and each subgraph's row schedule (rows and slots per length class,
+   longest row) are printed.
 4. Serving path: ``warmup()``, then ``submit_many`` of 64 queries mixing the
    four bit kinds (at least two lane batches). Launch counts are zeroed
    just before and read just after; both kernels must have launched, two
@@ -63,11 +64,14 @@
 8. Launch cost: for each of the seven wrappers at its path's shapes (the
    pulls both for one subgraph and as the sweep entry), and
    for ``torch.amin`` on the min fold's inputs, the host microseconds per
-   call (host clock over 300 calls, then one synchronize); for the folds
-   also the profiler's device microseconds per call. The folds and
-   ``torch.amin`` are also measured right after set-up, on seeded words of
-   the fold's shape, before any profiler session (which raises the
-   wrappers' host cost for the rest of the process).
+   call (host clock over the first 20 and over all 300 calls, then one
+   synchronize); for the folds also the profiler's device microseconds
+   per call. Each pull kernel's sweep entry and three single calls of the
+   same pulls are also measured with no row active, where the device
+   never holds the host back: median of 9 interleaved rounds of 20 calls.
+   The folds, ``torch.amin`` and those idle pulls are also measured right
+   after set-up, before any profiler session (which raises the wrappers'
+   host cost for the rest of the process).
 9. Prints one JSON line describing every kernel, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
@@ -105,7 +109,7 @@ BAG_WIDTH = 8                       # segment_bag large shape: bags of 8 slots
 # |plain|; segment_bag float32 1e-6 + 1e-5 |plain|, bfloat16 2**-7 |plain|
 CIN_TOL = 1e-4
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
-LAUNCH_REPS, FOLD_PROFILE_REPS = 300, 50
+LAUNCH_REPS, LAUNCH_FIRST, LAUNCH_ROUNDS, FOLD_PROFILE_REPS = 300, 20, 9, 50
 #: one call of each wrapper (and of torch.amin) at its path's shapes, filled
 #: by the kernel phases for the launch-cost phase: {name: fn}
 LAUNCH_CASES: dict = {}
@@ -218,8 +222,9 @@ def pull_sweep_phase(kernel: str, pulls, chunk: int, cuda_sweep, cuda_one,
     """The three pulls of one sweep: one launch of the sweep entry held
     against the plain version of each pull, exactly (found and work), a
     second launch bit-equal to the first; then the sweep launch timed, and
-    each pull alone (one launch each) for the table. ``pulls``: (name,
-    csr, frontier, need); returns the totals for the JSON line."""
+    each pull alone (one launch each) for the table, with CUDA events
+    before any profiler session of the phase. ``pulls``: (name, csr,
+    frontier, need); returns the totals for the JSON line."""
     import torch
     from repro_torch.kernels import ops
 
@@ -229,15 +234,19 @@ def pull_sweep_phase(kernel: str, pulls, chunk: int, cuda_sweep, cuda_one,
     wants = [plain(csr.offsets, csr.cols, f, n, chunk) for _, csr, f, n in pulls]
     torch.cuda.synchronize()
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0, one_ms=0.0)
-    for (name, csr, f, n), (fk, wk), (fa, wa), (fp, wp) in zip(
-            pulls, got, again, wants):
+    alone = [lambda o=csr.offsets, c=csr.cols, f=f, n=n, s=csr.sched:
+             cuda_one(o, c, f, n, chunk, sched=s) for _, csr, f, n in pulls]
+    total["ms"] = time_ms(lambda: cuda_sweep(args, chunk), reps=20)
+    alone_ms = [time_ms(fn, reps=20) for fn in alone]
+    for (name, csr, f, n), (fk, wk), (fa, wa), (fp, wp), fn, one_ms in zip(
+            pulls, got, again, wants, alone, alone_ms):
         err = max(int((fk.long() - fp.long()).abs().max()),
                   int((wk.long() - wp.long()).abs().max()))
         check(err == 0, f"{kernel} {name}: kernel != plain")
         check(torch.equal(fk, fa) and torch.equal(wk, wa),
               f"{kernel} {name}: two launches equal")
         a = (csr.offsets, csr.cols, f, n, chunk)
-        one_ms = time_ms(lambda: cuda_one(*a, sched=csr.sched), reps=20)
+        one_us = device_us(fn, "pull_rows_kernel")
         plain_ms = time_ms(lambda: plain(*a), reps=1)
         slots = int(wk.sum())
         b_ms, b_by = bound(*nbytes_fn(csr, f, n, wk, slots))
@@ -247,13 +256,13 @@ def pull_sweep_phase(kernel: str, pulls, chunk: int, cuda_sweep, cuda_one,
               f"active={int((n != 0).reshape(p, r1 - 1, -1).any(-1).sum())} "
               f"E_max={csr.cols.shape[1]} chunk={chunk} slots_entered={slots} "
               f"found_bits={int(torch.count_nonzero(fk))} ms(alone)="
-              f"{one_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+              f"{one_ms:.4f} device_us(alone)={one_us:.1f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
               f"exact=True; {schedule_line(csr)}")
         total["one_ms"] += one_ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += b_ms
         total["err"] = max(total["err"], err)
-    total["ms"] = time_ms(lambda: cuda_sweep(args, chunk), reps=20)
     sweep_us = device_us(lambda: cuda_sweep(args, chunk), "pull_rows_kernel")
     print(f"kernel {kernel} [sweep, one launch for 3 pulls]: ms="
           f"{total['ms']:.4f} (3 launches alone: {total['one_ms']:.4f}) "
@@ -1210,29 +1219,104 @@ def fold_cases(k: int, nw: int) -> dict:
             "torch.amin": lambda: stacked.amin(0)}
 
 
+def pull_launch_cases(eng) -> dict:
+    """The pulls' host cost apart from their device time: each sweep entry
+    and three single calls of the same pulls, at the paths' shapes, on a
+    zero frontier with no row active, so that a launch's device time (every
+    row's need read, about 10 us) stays below its host cost and never holds
+    the host clock back. Named ``<kernel> [sweep, idle]`` and ``<kernel>
+    [3 calls, idle]``; the launch-cost phase measures each pair
+    interleaved."""
+    import torch
+    from repro_torch.kernels import ops
+
+    pgv, p = eng.pgv, eng.pg.p
+    dslots = max(eng.pg.d, 1)
+    subs = [(pgv.dd, dslots), (pgv.dn, eng.pg.n_local), (pgv.nd, dslots)]
+    zeros = lambda *s: torch.zeros(s, dtype=torch.int32, device=DEVICE)
+    rows = lambda c: c.offsets.shape[1] - 1
+    words = [(c, zeros(p, n, 1), zeros(p, rows(c), 1)) for c, n in subs]
+    bits = [(c, zeros(p, (n + 31) // 32), zeros(p, rows(c))) for c, n in subs]
+    cw, cb = eng.cfg.pull_chunk, bfs_configs()["FULL"].pull_chunk
+    return {
+        "ell_pull_multi [sweep, idle]":
+            lambda: ops.ell_pull_chunked_sweep(words, cw),
+        "ell_pull_multi [3 calls, idle]":
+            lambda: [ops.ell_pull_chunked(c.offsets, c.cols, f, n, cw, c.sched)
+                     for c, f, n in words],
+        "ell_pull [sweep, idle]":
+            lambda: ops.ell_pull_bits_sweep(bits, cb),
+        "ell_pull [3 calls, idle]":
+            lambda: [ops.ell_pull_bits(c.offsets, c.cols, m, a, cb, c.sched)
+                     for c, m, a in bits]}
+
+
+def interleaved_host_us(cases: dict) -> dict:
+    """Median host microseconds per call of each of ``cases`` ({name: fn})
+    over LAUNCH_ROUNDS rounds, each of which runs every case in turn
+    (LAUNCH_FIRST calls, then a synchronize), so that drift of the shared
+    host falls on all of them alike."""
+    import statistics
+
+    import torch
+
+    for fn in cases.values():
+        fn()
+    per = {name: [] for name in cases}
+    for _ in range(LAUNCH_ROUNDS):
+        for name, fn in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LAUNCH_FIRST):
+                fn()
+            per[name].append((time.perf_counter() - t0) / LAUNCH_FIRST * 1e6)
+    torch.cuda.synchronize()
+    return {name: statistics.median(v) for name, v in per.items()}
+
+
 def launch_cost_phase(cases: dict, when: str) -> None:
     """Host cost of one call of each of ``cases`` ({name: fn}): host clock
-    over LAUNCH_REPS calls, then one synchronize (also printed: the time
-    per call up to that synchronize). Then, for the folds, the profiler's
-    device time per call, so launch cost and device time stand apart (the
-    host times come first: a profiler session raises the wrappers' host
-    cost for the rest of the process)."""
+    over the first LAUNCH_FIRST and over all LAUNCH_REPS calls, then one
+    synchronize (also printed: the time per call up to that synchronize).
+    A call whose device time exceeds its host cost fills the launch queue,
+    and the host clock then reads the device's time; the first
+    LAUNCH_FIRST calls stay clear of that. Each pull's idle pair (see
+    pull_launch_cases) is measured interleaved instead. Then, for the
+    folds, the profiler's device time per call, so launch cost and device
+    time stand apart (the host times come first: a profiler session raises
+    the wrappers' host cost for the rest of the process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    for kernel in ("ell_pull_multi", "ell_pull"):
+        pair = {k: cases[k] for k in (f"{kernel} [sweep, idle]",
+                                      f"{kernel} [3 calls, idle]") if k in cases}
+        if len(pair) < 2:
+            continue
+        sweep, three = interleaved_host_us(pair).values()
+        print(f"launch cost ({when}) [{kernel}, idle]: host_us={sweep:.2f} "
+              f"per sweep-entry call, {three:.2f} per 3 single calls (median "
+              f"of {LAUNCH_ROUNDS} interleaved rounds of {LAUNCH_FIRST} "
+              f"calls, no row active); sweep entry / 3 calls = "
+              f"{sweep / three:.3f}")
     host = {}
     for name, fn in cases.items():
+        if name.endswith(", idle]"):
+            continue
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(LAUNCH_REPS):
+        for i in range(LAUNCH_REPS):
+            if i == LAUNCH_FIRST:
+                t_first = time.perf_counter() - t0
             fn()
         t_host = time.perf_counter() - t0
         torch.cuda.synchronize()
         t_sync = time.perf_counter() - t0
         host[name] = t_host / LAUNCH_REPS * 1e6
         print(f"launch cost ({when}) [{name}]: host_us={host[name]:.2f} per "
-              f"call ({LAUNCH_REPS} calls, host clock), "
+              f"call ({LAUNCH_REPS} calls, host clock; first {LAUNCH_FIRST}: "
+              f"{t_first / LAUNCH_FIRST * 1e6:.2f}), "
               f"{t_sync / LAUNCH_REPS * 1e6:.2f} us per call up to the sync")
     for name in (n for n in cases if n in FOLD_CASES):
         with profile(activities=[ProfilerActivity.CPU,
@@ -1316,7 +1400,10 @@ def run() -> None:
           f"cap_peer={eng.plan.cap_peer}")
 
     # ---- launch cost in a fresh process, before any profiler session ------
-    launch_cost_phase(fold_cases(pg.p, pg.d), "fresh process")
+    pull_cases = pull_launch_cases(eng)
+    launch_cost_phase({**fold_cases(pg.p, pg.d), **pull_cases},
+                      "fresh process")
+    LAUNCH_CASES.update(pull_cases)
 
     # ---- kernel phases at the main path's shapes ---------------------------
     st, masks = mid_bfs_inputs(eng, g)

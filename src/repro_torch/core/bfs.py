@@ -130,7 +130,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _csr_view(csr: CSR, n_dst: int, device) -> CSR:
+def _csr_view(csr: CSR, n_dst: int, device, pulled: bool = True) -> CSR:
+    """``csr`` on ``device`` with its sweep indices; a subgraph that is
+    ``pulled`` gets its row schedule on a card (the plain pulls of the CPU
+    need none)."""
     put = lambda a: torch.as_tensor(np.asarray(a)).to(device)
     rowids, cols, offsets = put(csr.rowids), put(csr.cols), put(csr.offsets)
     p = rowids.shape[0]
@@ -140,15 +143,16 @@ def _csr_view(csr: CSR, n_dst: int, device) -> CSR:
         eidx=None, n_rows=csr.n_rows, e_max=csr.e_max,
         flat_rows=(rowids.long() + ks * (csr.n_rows + 1)).reshape(-1),
         flat_cols=(cols.long() + ks * n_dst).reshape(-1),
-        sched=build_schedule(offsets))
+        sched=(build_schedule(offsets)
+               if pulled and offsets.device.type == "cuda" else None))
 
 
 def device_view(pg: PartitionedGraph, device="cuda") -> PartitionedGraph:
     """All data leaves as tensors on ``device``, with a leading partition
     axis (delegate ids tiled to ``[p, d]`` int32); the host-only edge index
     (``eidx``) is stripped. Each CSR also carries its flattened sweep
-    indices and its pull schedule (see
-    :class:`~repro_torch.core.types.CSR`)."""
+    indices; on a card, the three pulled subgraphs (dd, dn, nd) also carry
+    their pull schedule (see :class:`~repro_torch.core.types.CSR`)."""
     dev = resolve_device(device)
     put = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
     dslots = max(pg.d, 1)
@@ -156,7 +160,7 @@ def device_view(pg: PartitionedGraph, device="cuda") -> PartitionedGraph:
                    pg.p, axis=0)
     return dataclasses.replace(
         pg,
-        nn=_csr_view(pg.nn, pg.n_local, dev),
+        nn=_csr_view(pg.nn, pg.n_local, dev, pulled=False),
         nd=_csr_view(pg.nd, dslots, dev),
         dn=_csr_view(pg.dn, pg.n_local, dev),
         dd=_csr_view(pg.dd, dslots, dev),

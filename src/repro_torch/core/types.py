@@ -95,10 +95,10 @@ class CSR:
     flattened int64 index vectors over all partitions' edge slots, so the
     stacked sweeps gather and scatter with one index per edge:
     ``flat_rows = rowids + k * (n_rows + 1)`` (into the frontier rows
-    extended by one empty row) and ``flat_cols = cols + k * n_dst``; and
-    the rows' pull schedule ``sched``
-    (:class:`repro_torch.kernels.pull_schedule.PullSchedule`: rows grouped
-    by length for the early-exit pull kernels).
+    extended by one empty row) and ``flat_cols = cols + k * n_dst``; on a
+    card, the three pulled subgraphs also get the rows' pull schedule
+    ``sched`` (:class:`repro_torch.kernels.pull_schedule.PullSchedule`:
+    rows grouped by length for the early-exit pull kernels).
     """
 
     offsets: Any  # [p, n_rows+1] int32
@@ -110,7 +110,7 @@ class CSR:
     e_max: int = 0
     flat_rows: Any = None  # [p * E_max] int64 (device view only)
     flat_cols: Any = None  # [p * E_max] int64 (device view only)
-    sched: Any = None      # PullSchedule (device view only)
+    sched: Any = None      # PullSchedule (device view of dd/dn/nd on a card)
 
 
 @dataclass

@@ -60,19 +60,12 @@
 //      grid's segments are laid out here.
 //  The bit masks (7.6 KB for the delegates, 64 KB for a partition's
 //  normals at scale 20) are read through L1: staging them in shared memory
-//  (PULL_STAGE=1) measured slower, as the 64 KB of dynamic shared memory
-//  costs every block of the launch occupancy. The word tables (0.24 MB and
-//  2 MB) stay in L2 behind read-only loads. The column stream is read with
-//  the evict-first hint so it does not push the tables out of L1.
+//  measured slower (PERF.md), as 64 KB of dynamic shared memory costs
+//  every block of the launch occupancy. The word tables (0.24 MB and 2 MB)
+//  stay in L2 behind read-only loads. The column stream is read with the
+//  evict-first hint so it does not push the tables out of L1.
 #pragma once
 #include <cuda_runtime.h>
-
-// Compile with -DPULL_STAGE=1 to stage bit masks that fit in shared memory
-// (a measured alternative, slower on the sweep: benchmarks/port/
-// pull_variants.py); by default the masks are read through L1.
-#ifndef PULL_STAGE
-#define PULL_STAGE 0
-#endif
 
 namespace pull {
 
@@ -85,7 +78,6 @@ constexpr int kShortBatch = 32;               // short rows a warp takes
 constexpr int kMediumRowsPerBlock = kWarps * kMediumBatch;   // 32
 constexpr int kShortRowsPerBlock = kWarps * kShortBatch;     // 256
 constexpr int kEmptyRowsPerBlock = kThreads * 4;             // 1024
-constexpr int kMaxStageWords = 24576;         // 96 KB of mask per block
 constexpr int kMaxGraphs = 3;
 constexpr int kSegments = 1 + 3 * kMaxGraphs;
 
@@ -114,7 +106,6 @@ struct Sweep {
   int n_graphs;
   int chunk;
   int nw;
-  int stage_words;        // dynamic shared memory words (0: no staging)
   int seg_start[kSegments + 1];  // first block of each grid segment
 };
 
@@ -125,7 +116,6 @@ __device__ __forceinline__ int stop_work(int len, int j, int chunk) {
 
 struct BitGather {
   static constexpr int NW = 1;
-  static constexpr bool kStage = PULL_STAGE != 0;
   static constexpr int kMinBlocks = 4;        // <= 64 registers
   static constexpr int kShortLoads = 16;      // U of a short row (G = 1)
   __device__ static const unsigned* table(const Graph& g, int part) {
@@ -134,7 +124,6 @@ struct BitGather {
   __device__ static void need(const Graph& g, long long flat, unsigned* nd) {
     nd[0] = g.need[flat] == 1 ? 1u : 0u;
   }
-  // generic load: the table may be the staged copy in shared memory
   __device__ static void word(const unsigned* t, int c, unsigned* w) {
     w[0] = (t[c >> 5] >> (c & 31)) & 1u;
   }
@@ -148,7 +137,6 @@ struct BitGather {
 template <int NW_>
 struct WordGather {
   static constexpr int NW = NW_;
-  static constexpr bool kStage = false;
   static constexpr int kMinBlocks = NW <= 2 ? 4 : 2;
   static constexpr int kShortLoads = 16 / NW;
   __device__ static const unsigned* table(const Graph& g, int part) {
@@ -453,7 +441,6 @@ template <class Gt>
 __global__ void __launch_bounds__(kThreads, Gt::kMinBlocks)
 pull_rows_kernel(const __grid_constant__ Sweep s) {
   constexpr int NW = Gt::NW;
-  extern __shared__ unsigned stage[];
   const int b = blockIdx.x;
   int k = 0;
   while (b >= s.seg_start[k + 1]) ++k;  // uniform over the block
@@ -498,14 +485,6 @@ pull_rows_kernel(const __grid_constant__ Sweep s) {
   const int batch = cls == kMedium ? kMediumBatch : kShortBatch;
   const int first = local * batch * kWarps;
   const int last = min(first + batch * kWarps, n);
-  // stage the partition's mask of the block's first row in shared memory
-  int spart = -1;
-  if (Gt::kStage && g.N <= s.stage_words) {
-    spart = order[first] / g.R;
-    const unsigned* src = Gt::table(g, spart);
-    for (int i = tid; i < g.N; i += kThreads) stage[i] = src[i];
-    __syncthreads();
-  }
   const int warp = tid >> 5;
   const int pos = first + warp * batch + lane;
   bool act = false;
@@ -526,8 +505,8 @@ pull_rows_kernel(const __grid_constant__ Sweep s) {
   if (cls == kShort) {
     if (act) {
       const int part = flat / g.R;
-      const unsigned* t = part == spart ? stage : Gt::table(g, part);
-      const int work = pull_lane<Gt>(g.cols + part * g.E + sp.x, sp.y, t, nd,
+      const int work = pull_lane<Gt>(g.cols + part * g.E + sp.x, sp.y,
+                                     Gt::table(g, part), nd,
                                      s.chunk, found);
       Gt::store(g, flat, found, work);
     }
@@ -547,9 +526,9 @@ pull_rows_kernel(const __grid_constant__ Sweep s) {
 #pragma unroll
     for (int i = 0; i < NW; ++i) nd[i] = s_need[warp][r][i];
     const int part = flat / g.R;
-    const unsigned* t = part == spart ? stage : Gt::table(g, part);
-    const int work = pull_warp<Gt>(g.cols + part * g.E + sp.x, sp.y, t, nd,
-                                   lane, s.chunk, found);
+    const int work = pull_warp<Gt>(g.cols + part * g.E + sp.x, sp.y,
+                                   Gt::table(g, part), nd, lane, s.chunk,
+                                   found);
     if (lane == 0) Gt::store(g, flat, found, work);
   }
 }
@@ -578,32 +557,15 @@ int launch_sweep(const Sweep* in, cudaStream_t stream) {
   }
   s.seg_start[0] = 0;
   s.seg_start[1] = blocks;
-  int stage_words = 0;
   for (int k = 1; k < kSegments; ++k) {
     const int cls = 1 + (k - 1) / kMaxGraphs, gi = (k - 1) % kMaxGraphs;
     const int n = gi < s.n_graphs ? s.g[gi].count[cls] : 0;
     const int per = rows_per_block(cls);
     blocks += (n + per - 1) / per;
     s.seg_start[k + 1] = blocks;
-    if (Gt::kStage && n > 0 && cls != kEmpty && s.g[gi].N <= kMaxStageWords &&
-        s.g[gi].N > stage_words)
-      stage_words = s.g[gi].N;
   }
-  s.stage_words = stage_words;
   if (blocks == 0) return (int)cudaSuccess;
-  if (Gt::kStage) {
-    static bool raised[64] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev < 64 && !raised[dev]) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          pull_rows_kernel<Gt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kMaxStageWords * 4);
-      if (e != cudaSuccess) return (int)e;
-      raised[dev] = true;
-    }
-  }
-  pull_rows_kernel<Gt><<<blocks, kThreads, (size_t)stage_words * 4, stream>>>(s);
+  pull_rows_kernel<Gt><<<blocks, kThreads, 0, stream>>>(s);
   return (int)cudaGetLastError();
 }
 

@@ -132,11 +132,11 @@ class Graph(ctypes.Structure):
 
 class Sweep(ctypes.Structure):
     """``pull::Sweep`` of ``csrc/pull_rows.cuh`` (the kernel lays out
-    ``start``, ``stage_words`` and ``seg_start`` itself)."""
+    ``start`` and ``seg_start`` itself)."""
 
     _fields_ = [("g", Graph * MAX_GRAPHS), ("long_items", ctypes.c_void_p),
                 ("n_graphs", ctypes.c_int), ("chunk", ctypes.c_int),
-                ("nw", ctypes.c_int), ("stage_words", ctypes.c_int),
+                ("nw", ctypes.c_int),
                 ("seg_start", ctypes.c_int * (2 + 3 * MAX_GRAPHS))]
 
 

@@ -261,6 +261,21 @@ def test_sweep_entry_is_one_launch(card, nw):
         np.testing.assert_array_equal(gw.cpu().numpy(), ww.numpy())
 
 
+def test_card_device_view_schedules_the_pulled_subgraphs(card):
+    """A card's view schedules dd, dn and nd (each as build_schedule does
+    on its offsets) and leaves nn, which is never pulled, without one."""
+    pg = partition_graph(rmat_graph(10, seed=7), th=32, p_rank=2, p_gpu=2)
+    pgv = TB.device_view(pg, card)
+    assert pgv.nn.sched is None
+    for kind in ("dd", "dn", "nd"):
+        got = getattr(pgv, kind).sched
+        want = build_schedule(torch.from_numpy(np.asarray(pg.subgraph(kind).offsets)))
+        assert got.counts == want.counts
+        for f in ("order", "span", "long_len"):
+            np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
+                                          getattr(want, f).numpy())
+
+
 @pytest.mark.parametrize("k,nw", [(1, 5), (1, 257), (2, 60561), (8, 513)])
 @pytest.mark.parametrize("with_count", [True, False])
 def test_payload_min_fold_cuda_matches_plain(card, k, nw, with_count):

@@ -66,12 +66,21 @@ def check_schedule(sched, offsets):
 @pytest.mark.parametrize("p_rank,p_gpu", [(1, 1), (2, 2)])
 @pytest.mark.parametrize("kind", ["dd", "dn", "nd", "nn"])
 def test_schedule_classes_on_rmat(graph, p_rank, p_gpu, kind):
-    """rmat scale 10 at p = 1 and p = 4: the device view's schedule of
-    each subgraph."""
+    """rmat scale 10 at p = 1 and p = 4: the schedule of each subgraph's
+    stacked offsets."""
     pg = partition_graph(graph, th=16, p_rank=p_rank, p_gpu=p_gpu)
-    csr = getattr(TB.device_view(pg, "cpu"), kind)
-    check_schedule(csr.sched, pg.subgraph(kind).offsets)
-    assert sum(csr.sched.counts) == pg.p * pg.subgraph(kind).n_rows
+    offsets = pg.subgraph(kind).offsets
+    sched = PS.build_schedule(torch.from_numpy(np.asarray(offsets)))
+    check_schedule(sched, offsets)
+    assert sum(sched.counts) == pg.p * pg.subgraph(kind).n_rows
+
+
+def test_cpu_device_view_builds_no_schedule(graph):
+    """The plain pulls of the CPU take no schedule, so the CPU view builds
+    none (a card's view builds one for dd, dn and nd)."""
+    pgv = TB.device_view(partition_graph(graph, th=16, p_rank=2, p_gpu=2),
+                         "cpu")
+    assert all(getattr(pgv, k).sched is None for k in ("dd", "dn", "nd", "nn"))
 
 
 SYNTH = [0, 1, PS.SHORT_MAX - 1, PS.SHORT_MAX, PS.SHORT_MAX + 1]
