@@ -18,17 +18,29 @@
    sweep launch's time (CUDA events), each pull's time alone (events and
    the profiler's device time), the plain version's time, the bytes bound
    and each subgraph's row schedule (rows and slots per length class,
-   longest row) are printed.
+   longest row) are printed. Then the fused delegate update of the step
+   (``mask_reduce_apply``: fold, new level or visited plane, lane flags)
+   on the same words, on int32 levels with a target plane and on a bool
+   visited plane: equal to its plain version and to the chain of torch
+   operators it replaced, timed beside that chain (events and the
+   profiler's device time), and one call through ``comm`` profiled: one
+   launch, none of the chain's operators.
 4. Serving path: ``warmup()``, then ``submit_many`` of 64 queries mixing the
    four bit kinds (at least two lane batches). Launch counts are zeroed
    just before and read just after; both kernels must have launched, two
    answers per kind must equal the numpy oracle, and no nn slot may be
-   dropped. Then one more lane batch under ``torch.profiler``.
+   dropped. Then one more lane batch under ``torch.profiler``. Every
+   profile phase names the port kernels it must find in the trace; a
+   trace that misses one, or holds no device time, is taken once more,
+   and a second miss fails the run.
 5. Single-source kernel phases: the three bit pulls of one sweep on a real
    mid-BFS frontier (2 sweeps from the highest-degree vertex) and the
    delegate min fold of the p=2 partitions' level candidates (both
    variants), each against its plain version, exactly, timed as in 3; the
-   ELL contract of the pull against its oracle on 4 random shapes.
+   fused min fold into the state's delegate levels
+   (``payload_min_fold_apply``) against its plain version and the chain
+   it replaced, as in 3; the ELL contract of the pull against its oracle
+   on 4 random shapes.
 6. Single-source path, Graph500 style: one warm-up BFS, then 16 search
    keys through ``run_bfs_emulated`` with the ``bfs-rmat`` FULL config
    (DO, pull_chunk=64, binned nn exchange, int32 min combine); each answer
@@ -37,7 +49,8 @@
    (``delegate_u8``, static exchange) and 4 under ``delegate="allgather"``:
    answers equal the FULL run's. Each run zeroes the launch counts before
    and reads them after: one pull launch (three pulls) per sweep, one min
-   fold per sweep in the allgather run only. One FULL BFS under ``torch.profiler``.
+   fold per sweep in the allgather run only. One FULL and one allgather
+   BFS under ``torch.profiler``.
 7. Recsys path (xDeepFM ``FULL``: 39 fields, D=10, CIN 200-200-200, MLP
    400-400, 2^18 hot and 2^25 cold rows, seeded random weights), with
    TF32 off for matmuls and cuDNN (printed). ``ClickStream(39, 2^25,
@@ -66,12 +79,15 @@
    for ``torch.amin`` on the min fold's inputs, the host microseconds per
    call (host clock over the first 20 and over all 300 calls, then one
    synchronize); for the folds also the profiler's device microseconds
-   per call. Each pull kernel's sweep entry and three single calls of the
-   same pulls are also measured with no row active, where the device
-   never holds the host back: median of 9 interleaved rounds of 20 calls.
-   The folds, ``torch.amin`` and those idle pulls are also measured right
-   after set-up, before any profiler session (which raises the wrappers'
-   host cost for the rest of the process).
+   per call. Pairs of a design and the one it replaced are measured as
+   the median of 9 interleaved rounds of 20 calls: each pull kernel's
+   sweep entry and three single calls of the same pulls with no row
+   active (where the device never holds the host back), and each fused
+   delegate update and the chain it replaced (also with their device
+   time). The folds, ``torch.amin`` and the pairs (the delegate updates
+   on seeded planes of the paths' shapes) are also measured right after
+   set-up, before any profiler session (which raises the wrappers' host
+   cost for the rest of the process).
 9. Prints one JSON line describing every kernel, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
@@ -114,7 +130,14 @@ LAUNCH_REPS, LAUNCH_FIRST, LAUNCH_ROUNDS, FOLD_PROFILE_REPS = 300, 20, 9, 50
 #: by the kernel phases for the launch-cost phase: {name: fn}
 LAUNCH_CASES: dict = {}
 #: the folds, whose device time is printed beside their host cost
-FOLD_CASES = ("mask_reduce", "payload_min_fold", "torch.amin")
+FOLD_CASES = ("mask_reduce", "payload_min_fold", "torch.amin",
+              "mask_reduce_apply", "mask_reduce chain",
+              "payload_min_fold_apply", "payload_min_fold chain")
+#: launch-cost cases measured as interleaved pairs (new design, old design)
+PAIRS = (("ell_pull_multi [sweep, idle]", "ell_pull_multi [3 calls, idle]"),
+         ("ell_pull [sweep, idle]", "ell_pull [3 calls, idle]"),
+         ("mask_reduce_apply", "mask_reduce chain"),
+         ("payload_min_fold_apply", "payload_min_fold chain"))
 
 
 def check(cond, what: str) -> None:
@@ -146,20 +169,91 @@ def time_ms(fn, reps: int, rounds: int = 3) -> float:
     return per_call[len(per_call) // 2]
 
 
-def device_us(fn, name: str, reps: int = 30) -> float:
+def per_call_us(prof, reps: int, name: str | None = None) -> float:
+    """Device microseconds per call in a profile of ``reps`` calls: for
+    each kernel, copy or memset (whose name holds ``name``, where given),
+    its mean time times its launches per call. Launches per call are
+    rounded, so records the profiler drops (a session can lose some, or
+    all those of a short one) do not lower the figure; a kind with no
+    record at all is missing from it."""
+    total = 0.0
+    for ev in prof.key_averages():
+        if (ev.key.startswith("aten::") or ev.key == "Activity Buffer Request"
+                or (name is not None and name not in ev.key)):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if us > 0 and ev.count:
+            total += us / ev.count * max(1, round(ev.count / reps))
+    return total
+
+
+def device_us(fn, name: str | None = None, reps: int = 30) -> float:
     """The profiler's device microseconds per call of ``fn()`` in kernels
-    whose name holds ``name`` (after one warm-up call)."""
+    whose name holds ``name`` (every kernel, copy and memset where None),
+    after one warm-up call; a session with no such record is taken once
+    more, and a second one fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if name in ev.key) / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = per_call_us(prof, reps, name)
+        if us > 0:
+            return us
+    check(False, f"device time of {name or 'a call'} in the trace")
+
+
+#: operators of the delegate chains the fused apply kernels replaced
+CHAIN_OPS = ("aten::where", "aten::minimum", "aten::full", "aten::any",
+             "aten::__rshift__", "aten::bitwise_right_shift",
+             "aten::bitwise_and", "aten::__and__", "aten::gt", "aten::lt",
+             "aten::zeros", "aten::bitwise_or", "aten::__or__",
+             "aten::bitwise_not")
+
+
+def span_check(fn, kernel: str, what: str, calls: int = 20) -> None:
+    """``calls`` calls of ``fn`` (a step's delegate update through comm,
+    one ``ops`` wrapper call each) under ``torch.profiler``: each counts
+    one launch, the device runs ``kernel`` and its memset and nothing
+    else, and the host runs none of the replaced chain's operators. (A
+    session of one short call may get no device records at all.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in (1, 2):
+        before = sum(ops.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counted = sum(ops.LAUNCHES.values()) - before
+        evs = prof.key_averages()
+        ops_seen = sorted({ev.key for ev in evs if ev.key.startswith("aten::")})
+        dev = {ev.key: ev.count for ev in evs if not ev.key.startswith("aten::")
+               and getattr(ev, "self_device_time_total", 0) > 0}
+        launches = sum(n for k, n in dev.items() if kernel in k)
+        if launches:
+            break
+        print(f"  span {what}: attempt {attempt}: {kernel} not in the trace")
+    others = [k for k in dev if kernel not in k and "Memset" not in k]
+    print(f"span {what}: {calls} calls, {counted} launches counted, "
+          f"operators {ops_seen}; device: "
+          f"{ {k[:60]: n for k, n in dev.items()} }")
+    check(counted == calls, f"span {what}: one launch a call")
+    check(0 < launches <= calls, f"span {what}: {kernel} in the trace")
+    check(not others, f"span {what}: nothing else on the device ({others})")
+    check(not set(ops_seen) & set(CHAIN_OPS),
+          f"span {what}: no chain operator ({set(ops_seen) & set(CHAIN_OPS)})")
 
 
 def bound(nbytes: float, nops: float,
@@ -326,9 +420,139 @@ def kernel_phase_pull(eng, masks):
                             nbytes, "ell_pull_multi [sweep]")
 
 
-def kernel_phase_fold(eng, masks):
+def or_apply_pair(plan, words, level, it, target) -> dict:
+    """The serving step's delegate update from its packed candidate words
+    ``[p, d, nw]``: through the fused kernel (``comm.delegate_or_apply``)
+    and as the chain it replaces ran (``delegate_combine``'s fold into a
+    fresh zero ``prev``, unpack, AND with the unvisited lanes, the row and
+    lane flags, ``where`` or OR into the plane, the target scan; the
+    unvisited mask comes from the step, as before). Both return the new
+    plane, frontier, lane flags, unhit flags and row flags."""
+    import torch
+    from repro_torch.core import comm as TC
+
+    w = level.shape[-1]
+    visited = level.dtype == torch.bool
+    unvis = ~level if visited else level == 2**30
+
+    def chain():
+        reduced, _ = TC.delegate_combine(plan, words, "or")
+        newly = TC.unpack_lanes(reduced, w) & unvis
+        new_any = newly.reshape(newly.shape[0], -1).any(1)
+        if visited:
+            new_level, frontier = level | newly, newly
+        else:
+            new_level = torch.where(newly, (it + 1)[:, None, None], level)
+            frontier = None
+        unhit = None if target is None else (target & unvis & ~newly).any(1)
+        return new_level, frontier, newly.any(1), unhit, new_any
+
+    return {"mask_reduce_apply":
+                lambda: TC.delegate_or_apply(plan, words, level, it, target)[0],
+            "mask_reduce chain": chain}
+
+
+def min_apply_pair(plan, cand, prev) -> dict:
+    """The single-source step's delegate update under ``allgather`` from its
+    candidate levels ``[p, d]``: through the fused kernel
+    (``comm.delegate_min_apply``) and as the chain it replaces ran
+    (``delegate_combine``'s ``torch.full`` identity and fold, ``minimum``,
+    ``<``, ``any``)."""
+    import torch
+    from repro_torch.core import comm as TC
+
+    def chain():
+        reduced, _ = TC.delegate_combine(plan, cand, "min")
+        out = torch.minimum(prev, reduced)
+        return out, (out < prev).any(1)
+
+    return {"payload_min_fold_apply":
+                lambda: TC.delegate_min_apply(plan, cand, prev)[:2],
+            "payload_min_fold chain": chain}
+
+
+def apply_bytes(gathered, level, target, flags_words: int) -> int:
+    """Bytes the OR apply must move: the gathered words once, the plane
+    read and written (and the frontier plane written for visited planes),
+    the target plane read, ``it`` and the flag words."""
+    plane = level.numel() * level.element_size()
+    visited = level.element_size() == 1
+    return (gathered.numel() * 4 + 2 * plane + (level.numel() if visited else 0)
+            + (0 if target is None else target.numel())
+            + level.shape[0] * 4 + flags_words * 4)
+
+
+def kernel_phase_apply(eng, st, masks, cand) -> dict:
+    """The serving step's fused delegate update (``mask_reduce_apply``) at
+    the path's shapes, on the mid-BFS state and the candidate words of
+    ``kernel_phase_fold``: int32 levels with a target plane (3 delegate
+    targets a lane, as MULTI_TARGET queries carry), and the reachability
+    batches' bool visited plane without targets. Each against its plain
+    version exactly and against the chain it replaced (results equal),
+    timed (events), with the profiler's device us of the kernel and of the
+    chain, its bound, and the span of one call through comm."""
+    import torch
+    from repro_torch.core import comm as TC
+    from repro_torch.kernels import mask_reduce as K
+
+    p, d, w = st.level_d.shape
+    plan = TC.plan_for(eng.cfg.comm, p)
+    words = TC.pack_lanes(cand)
+    gathered = words.reshape(p, -1).contiguous()
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    target = torch.zeros_like(masks["unvis_d"])
+    rows = torch.randint(0, d, (3, w), generator=gen, device=DEVICE)
+    target[:, rows, torch.arange(w, device=DEVICE)] = True
+    cases = {"levels + targets": (st.level_d, target),
+             "reachability": (~masks["unvis_d"], None)}
+    out = {}
+    for name, (level, tgt) in cases.items():
+        args = (gathered, level, st.it, tgt)
+        got = K.mask_reduce_apply_cuda(*args)
+        want = K.mask_reduce_apply_plain(*args)
+        pair = or_apply_pair(plan, words, level, st.it, tgt)
+        old = pair["mask_reduce chain"]()
+        torch.cuda.synchronize()
+        err = 0
+        for field, g, wv, o in zip(want._fields, got, want, old):
+            check((g is None) == (wv is None) == (o is None), f"{field} shape")
+            if g is None:
+                continue
+            if g.numel():
+                err = max(err, int((g.long() - wv.long()).abs().max()))
+            check(g.dtype == wv.dtype and torch.equal(g, wv),
+                  f"mask_reduce_apply [{name}] {field}: kernel != plain")
+            check(torch.equal(g, o), f"mask_reduce_apply [{name}] {field}: "
+                  "kernel != the chain it replaced")
+        ms = time_ms(lambda: K.mask_reduce_apply_cuda(*args), 50)
+        plain_ms = time_ms(lambda: K.mask_reduce_apply_plain(*args), 10)
+        chain_ms = time_ms(pair["mask_reduce chain"], 10)
+        dev = device_us(lambda: K.mask_reduce_apply_cuda(*args),
+                        "mask_reduce_apply_kernel")
+        chain_dev = device_us(pair["mask_reduce chain"])
+        f4 = -(-w // 4)
+        b_ms, b_by = bound(apply_bytes(gathered, level, tgt, p * (2 * f4 + 1)),
+                           level.numel() * (gathered.shape[0] + 3))
+        print(f"kernel mask_reduce_apply [{name}]: K={p} P={p} D={d} W={w} "
+              f"level {level.dtype} newly_marked="
+              f"{int((got.level != level).sum())} ms={ms:.4f} "
+              f"device_us={dev:.2f} plain_ms={plain_ms:.4f} bound_ms="
+              f"{b_ms:.5f} ({b_by}) bound/device={b_ms * 1e3 / dev:.3f}; "
+              f"replaced chain: ms={chain_ms:.4f} device_us={chain_dev:.2f} "
+              f"exact=True")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         err=err, device_us=dev, chain_device_us=chain_dev)
+        span_check(pair["mask_reduce_apply"], "mask_reduce_apply_kernel",
+                   f"serving delegate update [{name}]")
+        if tgt is not None:
+            LAUNCH_CASES.update(pair)
+    return out
+
+
+def kernel_phase_fold(eng, st, masks):
     """The delegate OR fold over the p partitions' candidate words (the
-    pushes of a sweep in which every lane pushes), both variants."""
+    pushes of a sweep in which every lane pushes), both variants, then the
+    fused apply of the serving step on the same words."""
     import torch
     from repro_torch.core import msbfs as M
     from repro_torch.core.comm import pack_lanes
@@ -365,6 +589,7 @@ def kernel_phase_fold(eng, masks):
               f"new_bits={int(got[1].sum()) if with_count else '-'} exact=True")
         out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, err=err)
+    out["apply"] = kernel_phase_apply(eng, st, masks, cand)
     return out
 
 
@@ -392,11 +617,11 @@ def ell_contract_check(device) -> None:
     print("kernel ell_pull_multi [ELL contract, 4 shapes]: exact=True")
 
 
-def report_profile(prof, wall_ms: float, header: str, names) -> dict:
+def report_profile(prof, wall_ms: float, header: str, names):
     """Print the device busy share and the top operators and kernels of a
     ``torch.profiler`` run, and each port kernel's per-launch device time
-    (``names``: substrings of the kernel symbols). Returns
-    ``{name: us per launch}``."""
+    (``names``: substrings of the kernel symbols). Returns ``({name: us
+    per launch}, [names not in the trace], device ms)``."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -415,18 +640,45 @@ def report_profile(prof, wall_ms: float, header: str, names) -> dict:
     for title, sel in (("operator", ops_rows), ("kernel", dev_rows)):
         for dev_ms, count, key in sel[:8]:
             print(f"  profile {title}: {dev_ms:9.3f} ms x{count:<5d} {key[:100]}")
-    per_launch = {}
+    per_launch, missing = {}, []
     for name in names:
         mine = [r for r in dev_rows if name in r[2]]
         n = sum(r[1] for r in mine)
         total = sum(r[0] for r in mine)
         if n == 0:
             print(f"  profile port kernel {name}: not in the trace")
+            missing.append(name)
             continue
         per_launch[name] = total / n * 1e3
         print(f"  profile port kernel {name}: {n} launches, "
               f"{total:.3f} ms device, {per_launch[name]:.1f} us per launch")
-    return per_launch
+    return per_launch, missing, busy_ms
+
+
+def profile_run(run, header, names) -> dict:
+    """``run()`` under ``torch.profiler``, reported by report_profile;
+    ``header(result)`` names the phase. A trace that misses a named
+    kernel, or holds no device time, is profiled once more; a second miss
+    fails the run. Returns ``{name: us per launch}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        per_launch, missing, busy_ms = report_profile(prof, wall_ms,
+                                                      header(out), names)
+        if not missing and busy_ms > 0:
+            return per_launch
+        print(f"  profile attempt {attempt} of {header(out)}: missing "
+              f"{missing}, device time {busy_ms:.1f} ms")
+    check(False, f"profile {header(out)}: every named kernel in the trace, "
+          "device time above 0")
 
 
 def profile_batch(eng, queries) -> None:
@@ -434,21 +686,16 @@ def profile_batch(eng, queries) -> None:
     ``run_batch_queries`` call (after the main path, outside its counts),
     top device ops by self time and the device busy share of the wall
     time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     batch = list(dict.fromkeys(queries))[: eng.cfg.n_queries]
-    sweeps0 = eng.traversal_sweeps
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        sweeps0 = eng.traversal_sweeps
         eng.run_batch_queries(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    sweeps = eng.traversal_sweeps - sweeps0
-    report_profile(prof, wall_ms,
-                   f"one batch of {len(batch)} queries, sweeps={sweeps}",
-                   ("pull_rows_kernel<pull::WordGather", "mask_reduce_kernel"))
+        return eng.traversal_sweeps - sweeps0
+
+    profile_run(run, lambda sweeps: f"one batch of {len(batch)} queries, "
+                f"sweeps={sweeps}",
+                ("pull_rows_kernel<pull::WordGather", "mask_reduce_apply_kernel"))
 
 
 def mixed_queries(g, pg):
@@ -563,6 +810,7 @@ def kernel_phase_min_fold(eng, st, masks):
     is one ``torch.amin`` over the pre-stacked ``[K + 1, NW]``."""
     import torch
     from repro_torch.core import bfs as TB
+    from repro_torch.core import comm as TC
     from repro_torch.core.types import INF_LEVEL
     from repro_torch.kernels import mask_reduce as K
     from repro_torch.kernels import ops
@@ -608,6 +856,42 @@ def kernel_phase_min_fold(eng, st, masks):
               "exact=True")
         out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=lib_ms, err=err)
+
+    # the fused apply of the allgather step: the fold into the state's
+    # delegate levels with the per-row improved flag
+    prev = st.level_d
+    plan = TC.plan_for(TC.CommConfig(delegate="allgather"), k)
+    pair = min_apply_pair(plan, partials, prev)
+    got = K.payload_min_fold_apply_cuda(partials, prev)
+    want = K.payload_min_fold_apply_plain(partials, prev)
+    old = pair["payload_min_fold chain"]()
+    torch.cuda.synchronize()
+    for i, field in enumerate(("levels", "improved")):
+        check(got[i].dtype == want[i].dtype and torch.equal(got[i], want[i]),
+              f"payload_min_fold_apply {field}: kernel != plain")
+        check(torch.equal(got[i], old[i]), f"payload_min_fold_apply {field}: "
+              "kernel != the chain it replaced")
+    run = lambda: K.payload_min_fold_apply_cuda(partials, prev)
+    ms = time_ms(run, 50)
+    plain_ms = time_ms(lambda: K.payload_min_fold_apply_plain(partials, prev),
+                       10)
+    chain_ms = time_ms(pair["payload_min_fold chain"], 10)
+    dev = device_us(run, "payload_min_fold_apply_kernel")
+    chain_dev = device_us(pair["payload_min_fold chain"])
+    p = prev.shape[0]
+    nbytes = partials.numel() * 4 + 2 * prev.numel() * 4 + 4 * -(-p // 4)
+    b_ms, b_by = bound(nbytes, (k + 1) * prev.numel())
+    print(f"kernel payload_min_fold_apply: K={k} P={p} D={nw} "
+          f"improved_rows={int(got[1].sum())} changed="
+          f"{int((got[0] != prev).sum())} ms={ms:.4f} device_us={dev:.2f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+          f"bound/device={b_ms * 1e3 / dev:.3f}; replaced chain: "
+          f"ms={chain_ms:.4f} device_us={chain_dev:.2f} exact=True")
+    span_check(pair["payload_min_fold_apply"], "payload_min_fold_apply_kernel",
+               "single-source delegate update [allgather]")
+    LAUNCH_CASES.update(pair)
+    out["apply"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        err=0, device_us=dev, chain_device_us=chain_dev)
     return out
 
 
@@ -733,24 +1017,20 @@ def single_source_path(eng, g, csr):
     return full[0]["src"], totals
 
 
-def profile_bfs(eng, src: int) -> dict:
-    """``torch.profiler`` over one FULL single-source BFS."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def profile_bfs(eng, src: int) -> None:
+    """``torch.profiler`` over one FULL single-source BFS, and over one
+    under ``delegate="allgather"`` (the fused min fold's path)."""
     from repro_torch.core import bfs as TB
 
-    cfg = bfs_configs()["FULL"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = TB.run_bfs_emulated(
-            eng.pgv, TB.init_state(eng.pg, src, cfg, device=eng.device), cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return report_profile(prof, wall_ms,
-                          f"one FULL BFS from {src}, sweeps={int(out.it[0])}",
-                          ("pull_rows_kernel<pull::BitGather>",
-                           "payload_min_fold_kernel"))
+    for name, kernels in (("FULL", ("pull_rows_kernel<pull::BitGather>",)),
+                          ("allgather", ("pull_rows_kernel<pull::BitGather>",
+                                         "payload_min_fold_apply_kernel"))):
+        cfg = bfs_configs()[name]
+        profile_run(lambda: TB.run_bfs_emulated(
+                        eng.pgv, TB.init_state(eng.pg, src, cfg,
+                                               device=eng.device), cfg),
+                    lambda out: f"one {name} BFS from {src}, "
+                    f"sweeps={int(out.it[0])}", kernels)
 
 
 # ---------------------------------------------------------------- recsys path
@@ -1181,29 +1461,29 @@ def kernel_phase_payload(g, csr) -> dict:
                 launches=launches, err=0.0)
 
 
-def profile_serve(model, batch) -> dict:
+def profile_serve(model, batch) -> None:
     """``torch.profiler`` over one serve_p99 forward."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     hot, cold = on_card(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         with torch.no_grad():
-            model(hot, cold)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return report_profile(prof, wall_ms,
-                          f"one serve_p99 forward, B={hot.shape[0]}",
-                          ("cin_w_split_kernel", "cin_fused_kernel",
-                           "cin_split_sum_kernel"))
+            return model(hot, cold)
+
+    profile_run(run, lambda _: f"one serve_p99 forward, B={hot.shape[0]}",
+                ("cin_w_split_kernel", "cin_fused_kernel",
+                 "cin_split_sum_kernel"))
 
 
-def fold_cases(k: int, nw: int) -> dict:
+def fold_cases(k: int, nw: int, w: int) -> dict:
     """The fold calls of the launch-cost phase on seeded words of the
-    delegate fold's shape ``[k, nw]``: both wrappers and ``torch.amin``."""
+    delegate fold's shape ``[k, nw]``: both wrappers and ``torch.amin``;
+    and both fused delegate updates beside the chains they replaced, on
+    seeded planes of the paths' shapes (``k`` partitions, ``nw``
+    delegates, ``w`` lanes; half the levels unvisited, 3 targets a lane)."""
     import torch
+    from repro_torch.core import comm as TC
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -1212,11 +1492,28 @@ def fold_cases(k: int, nw: int) -> dict:
     prev = torch.randint(0, 2**30, (nw,), generator=gen, device=DEVICE,
                          dtype=torch.int32)
     stacked = torch.cat([prev[None], parts])
+    words = torch.randint(-2**31, 2**31, (k, nw, -(-w // 32)), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    level = torch.randint(0, 8, (k, nw, w), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    level[torch.rand((k, nw, w), generator=gen, device=DEVICE) < 0.5] = 2**30
+    it = torch.full((k,), 7, dtype=torch.int32, device=DEVICE)
+    target = torch.zeros((k, nw, w), dtype=torch.bool, device=DEVICE)
+    rows = torch.randint(0, nw, (3, w), generator=gen, device=DEVICE)
+    target[:, rows, torch.arange(w, device=DEVICE)] = True
+    cand = torch.where(torch.rand((k, nw), generator=gen, device=DEVICE) < 0.3,
+                       8, 2**30).to(torch.int32)
+    levels_d = torch.where(torch.rand((k, nw), generator=gen, device=DEVICE)
+                           < 0.5, 3, 2**30).to(torch.int32)
     return {"mask_reduce": lambda: ops.mask_reduce(parts, prev,
                                                    with_count=False),
             "payload_min_fold": lambda: ops.payload_min_fold(
                 parts, prev, with_count=False),
-            "torch.amin": lambda: stacked.amin(0)}
+            "torch.amin": lambda: stacked.amin(0),
+            **or_apply_pair(TC.plan_for(TC.CommConfig(), k), words, level, it,
+                            target),
+            **min_apply_pair(TC.plan_for(TC.CommConfig(delegate="allgather"),
+                                         k), cand, levels_d)}
 
 
 def pull_launch_cases(eng) -> dict:
@@ -1280,28 +1577,27 @@ def launch_cost_phase(cases: dict, when: str) -> None:
     synchronize (also printed: the time per call up to that synchronize).
     A call whose device time exceeds its host cost fills the launch queue,
     and the host clock then reads the device's time; the first
-    LAUNCH_FIRST calls stay clear of that. Each pull's idle pair (see
-    pull_launch_cases) is measured interleaved instead. Then, for the
-    folds, the profiler's device time per call, so launch cost and device
-    time stand apart (the host times come first: a profiler session raises
-    the wrappers' host cost for the rest of the process)."""
+    LAUNCH_FIRST calls stay clear of that. Each pair of PAIRS (a design and
+    the one it replaced: each pull's idle pair, see pull_launch_cases, and
+    each fused delegate update beside its old chain) is measured
+    interleaved instead. Then, for the folds and the delegate updates, the
+    profiler's device time per call, so launch cost and device time stand
+    apart (the host times come first: a profiler session raises the
+    wrappers' host cost for the rest of the process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for kernel in ("ell_pull_multi", "ell_pull"):
-        pair = {k: cases[k] for k in (f"{kernel} [sweep, idle]",
-                                      f"{kernel} [3 calls, idle]") if k in cases}
-        if len(pair) < 2:
+    for new, old in PAIRS:
+        if new not in cases or old not in cases:
             continue
-        sweep, three = interleaved_host_us(pair).values()
-        print(f"launch cost ({when}) [{kernel}, idle]: host_us={sweep:.2f} "
-              f"per sweep-entry call, {three:.2f} per 3 single calls (median "
-              f"of {LAUNCH_ROUNDS} interleaved rounds of {LAUNCH_FIRST} "
-              f"calls, no row active); sweep entry / 3 calls = "
-              f"{sweep / three:.3f}")
+        a, b = interleaved_host_us({new: cases[new], old: cases[old]}).values()
+        print(f"launch cost ({when}) [{new} | {old}]: host_us={a:.2f} | "
+              f"{b:.2f} per call (median of {LAUNCH_ROUNDS} interleaved "
+              f"rounds of {LAUNCH_FIRST} calls); ratio={a / b:.3f}")
+    paired = {n for pair in PAIRS for n in pair}
     host = {}
     for name, fn in cases.items():
-        if name.endswith(", idle]"):
+        if name in paired:
             continue
         fn()
         torch.cuda.synchronize()
@@ -1318,20 +1614,25 @@ def launch_cost_phase(cases: dict, when: str) -> None:
               f"call ({LAUNCH_REPS} calls, host clock; first {LAUNCH_FIRST}: "
               f"{t_first / LAUNCH_FIRST * 1e6:.2f}), "
               f"{t_sync / LAUNCH_REPS * 1e6:.2f} us per call up to the sync")
+    dev = {}
     for name in (n for n in cases if n in FOLD_CASES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(FOLD_PROFILE_REPS):
-                cases[name]()
-            torch.cuda.synchronize()
-        dev_us = 0.0
-        for ev in prof.key_averages():
-            if ev.key.startswith("aten::"):
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            dev_us += ev.self_cuda_time_total if us is None else us
+        for _ in range(2):        # a session may get no device records
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(FOLD_PROFILE_REPS):
+                    cases[name]()
+                torch.cuda.synchronize()
+            dev[name] = per_call_us(prof, FOLD_PROFILE_REPS)
+            if dev[name] > 0:
+                break
         print(f"launch cost ({when}) [{name}]: device_us="
-              f"{dev_us / FOLD_PROFILE_REPS:.2f} per call (profiler)")
+              + (f"{dev[name]:.2f} per call (profiler)" if dev[name] > 0
+                 else "not measured (no device records in two sessions)"))
+    for new, old in PAIRS:
+        if dev.get(new, 0) > 0 and dev.get(old, 0) > 0:
+            print(f"launch cost ({when}) [{new} | {old}]: device_us="
+                  f"{dev[new]:.2f} | {dev[old]:.2f} per call; ratio="
+                  f"{dev[new] / dev[old]:.3f}")
     if "payload_min_fold" in host and "torch.amin" in host:
         print(f"launch cost ({when}): payload_min_fold / torch.amin host "
               f"time = {host['payload_min_fold'] / host['torch.amin']:.3f}")
@@ -1401,7 +1702,8 @@ def run() -> None:
 
     # ---- launch cost in a fresh process, before any profiler session ------
     pull_cases = pull_launch_cases(eng)
-    launch_cost_phase({**fold_cases(pg.p, pg.d), **pull_cases},
+    launch_cost_phase({**fold_cases(pg.p, pg.d, eng.cfg.n_queries),
+                       **pull_cases},
                       "fresh process")
     LAUNCH_CASES.update(pull_cases)
 
@@ -1411,7 +1713,7 @@ def run() -> None:
           f"{int(masks['frontier_n'].sum())} frontier_d="
           f"{int(masks['frontier_d'].sum())} (vertex-lane pairs)")
     pull = kernel_phase_pull(eng, masks)
-    fold = kernel_phase_fold(eng, masks)
+    fold = kernel_phase_fold(eng, st, masks)
     ell_contract_check(eng.device)
     print("library_ms: no single PyTorch call computes either function "
           "(no OR reduction, no early-exit pull), so both are null")
@@ -1493,6 +1795,8 @@ def run() -> None:
     recsys = recsys_path(g, csr)
     launch_cost_phase(LAUNCH_CASES, "after the paths")
 
+    or_apply = fold["apply"]["levels + targets"]
+    min_apply = min_fold["apply"]
     kernels = [
         {"name": "ell_pull_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_pull_multi.cu",
@@ -1505,10 +1809,9 @@ def run() -> None:
          "source": "src/repro_torch/kernels/csrc/mask_reduce.cu",
          "replaces": "src/repro/kernels/mask_reduce.py:92",
          "launches": launches["mask_reduce"],
-         "max_abs_err": float(fold[False]["err"]), "ms": fold[False]["ms"],
-         "plain_ms": fold[False]["plain_ms"],
-         "bound_ms": fold[False]["bound_ms"],
-         "bound_by": fold[False]["bound_by"], "library_ms": None},
+         "max_abs_err": float(or_apply["err"]), "ms": or_apply["ms"],
+         "plain_ms": or_apply["plain_ms"], "bound_ms": or_apply["bound_ms"],
+         "bound_by": or_apply["bound_by"], "library_ms": None},
         {"name": "ell_pull", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_pull.cu",
          "replaces": "src/repro/kernels/ell_pull.py:54",
@@ -1520,11 +1823,9 @@ def run() -> None:
          "source": "src/repro_torch/kernels/csrc/mask_reduce.cu",
          "replaces": "src/repro/kernels/mask_reduce.py:145",
          "launches": ss_launches["allgather"]["payload_min_fold"],
-         "max_abs_err": float(min_fold[False]["err"]),
-         "ms": min_fold[False]["ms"], "plain_ms": min_fold[False]["plain_ms"],
-         "bound_ms": min_fold[False]["bound_ms"],
-         "bound_by": min_fold[False]["bound_by"],
-         "library_ms": min_fold[False]["library_ms"]},
+         "max_abs_err": float(min_apply["err"]), "ms": min_apply["ms"],
+         "plain_ms": min_apply["plain_ms"], "bound_ms": min_apply["bound_ms"],
+         "bound_by": min_apply["bound_by"], "library_ms": None},
         {"name": "cin_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cin_fused.cu",
          "replaces": "src/repro/kernels/cin_fused.py:57",
@@ -1539,8 +1840,12 @@ def run() -> None:
          **recsys["ell_pull_payload"]},
     ]
     print("ell_pull_multi / ell_pull ms: one launch of a sweep's three "
-          "pulls; plain_ms, bound_ms: sum of the three; mask_reduce / payload_min_fold: the "
-          "with_count=False fold of the path. Launches: ell_pull_multi and "
+          "pulls; plain_ms, bound_ms: sum of the three; mask_reduce / "
+          "payload_min_fold: the fused delegate update of the path "
+          "(mask_reduce_apply on int32 levels with targets, "
+          "payload_min_fold_apply; library_ms null: no single PyTorch call "
+          "folds and applies; the standalone folds and torch.amin are "
+          "printed above). Launches: ell_pull_multi and "
           "mask_reduce over the 64-query serving run, ell_pull over the 16 "
           "FULL search keys, payload_min_fold over the 4 allgather keys. "
           "cin_fused (path: recsys serving): ms, plain_ms, bound_ms, "

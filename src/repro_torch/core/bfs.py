@@ -418,9 +418,8 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
     else:
         cand_levels = torch.where(cand_d & unvis_d, nxt,
                                   _MIN_SPEC.identity).to(torch.int32)
-        reduced, d_bytes = comm.delegate_combine(cplan, cand_levels, "min")
-        new_level_d = torch.minimum(state.level_d, reduced)
-        new_d_any = (new_level_d < state.level_d).any(1)
+        new_level_d, new_d_any, d_bytes = comm.delegate_min_apply(
+            cplan, cand_levels, state.level_d)
 
     # ---- normal level updates ---------------------------------------------
     new_n_mask = (new_n_local | recv_mask) & unvis_n

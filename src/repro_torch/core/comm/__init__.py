@@ -24,13 +24,15 @@ from .base import (
 )
 from .exchange import (bin_by_owner, exchange_normal, nn_exchange_bits,
                        nn_exchange_words)
-from .reduce import any_reduce, delegate_combine, lane_any_reduce
+from .reduce import (any_reduce, delegate_combine, delegate_min_apply,
+                     delegate_or_apply, lane_any_reduce)
 from .wire import n_words, pack_lanes, unpack_lanes
 
 __all__ = [
     "COMBINE_SPECS", "DELEGATE_STRATEGIES", "NN_FORMATS", "CombineSpec",
     "CommConfig", "CommPlan", "any_reduce", "bin_by_owner",
-    "delegate_combine", "exchange_normal", "lane_any_reduce", "n_words",
+    "delegate_combine", "delegate_min_apply", "delegate_or_apply",
+    "exchange_normal", "lane_any_reduce", "n_words",
     "nn_exchange_bits", "nn_exchange_words", "pack_lanes", "plan_for",
     "unpack_lanes",
 ]

@@ -76,7 +76,9 @@ class CommConfig:
     has none, so it all-gathers and folds) or ``"allgather"`` -- in the
     port the K-way OR fold always runs through ``kernels.ops.mask_reduce``,
     and the all-gathered int32 min through
-    ``kernels.ops.payload_min_fold``. ``nn``: ``"dense"``, one bit per
+    ``kernels.ops.payload_min_fold`` (on the traversal steps, fused with
+    the delegate update: ``mask_reduce_apply``, ``payload_min_fold_apply``).
+    ``nn``: ``"dense"``, one bit per
     (slot, query) in fixed-volume lane words.
     ``hier_split`` and ``sparse_cap`` only parameterize the byte formulas
     of the deferred strategies.

@@ -13,6 +13,11 @@ In the emulated backend the partitions are the stacked leading dimension,
 so the all-gather *is* the stacked ``[p, ...]`` tensor; the fold runs once
 and its result is broadcast back to every partition row (the replicated
 combine result).
+
+The traversal steps call the ``*_apply`` combines: the same all-gather and
+fold, with the step's update of its delegate state fused into the fold's
+launch (:func:`delegate_or_apply` for the lane-word step,
+:func:`delegate_min_apply` for the single-source levels).
 """
 from __future__ import annotations
 
@@ -48,6 +53,41 @@ def delegate_combine(plan: CommPlan, x: torch.Tensor, op: str = "or"):
     else:                                   # native min / max reduction
         folded = partials.amin(0) if op == "min" else partials.amax(0)
     return folded.reshape(x.shape[1:]).expand(x.shape), nbytes
+
+
+def delegate_or_apply(plan: CommPlan, words: torch.Tensor,
+                      level: torch.Tensor, it: torch.Tensor,
+                      target: torch.Tensor | None = None):
+    """The lane-word step's delegate OR combine and update: ``words [p, d,
+    nw]`` int32 candidate lane words of every partition are all-gathered
+    and OR-folded, and the new delegate ``level [p, d, W]`` plane and lane
+    flags are computed in the same launch (``kernels.ops.mask_reduce_apply``;
+    ``it [p]``, ``target [p, d, W]`` bool or None). Returns ``(update,
+    wire_bytes)``: a :class:`~repro_torch.kernels.mask_reduce.DelegateApply`
+    and the plan's bytes for the ``"or"`` combine of ``d * nw`` words."""
+    p = words.shape[0]
+    n_elems = words.numel() // p
+    nbytes = plan.delegate_bytes(n_elems, words.element_size(), "or")
+    gathered = words.reshape(p, n_elems).contiguous()
+    return ops.mask_reduce_apply(gathered, level, it, target), nbytes
+
+
+def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):
+    """The single-source step's delegate ``"min"`` combine of the int32
+    candidate levels ``x [p, d]`` folded into ``prev [p, d]``: returns
+    ``(min(prev, combined) [p, d], improved [p] bool, wire_bytes)``. Under
+    ``allgather`` the fold and the update are one launch
+    (``kernels.ops.payload_min_fold_apply``); the native reduction keeps
+    its ``amin`` and the step's ``minimum`` and ``any``."""
+    p = x.shape[0]
+    if plan.effective_delegate("min") == "allgather":
+        nbytes = plan.delegate_bytes(x.numel() // p, x.element_size(), "min")
+        out, improved = ops.payload_min_fold_apply(
+            x.reshape(p, -1).contiguous(), prev)
+        return out, improved, nbytes
+    reduced, nbytes = delegate_combine(plan, x, "min")
+    out = torch.minimum(prev, reduced)
+    return out, (out < prev).any(1), nbytes
 
 
 def lane_any_reduce(lane_flags: torch.Tensor) -> torch.Tensor:

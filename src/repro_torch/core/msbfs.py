@@ -12,7 +12,8 @@ visited/frontier bit):
   accumulated parent word covers all of its still-unvisited lanes;
 * **delegate reduction** packs the candidate lanes to ``[d, n_words]``
   words and OR-combines them over the partitions (all-gather + the
-  ``mask_reduce`` fold kernel);
+  ``mask_reduce`` fold kernel, which also applies the result to the
+  delegate levels and lane flags in the same launch);
 * **nn exchange** ships one word per 32 queries per static
   (owner, local) slot of the :class:`~repro_torch.core.engine.ExchangePlan`;
 * **direction optimization** is decided per lane from per-lane FV/BV
@@ -378,23 +379,22 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         cplan, _dense_slots(plan, sa), plan.recv_local, nl)
     sent = sa.reshape(p, -1).sum(1)
 
-    # ---- delegate global reduction: packed-word bitwise-OR combine --------
-    reduced, d_bytes = comm.delegate_combine(
-        cplan, pack_lanes(cand_dd | cand_nd), "or")
-    newly_d = unpack_lanes(reduced, w) & unvis_d
-    new_d_any = newly_d.reshape(p, -1).any(1)
+    # ---- delegate global reduction: packed-word bitwise-OR combine, with
+    # the delegate level / visited update and lane flags in its launch ----
+    dl, d_bytes = comm.delegate_or_apply(
+        cplan, pack_lanes(cand_dd | cand_nd), state.level_d, it,
+        state.target_d if cfg.enable_targets else None)
+    new_d_any = dl.any_new
 
     # ---- level / visited updates ------------------------------------------
     newly_n = (cand_dn | recv) & unvis_n
     if cfg.track_levels:
         nxt = (it + 1)[:, None, None]
-        new_level_d = torch.where(newly_d, nxt, state.level_d)
         new_level_n = torch.where(newly_n, nxt, state.level_n)
         new_frontier_n, new_frontier_d = state.frontier_n, state.frontier_d
     else:
-        new_level_d = state.level_d | newly_d
         new_level_n = state.level_n | newly_n
-        new_frontier_n, new_frontier_d = newly_n, newly_d
+        new_frontier_n, new_frontier_d = newly_n, dl.frontier
 
     # per-lane convergence: lane q stays live iff it marked a new vertex on
     # some partition this sweep; the target word rides the same reduction
@@ -402,7 +402,7 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     if cfg.enable_targets:
         unhit_n = (state.target_n & unvis_n & ~newly_n).any(1)
         red = comm.lane_any_reduce(torch.stack([newly_n.any(1), unhit_n], 1))
-        unhit = red[:, 1] | (state.target_d & unvis_d & ~newly_d).any(1)
+        unhit = red[:, 1] | dl.lane_unhit
         upd_global = red[:, 0]
         stop_targets = state.has_targets & ~unhit
     else:
@@ -411,7 +411,7 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     # latch the stop: every target covered, or the next sweep would exceed
     # the lane's depth cap
     new_stop = state.lane_stop | stop_targets | (depth + 1 >= state.depth_cap)
-    lane_upd = (upd_global | newly_d.any(1)) & ~new_stop
+    lane_upd = (upd_global | dl.lane_new) & ~new_stop
     updated = lane_upd.any(1)
 
     # ---- statistics (int32, the reference's wraparound included) ----------
@@ -438,7 +438,7 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
 
     return MSBFSState(
         level_n=new_level_n,
-        level_d=new_level_d,
+        level_d=dl.level,
         backward=backward,
         it=it + 1,
         done=~updated,

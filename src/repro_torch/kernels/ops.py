@@ -20,8 +20,11 @@ from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
                              ell_pull_chunked_plain,
                              ell_pull_chunked_sweep_cuda)
 from .ell_pull_payload import ell_pull_payload_cuda, ell_pull_payload_plain
-from .mask_reduce import (mask_reduce_cuda, mask_reduce_plain,
-                          payload_min_fold_cuda, payload_min_fold_plain)
+from .mask_reduce import (mask_reduce_apply_cuda, mask_reduce_apply_plain,
+                          mask_reduce_cuda, mask_reduce_plain,
+                          payload_min_fold_apply_cuda,
+                          payload_min_fold_apply_plain, payload_min_fold_cuda,
+                          payload_min_fold_plain)
 from .segment_bag import segment_bag_cuda, segment_bag_plain
 
 LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0, "ell_pull": 0,
@@ -144,6 +147,31 @@ def payload_min_fold(partials, prev, *, with_count: bool = True):
         LAUNCHES["payload_min_fold"] += 1
         return out
     return payload_min_fold_plain(partials, prev, with_count)
+
+
+def mask_reduce_apply(gathered, level, it, target=None):
+    """One sweep's delegate update of the lane-word step from the gathered
+    words ``[K, d * nw]``: the OR fold, the new ``level [p, d, W]`` (int32
+    levels, or bool visited with the frontier plane) and the lane flags ->
+    :class:`~repro_torch.kernels.mask_reduce.DelegateApply`. Counts under
+    ``mask_reduce``: it is the fold kernel of the path."""
+    tensors = (gathered, level, it) + (() if target is None else (target,))
+    if _on_cuda(*tensors):
+        out = mask_reduce_apply_cuda(gathered, level, it, target)
+        LAUNCHES["mask_reduce"] += 1
+        return out
+    return mask_reduce_apply_plain(gathered, level, it, target)
+
+
+def payload_min_fold_apply(gathered, prev):
+    """The int32 min of ``gathered [K, d]`` folded into every row of
+    ``prev [p, d]`` -> ``(combined [p, d], improved [p] bool)``. Counts
+    under ``payload_min_fold``: it is the fold kernel of the path."""
+    if _on_cuda(gathered, prev):
+        out = payload_min_fold_apply_cuda(gathered, prev)
+        LAUNCHES["payload_min_fold"] += 1
+        return out
+    return payload_min_fold_apply_plain(gathered, prev)
 
 
 def cin_fused(x0, xk, w):

@@ -295,6 +295,133 @@ def test_payload_min_fold_cuda_matches_plain(card, k, nw, with_count):
         assert got[1] is None
 
 
+def or_apply_case(rng, k, p, d, w, track_levels):
+    """Gathered words ``[k, d * nw]``, a level plane ``[p, d, w]`` (int32
+    with INF delegates and visited lanes, or the bool visited plane), ``it``
+    and a target plane, on the CPU."""
+    levels = rng.integers(0, 6, (p, d, w)).astype(np.int32)
+    levels[rng.random((p, d, w)) < 0.6] = 2**30
+    levels[:, ::3] = 2**30
+    return (words(rng, (k, d * -(-w // 32))),
+            torch.from_numpy(levels if track_levels else levels != 2**30),
+            torch.from_numpy(rng.integers(3, 9, p).astype(np.int32)),
+            torch.from_numpy(rng.random((p, d, w)) < 0.2))
+
+
+def assert_apply_equal(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        if w is None:
+            assert g is None, name
+        else:
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("d", [1, 257, 60561])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("w", [32, 40, 64])
+@pytest.mark.parametrize("track_levels", [True, False])
+@pytest.mark.parametrize("targets", [True, False])
+def test_mask_reduce_apply_cuda_matches_plain(card, d, k, w, track_levels,
+                                              targets):
+    """The fused OR fold and delegate update equals its plain version: new
+    plane, frontier, lane flags, row flag; one launch; a dirty flag buffer
+    is cleared by the call itself."""
+    from repro_torch.kernels.mask_reduce import mask_reduce_apply_cuda
+    rng = np.random.default_rng(d * 7 + k * 3 + w)
+    gathered, level, it, target = or_apply_case(rng, k, 3, d, w, track_levels)
+    args = (gathered, level, it, target if targets else None)
+    want = ops.mask_reduce_apply(*args)
+    on = tuple(None if a is None else a.to(card) for a in args)
+    before = ops.LAUNCHES["mask_reduce"]
+    got = ops.mask_reduce_apply(*on)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mask_reduce"] == before + 1
+    assert_apply_equal(got, want)
+    dirty = torch.ones((3, 4 * (2 * -(-w // 4) + 1)), dtype=torch.bool,
+                       device=card)
+    again = mask_reduce_apply_cuda(*on, flags=dirty)
+    torch.cuda.synchronize()
+    assert_apply_equal(again, want)
+    assert torch.equal(on[1].cpu(), level)         # out of place
+
+
+@pytest.mark.parametrize("d", [1, 257, 60561])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("p", [1, 3])
+def test_payload_min_fold_apply_cuda_matches_plain(card, d, k, p):
+    """The fused min fold into the delegate levels equals its plain version
+    (levels and the per-row improved flag); one launch; a dirty flag
+    buffer is cleared by the call itself."""
+    from repro_torch.kernels.mask_reduce import payload_min_fold_apply_cuda
+    rng = np.random.default_rng(d * 5 + k * 3 + p)
+    gathered = torch.from_numpy(rng.integers(1, 9, (k, d)).astype(np.int32))
+    gathered[torch.from_numpy(rng.random((k, d)) < 0.6)] = 2**30
+    prev = torch.from_numpy(rng.integers(0, 9, (p, d)).astype(np.int32))
+    prev[torch.from_numpy(rng.random((p, d)) < 0.5)] = 2**30
+    prev[0, ::2] = 2**30
+    prev[-1] = 0 if p > 1 else prev[-1]            # a row nothing improves
+    want = ops.payload_min_fold_apply(gathered, prev)
+    before = ops.LAUNCHES["payload_min_fold"]
+    got = ops.payload_min_fold_apply(gathered.to(card), prev.to(card))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["payload_min_fold"] == before + 1
+    dirty = torch.ones(4 * -(-p // 4), dtype=torch.bool, device=card)
+    again = payload_min_fold_apply_cuda(gathered.to(card), prev.to(card),
+                                        flags=dirty)
+    torch.cuda.synchronize()
+    for g in (got, again):
+        np.testing.assert_array_equal(g[0].cpu().numpy(), want[0].numpy())
+        assert g[1].dtype == torch.bool
+        np.testing.assert_array_equal(g[1].cpu().numpy(), want[1].numpy())
+
+
+def test_apply_kernels_take_unaligned_planes(card):
+    """Planes that start off a 16-byte boundary, and W not a multiple of 4,
+    take the kernels' narrower loads and give the same result."""
+    rng = np.random.default_rng(11)
+    for w, track in ((33, True), (33, False), (32, True), (48, False)):
+        gathered, level, it, target = or_apply_case(rng, 2, 2, 101, w, track)
+        want = ops.mask_reduce_apply(gathered, level, it, target)
+        flat = torch.empty(level.numel() + 1, dtype=level.dtype, device=card)
+        shifted = flat[1:].view(level.shape)
+        shifted.copy_(level)
+        got = ops.mask_reduce_apply(gathered.to(card), shifted, it.to(card),
+                                    target.to(card))
+        torch.cuda.synchronize()
+        assert_apply_equal(got, want)
+    gathered = torch.from_numpy(rng.integers(0, 9, (2, 98)).astype(np.int32))
+    prev = torch.from_numpy(rng.integers(0, 9, (3, 98)).astype(np.int32))
+    want = ops.payload_min_fold_apply(gathered, prev)
+    flat = torch.empty(prev.numel() + 1, dtype=torch.int32, device=card)
+    shifted = flat[1:].view(prev.shape)
+    shifted.copy_(prev)
+    got = ops.payload_min_fold_apply(gathered.to(card), shifted)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+
+
+def test_apply_wrappers_reject_bad_inputs(card):
+    """float32 and non-contiguous inputs raise before any launch."""
+    g = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    level = torch.zeros((2, 8, 32), dtype=torch.int32, device=card)
+    it = torch.zeros(2, dtype=torch.int32, device=card)
+    before = dict(ops.LAUNCHES)
+    for bad in ((g.float(), level, it), (g, level.float(), it),
+                (g, level.transpose(0, 1).contiguous().transpose(0, 1), it),
+                (g.t().contiguous().t(), level, it)):
+        with pytest.raises(ValueError):
+            ops.mask_reduce_apply(*bad)
+    prev = torch.zeros((2, 8), dtype=torch.int32, device=card)
+    for bad in ((g.float(), prev), (g, prev.float()),
+                (g, prev.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            ops.payload_min_fold_apply(*bad)
+    assert ops.LAUNCHES == before
+
+
 @pytest.mark.parametrize("kw", [
     dict(), dict(cap_nn=-4, delegate_u8=True),
     dict(static_exchange=True, delegate_u8=True),
