@@ -32,10 +32,15 @@ words with explicit frontier words.
 
 The host driver :func:`run_msbfs_emulated` loops one sweep at a time and
 reads one scalar per sweep for its loop condition (PyTorch has no
-device-side while loop).
+device-side while loop). The refill pipeline reseeds converged lanes in
+place on the device (:func:`reseed_lanes`), and its fused blocks
+(:func:`make_msbfs_block_emulated`) run gated sweeps that stop at the
+exact sweep a watched lane retires -- CUDA graph replays on a card.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import deque
 from dataclasses import dataclass, fields
 from typing import Any, Sequence
 
@@ -147,78 +152,67 @@ def locate_source(pg: PartitionedGraph, layout: PartitionLayout,
             int(layout.local_of(np.int64(src))), 0)
 
 
-def init_multi_state(
-    pg: PartitionedGraph, sources: Sequence[int], cfg: MSBFSConfig,
-    *, depth_caps: Sequence | None = None, targets: Sequence | None = None,
-    device="cuda",
-) -> MSBFSState:
-    """Seed one lane per source (built on the host, then placed on
-    ``device``). Fewer than ``n_queries`` sources leaves the tail lanes
-    unseeded. ``depth_caps`` gives lane ``q`` a max hop depth (``None`` =
-    unlimited); ``targets`` gives lane ``q`` target vertex ids (the lane
-    retires the sweep all of them are visited)."""
-    dev = resolve_device(device)
-    w = cfg.n_queries
-    sources = validate_sources(pg, sources)
-    if sources.size > w:
-        raise ValueError(f"{sources.size} sources > n_queries={w}")
-    layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
-    p, nl = pg.p, pg.n_local
+def lane_descriptors(pg: PartitionedGraph, w: int, lanes, sources, *,
+                     depth_caps=None, targets=None, n_targets: int = 0,
+                     layout: PartitionLayout | None = None,
+                     dvids: np.ndarray | None = None) -> tuple:
+    """Host-side seed coordinates and typed-query parameters of ``lanes``
+    (one source each, aligned with ``depth_caps`` / ``targets``; ``None``
+    entries = unlimited / none): the tuple ``(mask, part, local, dpos,
+    is_delegate, depth_cap)`` of ``[W]`` arrays plus ``(tgt_part,
+    tgt_local, tgt_dpos, tgt_is_delegate, tgt_valid)`` of ``[W, T]``, with
+    ``T = max(n_targets, most targets of a lane)`` -- the arguments of
+    :func:`reseed_lanes`, as the reference engine builds them."""
+    layout = layout or PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
+    if dvids is None:
+        dvids = np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]
+    lanes = [int(q) for q in lanes]
+    tg = [() if targets is None or targets[i] is None else
+          validate_sources(pg, targets[i]) for i in range(len(lanes))]
+    t = max([n_targets] + [len(x) for x in tg])
+    mask = np.zeros(w, dtype=bool)
+    part, local, dpos = (np.zeros(w, dtype=np.int32) for _ in range(3))
+    isd = np.zeros(w, dtype=bool)
+    cap = np.full(w, NO_DEPTH_CAP, dtype=np.int32)
+    tpart, tlocal, tdpos = (np.zeros((w, t), dtype=np.int32) for _ in range(3))
+    tisd = np.zeros((w, t), dtype=bool)
+    tvalid = np.zeros((w, t), dtype=bool)
+    for i, (q, src) in enumerate(zip(lanes, sources)):
+        mask[q] = True
+        isd[q], part[q], local[q], dpos[q] = locate_source(pg, layout, dvids,
+                                                           int(src))
+        if depth_caps is not None and depth_caps[i] is not None:
+            cap[q] = np.int32(depth_caps[i])
+        for j, tgt in enumerate(tg[i]):
+            (tisd[q, j], tpart[q, j], tlocal[q, j],
+             tdpos[q, j]) = locate_source(pg, layout, dvids, int(tgt))
+            tvalid[q, j] = True
+    return (mask, part, local, dpos, isd, cap,
+            tpart, tlocal, tdpos, tisd, tvalid)
+
+
+def _empty_state(pg: PartitionedGraph, cfg: MSBFSConfig,
+                 dev: torch.device) -> MSBFSState:
+    """A state with no lane seeded, built on ``dev`` (``pg`` may be the
+    host graph or its device view: only its sizes are read)."""
+    p, nl, w, mi = pg.p, pg.n_local, cfg.n_queries, cfg.max_iters
     d = max(pg.d, 1)
-    dvids = np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+    b = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
     if cfg.track_levels:
-        level_n = np.full((p, nl, w), INF_LEVEL, dtype=np.int32)
-        level_d = np.full((p, d, w), INF_LEVEL, dtype=np.int32)
-        frontier_n = np.zeros((p, 1, 1), dtype=bool)
-        frontier_d = np.zeros((p, 1, 1), dtype=bool)
+        inf = lambda *s: torch.full(s, int(INF_LEVEL), dtype=torch.int32,
+                                    device=dev)
+        level_n, level_d = inf(p, nl, w), inf(p, d, w)
+        frontier_n, frontier_d = b(p, 1, 1), b(p, 1, 1)
     else:
-        level_n = np.zeros((p, nl, w), dtype=bool)     # visited words
-        level_d = np.zeros((p, d, w), dtype=bool)
-        frontier_n = np.zeros((p, nl, w), dtype=bool)
-        frontier_d = np.zeros((p, d, w), dtype=bool)
-    for q, src in enumerate(sources):
-        isd, part, local, dpos = locate_source(pg, layout, dvids, int(src))
-        if isd:
-            level_d[:, dpos, q] = 0 if cfg.track_levels else True
-            if not cfg.track_levels:
-                frontier_d[:, dpos, q] = True
-        else:
-            level_n[part, local, q] = 0 if cfg.track_levels else True
-            if not cfg.track_levels:
-                frontier_n[part, local, q] = True
-    depth_cap = np.full((p, w), NO_DEPTH_CAP, dtype=np.int32)
-    if depth_caps is not None:
-        for q, cap in enumerate(depth_caps):
-            if cap is not None:
-                depth_cap[:, q] = np.int32(cap)
-    target_n = np.zeros((p, nl, w), dtype=bool)
-    target_d = np.zeros((p, d, w), dtype=bool)
-    has_targets = np.zeros((p, w), dtype=bool)
-    if targets is not None:
-        for q, tgts in enumerate(targets):
-            if tgts is None or len(tgts) == 0:
-                continue
-            if not cfg.enable_targets:
-                raise ValueError(
-                    "targets given but cfg.enable_targets is False")
-            has_targets[:, q] = True
-            for t in validate_sources(pg, tgts):
-                isd, part, local, dpos = locate_source(pg, layout, dvids, int(t))
-                if isd:
-                    target_d[:, dpos, q] = True
-                else:
-                    target_n[part, local, q] = True
-    lane_active = np.zeros((p, w), dtype=bool)
-    lane_active[:, : sources.size] = True
-    mi = cfg.max_iters
-    i32 = lambda *s: np.zeros(s, dtype=np.int32)
-    host = dict(
-        level_n=level_n, level_d=level_d,
-        backward=np.zeros((p, 3, w), dtype=bool),
-        it=i32(p), done=np.zeros((p,), dtype=bool),
-        lane_active=lane_active, base_it=i32(p, w),
-        lane_stop=np.zeros((p, w), dtype=bool), depth_cap=depth_cap,
-        has_targets=has_targets, target_n=target_n, target_d=target_d,
+        level_n, level_d = b(p, nl, w), b(p, d, w)      # visited words
+        frontier_n, frontier_d = b(p, nl, w), b(p, d, w)
+    return MSBFSState(
+        level_n=level_n, level_d=level_d, backward=b(p, 3, w), it=i32(p),
+        done=b(p), lane_active=b(p, w), base_it=i32(p, w), lane_stop=b(p, w),
+        depth_cap=torch.full((p, w), int(NO_DEPTH_CAP), dtype=torch.int32,
+                             device=dev),
+        has_targets=b(p, w), target_n=b(p, nl, w), target_d=b(p, d, w),
         frontier_n=frontier_n, frontier_d=frontier_d,
         work_fwd=i32(p, mi), work_bwd=i32(p, mi), nn_sent=i32(p, mi),
         delegate_round=i32(p, mi), wire_delegate=i32(p, mi),
@@ -226,13 +220,157 @@ def init_multi_state(
         tm_frontier_n=i32(p, 0), tm_frontier_d=i32(p, 0),
         tm_backward=i32(p, 0, 3, n_words(w)),
         payload_n=i32(p, nl, 0), payload_d=i32(p, d, 0),
-        pay_pending_n=np.zeros((p, nl, 0), dtype=bool),
-        pay_pending_d=np.zeros((p, d, 0), dtype=bool),
-        pay_bucket=i32(p, 0), pay_delta=i32(p, 0),
-        pay_weighted=np.zeros((p, 0), dtype=bool),
+        pay_pending_n=b(p, nl, 0), pay_pending_d=b(p, d, 0),
+        pay_bucket=i32(p, 0), pay_delta=i32(p, 0), pay_weighted=b(p, 0),
         wire_pay_delegate=i32(p, 0), wire_pay_nn=i32(p, 0))
-    return MSBFSState(**{k: torch.from_numpy(v).to(dev)
-                         for k, v in host.items()})
+
+
+def _upload_descriptors(desc: tuple, dev: torch.device) -> torch.Tensor:
+    """The descriptor tuple of :func:`lane_descriptors` as one int32
+    ``[W, 6 + 5T]`` tensor on ``dev``: one host-to-device copy, from
+    pinned memory on a card (so it never waits for the sweeps in flight)."""
+    w = desc[0].shape[0]
+    host = torch.from_numpy(np.concatenate(
+        [np.asarray(a).reshape(w, -1).astype(np.int32) for a in desc], 1))
+    if dev.type == "cuda":
+        return host.pin_memory().to(dev, non_blocking=True)
+    return host.to(dev)
+
+
+def _seed_lanes(state: MSBFSState, desc: torch.Tensor) -> MSBFSState:
+    """Retire the lanes of ``desc``'s mask and seed them in place of the
+    old tenants, on the state's device (``desc``: the packed descriptors
+    of :func:`_upload_descriptors`). Every other lane stays bit-identical.
+
+    Each seeded lane's columns are cleared (INF levels, or no visited /
+    frontier bit), its source is seeded at the *current* iteration
+    ``it[0]`` (the ``level == it`` frontier test picks it up on the next
+    sweep), ``base_it`` records that iteration, its direction resets to
+    forward, and its depth cap, target words and stop latch are replaced.
+    The seed scatters write one slot per lane, so they are plain index
+    writes; the target words of a lane are distinct vertices, so their
+    scatter is an exact add of 0/1 bytes onto the cleared columns."""
+    w = desc.shape[0]
+    t = (desc.shape[1] - 6) // 5
+    lanes = torch.arange(w, device=desc.device)
+    mask, isd = desc[:, 0] > 0, desc[:, 4] > 0
+    part, local, dpos = (desc[:, i].long() for i in (1, 2, 3))
+    it = state.it[0]                      # replicated across partitions
+    clear = mask[None, None, :]
+    seed_n, seed_d = mask & ~isd, mask & isd
+    idx_n = (torch.where(seed_n, part, 0), torch.where(seed_n, local, 0), lanes)
+    idx_d = torch.where(seed_d, dpos, 0)
+    if state.level_n.dtype == torch.bool:
+        # reachability-only mode: visited + frontier words, seed = True
+        level_n = state.level_n & ~clear
+        level_n[idx_n] |= seed_n
+        level_d = state.level_d & ~clear
+        level_d[:, idx_d, lanes] |= seed_d[None, :]
+        frontier_n = state.frontier_n & ~clear
+        frontier_n[idx_n] |= seed_n
+        frontier_d = state.frontier_d & ~clear
+        frontier_d[:, idx_d, lanes] |= seed_d[None, :]
+    else:
+        inf = int(INF_LEVEL)
+        level_n = torch.where(clear, inf, state.level_n)
+        level_n[idx_n] = torch.minimum(level_n[idx_n],
+                                       torch.where(seed_n, it, inf))
+        level_d = torch.where(clear, inf, state.level_d)
+        level_d[:, idx_d, lanes] = torch.minimum(
+            level_d[:, idx_d, lanes], torch.where(seed_d, it, inf)[None, :])
+        frontier_n, frontier_d = state.frontier_n, state.frontier_d
+
+    tp, tl, tdp, tisd, tv = (desc[:, 6 + i * t:6 + (i + 1) * t]
+                             for i in range(5))
+    tv, tisd = tv > 0, tisd > 0
+    lanes_wt = lanes[:, None].expand(w, t)
+    target_n = state.target_n & ~clear
+    tn = tv & ~tisd & mask[:, None]
+    target_n.view(torch.uint8).index_put_(
+        (torch.where(tn, tp, 0).long(), torch.where(tn, tl, 0).long(),
+         lanes_wt), tn.to(torch.uint8), accumulate=True)
+    p = state.target_d.shape[0]
+    target_d = state.target_d & ~clear
+    td = tv & tisd & mask[:, None]
+    target_d.view(torch.uint8).index_put_(
+        (torch.arange(p, device=desc.device)[:, None, None],
+         torch.where(td, tdp, 0).long()[None], lanes_wt[None]),
+        td.to(torch.uint8)[None].expand(p, w, t), accumulate=True)
+
+    m = mask[None, :]
+    return dataclasses.replace(
+        state,
+        level_n=level_n, level_d=level_d,
+        frontier_n=frontier_n, frontier_d=frontier_d,
+        backward=state.backward & ~mask[None, None, :],
+        base_it=torch.where(m, it, state.base_it),
+        lane_active=state.lane_active | m,
+        lane_stop=state.lane_stop & ~m,
+        depth_cap=torch.where(m, desc[:, 5][None, :], state.depth_cap),
+        has_targets=torch.where(m, tv.any(1)[None, :], state.has_targets),
+        target_n=target_n, target_d=target_d,
+        done=state.done & ~mask.any(),
+    )
+
+
+def init_multi_state(
+    pg: PartitionedGraph, sources: Sequence[int], cfg: MSBFSConfig,
+    *, depth_caps: Sequence | None = None, targets: Sequence | None = None,
+    device="cuda",
+) -> MSBFSState:
+    """Seed one lane per source, on ``device``: the planes are filled
+    there and the seed coordinates go up as one small descriptor tensor
+    (nothing of ``[p, n_local, W]`` is built on the host). Fewer than
+    ``n_queries`` sources leaves the tail lanes unseeded. ``depth_caps``
+    gives lane ``q`` a max hop depth (``None`` = unlimited); ``targets``
+    gives lane ``q`` target vertex ids (the lane retires the sweep all of
+    them are visited)."""
+    dev = resolve_device(device)
+    w = cfg.n_queries
+    sources = validate_sources(pg, sources)
+    if sources.size > w:
+        raise ValueError(f"{sources.size} sources > n_queries={w}")
+    if (targets is not None and not cfg.enable_targets
+            and any(tg is not None and len(tg) for tg in targets)):
+        raise ValueError("targets given but cfg.enable_targets is False")
+    desc = lane_descriptors(pg, w, range(sources.size), sources,
+                            depth_caps=depth_caps, targets=targets)
+    return _seed_lanes(_empty_state(pg, cfg, dev),
+                       _upload_descriptors(desc, dev))
+
+
+def reseed_lanes(
+    state: MSBFSState, lane_mask, src_part, src_local, src_dpos,
+    src_is_delegate, depth_cap=None, tgt_part=None, tgt_local=None,
+    tgt_dpos=None, tgt_is_delegate=None, tgt_valid=None, pay_lane=None,
+    pay_seed_all=None, pay_weighted=None, pay_delta=None, gid_n=None,
+    gid_d=None,
+) -> MSBFSState:
+    """Retire converged lanes and reseed them with fresh queries in place
+    (the reference's ``reseed_lanes``, same arguments and semantics, on the
+    bit planes: levels and reach-only, with depth caps and targets).
+
+    The arguments are host arrays (``[W]``, and ``[W, T]`` for the
+    targets), as :func:`lane_descriptors` builds them; omitted typed-query
+    arrays reset reseeded lanes to plain full-levels semantics. They go up
+    to the state's device as one small tensor and the reseed runs there
+    (:func:`_seed_lanes`); untouched lanes are bit-identical. The result
+    is a new state: unchanged leaves are shared with ``state``, the others
+    are new tensors. The payload lane arguments raise."""
+    if any(a is not None for a in (pay_lane, pay_seed_all, pay_weighted,
+                                   pay_delta, gid_n, gid_d)):
+        raise NotImplementedError(
+            "payload lanes are not ported yet: ROADMAP.md queue A, item A9 "
+            "(payload plane and the payload kinds)")
+    mask = np.asarray(lane_mask, dtype=bool)
+    w = mask.shape[0]
+    cap = (np.full(w, NO_DEPTH_CAP, dtype=np.int32) if depth_cap is None
+           else depth_cap)
+    tgt = (tgt_part, tgt_local, tgt_dpos, tgt_is_delegate, tgt_valid)
+    if tgt_valid is None:
+        tgt = tuple(np.zeros((w, 0), dtype=np.int32) for _ in range(5))
+    desc = (mask, src_part, src_local, src_dpos, src_is_delegate, cap) + tgt
+    return _seed_lanes(state, _upload_descriptors(desc, state.it.device))
 
 
 # -----------------------------------------------------------------------------
@@ -485,38 +623,388 @@ def run_msbfs_emulated(pgv: PartitionedGraph, plan, state: MSBFSState,
     return state
 
 
-def _gather_lane_columns(pg: PartitionedGraph, state: MSBFSState, lanes):
-    """Host-side assembly of per-lane global vertex columns: ``[k, n]`` in
-    the level arrays' dtype, plus the matching base iterations ``[k]``.
-    The lane slice happens on the device, so only ``k`` columns cross to
-    the host."""
-    layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
-    level_n, level_d, bi = state.level_n, state.level_d[0], state.base_it[0]
-    if lanes is not None:
-        sel = torch.as_tensor(np.asarray(lanes), dtype=torch.long,
-                              device=level_n.device)
-        level_n, level_d, bi = level_n[..., sel], level_d[..., sel], bi[sel]
-    level_n, level_d = level_n.cpu().numpy(), level_d.cpu().numpy()
-    vids = np.arange(pg.n, dtype=np.int64)
-    out = level_n[layout.part_of(vids), layout.local_of(vids)]   # [n, k]
-    out = np.ascontiguousarray(out.T)                            # [k, n]
-    if pg.d:
-        dvids = np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]
-        out[:, dvids] = level_d[: pg.d].T
-    return out, bi.cpu().numpy()
+# -----------------------------------------------------------------------------
+# Fused k-sweep blocks (the overlapped serving pipeline's device step)
+
+#: sweeps a runner keeps in flight past the last one whose lane word the
+#: host has read. A sweep dispatched before the host saw a retirement runs
+#: gated off -- still a full sweep on the device -- so this, not the block
+#: length k, bounds the device time spent past a retirement. One: at the
+#: serving widths a sweep takes tens of ms on the card and reading its
+#: lane word then replaying the next takes tens of us (PERF.md, section 6)
+LOOKAHEAD = 1
+
+
+class Probe:
+    """The host's copy of one sweep's outcome: row 0 of ``lane_active`` and
+    ``lane_stop`` ([W] bool), ``it[0]``, and whether the sweep ran (False:
+    a watched lane had retired at its entry, so it left the state as it
+    was)."""
+
+    __slots__ = ("active", "stop", "it", "ran")
+
+    def __init__(self, v: np.ndarray, w: int):
+        self.active, self.stop = v[:w] > 0, v[w:2 * w] > 0
+        self.it, self.ran = int(v[2 * w]), bool(v[2 * w + 1])
+
+
+def _gated_step(pgv, plan, state: MSBFSState, watch: torch.Tensor,
+                cfg: MSBFSConfig, out: MSBFSState | None = None):
+    """One sweep of a block, gated on the device: the step where no
+    watched lane has retired, the state unchanged otherwise (the
+    reference's ``_block_loop`` condition, evaluated per sweep). Writes
+    into ``out`` where given. Returns ``(state, probe)``: ``probe`` int32
+    ``[2W + 2]`` = lane_active[0], lane_stop[0], it[0], ran."""
+    go = ~(watch[None, :] & ~state.lane_active).any()
+    new = msbfs_step(pgv, plan, state, cfg)
+    if out is None:
+        out = MSBFSState(**{k: torch.where(go, getattr(new, k),
+                                           getattr(state, k))
+                            for k in STATE_LEAVES})
+    else:
+        for k in STATE_LEAVES:
+            torch.where(go, getattr(new, k), getattr(state, k),
+                        out=getattr(out, k))
+    i32 = torch.int32
+    probe = torch.cat([out.lane_active[0].to(i32), out.lane_stop[0].to(i32),
+                       out.it[:1], go.to(i32)[None]])
+    return out, probe
+
+
+class BlockRun:
+    """One fused block in flight: up to ``k`` sweeps from ``src`` (a state,
+    or the block it is chained behind), stopping at the exact sweep any
+    lane of ``watch`` retires -- the reference's ``_block_loop`` contract,
+    so the state at a block boundary equals the per-sweep driver's leaf for
+    leaf. A block whose watch already holds a retired lane runs zero sweeps.
+
+    Sweeps are dispatched one at a time, each gated on the device, and the
+    host reads each one's :class:`Probe` (on a card from pinned memory,
+    behind an event), with at most ``LOOKAHEAD`` sweeps in flight.
+    :meth:`ready` never blocks; :meth:`wait` returns the block's final
+    probe; ``out`` is its final state. :meth:`cancel` drops a speculative
+    block (a sweep already dispatched for it runs and is discarded)."""
+
+    def __init__(self, runner: "_Runner", src, watch: np.ndarray, k: int):
+        self.runner, self.src, self.k = runner, src, int(k)
+        self.watch = np.array(watch, dtype=bool)
+        dev = runner.device
+        host = torch.from_numpy(self.watch)
+        self.watch_dev = (host.pin_memory().to(dev, non_blocking=True)
+                          if dev.type == "cuda" else host.to(dev))
+        self.dispatched = self.observed = 0
+        self.out = None           # state after the last dispatched sweep
+        self.buf = None           # ring buffer holding ``out`` (graph mode)
+        self.probe: Probe | None = None
+        self.cancelled = False
+
+    @property
+    def complete(self) -> bool:
+        """No more sweeps to dispatch (stopped, or k dispatched)."""
+        return self.probe is not None or self.dispatched == self.k
+
+    def ready(self) -> bool:
+        self.runner.pump(self, wait=False)
+        return self.probe is not None
+
+    def wait(self) -> Probe:
+        self.runner.pump(self, wait=True)
+        return self.probe
+
+    def cancel(self) -> None:
+        self.cancelled = True
+        if self in self.runner.pending:
+            self.runner.pending.remove(self)
+
+    def _note(self, probe: Probe) -> None:
+        """The host read one of this block's sweeps (in dispatch order)."""
+        self.observed += 1
+        if self.probe is None and ((self.watch & ~probe.active).any()
+                                   or self.observed == self.k):
+            self.probe = probe
+
+
+class _Runner:
+    """Dispatches the gated sweeps of one msBFS variant's blocks, in order.
+
+    On the CPU each sweep runs eagerly and its probe is there when it
+    returns, so a block is the reference's loop. On a card with
+    ``graph=True`` one gated sweep is captured per buffer of a ring of
+    ``LOOKAHEAD + 1`` static states (graph ``a`` reads buffer ``a`` and
+    writes ``a + 1``); a block
+    that starts from an outside state copies it into the buffer after the
+    last one written. A block's final state then stays intact while up to
+    ``LOOKAHEAD`` more sweeps run, which is all a speculative successor can
+    dispatch before the host reads that state. The captured launches do not
+    count in ``ops.LAUNCHES``; each replay adds them to ``ops.REPLAYED``.
+    With ``graph=False`` on a card the same gated sweep runs eagerly (for
+    timing the two apart)."""
+
+    def __init__(self, pgv, plan, cfg: MSBFSConfig, graph: bool, pool=None):
+        self.pgv, self.plan, self.cfg = pgv, plan, cfg
+        self.device = pgv.normal_valid.device
+        self.cuda = self.device.type == "cuda"
+        self.lookahead = LOOKAHEAD
+        self.pending: deque = deque()   # blocks not yet complete, in order
+        self.inflight: deque = deque()  # (block, host probe, start, end)
+        self.sweeps = self.gated = self.replays = 0
+        self.gated_ms = 0.0
+        self.graphs = None
+        w = cfg.n_queries
+        if self.cuda:
+            self.host = torch.empty((self.lookahead + 1, 2 * w + 2),
+                                    dtype=torch.int32, pin_memory=True)
+            self.slot = 0
+        if graph:
+            if not self.cuda:
+                raise ValueError("graph=True needs a card")
+            self._capture(pool)
+
+    def _capture(self, pool) -> None:
+        n = self.lookahead + 1
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        self.bufs = [_empty_state(self.pgv, self.cfg, self.device)
+                     for _ in range(n)]
+        self.watch = torch.zeros(self.cfg.n_queries, dtype=torch.bool,
+                                 device=self.device)
+        self.probes = [torch.zeros(2 * self.cfg.n_queries + 2,
+                                   dtype=torch.int32, device=self.device)
+                       for _ in range(n)]
+        step = lambda a: self.probes[(a + 1) % n].copy_(_gated_step(
+            self.pgv, self.plan, self.bufs[a], self.watch, self.cfg,
+            out=self.bufs[(a + 1) % n])[1])
+        # one eager sweep on a side stream first: it builds whatever a
+        # kernel wrapper prepares on first use, so the capture records
+        # launches only
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            step(0)
+        cur.wait_stream(side)
+        before = dict(ops.LAUNCHES)
+        self.graphs = []
+        for a in range(n):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool):
+                step(a)
+            self.graphs.append(g)
+        self.per_replay = {k: (ops.LAUNCHES[k] - before[k]) // n
+                           for k in before}
+        ops.LAUNCHES.update(before)     # captured, not launched
+        self.last = 0                   # buffer the last sweep wrote
+        self.watch_of = None            # block whose watch is loaded
+
+    def start(self, src, watch, k: int) -> BlockRun:
+        blk = BlockRun(self, src, watch, k)
+        self.pending.append(blk)
+        self._fill()
+        return blk
+
+    def _fill(self) -> None:
+        """Dispatch what the lookahead allows, blocks in order."""
+        while self.pending and len(self.inflight) < self.lookahead:
+            blk = self.pending[0]
+            if blk.complete:            # stopped by a sweep read since
+                self.pending.popleft()
+                continue
+            src = blk.src
+            if blk.dispatched == 0 and isinstance(src, BlockRun):
+                if not src.complete:
+                    return
+                if src.probe is not None and (blk.watch
+                                              & ~src.probe.active).any():
+                    # frozen at entry and the host knows it: zero sweeps
+                    blk.out, blk.buf, blk.probe = src.out, src.buf, src.probe
+                    self.pending.popleft()
+                    continue
+            self._dispatch(blk)
+            if blk.complete:
+                self.pending.popleft()
+
+    def _dispatch(self, blk: BlockRun) -> None:
+        first = blk.dispatched == 0
+        prev = ((blk.src.out if isinstance(blk.src, BlockRun) else blk.src)
+                if first else blk.out)
+        start = end = None
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        if self.graphs is not None:
+            n = len(self.bufs)
+            a = (blk.src.buf if first and isinstance(blk.src, BlockRun)
+                 else blk.buf)
+            if a is None:               # an outside state: load it
+                a = (self.last + 1) % n
+                for key in STATE_LEAVES:
+                    getattr(self.bufs[a], key).copy_(getattr(prev, key))
+            if self.watch_of is not blk:
+                self.watch.copy_(blk.watch_dev)
+                self.watch_of = blk
+            start.record()
+            self.graphs[a].replay()
+            self.replays += 1
+            ops.count_replay(self.per_replay)
+            blk.buf = self.last = (a + 1) % n
+            blk.out, probe = self.bufs[blk.buf], self.probes[blk.buf]
+        else:
+            if self.cuda:
+                start.record()
+            blk.out, probe = _gated_step(self.pgv, self.plan, prev,
+                                         blk.watch_dev, self.cfg)
+        if self.cuda:
+            host = self.host[self.slot]
+            self.slot = (self.slot + 1) % self.host.shape[0]
+            host.copy_(probe, non_blocking=True)
+            end.record()
+        else:
+            host = probe
+        blk.dispatched += 1
+        self.sweeps += 1
+        self.inflight.append((blk, host, start, end))
+
+    def _read(self, wait: bool) -> bool:
+        """Read the oldest sweep in flight; False if it is not done yet
+        (``wait=False``)."""
+        blk, host, start, end = self.inflight[0]
+        if self.cuda:
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return False
+        self.inflight.popleft()
+        probe = Probe(host.numpy().copy(), self.cfg.n_queries)
+        if not probe.ran:
+            self.gated += 1
+            if self.cuda:
+                self.gated_ms += start.elapsed_time(end)
+        if not blk.cancelled:
+            blk._note(probe)
+        return True
+
+    def pump(self, blk: BlockRun, wait: bool) -> None:
+        """Dispatch and read sweeps until ``blk``'s probe is known, or
+        (``wait=False``) until the oldest sweep in flight is not done;
+        then dispatch what the lookahead allows, so the card stays busy
+        while the host works."""
+        while blk.probe is None:
+            self._fill()
+            if not self.inflight:
+                raise RuntimeError("block has no sweep in flight to wait on")
+            if not self._read(wait):
+                break
+        self._fill()
+
+    def drain(self) -> None:
+        """Read every sweep still in flight (blocking)."""
+        while self.inflight:
+            self._read(True)
+
+
+class SweepBlock:
+    """The fused block of one msBFS variant:
+    ``block(pgv, plan, state, watch) -> BlockRun`` runs up to ``k``
+    sweeps, stopping at the exact sweep any watched lane converges (see
+    :class:`BlockRun`); ``state`` may be a :class:`BlockRun` to chain
+    behind. Its runner is built on the first call (on a card with
+    ``graph`` true, the default there, that call captures the sweep)."""
+
+    def __init__(self, cfg: MSBFSConfig, k: int, graph: bool | None = None,
+                 pool=None):
+        if int(k) < 1:
+            raise ValueError(f"a block runs k >= 1 sweeps, got {k}")
+        self.cfg, self.k, self.graph, self.pool = cfg, int(k), graph, pool
+        self.runner: _Runner | None = None
+
+    def __call__(self, pgv, plan, state, watch) -> BlockRun:
+        if self.runner is None:
+            cuda = pgv.normal_valid.device.type == "cuda"
+            self.runner = _Runner(pgv, plan, self.cfg,
+                                  cuda if self.graph is None else self.graph,
+                                  self.pool)
+        elif self.runner.pgv is not pgv or self.runner.plan is not plan:
+            raise ValueError("a SweepBlock serves the one graph it was "
+                             "first called on")
+        return self.runner.start(state, watch, self.k)
+
+
+def make_msbfs_block_emulated(cfg: MSBFSConfig, k: int,
+                              graph: bool | None = None,
+                              pool=None) -> SweepBlock:
+    """The fused block for the emulated path: ``block(pgv, plan, state,
+    watch) -> BlockRun`` runs up to ``k`` sweeps per host round trip with
+    the reference's stop-at-retirement contract (``BlockRun.wait()`` then
+    ``.out`` is the state). On a card the sweep is a CUDA graph replay
+    (``graph=False`` runs it eagerly); ``pool`` is the graph memory pool
+    to share (``torch.cuda.graph_pool_handle()``)."""
+    return SweepBlock(cfg, k, graph, pool)
+
+
+class LaneGather:
+    """Per-lane global vertex rows on their way to the host.
+
+    Everything runs on the state's device: the lane slice, the gather of
+    every vertex's slot (``part_of(v) * n_local + local_of(v)``), the
+    delegate columns and, for int32 levels, the ``base_it`` subtraction;
+    then the ``[k, n]`` rows are copied to the host at once -- on a card
+    into pinned memory, behind an event -- so a sweep dispatched afterwards
+    cannot overwrite what the copy reads. :meth:`rows` waits for the copy:
+    hop distances ``[k, n]`` int32 (INF_LEVEL where unreached) from a
+    levels state, reachability masks ``[k, n]`` bool from a reach-only
+    one."""
+
+    def __init__(self, pg: PartitionedGraph, state: MSBFSState, lanes=None):
+        level_n, level_d, bi = state.level_n, state.level_d[0], state.base_it[0]
+        dev = level_n.device
+        cuda = dev.type == "cuda"
+        if lanes is not None:
+            sel = torch.as_tensor(np.asarray(lanes), dtype=torch.long)
+            sel = sel.pin_memory().to(dev, non_blocking=True) if cuda \
+                else sel.to(dev)
+            level_n, level_d, bi = level_n[..., sel], level_d[..., sel], bi[sel]
+        p, nl, k = level_n.shape
+        v = torch.arange(pg.n, device=dev)
+        slot = (((v % pg.p_rank) * pg.p_gpu + (v // pg.p_rank) % pg.p_gpu)
+                * nl + v // p)
+        rows = level_n.reshape(p * nl, k).index_select(0, slot)   # [n, k]
+        if pg.d:
+            dv = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(pg.delegate_vids).reshape(-1)[: pg.d],
+                dtype=np.int64))
+            dv = dv.pin_memory().to(dev, non_blocking=True) if cuda \
+                else dv.to(dev)
+            rows[dv] = level_d[: pg.d]
+        rows = rows.t()
+        if rows.dtype != torch.bool:
+            inf = int(INF_LEVEL)
+            rows = torch.where(rows == inf, inf, rows - bi[:, None])
+        rows = rows.contiguous()
+        self.event = None
+        if cuda:
+            self.host = torch.empty(rows.shape, dtype=rows.dtype,
+                                    pin_memory=True)
+            self.host.copy_(rows, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = rows
+
+    def rows(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 def gather_levels_multi(pg: PartitionedGraph, state: MSBFSState,
                         lanes=None) -> np.ndarray:
     """Per-query global hop distances ``[W, n]`` int32 (``[len(lanes), n]``
     when ``lanes`` is given); ``base_it`` is subtracted per lane."""
-    out, base = _gather_lane_columns(pg, state, lanes)
-    return np.where(out == INF_LEVEL, INF_LEVEL, out - base[:, None])
+    return LaneGather(pg, state, lanes).rows()
 
 
 def gather_reachable_multi(pg: PartitionedGraph, state: MSBFSState,
                            lanes=None) -> np.ndarray:
     """Per-query reachability masks ``[W, n]`` bool from the reachability-
     only variant's visited words."""
-    out, _ = _gather_lane_columns(pg, state, lanes)
-    return out
+    return LaneGather(pg, state, lanes).rows()

@@ -7,7 +7,8 @@ any other device raise.
 
 ``LAUNCHES`` counts kernel launches per kernel (a plain integer each,
 incremented exactly where a wrapper launches), so a run can show that its
-main path went through the kernels.
+main path went through the kernels; ``REPLAYED`` counts the launches that
+CUDA graph replays of captured wrapper calls make.
 """
 from __future__ import annotations
 
@@ -30,11 +31,20 @@ from .segment_bag import segment_bag_cuda, segment_bag_plain
 LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0, "ell_pull": 0,
             "payload_min_fold": 0, "cin_fused": 0, "segment_bag": 0,
             "ell_pull_payload": 0}
+#: launches made by replaying CUDA graphs, per kernel: a captured wrapper
+#: call counts here once per replay (its capture counts nowhere)
+REPLAYED = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = REPLAYED[k] = 0
+
+
+def count_replay(per_replay: dict) -> None:
+    """One replay of a graph that captured ``per_replay`` launches."""
+    for k, n in per_replay.items():
+        REPLAYED[k] += n
 
 
 def _on_cuda(first: torch.Tensor, *rest: torch.Tensor) -> bool:

@@ -1,5 +1,4 @@
-"""msBFS serving engine, batch mode: typed query queue -> lane batches ->
-results.
+"""msBFS serving engine: typed query queue -> lane batches -> results.
 
 One ``BFSServeEngine`` owns a partitioned graph and its static exchange
 plan on one device, with the partitions emulated on the stacked leading
@@ -7,29 +6,49 @@ axis. ``submit`` answers typed :class:`~repro_torch.serve.queries.Query`
 descriptors -- full levels, reachability masks, distance-limited levels,
 multi-target depths -- and ``query`` stays as the classic full-levels
 sugar. Cache hits and already-mapped components are answered without a
-traversal; misses are packed into W-lane batches (kinds mix freely),
-traversed by :func:`repro_torch.core.msbfs.run_msbfs_emulated`, unpacked
-per kind and cached under ``(graph_id, kind, params, source)`` keys that
-equal the reference package's.
+traversal; misses are traversed, unpacked per kind and cached under
+``(graph_id, kind, params, source)`` keys that equal the reference
+package's.
 
-A batch that is homogeneously ``REACHABILITY`` runs the levels-free
-variant (``track_levels=False``); a batch without a ``MULTI_TARGET`` lane
-drops the target scan (``enable_targets=False``).
+Two scheduling modes, picked at construction:
+
+* ``refill=False`` packs misses into W-lane batches and runs each to
+  convergence (:func:`repro_torch.core.msbfs.run_msbfs_emulated`).
+* ``refill=True`` runs the continuously-fed pipeline: converged lanes are
+  retired (attributed through the
+  :class:`~repro_torch.serve.batcher.LaneScheduler` generations) and
+  reseeded on the device from the pending queue at the next sweep
+  boundary, so a deep straggler never idles the other W-1 lanes.
+  ``overlap=True`` drives those sessions through fused ``sweep_block``-
+  sweep blocks that stop exactly at lane-retirement boundaries, with a
+  speculative successor in flight while the host unpacks -- the same
+  schedule and counters as the per-sweep driver, fewer host round trips.
+  ``submit_stream`` / ``poll`` / ``drain_stream`` feed and drain the same
+  lane word incrementally.
+
+A batch or session that is homogeneously ``REACHABILITY`` runs the
+levels-free variant (``track_levels=False``); one without a
+``MULTI_TARGET`` lane drops the target scan (``enable_targets=False``).
 """
 from __future__ import annotations
 
 import hashlib
+from collections import deque
 from dataclasses import dataclass, field, fields as _dc_fields, \
     replace as _dc_replace
+from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core import bfs as B, comm as C, engine as E, msbfs as M
 from repro_torch.core.partition import partition_graph
 from repro_torch.core.types import COOGraph, PartitionLayout, PartitionedGraph
 
+from .batcher import LaneScheduler
 from .cache import LRUCache
-from .queries import DEFERRED_KINDS, Query, QueryKind, as_query, unpack_result
+from .queries import (DEFERRED_KINDS, MAX_TARGETS, Query, QueryKind, as_query,
+                      dedupe, unpack_result)
 
 
 def default_graph_id(pg: PartitionedGraph) -> str:
@@ -53,9 +72,21 @@ def default_graph_id(pg: PartitionedGraph) -> str:
 @dataclass
 class ServeStats:
     """Serving counters (the reference's fields, so ``as_dict`` compares
-    whole). In batch mode each batch accounts a full lane word:
-    ``lanes_used + lanes_padded == batches * n_queries``; the refill,
-    pipeline and payload counters stay 0 in this slice."""
+    whole).
+
+    * ``lanes_used`` counts lane occupancies: every traversed query once.
+    * Batch mode accounts a full lane word per batch:
+      ``lanes_used + lanes_padded == batches * n_queries``.
+    * Refill mode: a drain session of k queries accounts ``max(n_queries,
+      k)`` lane slots; ``refills`` counts mid-flight reseeds, ``sweeps``
+      the session sweeps, and ``lane_sweeps_busy / lane_sweeps_total`` is
+      the pipeline's lane utilization.
+    * ``sweep_blocks`` counts fused block boundaries (``overlap=True`` and
+      the stream API): ``sweeps / sweep_blocks`` is the fusion factor.
+    * ``dedup_hits`` counts exact duplicates dropped by the refill and
+      stream entry points.
+
+    The payload counters stay 0 until the payload plane is ported."""
 
     queries: int = 0
     batches: int = 0
@@ -117,6 +148,54 @@ class ServeStats:
         return out
 
 
+@dataclass
+class _Session:
+    """Host-side bookkeeping for one refill drain / stream session.
+
+    Shared by the per-sweep driver, the overlapped pipelined driver and the
+    streaming API: retirement-boundary processing
+    (:meth:`BFSServeEngine._process_boundary`) is one code path, which is
+    what keeps the pipelined schedule -- and so every ``ServeStats``
+    counter -- identical to the per-sweep driver's.
+    """
+
+    cfg: M.MSBFSConfig
+    reach_fast: bool
+    sched: LaneScheduler
+    state: Any                       # device MSBFSState (latest processed)
+    block: Any = None                # fused k-sweep block (pipelined)
+    stream: bool = False
+    results: dict = field(default_factory=dict)
+    expected: dict = field(default_factory=dict)  # item -> (lane, generation)
+    seen: set = field(default_factory=set)        # stream dedup identity
+    undelivered: deque = field(default_factory=deque)  # stream delivery queue
+    cached: set = field(default_factory=set)      # already in (or exempt
+                                                  # from) the engine LRU
+    cur: Any = None         # pipelined: in-flight block to process next
+    head: Any = None        # pipelined: speculative successor block
+    has_reach: bool = False  # session saw a REACHABILITY query (gates defer)
+    busy_at_dispatch: int = 0
+    it_prev: int = 0        # device `it` at the last processed boundary
+    sweeps: int = 0         # session sweep count (guard)
+    n_queries_seen: int = 0  # guard scaling (grows with stream submits)
+    lanes_seeded: int = 0   # stream padding accounting at close
+
+    @property
+    def guard(self) -> int:
+        return (self.cfg.max_iters * max(1, self.n_queries_seen)
+                + self.sched.width)
+
+    def complete(self, q, res, skip_cache: bool = False) -> None:
+        """Record a finished result. Stream sessions also queue it for the
+        next delivery; ``skip_cache`` marks results resolved from an
+        existing memo at submit time, which are never re-put in the LRU."""
+        self.results[q] = res
+        if self.stream:
+            self.undelivered.append(q)
+            if skip_cache:
+                self.cached.add(q)
+
+
 class BFSServeEngine:
     """Serve typed traversal queries from batched msBFS sweeps.
 
@@ -129,6 +208,17 @@ class BFSServeEngine:
     cache_capacity / cache_ttl : LRU entries (0 disables) and default
         per-entry time-to-live in seconds (None = never expires).
     graph_id : cache key namespace; defaults to :func:`default_graph_id`.
+    refill : serve misses through the continuously-fed lane-refill
+        pipeline instead of batch-at-a-time traversals.
+    overlap : drive refill sessions through fused ``sweep_block``-sweep
+        blocks (:func:`repro_torch.core.msbfs.make_msbfs_block_emulated`)
+        that stop exactly at lane-retirement boundaries, with a
+        speculative successor block in flight while the host processes
+        the boundary; the schedule and every counter but ``sweep_blocks``
+        equal the per-sweep driver's. No effect unless ``refill=True``.
+        On a card each block's sweeps are CUDA graph replays over static
+        state buffers, captured on first use (``warmup`` does it).
+    sweep_block : sweeps fused per block (the convergence-poll cadence).
     specialize_reachability : run homogeneous REACHABILITY batches on the
         levels-free variant.
     reuse_components : memoize reachability answers per connected
@@ -138,6 +228,12 @@ class BFSServeEngine:
     device : where the partition lives and the sweeps run (default
         ``"cuda"``; raises without a card -- pass ``"cpu"`` for the plain
         PyTorch path).
+
+    State reuse: the reference donates a block's input buffers; here every
+    traversal state is a new set of tensors, except inside a fused block
+    on a card, whose sweeps write a ring of static buffers. A state read
+    after a later block was dispatched (the deferred gathers of a
+    boundary) is copied out on the stream before that dispatch.
     """
 
     def __init__(
@@ -153,6 +249,9 @@ class BFSServeEngine:
         cache_capacity: int = 256,
         cache_ttl: float | None = None,
         graph_id: str | None = None,
+        refill: bool = False,
+        overlap: bool = False,
+        sweep_block: int = 8,
         specialize_reachability: bool = True,
         reuse_components: bool = True,
         device="cuda",
@@ -170,6 +269,12 @@ class BFSServeEngine:
             raise ValueError(
                 "pass a track_levels=True, enable_targets=True cfg; the "
                 "engine derives the specialized per-batch variants itself")
+        self.refill = bool(refill)
+        self.overlap = bool(overlap)
+        if int(sweep_block) < 1:
+            raise ValueError(f"sweep_block must be >= 1, got {sweep_block}")
+        self.sweep_block = int(sweep_block)
+        self._stream: _Session | None = None
         self.specialize_reachability = bool(specialize_reachability)
         self.reuse_components = bool(reuse_components)
         self._comp_id = np.full(pg.n, -1, dtype=np.int32)
@@ -179,19 +284,23 @@ class BFSServeEngine:
         self.graph_id = graph_id if graph_id is not None else default_graph_id(pg)
         self.cache = LRUCache(cache_capacity, ttl=cache_ttl)
         self.stats = ServeStats()
-        #: sweeps of every traversal run (batch mode keeps ``stats.sweeps``
-        #: at 0, as the reference does)
+        #: sweeps of every batch-mode traversal (batch mode keeps
+        #: ``stats.sweeps`` at 0, as the reference does)
         self.traversal_sweeps = 0
         self._layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
         self._dvids = np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]
+        #: fused blocks by (msBFS variant, stream session): a stream
+        #: session and a refill drain never share one block's buffers
+        self.blocks: dict = {}
+        self._graph_pool = None
 
     # -- per-batch variants -------------------------------------------------
     def _reach_fast(self, queries) -> bool:
         return (self.specialize_reachability
                 and all(q.kind is QueryKind.REACHABILITY for q in queries))
 
-    def _batch_cfg(self, queries) -> M.MSBFSConfig:
-        """The msBFS variant this batch runs."""
+    def _session_cfg(self, queries) -> M.MSBFSConfig:
+        """The msBFS variant this batch or session runs."""
         if self._reach_fast(queries):
             return _dc_replace(self.cfg, track_levels=False,
                                enable_targets=False)
@@ -199,10 +308,18 @@ class BFSServeEngine:
             return self.cfg
         return _dc_replace(self.cfg, enable_targets=False)
 
-    def _gather_rows(self, reach_fast: bool, state, lanes) -> np.ndarray:
-        if reach_fast:
-            return M.gather_reachable_multi(self.pg, state, lanes=lanes)
-        return M.gather_levels_multi(self.pg, state, lanes=lanes)
+    def _block(self, cfg: M.MSBFSConfig, stream: bool) -> M.SweepBlock:
+        """The fused ``sweep_block``-sweep block of ``cfg`` (one per
+        variant and session kind; all of an engine's captured sweeps share
+        one graph memory pool, as they replay on one stream)."""
+        key = (cfg, stream)
+        blk = self.blocks.get(key)
+        if blk is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            blk = self.blocks[key] = M.make_msbfs_block_emulated(
+                cfg, self.sweep_block, pool=self._graph_pool)
+        return blk
 
     def _validate_queries(self, queries) -> None:
         """Reject deferred kinds and range-check every source and target
@@ -251,13 +368,13 @@ class BFSServeEngine:
             return {}
         self._validate_queries(queries)
         reach_fast = self._reach_fast(queries)
-        cfg = self._batch_cfg(queries)
+        cfg = self._session_cfg(queries)
         st = M.init_multi_state(
             self.pg, [q.source for q in queries], cfg,
             depth_caps=[q.depth_cap for q in queries],
             targets=[q.targets for q in queries], device=self.device)
         out = M.run_msbfs_emulated(self.pgv, self.plan, st, cfg)
-        rows = self._gather_rows(reach_fast, out, np.arange(len(queries)))
+        rows = M.LaneGather(self.pg, out, np.arange(len(queries))).rows()
         self.traversal_sweeps += int(out.it[0])
         if reach_fast:
             self.stats.reach_fast_batches += 1
@@ -271,6 +388,433 @@ class BFSServeEngine:
                 self.stats.note_early_stop(q.kind)
         return {q: unpack_result(q, rows[i], packed_reach=reach_fast)
                 for i, q in enumerate(queries)}
+
+    # -- refill path --------------------------------------------------------
+    def _seed_descriptors(self, assignments) -> tuple:
+        """Host-side lane seed coordinates + typed-query parameters for
+        ``msbfs.reseed_lanes`` (targets padded to ``MAX_TARGETS``)."""
+        qs = [as_query(a.item if a.item is not None else a.source)
+              for a in assignments]
+        return M.lane_descriptors(
+            self.pg, self.cfg.n_queries, [a.lane for a in assignments],
+            [a.source for a in assignments],
+            depth_caps=[q.depth_cap for q in qs],
+            targets=[q.targets for q in qs], n_targets=MAX_TARGETS,
+            layout=self._layout, dvids=self._dvids)
+
+    def run_refill(self, sources: np.ndarray) -> dict:
+        """Classic full-levels drain: dedups ``sources`` (counted in
+        ``stats.dedup_hits``) and returns {source: levels [n] int32}."""
+        sources = M.validate_sources(self.pg, sources)
+        qs = [as_query(int(s)) for s in sources.tolist()]
+        return {q.source: lev
+                for q, lev in self.run_refill_queries(qs).items()}
+
+    def run_refill_queries(self, queries) -> dict:
+        """Drain typed ``queries`` through the continuously-fed lane
+        pipeline: {query: per-kind result}.
+
+        Exact duplicate descriptors are dropped up front (counted in
+        ``stats.dedup_hits``). Lanes are retired the sweep their early exit
+        latches or their frontier empties and reseeded from the pending
+        queue at the next sweep boundary; results are attributed through
+        the scheduler's (lane, generation) bookkeeping. ``overlap=True``
+        engines drain through the pipelined driver (same schedule, same
+        counters, fewer host round trips)."""
+        queries, dups = dedupe([as_query(q) for q in queries])
+        self.stats.dedup_hits += dups
+        if not queries:
+            return {}
+        self._validate_queries(queries)
+        sess = self._open_session(queries)
+        if self.overlap:
+            while sess.sched.n_busy:
+                self._pipeline_advance(sess)
+        else:
+            self._drain_sync(sess)
+        self._close_session(sess)
+        return sess.results
+
+    # -- session machinery (shared by sync / pipelined / streaming) ---------
+    def _open_session(self, queries, stream: bool = False) -> _Session:
+        """Pick the msBFS variant from the opening query set, seed the
+        initial lane fill and account the session-open stats. A stream
+        session opens with an empty lane word and, unless its opening set
+        is homogeneously REACHABILITY, the fully-general variant, so later
+        MULTI_TARGET submissions can be seeded."""
+        w = self.cfg.n_queries
+        reach_fast = self._reach_fast(queries)
+        cfg = (self.cfg if stream and not reach_fast
+               else self._session_cfg(queries))
+        sess = _Session(
+            cfg=cfg, reach_fast=reach_fast,
+            sched=LaneScheduler(w, pending=() if stream else queries),
+            state=M.init_multi_state(self.pg, [], cfg, device=self.device),
+            stream=stream, n_queries_seen=0 if stream else len(queries),
+            has_reach=any(q.kind is QueryKind.REACHABILITY for q in queries))
+        if self.overlap or stream:
+            sess.block = self._block(cfg, stream)
+        if reach_fast:
+            self.stats.reach_fast_batches += 1
+        self._fill(sess, initial=True)
+        self.stats.batches += 1
+        if not stream:
+            self.stats.lanes_padded += max(0, w - len(queries))
+        return sess
+
+    def _reseed(self, sess: _Session, assignments):
+        return M.reseed_lanes(sess.state, *self._seed_descriptors(assignments))
+
+    def _fill(self, sess: _Session, initial: bool = False) -> list:
+        """Assign pending queries to idle lanes and reseed them on the
+        device; ``initial`` fills count toward ``lanes_used`` only, later
+        ones are mid-flight ``refills``."""
+        fresh = sess.sched.fill_idle()
+        if fresh:
+            sess.state = self._reseed(sess, fresh)
+            self.stats.lanes_used += len(fresh)
+            sess.lanes_seeded += len(fresh)
+            if not initial:
+                self.stats.refills += len(fresh)
+            for a in fresh:
+                sess.expected[a.item] = (a.lane, a.generation)
+        return fresh
+
+    def _process_boundary(self, sess: _Session, active: np.ndarray,
+                          stops: np.ndarray | None = None,
+                          defer: bool = False):
+        """Retirement-boundary processing on ``sess.state`` (whose
+        ``lane_active`` / ``lane_stop`` rows are ``active`` / ``stops``;
+        ``stops`` None reads them when a lane retired): retire every newly
+        converged lane, attribute results through the (lane, generation)
+        bookkeeping, apply per-component reachability reuse, and refill
+        idle lanes from the pending queue. Returns ``(changed,
+        deferred)``: ``changed`` is True iff the scheduler changed;
+        ``deferred`` carries the retired lanes' gather (already enqueued
+        on the device, so a later dispatch cannot overwrite it) when
+        ``defer=True`` -- finish it with :meth:`_finish_boundary`.
+
+        Deferral is only requested when per-component reuse cannot observe
+        this boundary (``reuse_components`` off, or no REACHABILITY query
+        in the session): reuse must register the freshly gathered mask
+        before the cut/pending/refill decisions."""
+        sched, results = sess.sched, sess.results
+        finished = sched.busy & ~active
+        if not finished.any():
+            return False, None
+        fin_lanes = np.nonzero(finished)[0]
+        fin_items = [sched.lane_item[int(q)] for q in fin_lanes]
+        # the retired lanes' rows (hop distances, or reachability masks on
+        # a reach-only state), assembled on the device and on their way
+        gather = M.LaneGather(self.pg, sess.state, fin_lanes)
+        if stops is None:
+            stops = sess.state.lane_stop[0].cpu().numpy()
+        if not defer:
+            rows = gather.rows()
+        fins = []
+        for i, q in enumerate(fin_lanes):
+            item, gen = sched.retire(int(q))
+            if sess.expected.pop(item) != (int(q), gen):
+                raise RuntimeError("lane generation bookkeeping out of sync")
+            fins.append(item)
+            if not defer:
+                sess.complete(item, unpack_result(
+                    item, rows[i], packed_reach=sess.reach_fast))
+                self._register_component(item, results[item])
+            if stops[q]:
+                self.stats.note_early_stop(item.kind)
+        if self.reuse_components:
+            # a freshly mapped component may cover other reachability
+            # queries: answer pending ones without a lane, and cut active
+            # lanes short -- their result is already known
+            for lane in np.nonzero(sched.busy)[0]:
+                mask = self._component_of(as_query(sched.lane_item[lane]))
+                if mask is not None:
+                    item, _ = sched.retire(int(lane))
+                    sess.expected.pop(item)
+                    sess.complete(item, np.array(mask))
+                    self.stats.component_hits += 1
+            if sched.pending:
+                keep = []
+                for item in sched.pending:
+                    mask = self._component_of(as_query(item))
+                    if mask is None:
+                        keep.append(item)
+                    else:
+                        sess.complete(item, np.array(mask))
+                        self.stats.component_hits += 1
+                sched.pending.clear()
+                sched.pending.extend(keep)
+        self._fill(sess)
+        return True, ((gather, fins) if defer else None)
+
+    def _finish_boundary(self, sess: _Session, deferred) -> None:
+        """The deferred half of a retirement boundary: the retired lanes'
+        columns (copied from the pre-reseed state before the next block
+        was dispatched) unpacked per kind -- run while that block's sweeps
+        are on the device."""
+        gather, fins = deferred
+        rows = gather.rows()
+        for i, item in enumerate(fins):
+            sess.complete(item, unpack_result(
+                item, rows[i], packed_reach=sess.reach_fast))
+            self._register_component(item, sess.results[item])
+
+    def _close_session(self, sess: _Session) -> None:
+        if sess.block is not None and sess.block.runner is not None:
+            sess.block.runner.drain()
+        self.stats.note_traversal(sess.state)
+        if sess.stream:
+            self.stats.lanes_padded += max(
+                0, self.cfg.n_queries - sess.lanes_seeded)
+
+    # -- synchronous per-sweep driver ---------------------------------------
+    def _drain_sync(self, sess: _Session) -> None:
+        """One host round trip per sweep: step, read ``lane_active``,
+        process retirements (the ground-truth schedule the overlapped
+        driver must reproduce)."""
+        sched = sess.sched
+        w = self.cfg.n_queries
+        while sched.n_busy:
+            busy_now = sched.n_busy
+            sess.state = M.msbfs_step_emulated(self.pgv, self.plan,
+                                               sess.state, sess.cfg)
+            sess.sweeps += 1
+            self.stats.sweeps += 1
+            self.stats.lane_sweeps_busy += busy_now
+            self.stats.lane_sweeps_total += w
+            if sess.sweeps > sess.guard:
+                raise RuntimeError(
+                    f"refill pipeline exceeded {sess.guard} sweeps with "
+                    f"{sched.n_busy} lanes still busy")
+            active = sess.state.lane_active[0].cpu().numpy()
+            self._process_boundary(sess, active)
+
+    # -- overlapped pipelined driver ----------------------------------------
+    def _dispatch(self, sess: _Session, src) -> M.BlockRun:
+        """A block from ``src`` (a state, or the block to chain behind)
+        watching the busy lanes."""
+        return sess.block(self.pgv, self.plan, src, sess.sched.busy.copy())
+
+    def _pipeline_advance(self, sess: _Session, wait: bool = True) -> bool:
+        """Advance the overlapped pipeline by one block boundary.
+
+        Dispatches a fused ``sweep_block``-sweep block (plus a speculative
+        successor chained behind it), then waits on the *lagging* block
+        only, never the head. While the host unpacks retired lanes and
+        builds reseed descriptors, the successor keeps the device busy. A
+        block stops at the exact sweep any watched lane converges, and a
+        successor dispatched across a retirement boundary is frozen (and
+        dropped), so the schedule equals :meth:`_drain_sync`'s.
+
+        Returns False without processing when ``wait=False`` and the
+        lagging block is not done yet (the ``poll(wait=False)`` path);
+        True after a boundary was processed.
+        """
+        sched = sess.sched
+        w = self.cfg.n_queries
+        if sess.cur is None:
+            if not sched.n_busy:
+                if not sched.pending:
+                    return False
+                self._fill(sess, initial=sess.sweeps == 0)
+            sess.cur = self._dispatch(sess, sess.state)
+            # no speculation on a fresh dispatch: it follows a scheduler
+            # change, where a head is likely to be frozen; the quiet
+            # boundaries below speculate
+            sess.head = None
+            sess.busy_at_dispatch = sched.n_busy
+        if not wait and not sess.cur.ready():
+            return False
+        cur = sess.cur
+        probe = cur.wait()
+        ran = probe.it - sess.it_prev
+        busy_now = sess.busy_at_dispatch
+        sess.it_prev = probe.it
+        sess.sweeps += ran
+        self.stats.sweeps += ran
+        self.stats.lane_sweeps_busy += busy_now * ran
+        self.stats.lane_sweeps_total += w * ran
+        self.stats.sweep_blocks += 1
+        if sess.sweeps > sess.guard:
+            raise RuntimeError(
+                f"refill pipeline exceeded {sess.guard} sweeps with "
+                f"{sched.n_busy} lanes still busy")
+        sess.state = cur.out
+        defer = not (self.reuse_components and sess.has_reach)
+        changed, deferred = self._process_boundary(sess, probe.active,
+                                                   probe.stop, defer=defer)
+        if (not changed and sess.stream and sched.pending
+                and sched.n_busy < w):
+            # a stream session fed mid-flight while lanes sat idle: seed
+            # them at this quiet boundary instead of letting new queries
+            # starve behind a deep straggler
+            changed = bool(self._fill(sess))
+        if changed:
+            # the head (if any) saw a converged watched lane at entry and
+            # froze: drop it and redispatch from the post-reseed state
+            # before unpacking the retired lanes, so the host-side unpack
+            # runs under the next block's sweeps
+            if sess.head is not None:
+                sess.head.cancel()
+            sess.cur = sess.head = None
+            if sched.n_busy:
+                sess.cur = self._dispatch(sess, sess.state)
+                sess.busy_at_dispatch = sched.n_busy
+            if deferred is not None:
+                self._finish_boundary(sess, deferred)
+        else:
+            if ran == 0:
+                raise RuntimeError(
+                    "overlapped pipeline made no progress (no sweeps ran "
+                    "and no lane retired)")
+            # no retirement: the head (when speculated) is the true
+            # continuation; chain the next speculative block behind it
+            nxt = sess.head if sess.head is not None else self._dispatch(
+                sess, cur)
+            sess.cur = nxt
+            sess.head = self._dispatch(sess, nxt)
+            sess.busy_at_dispatch = sched.n_busy
+        return True
+
+    # -- streaming API ------------------------------------------------------
+    def submit_stream(self, queries, *, front: bool = False) -> int:
+        """Feed typed queries into the continuously-fed serving stream.
+
+        Opens a stream session on first use (its msBFS variant is picked
+        from this first submission's kinds; a later submission needing
+        another variant raises -- ``drain_stream`` first). Cache, component
+        and in-session duplicate hits are resolved at once without a lane
+        (counted in ``cache_hits`` / ``component_hits`` / ``dedup_hits``)
+        and delivered by the next :meth:`poll`. Returns the number of
+        queries enqueued for traversal. ``front=True`` enqueues this
+        submission's misses ahead of the pending queue (their own order
+        kept). Never blocks on a traversal: :meth:`poll` and
+        :meth:`drain_stream` seed lanes and dispatch sweeps."""
+        qs = [as_query(q) for q in queries]
+        if not qs:
+            return 0
+        self._validate_queries(qs)
+        if self._stream is not None:
+            sess = self._stream
+            if sess.reach_fast and any(q.kind is not QueryKind.REACHABILITY
+                                       for q in qs):
+                raise ValueError(
+                    "stream session is specialized to levels-free "
+                    "REACHABILITY; drain_stream() before submitting other "
+                    "kinds")
+            if not sess.cfg.enable_targets and any(
+                    q.kind is QueryKind.MULTI_TARGET for q in qs):
+                raise ValueError(
+                    "stream session was opened without target support; "
+                    "drain_stream() before submitting MULTI_TARGET queries")
+        else:
+            self._stream = self._open_session(qs, stream=True)
+            sess = self._stream
+        self.stats.queries += len(qs)
+        for q in qs:
+            self.stats.note_kind(q.kind)
+        # traversal misses are enqueued in one scheduler call, so a
+        # front=True submission lands as one contiguous run
+        to_seed: list = []
+        seeding: set = set()
+        for q in qs:
+            if q in sess.seen:
+                # duplicate within the session: completed-but-undelivered
+                # and in-flight/pending twins deliver once on their own; a
+                # result already handed out is re-answered from the LRU,
+                # or re-enqueued when nothing holds it anymore
+                self.stats.dedup_hits += 1
+                if q in sess.results:
+                    sess.undelivered.append(q)
+                elif (q in sess.expected or q in sess.sched.pending
+                      or q in seeding):
+                    pass
+                else:
+                    hit = self.cache.get(q.key(self.graph_id))
+                    if hit is not None:
+                        self.stats.cache_hits += 1
+                        sess.complete(q, hit, skip_cache=True)
+                    else:
+                        sess.cached.discard(q)   # fresh traversal recaches
+                        to_seed.append(q)
+                        seeding.add(q)
+                        sess.n_queries_seen += 1
+                continue
+            sess.seen.add(q)
+            hit = self.cache.get(q.key(self.graph_id))
+            if hit is not None:
+                self.stats.cache_hits += 1
+                sess.complete(q, hit, skip_cache=True)
+                continue
+            mask = self._component_of(q)
+            if mask is not None:
+                self.stats.component_hits += 1
+                sess.complete(q, np.array(mask), skip_cache=True)
+                continue
+            if q.kind is QueryKind.REACHABILITY:
+                sess.has_reach = True
+            to_seed.append(q)
+            seeding.add(q)
+            sess.n_queries_seen += 1
+        if to_seed:
+            sess.sched.submit_stream(to_seed, front=front)
+        return len(to_seed)
+
+    def stream_status(self) -> dict:
+        """Host-side snapshot of the stream session (all zeros when none is
+        open): ``busy`` lanes, ``pending`` queries, ``undelivered``
+        results waiting for the next :meth:`poll`."""
+        sess = self._stream
+        if sess is None:
+            return {"open": False, "busy": 0, "pending": 0, "undelivered": 0}
+        return {"open": True, "busy": int(sess.sched.n_busy),
+                "pending": len(sess.sched.pending),
+                "undelivered": len(sess.undelivered)}
+
+    def poll(self, wait: bool = True) -> dict:
+        """Advance the stream by at most one pipeline boundary and return
+        the newly completed results: {query: per-kind result}.
+        ``wait=False`` never blocks: if the lagging block is not done, only
+        already-completed results are returned. Returned arrays are owned
+        copies; completed results are cached under the engine's LRU keys."""
+        sess = self._stream
+        if sess is None:
+            return {}
+        if sess.sched.n_busy or sess.sched.pending:
+            self._pipeline_advance(sess, wait=wait)
+        return self._deliver(sess)
+
+    def drain_stream(self) -> dict:
+        """Run the stream to completion, close the session, and return
+        every result not yet handed out by :meth:`poll`."""
+        sess = self._stream
+        if sess is None:
+            return {}
+        while sess.sched.n_busy or sess.sched.pending:
+            self._pipeline_advance(sess)
+        self._stream = None
+        self._close_session(sess)
+        return self._deliver(sess)
+
+    def _deliver(self, sess: _Session) -> dict:
+        """Drain the undelivered queue: each session-computed result is
+        written to the LRU exactly once, then released from the session
+        (a long-lived stream stays O(in-flight) in host memory)."""
+        own = lambda r: dict(r) if isinstance(r, dict) else np.array(r)
+        out = {}
+        while sess.undelivered:
+            q = sess.undelivered.popleft()
+            if q in out:
+                continue
+            res = sess.results.pop(q, None)
+            if res is None:
+                continue            # stale queue entry: delivered earlier
+            if q not in sess.cached:
+                self.cache.put(q.key(self.graph_id), res)
+                sess.cached.add(q)
+            out[q] = own(res)
+        return out
 
     # -- public API ---------------------------------------------------------
     def submit_many(self, queries) -> list:
@@ -298,29 +842,32 @@ class BFSServeEngine:
                 results[q] = np.array(memo)
                 continue
             misses.append(q)
-        served = {}
-        remaining = list(misses)
-        while remaining:
-            if self.reuse_components:
-                # components mapped by earlier batches answer later
-                # reachability misses without a lane
-                still = []
-                for q in remaining:
-                    mask = self._component_of(q)
-                    if mask is None:
-                        still.append(q)
-                    else:
-                        served[q] = np.array(mask)
-                        self.stats.component_hits += 1
-                remaining = still
-                if not remaining:
-                    break
-            batch = remaining[: self.cfg.n_queries]
-            remaining = remaining[self.cfg.n_queries:]
-            batch_res = self.run_batch_queries(batch)
-            for q, res in batch_res.items():
-                self._register_component(q, res)
-            served.update(batch_res)
+        if self.refill:
+            served = self.run_refill_queries(misses)
+        else:
+            served = {}
+            remaining = list(misses)
+            while remaining:
+                if self.reuse_components:
+                    # components mapped by earlier batches answer later
+                    # reachability misses without a lane
+                    still = []
+                    for q in remaining:
+                        mask = self._component_of(q)
+                        if mask is None:
+                            still.append(q)
+                        else:
+                            served[q] = np.array(mask)
+                            self.stats.component_hits += 1
+                    remaining = still
+                    if not remaining:
+                        break
+                batch = remaining[: self.cfg.n_queries]
+                remaining = remaining[self.cfg.n_queries:]
+                batch_res = self.run_batch_queries(batch)
+                for q, res in batch_res.items():
+                    self._register_component(q, res)
+                served.update(batch_res)
         for q, res in served.items():
             results[q] = res
             self.cache.put(q.key(self.graph_id), res)
@@ -343,10 +890,14 @@ class BFSServeEngine:
         return self.query([source])[0]
 
     def warmup(self, reachability: bool = False, targets: bool = False) -> None:
-        """Run each batch variant once from vertex 0 (builds the kernels on
-        first use; nothing lands in the cache or the stats). By default the
+        """Run each variant once from vertex 0 (builds the kernels on first
+        use; nothing lands in the cache or the stats). By default the
         target-free levels variant; ``targets=True`` adds the multi-target
-        variant, ``reachability=True`` the levels-free one."""
+        variant, ``reachability=True`` the levels-free one. Refill engines
+        run one sweep and one reseed; overlap engines also run one block of
+        each variant's refill drains -- on a card that captures its sweep
+        graphs (the all-ones watch with only lane 0 seeded freezes the
+        block at entry)."""
         cfgs = [_dc_replace(self.cfg, enable_targets=False)]
         if targets:
             cfgs.append(self.cfg)
@@ -355,4 +906,12 @@ class BFSServeEngine:
                                     enable_targets=False))
         for cfg in cfgs:
             st = M.init_multi_state(self.pg, [0], cfg, device=self.device)
-            M.run_msbfs_emulated(self.pgv, self.plan, st, cfg)
+            if self.refill:
+                M.msbfs_step_emulated(self.pgv, self.plan, st, cfg)
+                M.reseed_lanes(st, *self._seed_descriptors([]))
+                if self.overlap:
+                    self._block(cfg, False)(
+                        self.pgv, self.plan, st,
+                        np.ones(self.cfg.n_queries, dtype=bool)).wait()
+            else:
+                M.run_msbfs_emulated(self.pgv, self.plan, st, cfg)

@@ -504,6 +504,123 @@ def test_engine_on_card_equals_engine_on_cpu(card):
             np.testing.assert_array_equal(x, y)
 
 
+# ------------------------------------------- refill, overlap and streaming
+def tailed_setup():
+    """rmat_graph(8, seed=11) with 2 tails of 24, partitioned as the
+    reference's overlap tests do, and a skewed stream of the four kinds."""
+    from repro_torch.graphs.synthetic import with_tails
+    core = rmat_graph(8, seed=11)
+    g, tips = with_tails(core, n_tails=2, length=24, seed=2)
+    pg = partition_graph(g, th=32, p_rank=2, p_gpu=2)
+    shallow = [int(s) for s in pick_sources(core, 10, seed=3)]
+    srcs = [int(tips[0])] + shallow[:5] + [int(tips[1])] + shallow[5:]
+    K = QueryKind
+    kinds = [lambda s: Query(s), lambda s: Query(s, K.REACHABILITY),
+             lambda s: Query(s, K.DISTANCE_LIMITED, max_depth=2),
+             lambda s: Query(s, K.MULTI_TARGET, targets=tuple(srcs[:2]))]
+    return pg, tips, [kinds[i % 4](s) for i, s in enumerate(srcs)]
+
+
+def serve_engine(pg, device, **kw):
+    from repro_torch.core import msbfs as TM
+    return BFSServeEngine(pg=pg, cfg=TM.MSBFSConfig(n_queries=4, max_iters=96),
+                          cache_capacity=0, refill=True, device=device, **kw)
+
+
+def assert_answers_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(y, dict):
+            assert x == y
+        else:
+            np.testing.assert_array_equal(x, y)
+
+
+def test_graph_block_equals_eager_block(card):
+    """The captured block (CUDA graph replays over static buffers) and the
+    eager block give every state leaf equal, from the same state and
+    watch, stopping at the same retirement sweep; both equal the per-sweep
+    driver stepped to that sweep, and each replay of the captured sweep
+    counts one pull and one fold launch in ``ops.REPLAYED``."""
+    from repro_torch.core import msbfs as TM
+    pg, tips, _ = tailed_setup()
+    eng = serve_engine(pg, card)
+    cfg = TM.MSBFSConfig(n_queries=4, max_iters=96, enable_targets=False)
+    srcs = [int(tips[0]), 5, 3]
+    st = TM.init_multi_state(pg, srcs, cfg, device=card)
+    watch = np.array([True, True, True, False])
+    outs = []
+    for graph in (True, False):
+        ops.reset_launches()
+        blk = TM.make_msbfs_block_emulated(cfg, 64, graph=graph)
+        run = blk(eng.pgv, eng.plan, st, watch)
+        probe = run.wait()
+        blk.runner.drain()
+        outs.append((probe.it, convert.state_to_numpy(run.out),
+                     dict(ops.LAUNCHES), dict(ops.REPLAYED), blk.runner))
+    (it_g, a, lg, rg, runner), (it_e, b, le, re_, _) = outs
+    assert it_g == it_e and 0 < it_g < 64
+    for k in TM.STATE_LEAVES:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    ref = st
+    for _ in range(it_g):
+        ref = TM.msbfs_step(eng.pgv, eng.plan, ref, cfg)
+    want = convert.state_to_numpy(ref)
+    for k in TM.STATE_LEAVES:
+        np.testing.assert_array_equal(a[k], want[k], err_msg=k)
+    assert runner.per_replay["ell_pull_multi"] == 1
+    assert runner.per_replay["mask_reduce"] == 1
+    # the capture's one eager warm-up sweep launches; the capture does not
+    assert lg["ell_pull_multi"] == lg["mask_reduce"] == 1
+    assert rg["ell_pull_multi"] == rg["mask_reduce"] == runner.replays
+    assert runner.replays == runner.sweeps >= it_g
+    assert le["ell_pull_multi"] == le["mask_reduce"] >= it_g
+    assert sum(re_.values()) == 0
+
+
+@pytest.mark.parametrize("sweep_block", [1, 4, 8])
+def test_overlap_counters_equal_sync_on_card(card, sweep_block):
+    """The same skewed stream through the per-sweep and the overlapped
+    driver on the card, and through the per-sweep driver on the CPU:
+    equal answers, and every ServeStats field equal but sweep_blocks."""
+    pg, _, qs = tailed_setup()
+    runs = []
+    for device, kw in ((card, {}), (card, dict(overlap=True,
+                                               sweep_block=sweep_block)),
+                       ("cpu", {})):
+        eng = serve_engine(pg, device, **kw)
+        eng.warmup(reachability=True, targets=True)
+        runs.append((eng.submit_many(qs), eng.stats.as_dict()))
+    (a_s, s_s), (a_o, s_o), (a_c, s_c) = runs
+    assert_answers_equal(a_s, a_c)
+    assert_answers_equal(a_o, a_c)
+    assert s_s == s_c
+    assert s_o["sweep_blocks"] > 0
+    assert {k: v for k, v in s_o.items() if k != "sweep_blocks"} == \
+        {k: v for k, v in s_c.items() if k != "sweep_blocks"}
+
+
+def test_stream_deliveries_on_card(card):
+    """Chunks fed through submit_stream with poll() between them, then
+    drain_stream(): each poll delivers the same queries and results on the
+    card as on the CPU, and the stats are equal."""
+    pg, _, qs = tailed_setup()
+    runs = []
+    for device in (card, "cpu"):
+        eng = serve_engine(pg, device, overlap=True)
+        deliveries = []
+        for i in range(0, len(qs), 4):
+            eng.submit_stream(qs[i:i + 4], front=i == 8)
+            deliveries.append(eng.poll())
+        deliveries.append(eng.drain_stream())
+        runs.append((deliveries, eng.stats.as_dict()))
+    (da, sa), (db, sb) = runs
+    assert sa == sb
+    assert [list(d) for d in da] == [list(d) for d in db]
+    for x, y in zip(da, db):
+        assert_answers_equal(list(x.values()), list(y.values()))
+
+
 # ------------------------------------------------------------ recsys kernels
 def on(card, *arrays):
     return tuple(torch.from_numpy(a).to(card) for a in arrays)
