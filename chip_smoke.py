@@ -76,8 +76,17 @@
    seeded candidates of width 64, top 100, against a plain sort of the
    full score row. Then ``segment_bag`` and ``ell_pull_payload`` (no path
    of the reference runs them) against their plain versions at the
-   reference tests' shapes and one large shape each, and one
-   ``serve_p99`` forward under ``torch.profiler``.
+   reference tests' shapes and at large shapes: ``segment_bag`` at the
+   bulk shape (262,144 x 39 bags of 8 ClickStream ids of one serve_bulk
+   batch, a quarter -1) over ``emb_hot`` in float32 and bfloat16 and over
+   ``emb_cold``, beside ``F.embedding_bag``; ``ell_pull_payload`` on the
+   scale-20 ELL with 70% of the lanes and with 10% of the rows active.
+   Each large call is timed flushed (a 512 MB buffer written before each
+   call), back to back and by the profiler's device time, beside its
+   bound (``segment_bag`` in turns with ``F.embedding_bag``); one call of
+   each is profiled: one launch a call and nothing else on the device
+   (so no cast of bfloat16 weights). Then one ``serve_p99`` forward
+   under ``torch.profiler``.
 8. Launch cost: for each of the seven wrappers at its path's shapes (the
    pulls both for one subgraph and as the sweep entry), and
    for ``torch.amin`` on the min fold's inputs, the host microseconds per
@@ -115,6 +124,9 @@
 10. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
+Option: ``--only segment_bag,ell_pull_payload`` (those phases alone, on
+the same inputs).
+
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
 beside it. Imports nothing of JAX or of the reference package.
@@ -146,7 +158,13 @@ P99_BATCH, N_P99_BATCHES = 512, 20
 BULK_BATCH, N_BULK_BATCHES, BULK_SLICE = 262144, 3, 2048
 N_CANDIDATES, TOP_K = 1_000_000, 100
 HOT_FRACTION = 0.005
-BAG_WIDTH = 8                       # segment_bag large shape: bags of 8 slots
+BAG_WIDTH = 8                       # segment_bag bags: 8 slots each,
+BULK_PAD = 0.25                     # a quarter of them -1
+PAYLOAD_ROWS_ON = 0.1               # ell_pull_payload's sparse case
+# flushed kernel times: a scratch buffer written before each call, so L2
+# (50 MB) holds nothing of the last call
+FLUSH_BYTES, FLUSH_REPS = 512 << 20, 20
+_FLUSH: dict = {}
 # Tolerances of the float kernels against their plain versions (float32
 # sums in another order; see PERF.md): CIN |kernel - plain| <= CIN_TOL *
 # max|plain| per layer; logits |kernel - plain| <= LOGIT_ATOL + LOGIT_RTOL *
@@ -1652,7 +1670,7 @@ def serving_phase(model, cs):
     head = {k: v[:BULK_SLICE] for k, v in bulk[0].items()}
     err_bulk = check_logits(model, head, logits[0][:BULK_SLICE],
                             f"serve_bulk batch 0, first {BULK_SLICE}")
-    return dict(p99_batch=p99[1], launches_p99=la_p99,
+    return dict(p99_batch=p99[1], bulk_batch=bulk[0], launches_p99=la_p99,
                 launches_bulk=la_bulk, err=max(err_p99, err_bulk))
 
 
@@ -1693,6 +1711,69 @@ def retrieval_phase(model, cs) -> None:
           f"{int(differ.sum())} indices differ from the sort (ties)")
 
 
+def flushed_ms(fn, reps: int = FLUSH_REPS) -> float:
+    """Milliseconds of one call of ``fn()`` that finds L2 cold, as a caller
+    with other kernels in between does: before each call a scratch buffer
+    of ``FLUSH_BYTES`` is written, and CUDA events bracket the call alone;
+    the median of ``reps`` calls, after one warm-up call. (The fill takes
+    longer than a wrapper's host cost, so the call is enqueued before the
+    card reaches its start event.)"""
+    import torch
+
+    buf = _FLUSH.get("buf")
+    if buf is None:
+        buf = _FLUSH["buf"] = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                          device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for i in range(reps):
+        buf.fill_(i & 0xFF)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in events)
+    return ms[len(ms) // 2]
+
+
+def free_flush() -> None:
+    """Release ``flushed_ms``'s scratch buffer (at the end of a phase, so
+    later phases' memory readings do not carry it)."""
+    import torch
+
+    _FLUSH.pop("buf", None)
+    torch.cuda.empty_cache()
+
+
+def interleaved_times(fns: dict, reps: int = 20) -> dict:
+    """Each call in ``fns`` ({label: fn}) timed three ways, in turns (the
+    labels in order, then reversed: a, b, b, a): flushed
+    (``flushed_ms``), back to back (``time_ms`` over ``reps`` calls), and
+    the profiler's device us of every kernel of a call (``device_us``).
+    Returns {label: {"flushed": [ms, ms], "b2b": [ms, ms], "dev": us}}."""
+    order = list(fns) + list(fns)[::-1]
+    out = {k: {"flushed": [], "b2b": []} for k in fns}
+    for k in order:
+        out[k]["flushed"].append(flushed_ms(fns[k]))
+    for k in order:
+        out[k]["b2b"].append(time_ms(fns[k], reps=reps))
+    for k in fns:
+        out[k]["dev"] = device_us(fns[k])
+    return out
+
+
+def times_line(t: dict, b_ms: float) -> str:
+    """One call's three times (both turns) and its share of the bound."""
+    return (f"flushed {t['flushed'][0]:.4f} / {t['flushed'][1]:.4f} ms "
+            f"({100 * b_ms / min(t['flushed']):.1f}% of bound), back to back "
+            f"{t['b2b'][0]:.4f} / {t['b2b'][1]:.4f} ms, device "
+            f"{t['dev']:.2f} us")
+
+
 def bag_bound(table, idx, w, out) -> tuple:
     """Bytes and flops one EmbeddingBag call needs: indices and weights,
     each distinct valid row once, the output; 2 flops per value summed."""
@@ -1706,11 +1787,48 @@ def bag_bound(table, idx, w, out) -> tuple:
     return bound(nbytes, 2 * int(valid.numel()) * table.shape[1])
 
 
-def kernel_phase_segment_bag(model, batches) -> dict:
+def bulk_bags(pool, n_bags: int, seed: int):
+    """``n_bags`` bags of ``BAG_WIDTH`` ids drawn on the card from ``pool``
+    (a batch's valid ids), a quarter set to -1, and normal weights."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    pool = torch.from_numpy(pool).to(DEVICE)
+    pick = torch.randint(0, pool.numel(), (n_bags, BAG_WIDTH), generator=gen,
+                         device=DEVICE)
+    idx = pool[pick].to(torch.int32)
+    idx[torch.rand(idx.shape, generator=gen, device=DEVICE) < BULK_PAD] = -1
+    w = torch.randn(idx.shape, generator=gen, device=DEVICE)
+    return idx, w
+
+
+def bag_close(got, want, table, idx, w) -> tuple:
+    """(within tolerance, max abs error): the error of a float32 sum in
+    another order, 1e-6 + 1e-5 sum_l |w_l row_l| (the summed magnitudes, not
+    |plain|, which cancellation may take to 0), plus 2**-7 |plain| for a
+    bfloat16 table (one bfloat16 rounding step)."""
+    import torch
+    from repro_torch.kernels import segment_bag as K
+
+    err = (got.float() - want.float()).abs()
+    mag = K.segment_bag_plain(table.float().abs(), idx, w.float().abs())
+    tol = 1e-6 + 1e-5 * mag
+    if table.dtype == torch.bfloat16:
+        tol += 2.0**-7 * want.float().abs()
+    return bool((err <= tol).all()), float(err.max())
+
+
+def kernel_phase_segment_bag(model, batches, bulk) -> dict:
     """segment_bag (on no path of the reference) against its plain version
-    at the reference tests' shapes and at the model's own hot table
-    [262144, 10] with 512 x 39 bags of 8 hot ids (a quarter padded),
-    float32 and bfloat16; launches counted over the phase's parity calls."""
+    at the reference tests' shapes and at 512 x 39 bags of 8 hot ids
+    (launches counted over these calls); then at the bulk shape: one bag
+    per field of a serve_bulk batch (262,144 x 39 bags of 8, a quarter -1)
+    over the model's ``emb_hot`` in float32 and bfloat16 (bfloat16
+    weights), ids drawn from the batch's hot ids, and over ``emb_cold``
+    (float32, ids from its cold ids): each against its plain version,
+    timed three ways in turns with ``F.embedding_bag`` (sum, per-sample
+    weights), with its bound; the bfloat16 call profiled: one launch a
+    call, nothing else."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1730,73 +1848,107 @@ def kernel_phase_segment_bag(model, batches) -> dict:
                       idx.to(DEVICE), wgt.to(DEVICE, dt)))
     pool = np.concatenate([bt["hot_idx"][bt["hot_idx"] >= 0] for bt in batches])
     n_bags = P99_BATCH * model.cfg.n_sparse
-    big_idx = rng.choice(pool, (n_bags, BAG_WIDTH)).astype(np.int32)
-    big_idx[rng.random(big_idx.shape) < 0.25] = -1
-    big_idx = torch.from_numpy(big_idx).to(DEVICE)
-    big_w = torch.from_numpy(rng.normal(size=(n_bags, BAG_WIDTH))
-                             .astype(np.float32)).to(DEVICE)
-    emb_hot = model.params()["emb_hot"]
-    big = {torch.float32: (emb_hot, big_w),
-           torch.bfloat16: (emb_hot.to(torch.bfloat16),
-                            big_w.to(torch.bfloat16))}
-    for dt, (table, w) in big.items():
-        cases.append((f"{n_bags}x{BAG_WIDTH} emb_hot {tuple(table.shape)} {dt}",
-                      table, big_idx, w))
+    small_idx = rng.choice(pool, (n_bags, BAG_WIDTH)).astype(np.int32)
+    small_idx[rng.random(small_idx.shape) < BULK_PAD] = -1
+    small_idx = torch.from_numpy(small_idx).to(DEVICE)
+    small_w = torch.from_numpy(rng.normal(size=(n_bags, BAG_WIDTH))
+                               .astype(np.float32)).to(DEVICE)
+    params = model.params()
+    emb_hot = params["emb_hot"]
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append((f"{n_bags}x{BAG_WIDTH} emb_hot {tuple(emb_hot.shape)} "
+                      f"{dt}", emb_hot.to(dt), small_idx, small_w.to(dt)))
     ops.reset_launches()
     out = {}
     for name, table, idx, w in cases:
         got = ops.segment_bag(table, idx, w)
         want = K.segment_bag_plain(table, idx, w)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = (2.0**-7 * want.float().abs() if table.dtype == torch.bfloat16
-               else 1e-6 + 1e-5 * want.float().abs())
-        check(bool((err <= tol).all()), f"segment_bag {name}: kernel != plain")
-        out[name] = float(err.max())
+        ok, out[name] = bag_close(got, want, table, idx, w)
+        check(ok, f"segment_bag {name}: kernel != plain")
     launches = ops.LAUNCHES["segment_bag"]
     check(launches == len(cases), "segment_bag launches of the phase")
     print(f"kernel segment_bag: {len(cases)} shapes within tolerance of the "
           f"plain version: {out}")
+    LAUNCH_CASES["segment_bag [float32]"] = (
+        lambda a=(emb_hot, small_idx, small_w): ops.segment_bag(*a))
+
+    n_bulk = bulk["hot_idx"].size
+    hot_idx, hot_w = bulk_bags(bulk["hot_idx"][bulk["hot_idx"] >= 0],
+                               n_bulk, 1)
+    cold_idx, cold_w = bulk_bags(bulk["cold_idx"][bulk["cold_idx"] >= 0],
+                                 n_bulk, 2)
+    lines = [("emb_hot float32", emb_hot, hot_idx, hot_w),
+             ("emb_hot bfloat16", emb_hot.to(torch.bfloat16), hot_idx,
+              hot_w.to(torch.bfloat16)),
+             ("emb_cold float32", params["emb_cold"], cold_idx, cold_w)]
     res = {}
-    for dt, (table, w) in big.items():
-        ms = time_ms(lambda: K.segment_bag_cuda(table, big_idx, w), reps=50)
-        plain_ms = time_ms(lambda: K.segment_bag_plain(table, big_idx, w),
-                           reps=20)
-        valid = big_idx >= 0
-        safe = big_idx.clamp(min=0)
+    for name, table, idx, w in lines:
+        got = ops.segment_bag(table, idx, w)
+        want = K.segment_bag_plain(table, idx, w)
+        torch.cuda.synchronize()
+        ok, err = bag_close(got, want, table, idx, w)
+        check(ok, f"segment_bag bulk {name}: kernel != plain")
+        same = float((got == want).float().mean())
+        del got
+        valid = idx >= 0
+        safe = idx.clamp(min=0)
         psw = torch.where(valid, w, 0)
         lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=psw)
-        want = K.segment_bag_plain(table, big_idx, w)
         torch.cuda.synchronize()
         check(bool(((lib.float() - want.float()).abs()
                     <= 2.0**-7 * want.float().abs() + 1e-6).all()),
-              f"segment_bag {dt}: embedding_bag yardstick agrees")
-        lib_ms = time_ms(lambda: F.embedding_bag(
-            safe, table, mode="sum", per_sample_weights=psw), reps=50)
-        if dt == torch.float32:
-            LAUNCH_CASES["segment_bag [float32]"] = (
-                lambda a=(table, big_idx, w): ops.segment_bag(*a))
-        b_ms, b_by = bag_bound(table, big_idx, w, want)
-        print(f"kernel segment_bag [{n_bags} bags x {BAG_WIDTH}, "
-              f"emb_hot {tuple(table.shape)} {dt}]: valid slots="
-              f"{int(valid.sum())} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms(embedding_bag)={lib_ms:.4f} bound_ms={b_ms:.6f} "
-              f"({b_by})")
-        res[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-    big_name = [n for n in out if "emb_hot" in n and "float32" in n][0]
-    return dict(res[torch.float32], launches=launches, err=out[big_name])
+              f"segment_bag bulk {name}: embedding_bag yardstick agrees")
+        del lib
+        b_ms, b_by = bag_bound(table, idx, w, want)
+        del want
+        fns = {"kernel": lambda a=(table, idx, w): K.segment_bag_cuda(*a),
+               "embedding_bag": lambda a=(safe, table, psw): F.embedding_bag(
+                   a[0], a[1], mode="sum", per_sample_weights=a[2])}
+        times = interleaved_times(fns)
+        plain_ms = time_ms(lambda a=(table, idx, w): K.segment_bag_plain(*a),
+                           reps=2, rounds=1)
+        print(f"kernel segment_bag [bulk: {n_bulk} bags x {BAG_WIDTH}, "
+              f"{name} {tuple(table.shape)}]: valid slots="
+              f"{int(valid.sum())} max_abs_err={err:.3e} (bit-equal share "
+              f"{same:.8f}) bound_ms="
+              f"{b_ms:.6f} ({b_by}) plain_ms={plain_ms:.4f}")
+        for k, t in times.items():
+            print(f"  {k}: {times_line(t, b_ms)}")
+        res[name] = dict(ms=min(times["kernel"]["flushed"]), plain_ms=plain_ms,
+                         library_ms=min(times["embedding_bag"]["flushed"]),
+                         bound_ms=b_ms, bound_by=b_by, err=err)
+        if name == "emb_hot bfloat16":
+            span_check(lambda a=(table, idx, w): ops.segment_bag(*a),
+                       "segment_bag_kernel", "segment_bag bfloat16 weights")
+    del hot_idx, hot_w, cold_idx, cold_w, lines, fns
+    free_flush()
+    return dict(res["emb_hot float32"], launches=launches)
 
 
-def kernel_phase_payload(g, csr) -> dict:
-    """ell_pull_payload (on no path of the reference) against its plain
-    version, exactly: the reference test's shape and the ELL of partition
-    0's rows with 1..TH parents of the scale-20 graph, W = 32."""
+def payload_bound(parents, payload_w: int, active) -> tuple:
+    """Bytes and operations one call needs: every active flag and output
+    value; for the rows with an active lane, all their ids, the weights of
+    their valid slots and each distinct valid parent's payload row once;
+    an add and a min per valid slot and lane."""
     import numpy as np
-    import torch
+
+    on = active.any(1)
+    ids = parents[on]
+    valid = ids[ids >= 0]
+    nbytes = (2 * active.size * 4 + ids.size * 4 + valid.size * 4
+              + np.unique(valid).size * payload_w * 4)
+    return bound(nbytes, 2 * valid.size * payload_w)
+
+
+def payload_cases(g, csr) -> tuple:
+    """The ell_pull_payload inputs (numpy): the reference test's shape and
+    the ELL of partition 0's rows with 1..TH parents of the scale-20 graph,
+    W = 32, with 70% of the lanes active and with ``PAYLOAD_ROWS_ON`` of the
+    rows active. Returns ([(name, parents, payload, weights, active)], the
+    two large cases' names)."""
+    import numpy as np
     from repro_torch.core.types import PartitionLayout
-    from repro_torch.kernels import ell_pull_payload as K
-    from repro_torch.kernels import ops
 
     rng = np.random.default_rng(5)
     small = rng.integers(-1, 40, size=(64, 5)).astype(np.int32)
@@ -1819,34 +1971,62 @@ def kernel_phase_payload(g, csr) -> dict:
     p_big = rng.integers(0, 50, size=(g.n, w)).astype(np.int32)
     p_big[rng.random((g.n, w)) < 0.3] = 2**30
     a_big = (rng.random((rows.size, w)) < 0.7).astype(np.int32)
+    wt_big = rng.integers(1, 16, size=parents.shape).astype(np.int32)
+    a_few = a_big * (rng.random((rows.size, 1)) < PAYLOAD_ROWS_ON)
     big_name = f"scale-{SCALE} partition 0, {rows.size} rows x {TH}, W={w}"
-    cases.append((big_name, parents, p_big,
-                  rng.integers(1, 16, size=parents.shape).astype(np.int32),
-                  a_big))
+    few_name = f"{big_name}, {PAYLOAD_ROWS_ON:.0%} of rows active"
+    cases += [(big_name, parents, p_big, wt_big, a_big),
+              (few_name, parents, p_big, wt_big, a_few)]
+    return cases, (big_name, few_name)
+
+
+def kernel_phase_payload(g, csr) -> dict:
+    """ell_pull_payload (on no path of the reference) against its plain
+    version, exactly, on ``payload_cases``; the large cases timed three
+    ways and profiled: one launch a call, nothing else."""
+    import torch
+    from repro_torch.kernels import ell_pull_payload as K
+    from repro_torch.kernels import ops
+
+    cases, (big_name, few_name) = payload_cases(g, csr)
+    _, parents, _, _, a_big = cases[1]
+    a_few, w = cases[2][4], a_big.shape[1]
     ops.reset_launches()
+    on_card = {}
     for name, *arrays in cases:
         args = tuple(torch.from_numpy(a).to(DEVICE) for a in arrays)
         got = ops.ell_pull_payload(*args)
         want = K.ell_pull_payload_plain(*args)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"ell_pull_payload {name}: kernel != plain")
+        on_card[name] = args
         del want
     launches = ops.LAUNCHES["ell_pull_payload"]
     check(launches == len(cases), "ell_pull_payload launches of the phase")
-    big_args = args                                 # the large case, last
+    big_args = on_card[big_name]
     LAUNCH_CASES["ell_pull_payload"] = lambda: ops.ell_pull_payload(*big_args)
-    ms = time_ms(lambda: K.ell_pull_payload_cuda(*big_args), reps=20)
+    res = {}
+    for name, act in ((big_name, a_big), (few_name, a_few)):
+        args = on_card[name]
+        b_ms, b_by = payload_bound(parents, w, act)
+        times = interleaved_times(
+            {"kernel": lambda a=args: K.ell_pull_payload_cuda(*a)})
+        act_rows = parents[act.any(1)]
+        print(f"kernel ell_pull_payload [{name}]: rows active="
+              f"{act_rows.shape[0]} valid slots of active rows="
+              f"{int((act_rows >= 0).sum())} bound_ms={b_ms:.6f} ({b_by})")
+        for k, t in times.items():
+            print(f"  {k}: {times_line(t, b_ms)}")
+        res[name] = dict(ms=min(times["kernel"]["flushed"]), bound_ms=b_ms,
+                         bound_by=b_by)
+    span_check(lambda: ops.ell_pull_payload(*big_args),
+               "ell_pull_payload_kernel", "ell_pull_payload")
+    free_flush()
     plain_ms = time_ms(lambda: K.ell_pull_payload_plain(*big_args), reps=2)
-    valid = parents[parents >= 0]
-    nbytes = (parents.size * 8 + 2 * a_big.size * 4
-              + np.unique(valid).size * w * 4)
-    b_ms, b_by = bound(nbytes, 2 * valid.size * w)
-    print(f"kernel ell_pull_payload: {len(cases)} shapes exact; [{big_name}]: "
-          f"valid slots={valid.size} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.6f} ({b_by}); library_ms: null (no single "
+    print(f"kernel ell_pull_payload: {len(cases)} shapes exact; plain_ms="
+          f"{plain_ms:.4f} [{big_name}]; library_ms: null (no single "
           "PyTorch call computes a min-plus gather)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                launches=launches, err=0.0)
+    return dict(res[big_name], plain_ms=plain_ms, launches=launches, err=0.0)
 
 
 def profile_serve(model, batch) -> None:
@@ -2033,7 +2213,8 @@ def recsys_path(g, csr) -> dict:
     cin = kernel_phase_cin(model, probe)
     served = serving_phase(model, cs)
     retrieval_phase(model, cs)
-    bag = kernel_phase_segment_bag(model, [probe, served["p99_batch"]])
+    bag = kernel_phase_segment_bag(model, [probe, served["p99_batch"]],
+                                   served["bulk_batch"])
     pay = kernel_phase_payload(g, csr)
     profile_serve(model, served["p99_batch"])
     cin_launches = (served["launches_p99"]["cin_fused"]
@@ -2259,15 +2440,54 @@ def run() -> None:
           "materialised beforehand, not timed); "
           "launches over the 20 serve_p99 and 3 serve_bulk batches. "
           "segment_bag and ell_pull_payload (path: none in the reference): "
-          "times at their large shapes, launches over their parity phases")
+          "ms and library_ms flushed (L2 written over before each call) at "
+          "the bulk emb_hot float32 shape and the scale-20 ELL with 70% of "
+          "lanes active, launches over their parity phases")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
+def run_alone(names) -> None:
+    """``--only``: the named kernel phases (``segment_bag``,
+    ``ell_pull_payload``) on their inputs (the recsys model and ClickStream
+    batches, the scale-20 graph, made as ``run`` makes them), nothing else;
+    then the device line."""
+    import torch
+    from repro_torch.core import oracle as O
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.kernels import _build
+
+    print(card_line())
+    print(f"build: built {_build.build()}")
+    if "segment_bag" in names:
+        model, cs = recsys_setup()
+        kernel_phase_segment_bag(
+            model, [cs.batch(0, P99_BATCH), cs.batch(2, P99_BATCH)],
+            cs.batch(1000, BULK_BATCH))
+        del model
+        torch.cuda.empty_cache()
+    if "ell_pull_payload" in names:
+        g = rmat_graph(SCALE, seed=0)
+        kernel_phase_payload(g, O.csr_from_coo(g))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernel phases to run alone: "
+                         "segment_bag, ell_pull_payload")
+    args = ap.parse_args()
+    only = None if args.only is None else set(args.only.split(","))
+    if only is not None and not only <= {"segment_bag", "ell_pull_payload"}:
+        ap.error(f"--only takes segment_bag, ell_pull_payload, not {only}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)
@@ -2277,7 +2497,10 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    run()
+    if only is None:
+        run()
+    else:
+        run_alone(only)
     return 0
 
 

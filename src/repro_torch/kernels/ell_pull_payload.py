@@ -12,7 +12,8 @@ masked to the combine identity (``COMBINE_SPECS["min_plus"].identity``,
 int32 arithmetic does.
 
 * :func:`ell_pull_payload_cuda` launches ``csrc/ell_pull_payload.cu``
-  (one warp per row, lane q = payload lane q);
+  (a group of lanes per row, lane q = payload lane q; idle rows skipped,
+  valid parents compacted before the gathers);
 * :func:`ell_pull_payload_plain` computes the same function in plain
   PyTorch (the CPU path and the version the kernel is held against on the
   card).

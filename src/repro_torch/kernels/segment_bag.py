@@ -6,8 +6,9 @@ Bags are padded to a fixed width L (index -1 = padding); ``weights=None``
 means ones. The table is ``[V, D]`` float32 or bfloat16, the output is in
 the table's dtype; sums accumulate in float32 and round once.
 
-* :func:`segment_bag_cuda` launches ``csrc/segment_bag.cu`` (one warp per
-  bag, columns across the lanes);
+* :func:`segment_bag_cuda` launches ``csrc/segment_bag.cu`` (several bags
+  a warp at narrow rows, columns across the lanes; weights read in their
+  own type);
 * :func:`segment_bag_plain` computes the same function in plain PyTorch
   (the CPU path and the version the kernel is held against on the card).
 
@@ -22,9 +23,9 @@ import torch
 
 from . import _build
 
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p)
-_ENTRY = {torch.float32: "segment_bag_f32", torch.bfloat16: "segment_bag_bf16"}
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+             + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(table, indices, weights) -> None:
@@ -34,12 +35,14 @@ def _check(table, indices, weights) -> None:
     if weights is not None and weights.shape != indices.shape:
         raise ValueError(f"segment_bag: weights {tuple(weights.shape)} != "
                          f"indices {tuple(indices.shape)}")
-    if table.dtype not in _ENTRY:
+    if table.dtype not in _DTYPES:
         raise ValueError(f"segment_bag: table dtype {table.dtype} not in "
-                         f"{sorted(map(str, _ENTRY))}")
+                         f"{sorted(map(str, _DTYPES))}")
     if indices.dtype != torch.int32:
         raise ValueError(f"segment_bag: indices must be int32, got "
                          f"{indices.dtype}")
+    if table.shape[0] == 0 and indices.numel():
+        raise ValueError("segment_bag: indices into an empty table")
     if weights is not None and weights.dtype not in (torch.float32,
                                                      table.dtype):
         raise ValueError(f"segment_bag: weights must be float32 or "
@@ -64,18 +67,16 @@ def segment_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     Inputs are checked here (the kernel trusts the indices: each must be
     -1 or a row of ``table``); raises if the launch fails."""
     _check(table, indices, weights)
-    tensors = (table, indices)
-    if weights is not None:
-        weights = weights.float()            # exact from bfloat16
-        tensors += (weights,)
+    tensors = (table, indices) + (() if weights is None else (weights,))
     dev = _build.require("segment_bag", None, ("table", "indices", "weights"),
                          *tensors)
     b, l = indices.shape
     d = table.shape[1]
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     _build.launch("segment_bag", _build.function(
-        "segment_bag", _ENTRY[table.dtype], _ARGTYPES), dev,
+        "segment_bag", "segment_bag", _ARGTYPES), dev,
         table.data_ptr(), indices.data_ptr(),
         None if weights is None else weights.data_ptr(), out.data_ptr(),
-        b, l, d)
+        b, l, d, table.dtype == torch.bfloat16,
+        weights is not None and weights.dtype == torch.bfloat16)
     return out

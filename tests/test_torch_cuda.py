@@ -734,6 +734,142 @@ def test_ell_pull_payload_cuda_matches_plain(card, r, k, n, w):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def payload_edge_inputs(rng, r, k, n, w):
+    """Parents with -1 between valid slots, row 0 with all K valid, row 1
+    with none, every fourth row with no active lane, payloads at the int32
+    edges (so payload + weight wraps)."""
+    parents = rng.integers(0, n, size=(r, k)).astype(np.int32)
+    parents[rng.random((r, k)) < 0.5] = -1
+    parents[0] = rng.integers(0, n, size=k)
+    parents[1] = -1
+    payload = rng.integers(-50, 50, size=(n, w)).astype(np.int32)
+    payload[rng.random((n, w)) < 0.2] = 2**30
+    payload[rng.random((n, w)) < 0.1] = 2**31 - 1
+    payload[rng.random((n, w)) < 0.1] = -2**31
+    weights = rng.integers(-2**31, 2**31, size=(r, k), dtype=np.int64)
+    weights[rng.random((r, k)) < 0.5] //= 2**24
+    active = (rng.random((r, w)) < 0.6).astype(np.int32)
+    active[::4] = 0
+    return parents, payload, weights.astype(np.int32), active
+
+
+@pytest.mark.parametrize("k", [0, 1, 6, 12, 63, 64, 65, 128])
+@pytest.mark.parametrize("w", [1, 5, 6, 8, 16, 32, 40, 64])
+def test_ell_pull_payload_cuda_every_path(card, k, w):
+    """Every path of the kernel, exact against the plain version: rows
+    sharing a warp, lanes owning 4, 2 or 1 payload lanes (W % 4, W % 2),
+    column groups (W = 64 at 4 a lane is 16 lanes; none here exceeds
+    128); ids read 8, 4, 2 or 1 at a time (K % 8, K % 4, K % 2), one
+    chunk or several; -1 between valid slots, full rows, empty rows, idle rows;
+    one launch a call."""
+    rng = np.random.default_rng(k * 100 + w)
+    args = tuple(map(torch.from_numpy, payload_edge_inputs(rng, 70, k, 90, w)))
+    want = ops.ell_pull_payload(*args)
+    before = ops.LAUNCHES["ell_pull_payload"]
+    got = ops.ell_pull_payload(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_pull_payload"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want[::4] == 2**30).all()
+
+
+def unaligned(t: torch.Tensor, card) -> torch.Tensor:
+    """``t`` on the card as a view one element into its storage, so no
+    vector load of the kernel is aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+    flat[1:] = t.to(card).reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("w", [32, 160])
+def test_ell_pull_payload_cuda_unaligned_views(card, w):
+    """Every input one element into its storage: the kernel reads ids,
+    flags and payload one value at a time (W = 160: five column groups of
+    32 lanes) and still equals the plain version."""
+    rng = np.random.default_rng(3)
+    args = tuple(map(torch.from_numpy, payload_edge_inputs(rng, 50, 64, 80, w)))
+    want = ops.ell_pull_payload(*args)
+    got = ops.ell_pull_payload(*(unaligned(a, card) for a in args))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+BAG_KINDS = {"float32": (torch.float32, torch.float32),
+             "bfloat16": (torch.bfloat16, torch.bfloat16),
+             "bfloat16, float32 weights": (torch.bfloat16, torch.float32),
+             "float32, no weights": (torch.float32, None),
+             "bfloat16, no weights": (torch.bfloat16, None)}
+
+
+def bag_close(got: torch.Tensor, want: torch.Tensor, table, idx,
+              wgt) -> bool:
+    """Within the error of a float32 sum in another order: |kernel - plain|
+    <= 1e-6 + 1e-5 sum_l |w_l row_l| (the bound scales with the summed
+    magnitudes, not with |plain|, which cancellation may take to 0), plus
+    2**-7 |plain| for a bfloat16 table (each rounds its float32 sum once,
+    so they may differ by one bfloat16 step)."""
+    got, want = got.cpu().float(), want.cpu().float()
+    w = (torch.ones(idx.shape) if wgt is None else wgt.float())
+    w = torch.where(idx >= 0, w, 0.0)
+    mag = (table.float()[idx.clamp(min=0).long()].abs()
+           * w.abs()[..., None]).sum(1)
+    tol = 1e-6 + 1e-5 * mag
+    if table.dtype == torch.bfloat16:
+        tol = tol + 2.0**-7 * want.abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("d", [3, 10, 16, 17, 32, 130])
+@pytest.mark.parametrize("l", [0, 1, 8, 9, 40])
+@pytest.mark.parametrize("kind", list(BAG_KINDS))
+def test_segment_bag_cuda_every_path(card, d, l, kind):
+    """Every path of the kernel within ``bag_close`` of the plain version
+    (on the CPU): several bags a warp (D <= 16), one bag a warp, column groups
+    (D = 130), row vectors of every width, slots in vectors (L % 4 == 0)
+    or one by one, one chunk of 8 slots or several; -1 between valid
+    slots and bags of only -1 (every third, which sum to 0); weights in
+    the table's type, float32 or none; one launch a call."""
+    dtype, wdtype = BAG_KINDS[kind]
+    rng = np.random.default_rng(d * 100 + l)
+    b, v = 75, 300
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(dtype)
+    idx = rng.integers(0, v, (b, l)).astype(np.int32)
+    idx[rng.random((b, l)) < 0.3] = -1
+    idx[::3] = -1
+    idx = torch.from_numpy(idx)
+    wgt = (None if wdtype is None else torch.from_numpy(
+        rng.normal(size=(b, l)).astype(np.float32)).to(wdtype))
+    want = ops.segment_bag(table, idx, wgt)
+    before = ops.LAUNCHES["segment_bag"]
+    got = ops.segment_bag(table.to(card), idx.to(card),
+                          None if wgt is None else wgt.to(card))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_bag"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, d)
+    assert bag_close(got, want, table, idx, wgt)
+    assert (got[::3].cpu().float() == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_segment_bag_cuda_unaligned_views(card, kind):
+    """Table, indices and weights one element into their storage: the
+    kernel reads rows and slots one value at a time and stays within
+    ``bag_close`` of the plain version."""
+    dtype, wdtype = BAG_KINDS[kind]
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.normal(size=(200, 16)).astype(np.float32)
+                             ).to(dtype)
+    idx = torch.from_numpy(rng.integers(-1, 200, (40, 8)).astype(np.int32))
+    wgt = torch.from_numpy(rng.normal(size=(40, 8)).astype(np.float32)
+                           ).to(wdtype)
+    want = ops.segment_bag(table, idx, wgt)
+    got = ops.segment_bag(unaligned(table, card), unaligned(idx, card),
+                          unaligned(wgt, card))
+    torch.cuda.synchronize()
+    assert bag_close(got, want, table, idx, wgt)
+
+
 def test_xdeepfm_on_card_equals_cpu(card):
     """SMOKE: the same parameters on the card (kernel) and on the CPU
     (plain version); logits within rtol 1e-5, atol 1e-6, one cin_fused

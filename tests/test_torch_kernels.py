@@ -471,6 +471,51 @@ def test_ell_pull_payload_plain_property(r, k, n, w, seed):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+
+def scattered_slots(rng, r, k, n):
+    """[r, k] ids in [0, n) with -1 anywhere in a row (not left-packed):
+    row 0 has every slot valid, row 1 none; about 40% of the other slots
+    are -1."""
+    ids = rng.integers(0, n, size=(r, k)).astype(np.int32)
+    ids[rng.random((r, k)) < 0.4] = -1
+    ids[0] = rng.integers(0, n, size=k)
+    ids[1] = -1
+    return ids
+
+
+@pytest.mark.parametrize("kernel", ["ell_pull_payload", "segment_bag"])
+@pytest.mark.parametrize("r,k,n,w", [(40, 9, 30, 8), (33, 64, 200, 32),
+                                     (17, 3, 5, 10)])
+def test_plain_versions_match_pallas_on_scattered_slots(kernel, r, k, n, w):
+    """The inputs the card kernels' compaction and idle paths see: -1
+    slots between valid ones, rows with every slot valid or none, and
+    (ell_pull_payload) rows with no active lane (every third row) and
+    payloads at the int32 edges -- exact; (segment_bag, table [n, w])
+    bags of only -1 (every third bag) sum to 0, within the float32
+    tolerance of test_segment_bag_plain_matches_pallas."""
+    rng = np.random.default_rng(r * k + w)
+    ids = scattered_slots(rng, r, k, n)
+    if kernel == "ell_pull_payload":
+        _, payload, weights, active = payload_inputs(rng, r, k, n, w)
+        payload[rng.random((n, w)) < 0.1] = 2**31 - 1
+        payload[rng.random((n, w)) < 0.1] = -2**31
+        active[::3] = 0
+        want = pallas_payload(ids, payload, weights, active, tile_rows=16)
+        assert (want[::3] == 2**30).all()
+        got = ops.ell_pull_payload(*map(torch.from_numpy,
+                                        (ids, payload, weights, active)))
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    ids[::3] = -1
+    table = rng.normal(size=(n, w)).astype(np.float32)
+    wgt = rng.normal(size=(r, k)).astype(np.float32)
+    want = np.asarray(pallas_segment_bag(jnp.asarray(table), jnp.asarray(ids),
+                                         jnp.asarray(wgt), tile_bags=16,
+                                         tile_dim=16, interpret=True))
+    got = ops.segment_bag(*map(torch.from_numpy, (table, ids, wgt))).numpy()
+    np.testing.assert_array_equal(got[::3], np.zeros((len(got[::3]), w)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
 def test_recsys_wrappers_never_count_launches_on_cpu():
     before = dict(ops.LAUNCHES)
     z = torch.zeros((2, 3, 4))
