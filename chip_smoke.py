@@ -55,7 +55,30 @@
    and reads them after: one pull launch (three pulls) per sweep, one min
    fold per sweep in the allgather run only. One FULL and one allgather
    BFS under ``torch.profiler``.
-7. Recsys path (xDeepFM ``FULL``: 39 fields, D=10, CIN 200-200-200, MLP
+7. Comm strategies and the sharded drivers. (a) The 64-query serving run
+   again on the same partition under ring / dense, hier / adaptive,
+   allgather / adaptive and pinned sparse (a cap of every slot), beside
+   the default allgather / dense, each on a fresh engine, timed twice in
+   turns: answers equal the main run's, ``wire_delegate_bytes`` the plan
+   formula times sweeps times p, no slot dropped, one B1 and one B2
+   launch a sweep (B2 at K = 1 under the ring). (b) 4 FULL search keys
+   with the static exchange under adaptive and pinned sparse bits:
+   levels equal the FULL run's, delegate bytes the formula. (c) The
+   sharded drivers in this process on a world of one rank under NCCL (a
+   p = 1 partition of a scale-16 graph; scale cut from 20 for time):
+   ``make_sharded_msbfs`` (timed in turns with the emulated run after a
+   first call that sets up the communicators), two steps, a block of 4
+   captured as CUDA graphs and the same block eagerly, and
+   ``make_sharded_bfs`` with and without the plan, every leaf equal to
+   the emulated run. (d) The engine on a world of two spawned ranks
+   sharing the card under gloo (NCCL refuses two ranks on one device;
+   gloo carries every collective of the step on CUDA tensors): each rank
+   loads its own partition's rows and plan rows from a file written
+   here, serves the 64 queries under the two-level combine over its
+   ``("rank", "gpu")`` = (1, 2) mesh (B2a then B2 a sweep) and runs 4
+   FULL keys; answers (by digest), every stats field, levels and
+   counters equal the emulated p = 2 runs.
+8. Recsys path (xDeepFM ``FULL``: 39 fields, D=10, CIN 200-200-200, MLP
    400-400, 2^18 hot and 2^25 cold rows, seeded random weights), with
    TF32 off for matmuls and cuDNN (printed). ``ClickStream(39, 2^25,
    hot_fraction=0.005, seed=0)`` makes the data; its row counts must fit
@@ -87,7 +110,7 @@
    each is profiled: one launch a call and nothing else on the device
    (so no cast of bfloat16 weights). Then one ``serve_p99`` forward
    under ``torch.profiler``.
-8. Launch cost: for each of the seven wrappers at its path's shapes (the
+9. Launch cost: for each of the seven wrappers at its path's shapes (the
    pulls both for one subgraph and as the sweep entry), and
    for ``torch.amin`` on the min fold's inputs, the host microseconds per
    call (host clock over the first 20 and over all 300 calls, then one
@@ -101,7 +124,7 @@
    on seeded planes of the paths' shapes) are also measured right after
    set-up, before any profiler session (which raises the wrappers' host
    cost for the rest of the process).
-9. Refill path, last (its long profiled runs come after every short
+10. Refill path, last (its long profiled runs come after every short
    profiler session above): the graph with 8 tails of 96 (``with_tails``,
    seed 5; ``max_iters=240``, W=32, no cache, no component reuse), 120
    queries (the 8 tips spread through 112 core sources, the four kinds
@@ -121,11 +144,12 @@
    eagerly (equal leaves, both timed); and the overlap run with two
    sweeps in flight instead of one (counters equal, gated sweeps
    printed).
-10. Prints one JSON line describing every kernel, then, last, the device
+11. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
-Option: ``--only segment_bag,ell_pull_payload`` (those phases alone, on
-the same inputs).
+Option: ``--only segment_bag,ell_pull_payload,sharded`` (those phases
+alone, on the same inputs; ``sharded`` is 7 after the main serving run
+and 4 FULL keys it is held against).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -1003,7 +1027,8 @@ def run_bfs_keys(eng, g, cfg, keys, csr, want_levels=None):
             work_fwd=int(out.work_fwd.sum()), work_bwd=int(out.work_bwd.sum()),
             nn_sent=int(out.nn_sent.sum()),
             wire_delegate=int(out.wire_delegate.sum()),
-            wire_nn=int(out.wire_nn.sum())))
+            wire_nn=int(out.wire_nn.sum()),
+            nn_sparse=int(out.nn_sparse[0].sum())))
     return recs
 
 
@@ -1021,7 +1046,8 @@ def check_bfs_launches(recs, name: str) -> None:
 
 def single_source_path(eng, g, csr):
     """The Graph500-style search-key runs (FULL, then OPT2 and allgather
-    on the first keys); returns the FULL and allgather launch totals."""
+    on the first keys); returns the first key, the FULL and allgather
+    launch totals and the FULL records."""
     from repro_torch.graphs.rmat import pick_sources
 
     cfgs = bfs_configs()
@@ -1063,7 +1089,7 @@ def single_source_path(eng, g, csr):
               f"{[r['wire_delegate'] for r in recs]} wire_nn "
               f"{[r['wire_nn'] for r in recs]}")
     print(f"launches per single-source run set: {totals}")
-    return full[0]["src"], totals
+    return full[0]["src"], totals, full
 
 
 def profile_bfs(eng, src: int) -> None:
@@ -1440,6 +1466,394 @@ def refill_path(g) -> None:
 
 
 # ---------------------------------------------------------------- recsys path
+
+# -----------------------------------------------------------------------------
+# Comm strategies and the sharded drivers (A3, A7)
+
+#: (delegate combine, nn format) of the emulated strategy runs; "sparse" is
+#: pinned with a cap of every slot (it never drops, so the answers can be
+#: held to the default run's)
+STRATEGY_RUNS = (("ring", "dense"), ("hier", "adaptive"),
+                 ("allgather", "adaptive"), ("allgather", "sparse"))
+#: the world-1 NCCL phase's graph: scale 16 (cut from 20: partitioning a
+#: second scale-20 graph for p = 1 costs about 30 s of the run)
+SHARDED_SCALE = 16
+WORLD_TIMEOUT = 300.0
+STRATEGY_TURNS = 2          # each strategy's serving run, timed in turns
+
+
+def answers_equal(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(b, dict):
+        return a == b
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def digest(a) -> str:
+    """A served answer's content digest (a rank returns digests, not the
+    answers' bytes, across its process boundary)."""
+    import hashlib
+
+    import numpy as np
+
+    if isinstance(a, dict):
+        return repr(sorted(a.items()))
+    a = np.ascontiguousarray(a)
+    return f"{a.dtype}:{a.shape}:" + hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def strategy_serving(eng, hplan, queries, want) -> None:
+    """The 64-query serving run under each of ``STRATEGY_RUNS`` on the
+    engine's partition (emulated, p = 2), beside the default allgather /
+    dense configuration on a fresh engine of its own, each timed twice in
+    turns (``STRATEGY_TURNS``): answers equal the main run's,
+    ``wire_delegate_bytes`` the plan formula times sweeps times p, no slot
+    dropped; queries/s, sparse sweeps and launches a sweep printed."""
+    import torch
+    from repro_torch.core import comm as C
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BFSServeEngine
+
+    pg = eng.pg
+    runs = [("allgather", "dense")] + list(STRATEGY_RUNS)
+    qps = {r: [] for r in runs}
+    for turn in range(STRATEGY_TURNS):
+        for delegate, nn in runs:
+            comm = C.CommConfig(delegate=delegate, nn=nn,
+                                sparse_cap=hplan.cap_peer if nn == "sparse"
+                                else 0)
+            e = BFSServeEngine(pg=pg, plan=hplan, comm=comm, device=DEVICE)
+            e.warmup(reachability=True, targets=True)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            got = e.submit_many(queries)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            qps[(delegate, nn)].append(len(queries) / dt)
+            la, st, sweeps = dict(ops.LAUNCHES), e.stats, e.traversal_sweeps
+            per = C.plan_for(comm, pg.p).delegate_bytes(
+                max(pg.d, 1) * C.n_words(e.cfg.n_queries), 4)
+            name = f"{delegate}/{nn}"
+            check(all(answers_equal(a, b) for a, b in zip(got, want)),
+                  f"{name}: answers equal the main run's")
+            check(st.wire_delegate_bytes == sweeps * pg.p * per,
+                  f"{name}: wire_delegate = formula x sweeps x p")
+            check(st.nn_overflow == 0, f"{name}: no nn slot dropped")
+            check(la["ell_pull_multi"] == sweeps
+                  and la["mask_reduce"] == sweeps,
+                  f"{name}: one B1 and one B2 launch a sweep")
+            if turn == STRATEGY_TURNS - 1:
+                print(f"strategy {name} ({card_line()}): queries/s "
+                      f"{[round(q, 1) for q in qps[(delegate, nn)]]} (turns), "
+                      f"sweeps={sweeps}, nn_sparse_sweeps="
+                      f"{st.nn_sparse_sweeps}, wire_delegate_bytes="
+                      f"{st.wire_delegate_bytes} ({per} B a combine), "
+                      f"wire_nn_bytes={st.wire_nn_bytes}, B1 "
+                      f"{la['ell_pull_multi'] / sweeps:.2f} and B2 "
+                      f"{la['mask_reduce'] / sweeps:.2f} launches a sweep; "
+                      "answers equal the main run's")
+            del e
+            torch.cuda.empty_cache()
+
+
+def strategy_bfs(eng, hplan, g, csr, full) -> None:
+    """4 FULL search keys with the static exchange under the adaptive and
+    (pinned, every slot) sparse bit formats: levels equal the FULL run's,
+    ``wire_delegate`` the plan formula times sweeps times p."""
+    from dataclasses import replace
+
+    from repro_torch.core import comm as C
+    from repro_torch.serve import BFSServeEngine
+
+    sub = full[:N_VARIANT_KEYS]
+    teps = lambda recs: len(recs) / sum(r["time_s"] / r["edges"]
+                                        for r in recs)
+    print(f"strategies, single source ({card_line()}): FULL on these keys "
+          f"TEPS={teps(sub):.4e}, ms {[round(r['time_s'] * 1e3, 1) for r in sub]}")
+    pg = eng.pg
+    for nn in ("adaptive", "sparse"):
+        comm = C.CommConfig(nn=nn, sparse_cap=hplan.cap_peer
+                            if nn == "sparse" else 0)
+        cfg = replace(bfs_configs()["FULL"], static_exchange=True, comm=comm)
+        e = BFSServeEngine(pg=pg, plan=hplan, comm=comm, device=DEVICE)
+        run_bfs_keys(e, g, cfg, [sub[0]["src"]], csr,
+                     want_levels=[sub[0]["levels"]])          # warm-up
+        recs = run_bfs_keys(e, g, cfg, [r["src"] for r in sub], csr,
+                            want_levels=[r["levels"] for r in sub])
+        check_bfs_launches(recs, f"static {nn}")
+        per = C.plan_for(comm, pg.p).delegate_bytes(max(pg.d, 1), 4, "min")
+        for r in recs:
+            check(r["wire_delegate"] == r["sweeps"] * pg.p * per,
+                  f"static {nn}: wire_delegate = formula x sweeps x p")
+        print(f"strategy static/{nn}: {len(recs)} keys equal the FULL run; "
+              f"TEPS={teps(recs):.4e}; ms "
+              f"{[round(r['time_s'] * 1e3, 1) for r in recs]} sweeps "
+              f"{[r['sweeps'] for r in recs]} nn_sparse_sweeps "
+              f"{[r['nn_sparse'] for r in recs]} wire_nn "
+              f"{[r['wire_nn'] for r in recs]}")
+        del e
+
+
+def _states_equal(a, b, leaves, what: str) -> None:
+    import torch
+
+    for k in leaves:
+        check(torch.equal(getattr(a, k), getattr(b, k)), f"{what}: {k}")
+
+
+def _teardown(what: str) -> None:
+    """Destroy the process group in a thread: a communicator whose
+    collectives were captured in CUDA graphs can hang its teardown (seen
+    under NCCL 2.28); the run goes on (and ends with ``os._exit``)."""
+    import threading
+
+    import torch.distributed as dist
+
+    t = threading.Thread(target=dist.destroy_process_group, daemon=True)
+    t.start()
+    t.join(timeout=20)
+    print(f"{what}: process group teardown "
+          f"{'done' if not t.is_alive() else 'still running after 20 s'}")
+
+
+def sharded_nccl_phase(backend: str = "nccl") -> None:
+    """The sharded drivers in this process on a world of one rank under
+    NCCL (a p = 1 partition of a scale-16 graph): ``make_sharded_msbfs``,
+    two sweeps of ``make_sharded_msbfs_step``, a block of
+    ``make_sharded_msbfs_block`` captured as CUDA graphs and the same
+    block eagerly, and ``make_sharded_bfs`` with and without the static
+    plan, each against the emulated run on the same views, every leaf."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import bfs as TB, comm as C, engine as TE
+    from repro_torch.core import msbfs as TM
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.graphs.rmat import pick_sources, rmat_graph
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    g = rmat_graph(SHARDED_SCALE, seed=0)
+    pg = partition_graph(g, th=TH, p_rank=1, p_gpu=1)
+    pgv = TB.device_view(pg, DEVICE)
+    plan = TE.device_plan(TE.build_exchange_plan(pg), DEVICE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1)
+    mesh = C.dist.PartitionMesh(("p",), (1,))
+    axes = mesh.axes
+    cfg = TM.MSBFSConfig(n_queries=32, max_iters=64)
+    srcs = [int(s) for s in pick_sources(g, 32, seed=1)]
+    sync = torch.cuda.synchronize
+    init = lambda m: TM.init_multi_state(pg, srcs, cfg, device=DEVICE, mesh=m)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    run = TM.make_sharded_msbfs(mesh, axes, cfg)
+    first_ms = timed(lambda: run(pgv, plan, init(mesh)))[1]   # communicators
+    emu_ms, sh_ms = [], []
+    for _ in range(2):                                          # in turns
+        emu, t = timed(lambda: TM.run_msbfs_emulated(pgv, plan, init(None),
+                                                     cfg))
+        emu_ms.append(round(t, 1))
+        ops.reset_launches()
+        sh, t = timed(lambda: run(pgv, plan, init(mesh)))
+        sh_ms.append(round(t, 1))
+        launches = dict(ops.LAUNCHES)
+    _states_equal(sh, emu, TM.STATE_LEAVES, "sharded msBFS (world 1)")
+    sweeps = int(sh.it[0])
+    check(launches["ell_pull_multi"] == sweeps
+          and launches["mask_reduce"] == sweeps,
+          "sharded msBFS: one B1 and one B2 launch a sweep")
+    step = TM.make_sharded_msbfs_step(mesh, axes, cfg)
+    a, b = init(mesh), init(None)
+    for _ in range(2):
+        a = step(pgv, plan, a)
+        b = TM.msbfs_step_emulated(pgv, plan, b, cfg)
+    _states_equal(a, b, TM.STATE_LEAVES, "sharded step (world 1)")
+    watch = [True] + [False] * (cfg.n_queries - 1)
+    blocks = {}
+    for name, graph in (("graph", None), ("eager", False)):
+        blk = TM.make_sharded_msbfs_block(mesh, axes, cfg, 4, graph=graph)
+        r = blk(pgv, plan, init(mesh), watch)
+        r.wait()
+        blk.runner.drain()
+        blocks[name] = (r.out, blk.runner)
+    check((blocks["graph"][1].graphs is not None) == (DEVICE == "cuda")
+          and blocks["eager"][1].graphs is None,
+          "the NCCL block is captured, the eager one is not")
+    ref_blk = TM.make_msbfs_block_emulated(cfg, 4)(pgv, plan, init(None),
+                                                   watch)
+    ref_blk.wait()
+    _states_equal(blocks["graph"][0], blocks["eager"][0], TM.STATE_LEAVES,
+                  "captured block = eager block")
+    _states_equal(blocks["graph"][0], ref_blk.out, TM.STATE_LEAVES,
+                  "sharded block = emulated block")
+    replays = blocks["graph"][1].replays
+    bfs_ms = {}
+    for with_plan in (False, True):
+        bcfg = TB.BFSConfig(max_iters=64, pull_chunk=64,
+                            static_exchange=with_plan)
+        pl = plan if with_plan else None
+        src = srcs[0]
+        e, e_ms = timed(lambda: TB.run_bfs_emulated(
+            pgv, TB.init_state(pg, src, bcfg, device=DEVICE), bcfg, pl))
+        runb = TB.make_sharded_bfs(mesh, axes, bcfg, with_plan=with_plan)
+        st = TB.init_state(pg, src, bcfg, device=DEVICE, mesh=mesh)
+        s, s_ms = timed(lambda: runb(pgv, plan, st) if with_plan
+                        else runb(pgv, st))
+        _states_equal(s, e, TB.STATE_LEAVES,
+                      f"sharded BFS (world 1, plan={with_plan})")
+        bfs_ms[with_plan] = (s_ms, e_ms, int(s.it[0]))
+    print(f"sharded, world 1, NCCL ({card_line()}; scale {SHARDED_SCALE}, "
+          f"p = 1): msBFS {sweeps} sweeps sharded {sh_ms} ms (first call, "
+          f"with the communicators' set-up, {first_ms:.1f}), emulated "
+          f"{emu_ms} ms (turns), every leaf equal; step x2 equal; block of 4 "
+          f"captured ({replays} replays) = eager = emulated; BFS binned "
+          f"{bfs_ms[False][0]:.1f} ms (emulated {bfs_ms[False][1]:.1f}, "
+          f"{bfs_ms[False][2]} sweeps), static {bfs_ms[True][0]:.1f} ms "
+          f"(emulated {bfs_ms[True][1]:.1f}, {bfs_ms[True][2]} sweeps), equal; "
+          f"phase {time.perf_counter() - t_start:.1f} s")
+    del blocks
+    _teardown("world 1")
+
+
+def world2_rank(rank: int, world: int, spec: dict) -> dict:
+    """One rank of the world-2 phase: its partition's rows from the file
+    the parent wrote, an engine on a two-rank mesh (gloo, CUDA tensors on
+    the one card), the 64-query serving run and the FULL search keys.
+    Returns digests of the answers and levels, the stats and counters."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from repro_torch.core import bfs as TB, comm as C, convert
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BFSServeEngine, Query, QueryKind
+
+    dev = spec["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    part = np.load(f"{spec['dir']}/part{rank}.npz")
+    meta = _json.loads(part["meta"].item())
+    pg = convert.partition_from_arrays(part, meta["pg"])
+    plan = convert.plan_from_arrays(part, meta["plan"])
+    # the partition's own axes, (p_rank, p_gpu) = (1, 2), under the
+    # two-level combine: a fold over "rank" (B2a, K = 1), then the gathered
+    # fold and update over "gpu" (B2) -- the same bytes as allgather here
+    mesh = C.dist.PartitionMesh(("rank", "gpu"), (pg.p_rank, pg.p_gpu))
+    eng = BFSServeEngine(pg=pg, plan=plan, graph_id=spec["gid"], mesh=mesh,
+                         comm=C.CommConfig(delegate="hier"), device=dev)
+    eng.warmup(reachability=True, targets=True)
+    qs = [Query(s, QueryKind(k), max_depth=d,
+                targets=None if t is None else tuple(t))
+          for s, k, d, t in spec["queries"]]
+    setup_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    answers = eng.submit_many(qs)
+    sync()
+    serve_s = time.perf_counter() - t0
+    out = {"answers": [digest(a) for a in answers],
+           "stats": eng.stats.as_dict(), "serve_s": serve_s,
+           "setup_s": setup_s, "sweeps": eng.traversal_sweeps,
+           "launches": dict(ops.LAUNCHES), "bfs": []}
+    cfg = TB.BFSConfig(**spec["bfs_cfg"])
+    run = TB.make_sharded_bfs(mesh, None, cfg)
+    run(eng.pgv, TB.init_state(pg, spec["keys"][0], cfg, device=dev,
+                               mesh=mesh))                      # warm-up
+    for src in spec["keys"]:
+        st = TB.init_state(pg, src, cfg, device=dev, mesh=mesh)
+        sync()
+        t0 = time.perf_counter()
+        st = run(eng.pgv, st)
+        sync()
+        dt = time.perf_counter() - t0
+        sums = torch.stack([getattr(st, k).sum() for k in
+                            ("work_fwd", "work_bwd", "nn_sent",
+                             "wire_delegate", "wire_nn", "nn_overflow")])
+        sums = C.dist.all_gather(mesh, sums).sum(0).tolist()
+        out["bfs"].append(dict(
+            src=src, time_s=dt, sweeps=int(st.it[0]),
+            levels=digest(TB.gather_levels(pg, st, mesh=mesh)),
+            counters=sums))
+    return out
+
+
+def sharded_gloo_phase(eng, hplan, queries, want, stats, full) -> None:
+    """The engine on a world of two ranks sharing the card: gloo carries
+    every collective of the step on CUDA tensors there (NCCL refuses two
+    ranks on one device). Each rank loads its own partition's rows (and
+    plan rows) from a file written here, serves the 64 queries under the
+    two-level combine over its ``("rank", "gpu")`` mesh and runs the first
+    FULL search keys; answers, every stats field, levels and counters
+    must equal this process's emulated p = 2 (allgather) runs."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    from dataclasses import asdict
+    from repro_torch.core import bfs as TB, comm as C, convert
+    from repro_torch.core import engine as TE
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world2_")
+    for r in range(eng.pg.p):
+        arrays, pmeta = convert.partition_to_arrays(
+            TB.local_partition(eng.pg, r))
+        for s in ("nn", "nd", "dn", "dd"):
+            arrays[f"{s}.eidx"] = np.zeros((1, 0), dtype=np.int64)
+        parr, plmeta = convert.plan_to_arrays(TE.local_plan(hplan, r))
+        np.savez(f"{tmp}/part{r}.npz", **arrays, **parr,
+                 meta=np.array(_json.dumps({"pg": pmeta, "plan": plmeta})))
+    write_s = time.perf_counter() - t_start
+    sub = full[:N_VARIANT_KEYS]
+    spec = dict(dir=tmp, gid=eng.graph_id, device=DEVICE,
+                queries=[(q.source, q.kind.value, q.max_depth, q.targets)
+                         for q in queries],
+                keys=[r["src"] for r in sub],
+                bfs_cfg={k: v for k, v in asdict(bfs_configs()["FULL"]).items()
+                         if k != "comm"})
+    ranks = C.dist.spawn(world2_rank, eng.pg.p, (spec,), backend="gloo",
+                         timeout=WORLD_TIMEOUT)
+    want_d = [digest(a) for a in want]
+    for r, res in enumerate(ranks):
+        check(res["answers"] == want_d, f"world 2 rank {r}: answers")
+        check(res["stats"] == stats, f"world 2 rank {r}: every stats field "
+              f"({ {k: (v, stats[k]) for k, v in res['stats'].items() if v != stats[k]} })")
+        for b, f in zip(res["bfs"], sub):
+            check(b["levels"] == digest(f["levels"]) and b["sweeps"] ==
+                  f["sweeps"] and b["counters"] == [
+                      f["work_fwd"], f["work_bwd"], f["nn_sent"],
+                      f["wire_delegate"], f["wire_nn"], 0],
+                  f"world 2 rank {r}: key {f['src']} levels and counters")
+        check(res["launches"]["ell_pull_multi"] == res["sweeps"]
+              and res["launches"]["mask_reduce"] == 2 * res["sweeps"],
+              f"world 2 rank {r}: one B1, one B2a and one B2 launch a "
+              "sweep")
+    r0 = ranks[0]
+    print(f"sharded, world 2, gloo on one card ({card_line()}): partition "
+          f"files {write_s:.1f} s; rank set-up {r0['setup_s']:.1f} s; 64 "
+          f"queries {r0['serve_s']:.3f} s = "
+          f"{len(queries) / r0['serve_s']:.1f} queries/s (rank 1: "
+          f"{len(queries) / ranks[1]['serve_s']:.1f}), {r0['sweeps']} sweeps; "
+          f"FULL keys ms {[round(b['time_s'] * 1e3, 1) for b in r0['bfs']]}; "
+          f"launches a rank {r0['launches']}; answers, every stats field, "
+          f"levels and counters equal the emulated p = 2 runs; phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
 def recsys_setup():
     """TF32 off, the FULL xDeepFM with seeded random weights on the card,
     and the ClickStream whose hot / cold row ids index its tables."""
@@ -2323,6 +2737,7 @@ def run() -> None:
           "no single-source kernel on the serving path")
     check(launches["ell_pull_multi"] == sweeps
           and launches["mask_reduce"] == sweeps, "launches per sweep")
+    main_stats = s.as_dict()
 
     csr = O.csr_from_coo(g)
     checked = {}
@@ -2365,10 +2780,28 @@ def run() -> None:
     bit_pull = kernel_phase_bit_pull(eng, ss_masks, chunk)
     min_fold = kernel_phase_min_fold(eng, ss_st, ss_masks)
     ell_pull_contract_check(eng.device)
-    prof_src, ss_launches = single_source_path(eng, g, csr)
+    prof_src, ss_launches, full = single_source_path(eng, g, csr)
     profile_bfs(eng, prof_src)
 
     stamp("single-source path done")
+    # ---- comm strategies (emulated, full width), then the sharded
+    # drivers: world 1 under NCCL here, world 2 under gloo on this card --
+    from repro_torch.core import engine as TE
+
+    t0 = time.perf_counter()
+    hplan = TE.build_exchange_plan(pg)
+    print(f"host exchange plan for the strategy phases: "
+          f"{time.perf_counter() - t0:.1f} s")
+    strategy_serving(eng, hplan, queries, answers)
+    strategy_bfs(eng, hplan, g, csr, full)
+    stamp("strategy phases done")
+    torch.cuda.empty_cache()
+    sharded_nccl_phase()
+    stamp("sharded world-1 NCCL phase done")
+    sharded_gloo_phase(eng, hplan, queries, answers, main_stats, full)
+    del hplan
+    torch.cuda.empty_cache()
+    stamp("sharded world-2 phase done")
     # ---- recsys path: xDeepFM scoring and retrieval, then B5 / B6 ----------
     recsys = recsys_path(g, csr)
     launch_cost_phase(LAUNCH_CASES, "after the paths")
@@ -2448,9 +2881,44 @@ def run() -> None:
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
+def sharded_alone() -> None:
+    """``--only sharded``: the strategy and sharded phases on the scale-20
+    graph, after the default serving run and the first FULL search keys
+    they are held against (as ``run`` makes them; nothing else)."""
+    import torch
+    from repro_torch.core import engine as TE, oracle as O
+    from repro_torch.graphs.rmat import pick_sources, rmat_graph
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BFSServeEngine
+
+    g = rmat_graph(SCALE, seed=0)
+    eng = BFSServeEngine(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU, device=DEVICE)
+    eng.warmup(reachability=True, targets=True)
+    queries = mixed_queries(g, eng.pg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    answers = eng.submit_many(queries)
+    torch.cuda.synchronize()
+    print(f"serve: {len(queries)} queries in "
+          f"{time.perf_counter() - t0:.3f} s, {eng.traversal_sweeps} sweeps")
+    stats = eng.stats.as_dict()
+    csr = O.csr_from_coo(g)
+    keys = [int(s) for s in pick_sources(g, N_KEYS, seed=2)]
+    full_cfg = bfs_configs()["FULL"]
+    run_bfs_keys(eng, g, full_cfg, keys[:1], csr)               # warm-up
+    full = run_bfs_keys(eng, g, full_cfg, keys[:N_VARIANT_KEYS], csr)
+    hplan = TE.build_exchange_plan(eng.pg)
+    strategy_serving(eng, hplan, queries, answers)
+    strategy_bfs(eng, hplan, g, csr, full)
+    torch.cuda.empty_cache()
+    sharded_nccl_phase()
+    sharded_gloo_phase(eng, hplan, queries, answers, stats, full)
+
+
 def run_alone(names) -> None:
-    """``--only``: the named kernel phases (``segment_bag``,
-    ``ell_pull_payload``) on their inputs (the recsys model and ClickStream
+    """``--only``: the named phases (``segment_bag``, ``ell_pull_payload``,
+    ``sharded``) on their inputs (the recsys model and ClickStream
     batches, the scale-20 graph, made as ``run`` makes them), nothing else;
     then the device line."""
     import torch
@@ -2470,6 +2938,8 @@ def run_alone(names) -> None:
     if "ell_pull_payload" in names:
         g = rmat_graph(SCALE, seed=0)
         kernel_phase_payload(g, O.csr_from_coo(g))
+    if "sharded" in names:
+        sharded_alone()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2482,12 +2952,14 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernel phases to run alone: "
-                         "segment_bag, ell_pull_payload")
+                    help="comma-separated phases to run alone: "
+                         "segment_bag, ell_pull_payload, sharded")
     args = ap.parse_args()
     only = None if args.only is None else set(args.only.split(","))
-    if only is not None and not only <= {"segment_bag", "ell_pull_payload"}:
-        ap.error(f"--only takes segment_bag, ell_pull_payload, not {only}")
+    if only is not None and not only <= {"segment_bag", "ell_pull_payload",
+                                         "sharded"}:
+        ap.error(f"--only takes segment_bag, ell_pull_payload, sharded, "
+                 f"not {only}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)
@@ -2505,4 +2977,18 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import os
+    import traceback
+
+    try:
+        rc = main()
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    except Exception:                        # reported, exits non-zero
+        traceback.print_exc()
+        rc = 1
+    # leave without the interpreter's teardown: a process group whose
+    # collectives were captured can hang it (every child is joined)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -16,9 +16,12 @@ The per-subgraph direction is chosen by the paper's workload estimates:
 FV = sum of frontier out-degrees, BV ~= |U| (q + s) / q, with two switch
 factors per DO subgraph, in float32 with the reference's expression order.
 
-Every function works on the *stacked* partition axis (the emulated
-backend -- the reference's ``vmap(axis_name="p")``): tensors carry a
-leading ``p`` dimension and the collectives run over it. Pushes are
+Every function works on a *stacked* partition axis: tensors carry a
+leading dimension of the partitions this process holds -- all ``p`` in
+the emulated backend (the reference's ``vmap(axis_name="p")``), this
+rank's one under a ``mesh`` (the reference's ``shard_map``,
+:func:`make_sharded_bfs`) -- and the collectives run over it or over the
+process group. Pushes are
 edge-parallel gathers and scatter-ORs; the three pulls of a sweep are
 one launch of the fused chunked bit-pull kernel
 (``kernels.ops.ell_pull_bits_sweep``) for every partition, so no host
@@ -147,17 +150,37 @@ def _csr_view(csr: CSR, n_dst: int, device, pulled: bool = True) -> CSR:
                if pulled and offsets.device.type == "cuda" else None))
 
 
+def local_partition(pg: PartitionedGraph, part: int) -> PartitionedGraph:
+    """Partition ``part`` of a host graph alone: every per-partition leaf
+    keeps only its row ``part`` (leading dimension 1, padded widths and
+    ``p`` unchanged), the replicated delegate ids stay whole -- what one
+    rank of a sharded run holds."""
+    if not 0 <= part < pg.p:
+        raise ValueError(f"partition {part} not in [0, {pg.p})")
+    one = lambda a: None if a is None else np.asarray(a)[part:part + 1]
+    csr = lambda c: dataclasses.replace(
+        c, offsets=one(c.offsets), cols=one(c.cols), rowids=one(c.rowids),
+        m=one(c.m), eidx=one(c.eidx))
+    return dataclasses.replace(
+        pg, nn=csr(pg.nn), nd=csr(pg.nd), dn=csr(pg.dn), dd=csr(pg.dd),
+        nn_owner=one(pg.nn_owner), normal_valid=one(pg.normal_valid),
+        nd_src_mask=one(pg.nd_src_mask), dn_src_mask=one(pg.dn_src_mask),
+        dd_src_mask=one(pg.dd_src_mask))
+
+
 def device_view(pg: PartitionedGraph, device="cuda") -> PartitionedGraph:
     """All data leaves as tensors on ``device``, with a leading partition
-    axis (delegate ids tiled to ``[p, d]`` int32); the host-only edge index
-    (``eidx``) is stripped. Each CSR also carries its flattened sweep
-    indices; on a card, the three pulled subgraphs (dd, dn, nd) also carry
-    their pull schedule (see :class:`~repro_torch.core.types.CSR`)."""
+    axis (delegate ids tiled to ``[rows, d]`` int32; ``rows`` is ``p``, or
+    1 for a :func:`local_partition`); the host-only edge index (``eidx``)
+    is stripped. Each CSR also carries its flattened sweep indices; on a
+    card, the three pulled subgraphs (dd, dn, nd) also carry their pull
+    schedule, over the partitions the view holds (see
+    :class:`~repro_torch.core.types.CSR`)."""
     dev = resolve_device(device)
     put = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
     dslots = max(pg.d, 1)
     dv = np.repeat(np.asarray(pg.delegate_vids).astype(np.int32)[None],
-                   pg.p, axis=0)
+                   np.asarray(pg.normal_valid).shape[0], axis=0)
     return dataclasses.replace(
         pg,
         nn=_csr_view(pg.nn, pg.n_local, dev, pulled=False),
@@ -170,14 +193,16 @@ def device_view(pg: PartitionedGraph, device="cuda") -> PartitionedGraph:
 
 
 def init_state(pg: PartitionedGraph, source: int, cfg: BFSConfig,
-               device="cuda") -> BFSState:
+               device="cuda", mesh=None) -> BFSState:
     """Seed one source vertex (built on the host, then placed on
-    ``device``)."""
+    ``device``); with ``mesh``, this rank's partition only (leading
+    dimension 1)."""
     dev = resolve_device(device)
     if not 0 <= int(source) < pg.n:
         raise ValueError(f"source id {source} out of range [0, {pg.n})")
     layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
-    p, nl = pg.p, pg.n_local
+    p, nl = (pg.p, pg.n_local) if mesh is None else (1, pg.n_local)
+    part0 = 0 if mesh is None else mesh.rank
     d = max(pg.d, 1)
     level_n = np.full((p, nl), INF_LEVEL, dtype=np.int32)
     level_d = np.full((p, d), INF_LEVEL, dtype=np.int32)
@@ -185,8 +210,8 @@ def init_state(pg: PartitionedGraph, source: int, cfg: BFSConfig,
     pos = int(np.searchsorted(dvids, source))
     if pos < pg.d and dvids[pos] == source:
         level_d[:, pos] = 0
-    else:
-        level_n[int(layout.part_of(np.int64(source))),
+    elif 0 <= int(layout.part_of(np.int64(source))) - part0 < p:
+        level_n[int(layout.part_of(np.int64(source))) - part0,
                 int(layout.local_of(np.int64(source)))] = 0
     i32 = lambda *s: np.zeros(s, dtype=np.int32)
     mi = cfg.max_iters
@@ -253,18 +278,18 @@ def _nn_slots_bits(csr: CSR, frontier_rows: torch.Tensor, plan):
             act.sum(1, dtype=torch.int32))
 
 
-def _dense_slots(plan, sa: torch.Tensor) -> torch.Tensor:
-    """Each sender's unique slots ``sa [p, cap_total, ...]`` binned by
-    owner peer: ``[p_send, p_recv, cap_peer, ...]`` bool (invalid slots
-    drop out)."""
-    p, lanes = sa.shape[0], sa.shape[2:]
+def _dense_slots(plan, sa: torch.Tensor, p: int) -> torch.Tensor:
+    """Each sender's unique slots ``sa [rows, cap_total, ...]`` binned by
+    owner peer (of ``p``): ``[rows, p, cap_peer, ...]`` bool (invalid
+    slots drop out)."""
+    rows, lanes = sa.shape[0], sa.shape[2:]
     owner = plan.seg_owner.long()
     ok = (owner < p).reshape(owner.shape + (1,) * len(lanes))
-    idx = (torch.arange(p, device=sa.device)[:, None] * p
+    idx = (torch.arange(rows, device=sa.device)[:, None] * p
            + owner.clamp(max=p - 1)) * plan.cap_peer + plan.seg_pos.long()
-    dense = _scatter_or(p * p * plan.cap_peer, idx.reshape(-1),
+    dense = _scatter_or(rows * p * plan.cap_peer, idx.reshape(-1),
                         (sa & ok).reshape((-1,) + lanes))
-    return dense.reshape((p, p, plan.cap_peer) + lanes)
+    return dense.reshape((rows, p, plan.cap_peer) + lanes)
 
 
 def _pull_sweep(pulls, chunk: int):
@@ -313,14 +338,16 @@ def _decide_direction(backward, fv, bv, f0, f1):
 
 
 def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
-             plan=None) -> BFSState:
-    """One sweep of every partition. ``pgv`` is a device view
-    (:func:`device_view`); ``plan`` (:func:`~repro_torch.core.engine.
-    device_plan`) is needed only with ``cfg.static_exchange``."""
+             plan=None, mesh=None) -> BFSState:
+    """One sweep of every partition the state holds. ``pgv`` is a device
+    view (:func:`device_view`, of this rank's partition when ``mesh`` is
+    given); ``plan`` (:func:`~repro_torch.core.engine.device_plan`) is
+    needed only with ``cfg.static_exchange``."""
     p, nl = pgv.p, pgv.n_local
+    rows = state.it.shape[0]
     d = state.level_d.shape[1]
     it = state.it
-    cplan = comm.plan_for(cfg.comm, p)
+    cplan = comm.plan_for(cfg.comm, p if mesh is None else mesh)
     chunk = cfg.pull_chunk
 
     at_it = it[:, None]
@@ -348,7 +375,7 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
             _decide_direction(state.backward[:, 2], fv_nd, bv_nd, f0[2], f1[2]),
         ], dim=1)
     else:
-        backward = torch.zeros((p, 3), dtype=torch.bool, device=it.device)
+        backward = torch.zeros((rows, 3), dtype=torch.bool, device=it.device)
     bwd_dd, bwd_dn, bwd_nd = (backward[:, i, None] for i in range(3))
 
     # The reference computes every pull and push and selects by direction.
@@ -380,7 +407,7 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
         # 1 bit per unique (owner, local) slot of the static plan
         sa, act_nn_sum = _nn_slots_bits(pgv.nn, frontier_n, plan)
         recv_mask, nn_bytes, nn_sparse, ovf = comm.nn_exchange_bits(
-            cplan, _dense_slots(plan, sa), plan.recv_local, nl)
+            cplan, _dense_slots(plan, sa, p), plan.recv_local, nl)
         sent = _count(sa)
     else:
         # legacy runtime-binned path: active destination ids sorted into
@@ -396,11 +423,11 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
         buf, ovf, sent = comm.bin_by_owner(
             pgv.nn_owner, pgv.nn.cols, act_nn, p=p, cap=cap,
             uniquify=cfg.uniquify)
-        recv = comm.exchange_normal(buf).reshape(p, -1)
+        recv = comm.exchange_normal(buf, cplan).reshape(rows, -1)
         ridx = (recv.long().clamp(0, nl - 1)
-                + torch.arange(p, device=it.device)[:, None] * nl)
-        recv_mask = _scatter_or(p * nl, ridx.reshape(-1),
-                                (recv >= 0).reshape(-1)).reshape(p, nl)
+                + torch.arange(rows, device=it.device)[:, None] * nl)
+        recv_mask = _scatter_or(rows * nl, ridx.reshape(-1),
+                                (recv >= 0).reshape(-1)).reshape(rows, nl)
         nn_bytes = cplan.a2a_bytes(cap * 4)     # [p, cap] int32 ids
         nn_sparse = 0
 
@@ -424,14 +451,14 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
     # ---- normal level updates ---------------------------------------------
     new_n_mask = (new_n_local | recv_mask) & unvis_n
     new_level_n = torch.where(new_n_mask, nxt, state.level_n)
-    updated = comm.any_reduce(new_n_mask.any(1) | new_d_any)
+    updated = comm.any_reduce(new_n_mask.any(1) | new_d_any, mesh)
 
     # ---- statistics (int32, the reference's wraparound included) ----------
     w_fwd = (torch.where(bwd_dd[:, 0], 0, fv_dd)
              + torch.where(bwd_nd[:, 0], 0, fv_nd)
              + torch.where(bwd_dn[:, 0], 0, fv_dn) + act_nn_sum)
     w_bwd = work_dd_b + work_nd_b + work_dn_b
-    at = (torch.arange(p, device=it.device),
+    at = (torch.arange(rows, device=it.device),
           it.clamp(0, cfg.max_iters - 1).long())
 
     def put(buf, val):
@@ -469,23 +496,43 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
 
 
 def run_bfs_emulated(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
-                     plan=None) -> BFSState:
+                     plan=None, mesh=None) -> BFSState:
     """Sweep until every partition reports done or ``max_iters`` is hit:
     the reference's loop condition ``~all(done) & all(it < max_iters)``,
-    read as one scalar per sweep."""
+    read as one scalar per sweep (replicated: every rank decides alike)."""
     if cfg.static_exchange and plan is None:
         raise ValueError("static_exchange=True needs the device ExchangePlan "
                          "(plan=)")
     while bool((~state.done.all()) & (state.it < cfg.max_iters).all()):
-        state = bfs_step(pgv, state, cfg, plan)
+        state = bfs_step(pgv, state, cfg, plan, mesh)
     return state
 
 
-def gather_levels(pg: PartitionedGraph, state: BFSState) -> np.ndarray:
+def make_sharded_bfs(mesh, partition_axes, cfg: BFSConfig,
+                     with_plan: bool = False):
+    """Single-source BFS over a
+    :class:`~repro_torch.core.comm.dist.PartitionMesh`, one partition per
+    rank (paper: each partition is a GPU): ``run(pgv, state)``, or
+    ``run(pgv, plan, state)`` with ``with_plan=True`` (the static
+    exchange), on this rank's views and state (``init_state(...,
+    mesh=mesh)``). The partition axes must be the mesh's axes."""
+    mesh.check_axes(partition_axes)
+    if with_plan:
+        return lambda pgv, plan, st: run_bfs_emulated(pgv, st, cfg, plan,
+                                                      mesh)
+    return lambda pgv, st: run_bfs_emulated(pgv, st, cfg, None, mesh)
+
+
+def gather_levels(pg: PartitionedGraph, state: BFSState,
+                  mesh=None) -> np.ndarray:
     """Assemble global hop distances ``[n]`` int32 from partition-local and
-    delegate levels."""
+    delegate levels (a sharded state's rows are all-gathered first: every
+    rank calls it and gets every level)."""
     layout = PartitionLayout(pg.n, pg.p_rank, pg.p_gpu)
-    level_n = state.level_n.cpu().numpy()
+    level_n = state.level_n
+    if mesh is not None:
+        level_n = comm.dist.all_gather(mesh, level_n[0])
+    level_n = level_n.cpu().numpy()
     level_d = state.level_d[0].cpu().numpy()
     vids = np.arange(pg.n, dtype=np.int64)
     out = level_n[layout.part_of(vids), layout.local_of(vids)].copy()

@@ -1,5 +1,5 @@
 """Communication subsystem (paper Section V) over the emulated partition
-axis.
+axis or a ``torch.distributed`` mesh (:mod:`.dist`).
 
 Two classes of traffic, exactly as the paper prescribes:
 
@@ -13,6 +13,7 @@ Two classes of traffic, exactly as the paper prescribes:
 :mod:`.base` holds the strategy config and the wire-byte formulas,
 :mod:`.wire` the lane-word packing that is the wire format itself.
 """
+from . import dist
 from .base import (
     COMBINE_SPECS,
     DELEGATE_STRATEGIES,
@@ -31,7 +32,7 @@ from .wire import n_words, pack_lanes, unpack_lanes
 __all__ = [
     "COMBINE_SPECS", "DELEGATE_STRATEGIES", "NN_FORMATS", "CombineSpec",
     "CommConfig", "CommPlan", "any_reduce", "bin_by_owner",
-    "delegate_combine", "delegate_min_apply", "delegate_or_apply",
+    "delegate_combine", "dist", "delegate_min_apply", "delegate_or_apply",
     "exchange_normal", "lane_any_reduce", "n_words",
     "nn_exchange_bits", "nn_exchange_words", "pack_lanes", "plan_for",
     "unpack_lanes",

@@ -25,23 +25,29 @@ counter rows therefore yields total cluster traffic.
 * all_to_all of a ``[p, ...]`` buffer: the p-1 non-self rows leave the
   device, ``(p-1)/p`` of the buffer bytes.
 
-This slice of the port executes ``delegate`` in ``("auto", "allgather")``
-and ``nn="dense"``; the other strategies the byte formulas describe raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Two backends bind a plan. The emulated one (:func:`plan_for` with an
+int) stacks all ``p`` partitions on one device's leading axis under one
+axis ``"p"``; the distributed one (:func:`plan_for` with a
+:class:`~repro_torch.core.comm.dist.PartitionMesh`) holds one partition
+per process and takes the mesh's axes and sizes, so ``hier`` and the
+per-axis rings see the mesh's levels. A plan built directly with several
+axes and no mesh stacks ``p = prod(sizes)`` rows in row-major order over
+them (the emulated two-axis mesh of the combine's parity tests).
+``nn="compressed"`` raises ``NotImplementedError`` naming the ROADMAP item
+that ports it (A10).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 #: delegate-combine strategies (CommConfig.delegate)
 DELEGATE_STRATEGIES = ("auto", "allgather", "ring", "hier")
 #: nn wire formats (CommConfig.nn)
 NN_FORMATS = ("dense", "sparse", "adaptive", "compressed")
-#: the subset this slice of the port executes
-PORTED_DELEGATE = ("auto", "allgather")
-PORTED_NN = ("dense",)
-_DEFERRED = "ROADMAP.md queue A, item A3 (comm strategies)"
+_DEFERRED_NN = {"compressed": "ROADMAP.md queue A, item A10 (the compressed "
+                               "nn codec)"}
 
 
 @dataclass(frozen=True)
@@ -73,15 +79,20 @@ class CommConfig:
     """Strategy selection for one traversal layer.
 
     ``delegate``: ``"auto"`` (native reductions for min/max; bitwise OR
-    has none, so it all-gathers and folds) or ``"allgather"`` -- in the
-    port the K-way OR fold always runs through ``kernels.ops.mask_reduce``,
-    and the all-gathered int32 min through
-    ``kernels.ops.payload_min_fold`` (on the traversal steps, fused with
+    has none, so it all-gathers and folds), ``"allgather"`` (gather all P
+    partials, fold locally), ``"ring"`` (reduce-scatter + all-gather rings
+    per partition axis, O(1)-in-P volume) or ``"hier"`` (the gather-fold
+    per axis group, ``axes[:hier_split]`` then the rest; on one axis it is
+    ``"allgather"``). In the port every K-way OR fold runs through
+    ``kernels.ops.mask_reduce`` and every all-gathered int32 min through
+    ``kernels.ops.payload_min_fold`` (on the traversal steps fused with
     the delegate update: ``mask_reduce_apply``, ``payload_min_fold_apply``).
-    ``nn``: ``"dense"``, one bit per
-    (slot, query) in fixed-volume lane words.
-    ``hier_split`` and ``sparse_cap`` only parameterize the byte formulas
-    of the deferred strategies.
+    ``nn``: ``"dense"`` (one bit per (slot, query), fixed volume),
+    ``"sparse"`` (only active slots, as (slot id, lane word) pairs or bare
+    slot ids, ``sparse_cap`` per peer; slots beyond it are dropped and
+    counted), ``"adaptive"`` (per sweep sparse when every peer's active
+    slots fit the cap, dense otherwise, agreed globally) or
+    ``"compressed"`` (not ported: raises).
     """
 
     delegate: str = "auto"
@@ -95,12 +106,9 @@ class CommConfig:
                 f"delegate={self.delegate!r} not in {DELEGATE_STRATEGIES}")
         if self.nn not in NN_FORMATS:
             raise ValueError(f"nn={self.nn!r} not in {NN_FORMATS}")
-        if self.delegate not in PORTED_DELEGATE:
+        if self.nn in _DEFERRED_NN:
             raise NotImplementedError(
-                f"delegate={self.delegate!r} is not ported yet: {_DEFERRED}")
-        if self.nn not in PORTED_NN:
-            raise NotImplementedError(
-                f"nn={self.nn!r} is not ported yet: {_DEFERRED}")
+                f"nn={self.nn!r} is not ported yet: {_DEFERRED_NN[self.nn]}")
 
     def as_dict(self) -> dict:
         return {"delegate": self.delegate, "hier_split": self.hier_split,
@@ -114,10 +122,18 @@ class CommPlan:
     cfg: CommConfig
     axes: tuple        # axis names, ("p",) in the emulated backend
     sizes: tuple       # static per-axis sizes; prod == p
+    #: the distributed backend's PartitionMesh (None: emulated, all p
+    #: partitions stacked on the leading axis)
+    mesh: Any = field(default=None, compare=False)
 
     @property
     def p(self) -> int:
         return math.prod(self.sizes)
+
+    @property
+    def rows(self) -> int:
+        """Partitions this process holds: its tensors' leading dimension."""
+        return self.p if self.mesh is None else 1
 
     # -- delegate combine ---------------------------------------------------
     def delegate_groups(self) -> tuple:
@@ -196,7 +212,12 @@ class CommPlan:
                 "p": self.p, **self.cfg.as_dict()}
 
 
-def plan_for(cfg: CommConfig | None, p: int) -> CommPlan:
-    """Bind ``cfg`` to the emulated backend's one partition axis of size
-    ``p`` (the stacked leading dimension)."""
-    return CommPlan(cfg=cfg or CommConfig(), axes=("p",), sizes=(int(p),))
+def plan_for(cfg: CommConfig | None, p) -> CommPlan:
+    """Bind ``cfg`` to the partition axes: ``p`` an int binds the emulated
+    backend's one axis ``"p"`` of that size (the stacked leading
+    dimension); ``p`` a :class:`~repro_torch.core.comm.dist.PartitionMesh`
+    binds its axes and sizes, one partition per process."""
+    cfg = cfg or CommConfig()
+    if isinstance(p, int):
+        return CommPlan(cfg=cfg, axes=("p",), sizes=(int(p),))
+    return CommPlan(cfg=cfg, axes=p.axes, sizes=p.sizes, mesh=p)

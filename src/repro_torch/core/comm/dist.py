@@ -1,0 +1,291 @@
+"""The ``torch.distributed`` backend: one graph partition per process.
+
+The emulated backend stacks every partition on the leading axis of one
+device's tensors. Here each process (rank) holds one partition -- its
+tensors keep a leading axis of 1 -- and the collectives run over a
+process group: ``gloo`` on the CPU, ``nccl`` on cards (``gloo`` also
+carries CUDA tensors for the collectives it implements for them).
+
+* :class:`PartitionMesh` lays the world's ranks out over named axes
+  (for example ``("rank", "gpu")`` of sizes ``(p_rank, p_gpu)``); rank
+  ``r`` owns partition ``r``, the row-major index of its coordinates, as a
+  partition spec over those axes splits the leading dimension. It holds
+  one process subgroup per group of axes (every rank creates them in the
+  same order), so a strategy can reduce over one axis (ring) or a group of
+  axes (hierarchical) as well as over the world.
+* The collectives the port uses: :func:`all_gather`, :func:`all_to_all`,
+  :func:`all_reduce` (``"max"`` / ``"min"``, integer tensors) and
+  :func:`ppermute` (the ring's hop: an ``all_to_all_single`` whose split
+  sizes are non-zero only for the neighbours, so the wire carries exactly
+  the ring's chunk, on ``gloo`` and ``nccl`` alike). There is no OR
+  reduction: neither NCCL nor the emulated backend has one, so the OR
+  combine stays an all-gather and the ``mask_reduce`` fold everywhere.
+* :func:`spawn` starts a world of processes on one host with a ``file://``
+  rendezvous under a fresh temporary directory and a hard timeout: a rank
+  that hangs or fails fails the call, and every process is stopped.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+import multiprocessing as mp
+import os
+import queue as _queue
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+class PartitionMesh:
+    """The world's ranks over named axes, with a subgroup per axis group.
+
+    Must be built by every rank of an initialised default process group,
+    in the same order relative to other group creations; the product of
+    ``sizes`` must equal the world size."""
+
+    def __init__(self, axes: Sequence[str], sizes: Sequence[int]):
+        if not dist.is_initialized():
+            raise RuntimeError("PartitionMesh needs an initialised process "
+                               "group (torch.distributed.init_process_group)")
+        self.axes, self.sizes = tuple(axes), tuple(int(s) for s in sizes)
+        if len(self.axes) != len(self.sizes) or len(set(self.axes)) != len(
+                self.axes):
+            raise ValueError(f"axes {axes} and sizes {sizes} do not match")
+        self.world = dist.get_world_size()
+        if math.prod(self.sizes) != self.world:
+            raise ValueError(f"mesh {dict(zip(self.axes, self.sizes))} spans "
+                             f"{math.prod(self.sizes)} ranks, world has "
+                             f"{self.world}")
+        self.rank = dist.get_rank()
+        self.backend = dist.get_backend()
+        self.coords = _unravel(self.rank, self.sizes)
+        # one subgroup per non-empty set of axes, created by every rank in
+        # the same order (a rank creates the groups it is not in as well)
+        self._groups: dict = {}
+        for n in range(1, len(self.axes) + 1):
+            for sub in itertools.combinations(range(len(self.axes)), n):
+                names = tuple(self.axes[i] for i in sub)
+                if n == len(self.axes):
+                    self._groups[names] = (None, list(range(self.world)))
+                    continue
+                rest = [i for i in range(len(self.axes)) if i not in sub]
+                mine = None
+                for other in itertools.product(*(range(self.sizes[i])
+                                                  for i in rest)):
+                    ranks = []
+                    for pos in itertools.product(*(range(self.sizes[i])
+                                                   for i in sub)):
+                        c = [0] * len(self.axes)
+                        for i, v in zip(rest, other):
+                            c[i] = v
+                        for i, v in zip(sub, pos):
+                            c[i] = v
+                        ranks.append(_ravel(c, self.sizes))
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        mine = (g, ranks)
+                self._groups[names] = mine
+
+    @property
+    def p(self) -> int:
+        return self.world
+
+    def _key(self, axes) -> tuple:
+        axes = self.axes if axes is None else (
+            (axes,) if isinstance(axes, str) else tuple(axes))
+        # a group is named by its axes in the mesh's order
+        key = tuple(a for a in self.axes if a in axes)
+        if len(key) != len(axes):
+            raise ValueError(f"axes {axes} not all in the mesh {self.axes}")
+        return key
+
+    def group(self, axes=None):
+        """This rank's process group over ``axes`` (None: the world)."""
+        return self._groups[self._key(axes)][0]
+
+    def size(self, axes=None) -> int:
+        return len(self._groups[self._key(axes)][1])
+
+    def index(self, axes=None) -> int:
+        """This rank's position in its group over ``axes`` (the row-major
+        index of its coordinates on those axes)."""
+        return self._groups[self._key(axes)][1].index(self.rank)
+
+    def check_axes(self, partition_axes) -> None:
+        """Partition axes (None: all) must be the mesh's axes in its order,
+        so that rank ``r`` holds partition ``r``."""
+        axes = (self.axes if partition_axes is None else
+                ((partition_axes,) if isinstance(partition_axes, str)
+                 else tuple(partition_axes)))
+        if axes != self.axes:
+            raise ValueError(f"partition axes {axes} must be the mesh's axes "
+                             f"{self.axes}, in order")
+
+    def __repr__(self) -> str:
+        return (f"PartitionMesh({dict(zip(self.axes, self.sizes))}, "
+                f"rank={self.rank}, backend={self.backend})")
+
+
+def _ravel(coords, sizes) -> int:
+    r = 0
+    for c, s in zip(coords, sizes):
+        r = r * s + c
+    return r
+
+
+def _unravel(r: int, sizes) -> tuple:
+    out = []
+    for s in reversed(sizes):
+        out.append(r % s)
+        r //= s
+    return tuple(reversed(out))
+
+
+# -----------------------------------------------------------------------------
+# Collectives (bool tensors travel as uint8)
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype == torch.bool else x
+
+
+def _unwire(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.view(torch.bool) if dtype == torch.bool else x
+
+
+def all_gather(mesh: PartitionMesh, x: torch.Tensor, axes=None
+               ) -> torch.Tensor:
+    """Every member's ``x`` over the group of ``axes`` -> ``[K, *x.shape]``
+    in group order."""
+    k = mesh.size(axes)
+    src = _wire(x)
+    out = torch.empty((k,) + tuple(src.shape), dtype=src.dtype,
+                      device=src.device)
+    if mesh.backend == "nccl":
+        dist.all_gather_into_tensor(out, src, group=mesh.group(axes))
+    else:
+        dist.all_gather(list(out.unbind(0)), src, group=mesh.group(axes))
+    return _unwire(out, x.dtype)
+
+
+def all_to_all(mesh: PartitionMesh, x: torch.Tensor, axes=None
+               ) -> torch.Tensor:
+    """``x [K, ...]``: row ``j`` goes to member ``j``; returns ``[K, ...]``
+    whose row ``j`` came from member ``j``."""
+    src = _wire(x)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group(axes))
+    return _unwire(out, x.dtype)
+
+
+_OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(mesh: PartitionMesh, x: torch.Tensor, op: str, axes=None
+               ) -> torch.Tensor:
+    """Elementwise ``op`` (``"max"`` or ``"min"``) of every member's ``x``
+    (an integer tensor; bool travels as uint8) -> a new tensor."""
+    out = _wire(x).clone()
+    dist.all_reduce(out, op=_OPS[op], group=mesh.group(axes))
+    return _unwire(out, x.dtype)
+
+
+def ppermute(mesh: PartitionMesh, x: torch.Tensor, axis: str
+             ) -> torch.Tensor:
+    """One hop of the ring along ``axis``: member ``i`` sends ``x`` to
+    member ``i + 1`` and receives member ``i - 1``'s (modulo the axis
+    size). One ``all_to_all_single`` whose splits are non-zero only for the
+    two neighbours."""
+    k, i = mesh.size(axis), mesh.index(axis)
+    src = _wire(x).reshape(-1)
+    out = torch.empty_like(src)
+    isz, osz = [0] * k, [0] * k
+    isz[(i + 1) % k] = src.numel()
+    osz[(i - 1) % k] = src.numel()
+    dist.all_to_all_single(out, src, output_split_sizes=osz,
+                           input_split_sizes=isz, group=mesh.group(axis))
+    return _unwire(out.reshape(x.shape), x.dtype)
+
+
+# -----------------------------------------------------------------------------
+# Launcher
+
+
+def _child(fn, rank: int, world: int, init: str, backend: str,
+           timeout: float, args: tuple, results) -> None:
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.set_num_threads(1)
+    try:
+        if backend == "nccl":          # rank r drives card r (of those seen)
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=timedelta(seconds=timeout))
+        out = fn(rank, world, *args)
+    except Exception:                          # reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+        return
+    # the result goes out before the teardown: a process group whose
+    # communicators were captured in CUDA graphs can hang in its teardown,
+    # and the parent stops a child that outlives its result
+    results.put((rank, True, out))
+    dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, args: tuple = (), *,
+          backend: str = "gloo", timeout: float = 120.0) -> list:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
+    by ``backend`` and return each rank's (picklable) result, in rank
+    order. ``fn`` must be importable by the child (a module-level function
+    of a module on ``sys.path``). Under ``nccl`` rank ``r`` drives card
+    ``r`` (modulo the cards it sees). Rendezvous is a ``file://`` path in a
+    fresh temporary directory, so concurrent worlds never collide. A rank
+    that raises fails the call with its traceback; a world that has not
+    finished within ``timeout`` seconds is killed and raises
+    ``TimeoutError``."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_child, daemon=True,
+                             args=(fn, r, world, init, backend, timeout, args,
+                                   results))
+                 for r in range(world)]
+        for pr in procs:
+            pr.start()
+        deadline = time.monotonic() + timeout
+        got: dict = {}
+        try:
+            while len(got) < world:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"world of {world} did not finish in {timeout} s; "
+                        f"ranks done: {sorted(got)}")
+                try:
+                    rank, ok, out = results.get(timeout=min(left, 1.0))
+                except _queue.Empty:
+                    dead = [r for r, pr in enumerate(procs)
+                            if r not in got and not pr.is_alive()
+                            and pr.exitcode not in (0, None)]
+                    if dead:
+                        raise RuntimeError(
+                            f"rank {dead[0]} exited with code "
+                            f"{procs[dead[0]].exitcode} and no result")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{out}")
+                got[rank] = out
+        finally:
+            for pr in procs:
+                pr.join(timeout=5)
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+    return [got[r] for r in range(world)]

@@ -1,25 +1,45 @@
-"""Point-to-point frontier exchange (paper Section V-B).
+"""Point-to-point frontier exchange (paper Section V-B), with pluggable
+wire formats, over either backend.
 
-Normal-vertex updates travel peer-to-peer. Two layouts:
+Normal-vertex updates travel peer-to-peer. Over the static (owner, local)
+slot layout of the :class:`~repro_torch.core.engine.ExchangePlan`:
 
-* the static (owner, local) slot layout of the
-  :class:`~repro_torch.core.engine.ExchangePlan`, dense format: one bit per
-  (slot, query) packed into lane words for the batched path
-  (:func:`nn_exchange_words`), one bit per slot for the single-source path
-  (:func:`nn_exchange_bits`) -- fixed volume per sweep;
-* the legacy runtime-binned exchange of the single-source path
-  (:func:`bin_by_owner` + :func:`exchange_normal`): active destination ids
-  sorted into per-owner bins of ``cap`` int32 ids.
+* **dense** -- one bit per (slot, query): lane words for the batched path
+  (:func:`nn_exchange_words`), a slot bitmask for the single-source path
+  (:func:`nn_exchange_bits`); fixed volume per sweep;
+* **sparse** -- only active slots ship, as (slot id, lane word) pairs or
+  bare slot ids, capped per peer; active slots beyond the cap are dropped
+  and counted in the returned overflow (a valid run needs 0);
+* **adaptive** -- per sweep, sparse when every peer's active-slot count
+  fits the cap and dense otherwise, agreed over all partitions through one
+  scalar max. Emulated, both receive sets are computed and one is selected
+  on the device (nothing crosses a real wire, and no host read breaks a
+  captured sweep); distributed, the host reads the agreed scalar and ships
+  only the chosen format, so the counters report exactly the bytes sent.
 
-In the emulated backend every all_to_all of a stacked ``[p_send, p_recv,
-...]`` buffer is a transpose of the two partition axes.
+The legacy runtime-binned exchange of the single-source path
+(:func:`bin_by_owner` + :func:`exchange_normal`) sorts active destination
+ids into per-owner bins of ``cap`` int32 ids.
+
+Every all_to_all of a ``[rows, p, ...]`` buffer (row ``j`` of a sender
+goes to partition ``j``) is a transpose of the two partition axes when
+emulated and an ``all_to_all_single`` over the mesh when distributed.
 """
 from __future__ import annotations
 
 import torch
 
+from . import dist as D
 from .base import CommPlan
 from .wire import n_words, pack_lanes, unpack_lanes
+
+
+def _a2a(plan: CommPlan, x: torch.Tensor) -> torch.Tensor:
+    """``x [rows, p, ...]`` -> received ``[rows, p, ...]`` (row ``j`` of
+    the result came from partition ``j``)."""
+    if plan.mesh is None:
+        return x.transpose(0, 1)
+    return D.all_to_all(plan.mesh, x[0])[None]
 
 
 def _scatter_recv_words(rlanes: torch.Tensor, loc: torch.Tensor,
@@ -81,50 +101,130 @@ def bin_by_owner(owner: torch.Tensor, local: torch.Tensor,
     return buf.reshape(big, p, cap), overflow, sent
 
 
-def exchange_normal(buf: torch.Tensor) -> torch.Tensor:
-    """All-to-all of the binned buffers ``[p_send, p_recv, cap]`` ->
-    received ``[p_recv, p_send, cap]``."""
-    return buf.transpose(0, 1)
+def exchange_normal(buf: torch.Tensor, plan: CommPlan | None = None
+                    ) -> torch.Tensor:
+    """All-to-all of the binned buffers ``[rows, p, cap]`` -> received
+    ``[rows, p, cap]`` (a transpose when ``plan`` is None or emulated)."""
+    return buf.transpose(0, 1) if plan is None else _a2a(plan, buf)
+
+
+def _compact_active(act: torch.Tensor, cap_sparse: int):
+    """Per peer row, the first ``cap_sparse`` active slot positions of
+    ``act [rows, p, cap]``: ``(ids [rows, p, S] int32, -1 padded; valid
+    [rows, p, S] bool; overflow [rows] int32)`` -- the active slots beyond
+    the cap, summed over peers. The order is a stable sort (the
+    reference's ``jnp.argsort``), so a pinned cap keeps the lowest slots."""
+    cnt = act.sum(-1, dtype=torch.int32)                    # [rows, p]
+    order = torch.argsort((~act).to(torch.uint8), dim=-1, stable=True)
+    take = order[..., :cap_sparse].to(torch.int32)
+    k = torch.arange(cap_sparse, dtype=torch.int32, device=act.device)
+    valid = k < cnt.clamp(max=cap_sparse)[..., None]
+    overflow = (cnt - cap_sparse).clamp(min=0).sum(-1, dtype=torch.int32)
+    return torch.where(valid, take, -1), valid, overflow
+
+
+def _received_local(recv_local: torch.Tensor, r_ids: torch.Tensor):
+    """Receiver-side local ids of the received slot ids (-1 stays dead)."""
+    cap = recv_local.shape[-1]
+    loc = recv_local.gather(-1, r_ids.clamp(0, cap - 1).long())
+    return torch.where(r_ids >= 0, loc, -1)
+
+
+def _adaptive(plan: CommPlan, act: torch.Tensor, cap_sparse: int, dense,
+              sparse, sparse_bytes: int, dense_bytes: int):
+    """The adaptive switch: sparse iff no partition has a peer row with
+    more than ``cap_sparse`` active slots. Returns ``(recv, wire_bytes,
+    sparse_used, overflow)``."""
+    local_max = act.sum(-1, dtype=torch.int32).amax(-1)      # [rows]
+    if plan.mesh is None:
+        feasible = local_max.amax() <= cap_sparse
+        recv = torch.where(feasible, sparse()[0], dense())
+        nbytes = torch.where(feasible, sparse_bytes, dense_bytes).to(
+            torch.int32)
+        return recv, nbytes, feasible.to(torch.int32), 0
+    agreed = D.all_reduce(plan.mesh, local_max, "max")
+    if int(agreed[0]) <= cap_sparse:            # one host read a sweep
+        return sparse()[0], sparse_bytes, 1, 0
+    return dense(), dense_bytes, 0, 0
 
 
 def nn_exchange_bits(plan: CommPlan, active: torch.Tensor,
                      recv_local: torch.Tensor, nl: int):
-    """Dense single-bit nn exchange over the stacked partitions (the
-    single-source path).
+    """Single-bit nn exchange (the single-source path).
 
-    ``active [p, p, cap_peer] bool`` marks each sender's occupied slots
-    (row j of sender i = slots of peer j's bin); ``recv_local [p, p,
-    cap_peer] int32`` the receiver-side slot -> local id tables. The slot
-    axis ships as a bitmask, packed like a lane axis (``cap_peer / 8``
-    bytes per peer). Returns ``(recv [p, nl] bool, wire_bytes,
-    sparse_used, overflow)`` -- the last three Python ints, as the dense
-    format's bytes are a static formula and it never drops a slot."""
-    if plan.cfg.nn != "dense":
-        raise NotImplementedError(
-            f"nn={plan.cfg.nn!r} is not ported yet: ROADMAP.md queue A, "
-            "item A3 (comm strategies)")
+    ``active [rows, p, cap_peer] bool`` marks each sender's occupied slots
+    (row j = slots of peer j's bin); ``recv_local [rows, p, cap_peer]
+    int32`` the receiver-side slot -> local id tables. Dense ships the slot
+    bitmask (``cap_peer / 8`` bytes per peer), sparse the active slot ids
+    (4 bytes each, capped). Returns ``(recv [rows, nl] bool, wire_bytes,
+    sparse_used, overflow)``: Python ints where the format fixes them,
+    tensors where the data decides (emulated adaptive: replicated scalars;
+    pinned sparse: overflow ``[rows]``)."""
     cap = active.shape[-1]
-    rbits = unpack_lanes(pack_lanes(active).transpose(0, 1), cap)
-    recv = _scatter_recv_words(rbits[..., None], recv_local, nl)[..., 0]
-    return recv, plan.nn_dense_bits_bytes(cap), 0, 0
+    dense_bytes = plan.nn_dense_bits_bytes(cap)
+    cap_sparse = plan.sparse_cap_bits(cap)
+    sparse_bytes = plan.nn_sparse_bits_bytes(cap_sparse)
+
+    def dense():
+        rbits = unpack_lanes(_a2a(plan, pack_lanes(active)), cap)
+        return _scatter_recv_words(rbits[..., None], recv_local, nl)[..., 0]
+
+    def sparse():
+        ids, _, overflow = _compact_active(active, cap_sparse)
+        loc = _received_local(recv_local, _a2a(plan, ids))
+        return (_scatter_recv_words((loc >= 0)[..., None], loc, nl)[..., 0],
+                overflow)
+
+    mode = plan.cfg.nn
+    if mode == "adaptive" and sparse_bytes >= dense_bytes:
+        mode = "dense"                      # sparse can never win: skip it
+    if mode == "dense":
+        return dense(), dense_bytes, 0, 0
+    if mode == "sparse":
+        recv, overflow = sparse()
+        return recv, sparse_bytes, 1, overflow
+    return _adaptive(plan, active, cap_sparse, dense, sparse, sparse_bytes,
+                     dense_bytes)
 
 
 def nn_exchange_words(plan: CommPlan, dense: torch.Tensor,
                       recv_local: torch.Tensor, nl: int):
-    """Dense lane-word nn exchange over the stacked partitions.
+    """Lane-word nn exchange.
 
-    ``dense [p, p, cap_peer, W] bool`` is each sender's slot occupancy
-    (row j of sender i = "slot s of peer j's bin carries these lanes");
-    ``recv_local [p, p, cap_peer] int32`` the receiver-side slot -> local
-    id tables. Returns ``(recv [p, nl, W] bool, wire_bytes, sparse_used,
-    overflow)`` -- the last three Python ints, as the dense format's bytes
-    are a static formula and it never drops a slot."""
-    if plan.cfg.nn != "dense":
-        raise NotImplementedError(
-            f"nn={plan.cfg.nn!r} is not ported yet: ROADMAP.md queue A, "
-            "item A3 (comm strategies)")
-    p, _, cap, w = dense.shape
+    ``dense [rows, p, cap_peer, W] bool`` is each sender's slot occupancy
+    (row j = "slot s of peer j's bin carries these lanes");
+    ``recv_local [rows, p, cap_peer] int32`` the receiver-side slot ->
+    local id tables. Dense ships every slot's lane words, sparse the
+    active slots as (slot id, lane words) pairs, capped per peer. Returns
+    ``(recv [rows, nl, W] bool, wire_bytes, sparse_used, overflow)``, as
+    :func:`nn_exchange_bits` types them."""
+    cap, w = dense.shape[-2:]
     nw = n_words(w)
-    rwords = pack_lanes(dense).transpose(0, 1)          # the all_to_all
-    recv = _scatter_recv_words(unpack_lanes(rwords, w), recv_local, nl)
-    return recv, plan.nn_dense_words_bytes(cap, nw), 0, 0
+    dense_bytes = plan.nn_dense_words_bytes(cap, nw)
+    cap_sparse = plan.sparse_cap_words(cap)
+    sparse_bytes = plan.nn_sparse_words_bytes(cap_sparse, nw)
+    act = dense.any(-1)                                     # [rows, p, cap]
+
+    def dense_path():
+        rwords = _a2a(plan, pack_lanes(dense))              # the all_to_all
+        return _scatter_recv_words(unpack_lanes(rwords, w), recv_local, nl)
+
+    def sparse_path():
+        ids, valid, overflow = _compact_active(act, cap_sparse)
+        slots = dense.gather(2, ids.clamp(min=0).long()[..., None].expand(
+            ids.shape + (w,)))
+        sw = pack_lanes(slots & valid[..., None])           # [rows, p, S, nw]
+        loc = _received_local(recv_local, _a2a(plan, ids))
+        rlanes = unpack_lanes(_a2a(plan, sw), w)
+        return _scatter_recv_words(rlanes, loc, nl), overflow
+
+    mode = plan.cfg.nn
+    if mode == "adaptive" and sparse_bytes >= dense_bytes:
+        mode = "dense"                      # sparse can never win: skip it
+    if mode == "dense":
+        return dense_path(), dense_bytes, 0, 0
+    if mode == "sparse":
+        recv, overflow = sparse_path()
+        return recv, sparse_bytes, 1, overflow
+    return _adaptive(plan, act, cap_sparse, dense_path, sparse_path,
+                     sparse_bytes, dense_bytes)

@@ -1,23 +1,35 @@
-"""Delegate combine (paper Section V-A) over the emulated partition axis.
+"""Delegate combine (paper Section V-A), pluggable, over either backend.
 
 The paper combines delegate visited status with a bitwise-OR AllReduce of
-bitmasks. Neither NCCL nor XLA has an OR reduction, so the ``"or"``
-combine is always an all-gather of every partition's lane words followed
-by a local K-way OR fold -- the ``mask_reduce`` kernel. The single-source
-path also combines int32 delegate levels with ``"min"`` and uint8 visited
-masks with ``"max"``: under ``auto`` these are the native reductions; under
-``allgather`` the int32 min folds through the ``payload_min_fold`` kernel
-(the max over {0, 1} bytes stays a plain ``amax``, as in the reference).
+bitmasks. Neither NCCL nor the emulated backend has an OR reduction, so an
+``"or"`` combine always gathers lane words and folds them with the
+``mask_reduce`` kernel. The strategies of
+:class:`~repro_torch.core.comm.base.CommConfig`:
 
-In the emulated backend the partitions are the stacked leading dimension,
-so the all-gather *is* the stacked ``[p, ...]`` tensor; the fold runs once
-and its result is broadcast back to every partition row (the replicated
-combine result).
+* ``auto``      -- native reductions for ``"min"`` / ``"max"`` (an
+                   ``all_reduce`` when distributed, ``amin`` / ``amax`` over
+                   the stacked rows when emulated); ``"or"`` resolves to
+                   ``allgather``;
+* ``allgather`` -- gather every partition's partial, K-way fold
+                   (``mask_reduce`` for OR, ``payload_min_fold`` for the
+                   int32 min);
+* ``ring``      -- the reference's reduce-scatter + all-gather over
+                   ``ceil(L/p)``-element chunks, per axis, with the plain
+                   elementwise op as its binop: the hops are rolls of the
+                   stacked rows when emulated, ``ppermute`` over the axis
+                   subgroup when distributed;
+* ``hier``      -- the gather-fold per axis group (``axes[:hier_split]``,
+                   then the rest); the intra-group OR folds run the
+                   standalone ``mask_reduce``.
 
-The traversal steps call the ``*_apply`` combines: the same all-gather and
-fold, with the step's update of its delegate state fused into the fold's
-launch (:func:`delegate_or_apply` for the lane-word step,
-:func:`delegate_min_apply` for the single-source levels).
+Every strategy is bit-exact with every other: the folds are associative
+and commutative and the result is replicated.
+
+The traversal steps call the ``*_apply`` combines: the same strategies,
+with the step's update of its delegate state fused into the last fold's
+launch (:func:`delegate_or_apply`: ``mask_reduce_apply`` over the last
+group's gathered words, or over the ring's one reduced row;
+:func:`delegate_min_apply`: ``payload_min_fold_apply`` under allgather).
 """
 from __future__ import annotations
 
@@ -25,80 +37,226 @@ import torch
 
 from repro_torch.kernels import ops
 
+from . import dist as D
 from .base import COMBINE_SPECS, CommPlan
+
+_BINARY = {"or": torch.bitwise_or, "min": torch.minimum,
+           "max": torch.maximum}
+
+
+def _check_op(op: str) -> None:
+    if op not in _BINARY:
+        raise NotImplementedError(
+            f"combine op {op!r} is not ported yet: ROADMAP.md queue A, "
+            "item A9 (payload plane)")
+
+
+def _fold(partials: torch.Tensor, op: str) -> torch.Tensor:
+    """K-way fold of ``partials [K, n]`` -> ``[n]``."""
+    n = partials.shape[1:]
+    if op == "or":
+        return ops.mask_reduce(partials, partials.new_zeros(n),
+                               with_count=False)[0]
+    if op == "min" and partials.dtype == torch.int32:
+        return ops.payload_min_fold(
+            partials, torch.full(n, COMBINE_SPECS["min"].identity,
+                                 dtype=torch.int32, device=partials.device),
+            with_count=False)[0]
+    return partials.amin(0) if op == "min" else partials.amax(0)
+
+
+# -----------------------------------------------------------------------------
+# Emulated rows: p = prod(sizes) stacked rows, row-major over plan.axes
+
+
+def _axis_view(plan: CommPlan, x2: torch.Tensor) -> torch.Tensor:
+    return x2.reshape(plan.sizes + x2.shape[1:])
+
+
+def _group_first(plan: CommPlan, group) -> list:
+    """Axis permutation putting ``group``'s axes first (payload last)."""
+    gi = [plan.axes.index(a) for a in group]
+    return gi + [i for i in range(len(plan.axes)) if i not in gi] + [
+        len(plan.axes)]
+
+
+def _emulated_gather(plan: CommPlan, x2: torch.Tensor, group):
+    """The stacked rows ``[p, n]`` regrouped as ``[K, rest, n]``: row ``k``
+    of column ``r`` is member ``k`` of the ``r``-th group over ``group``."""
+    perm = _group_first(plan, group)
+    t = _axis_view(plan, x2).permute(perm)
+    k = plan.group_size(group)
+    return t.reshape(k, -1, x2.shape[1]), perm, t.shape
+
+
+def _emulated_group_fold(plan: CommPlan, x2: torch.Tensor, group, op):
+    g, perm, shape = _emulated_gather(plan, x2, group)
+    k, rest, n = g.shape
+    folded = _fold(g.reshape(k, rest * n), op).reshape(
+        (1,) * len(group) + shape[len(group):]).expand(shape)
+    inv = [perm.index(i) for i in range(len(perm))]
+    return folded.permute(inv).reshape(x2.shape)
+
+
+def _emulated_ppermute(plan: CommPlan, blk: torch.Tensor, axis: str):
+    """The ring hop over the stacked rows: the member at position ``i``
+    along ``axis`` receives position ``i - 1``'s block."""
+    dim = plan.axes.index(axis)
+    return torch.roll(_axis_view(plan, blk), 1, dim).reshape(blk.shape)
+
+
+def _positions(plan: CommPlan, axis: str, device) -> torch.Tensor:
+    """Each stacked row's position along ``axis`` (``[rows]``)."""
+    if plan.mesh is not None:
+        return torch.full((1,), plan.mesh.index(axis), dtype=torch.long,
+                          device=device)
+    i = plan.axes.index(axis)
+    stride = 1
+    for s in plan.sizes[i + 1:]:
+        stride *= s
+    return (torch.arange(plan.p, device=device) // stride) % plan.sizes[i]
+
+
+# -----------------------------------------------------------------------------
+# The strategies over ``x2 [rows, n]``
+
+
+def _ring_1axis(plan: CommPlan, x2: torch.Tensor, axis: str, s: int,
+                op: str) -> torch.Tensor:
+    """Bandwidth-optimal allreduce over one axis of size ``s`` (the
+    reference's ``_ring_allreduce_1axis``): reduce-scatter, then
+    all-gather, each ``s - 1`` hops of ``ceil(L/s)``-element chunks."""
+    if s <= 1:
+        return x2
+    binop = _BINARY[op]
+    hop = ((lambda b: D.ppermute(plan.mesh, b, axis)) if plan.mesh is not None
+           else (lambda b: _emulated_ppermute(plan, b, axis)))
+    rows, n = x2.shape
+    idx = _positions(plan, axis, x2.device)
+    r = torch.arange(rows, device=x2.device)
+    c = -(-n // s)
+    acc = torch.nn.functional.pad(x2, (0, s * c - n)).reshape(rows, s, c)
+    # reduce-scatter: after s-1 hops row i owns the reduced chunk (i+1) % s
+    for st in range(1, s):
+        blk = hop(acc[r, (idx - st + 1) % s])
+        recv = (idx - st) % s
+        acc = acc.clone()
+        acc[r, recv] = binop(acc[r, recv], blk)
+    # all-gather: circulate the owned chunk s-1 hops
+    blk = acc[r, (idx + 1) % s]
+    out = acc.clone()
+    for st in range(1, s):
+        blk = hop(blk)
+        out[r, (idx - st + 1) % s] = blk
+    return out.reshape(rows, s * c)[:, :n]
+
+
+def _group_fold(plan: CommPlan, x2: torch.Tensor, group, op: str):
+    if plan.mesh is None:
+        return _emulated_group_fold(plan, x2, group, op)
+    return _fold(D.all_gather(plan.mesh, x2[0], group), op)[None]
+
+
+def _combine(plan: CommPlan, x2: torch.Tensor, op: str) -> torch.Tensor:
+    strategy = plan.effective_delegate(op)
+    if strategy == "auto":                      # native min / max
+        if plan.mesh is not None:
+            return D.all_reduce(plan.mesh, x2, op)
+        red = x2.amin(0) if op == "min" else x2.amax(0)
+        return red[None].expand(x2.shape)
+    if strategy == "ring":
+        for a, s in zip(plan.axes, plan.sizes):
+            x2 = _ring_1axis(plan, x2, a, s, op)
+        return x2
+    for group in plan.delegate_groups():        # allgather / hier
+        x2 = _group_fold(plan, x2, group, op)
+    return x2
 
 
 def delegate_combine(plan: CommPlan, x: torch.Tensor, op: str = "or"):
     """Global elementwise ``op``-allreduce (``"or"``, ``"min"`` or
-    ``"max"``) of the stacked ``x [p, ...]``. Returns ``(reduced [p, ...],
-    wire_bytes)`` -- bytes is a Python int (the plan formula for one
-    partition's payload, ``auto`` resolved per op)."""
-    if op not in ("or", "min", "max"):
-        raise NotImplementedError(
-            f"combine op {op!r} is not ported yet: ROADMAP.md queue A, "
-            "item A9 (payload plane)")
-    p = x.shape[0]
+    ``"max"``) of ``x [rows, ...]`` with the plan's strategy. Returns
+    ``(reduced [rows, ...], wire_bytes)`` -- bytes is a Python int (the
+    plan formula for one partition's payload, ``auto`` resolved per op)."""
+    _check_op(op)
+    rows = x.shape[0]
     n_elems = x[0].numel()
     nbytes = plan.delegate_bytes(n_elems, x.element_size(), op)
-    partials = x.reshape(p, n_elems).contiguous()
-    if op == "or":
-        folded, _ = ops.mask_reduce(
-            partials, torch.zeros(n_elems, dtype=x.dtype, device=x.device),
-            with_count=False)
-    elif op == "min" and plan.effective_delegate(op) == "allgather":
-        folded, _ = ops.payload_min_fold(
-            partials, torch.full((n_elems,), COMBINE_SPECS["min"].identity,
-                                 dtype=x.dtype, device=x.device),
-            with_count=False)
-    else:                                   # native min / max reduction
-        folded = partials.amin(0) if op == "min" else partials.amax(0)
-    return folded.reshape(x.shape[1:]).expand(x.shape), nbytes
+    out = _combine(plan, x.reshape(rows, n_elems).contiguous(), op)
+    return out.reshape(x.shape), nbytes
+
+
+def _or_gathered(plan: CommPlan, x2: torch.Tensor) -> torch.Tensor:
+    """The word rows the last OR fold reads, ``[K, n]``, the same for every
+    partition: the ring's reduced row (K = 1), or the last axis group's
+    members after the groups before it were folded."""
+    if plan.effective_delegate("or") == "ring":
+        for a, s in zip(plan.axes, plan.sizes):
+            x2 = _ring_1axis(plan, x2, a, s, "or")
+        return x2[:1]
+    *first, last = plan.delegate_groups()
+    for group in first:
+        x2 = _group_fold(plan, x2, group, "or")
+    if plan.mesh is not None:
+        return D.all_gather(plan.mesh, x2[0], last)
+    # every group over `last` holds the same members' words after the
+    # folds before it: take the first
+    g, _, _ = _emulated_gather(plan, x2, last)
+    return g[:, 0]
 
 
 def delegate_or_apply(plan: CommPlan, words: torch.Tensor,
                       level: torch.Tensor, it: torch.Tensor,
                       target: torch.Tensor | None = None):
-    """The lane-word step's delegate OR combine and update: ``words [p, d,
-    nw]`` int32 candidate lane words of every partition are all-gathered
-    and OR-folded, and the new delegate ``level [p, d, W]`` plane and lane
-    flags are computed in the same launch (``kernels.ops.mask_reduce_apply``;
-    ``it [p]``, ``target [p, d, W]`` bool or None). Returns ``(update,
-    wire_bytes)``: a :class:`~repro_torch.kernels.mask_reduce.DelegateApply`
-    and the plan's bytes for the ``"or"`` combine of ``d * nw`` words."""
-    p = words.shape[0]
-    n_elems = words.numel() // p
+    """The lane-word step's delegate OR combine and update: ``words [rows,
+    d, nw]`` int32 candidate lane words are combined with the plan's
+    strategy, and the new delegate ``level [rows, d, W]`` plane and lane
+    flags are computed in the last fold's launch
+    (``kernels.ops.mask_reduce_apply``; ``it [rows]``, ``target [rows, d,
+    W]`` bool or None). Returns ``(update, wire_bytes)``: a
+    :class:`~repro_torch.kernels.mask_reduce.DelegateApply` and the plan's
+    bytes for the ``"or"`` combine of ``d * nw`` words."""
+    rows = words.shape[0]
+    n_elems = words.numel() // rows
     nbytes = plan.delegate_bytes(n_elems, words.element_size(), "or")
-    gathered = words.reshape(p, n_elems).contiguous()
-    return ops.mask_reduce_apply(gathered, level, it, target), nbytes
+    gathered = _or_gathered(plan, words.reshape(rows, n_elems).contiguous())
+    return ops.mask_reduce_apply(gathered.contiguous(), level, it,
+                                 target), nbytes
 
 
 def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):
     """The single-source step's delegate ``"min"`` combine of the int32
-    candidate levels ``x [p, d]`` folded into ``prev [p, d]``: returns
-    ``(min(prev, combined) [p, d], improved [p] bool, wire_bytes)``. Under
-    ``allgather`` the fold and the update are one launch
-    (``kernels.ops.payload_min_fold_apply``); the native reduction keeps
-    its ``amin`` and the step's ``minimum`` and ``any``."""
-    p = x.shape[0]
+    candidate levels ``x [rows, d]`` folded into ``prev [rows, d]``:
+    returns ``(min(prev, combined) [rows, d], improved [rows] bool,
+    wire_bytes)``. Under ``allgather`` the fold and the update are one
+    launch (``kernels.ops.payload_min_fold_apply``) over the gathered
+    candidates; the other strategies combine, then take ``minimum`` and
+    ``any``."""
+    rows = x.shape[0]
     if plan.effective_delegate("min") == "allgather":
-        nbytes = plan.delegate_bytes(x.numel() // p, x.element_size(), "min")
-        out, improved = ops.payload_min_fold_apply(
-            x.reshape(p, -1).contiguous(), prev)
+        nbytes = plan.delegate_bytes(x.numel() // rows, x.element_size(),
+                                     "min")
+        x2 = x.reshape(rows, -1).contiguous()
+        gathered = (x2 if plan.mesh is None
+                    else D.all_gather(plan.mesh, x2[0]))
+        out, improved = ops.payload_min_fold_apply(gathered, prev)
         return out, improved, nbytes
     reduced, nbytes = delegate_combine(plan, x, "min")
     out = torch.minimum(prev, reduced)
     return out, (out < prev).any(1), nbytes
 
 
-def lane_any_reduce(lane_flags: torch.Tensor) -> torch.Tensor:
-    """Global per-lane OR of stacked ``[p, ...]`` bool flags, replicated
-    back to every partition row (the emulated elementwise pmax). The
-    convergence word of the serving path: one W-bit word per partition,
-    excluded from the wire counters as constant."""
+def lane_any_reduce(lane_flags: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Global per-lane OR of ``[rows, ...]`` bool flags, replicated to
+    every row: the elementwise max over the stacked rows, or an int32
+    ``all_reduce(MAX)`` over ``mesh``. The convergence word of the serving
+    path: one W-bit word per partition, excluded from the wire counters as
+    constant."""
+    if mesh is not None:
+        return D.all_reduce(mesh, lane_flags.to(torch.int32), "max") > 0
     return lane_flags.any(dim=0, keepdim=True).expand(lane_flags.shape)
 
 
-def any_reduce(flag: torch.Tensor) -> torch.Tensor:
-    """Global OR of one bool per partition ``[p]``, replicated back to
-    every partition (the emulated scalar pmax)."""
-    return lane_any_reduce(flag)
+def any_reduce(flag: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Global OR of one bool per partition ``[rows]``, replicated."""
+    return lane_any_reduce(flag, mesh)

@@ -101,6 +101,21 @@ def build_exchange_plan(pg: PartitionedGraph) -> ExchangePlan:
     )
 
 
+def local_plan(plan: ExchangePlan, part: int) -> ExchangePlan:
+    """Partition ``part``'s rows of a host plan alone (leading dimension 1;
+    ``cap_peer`` / ``cap_total`` unchanged): what one rank of a sharded run
+    holds. Its ``recv_local`` row is the receiver-side table of every
+    peer's slots into ``part``."""
+    p = int(np.asarray(plan.perm).shape[0])
+    if not 0 <= part < p:
+        raise ValueError(f"partition {part} not in [0, {p})")
+    one = lambda a: np.asarray(a)[part:part + 1]
+    return dataclasses.replace(
+        plan, perm=one(plan.perm), seg_ids=one(plan.seg_ids),
+        seg_owner=one(plan.seg_owner), seg_pos=one(plan.seg_pos),
+        seg_local=one(plan.seg_local), recv_local=one(plan.recv_local))
+
+
 def device_plan(plan: ExchangePlan, device) -> ExchangePlan:
     """The plan's arrays as tensors on ``device`` (reference dtypes), plus
     the flattened slot-fold index ``flat_seg``."""

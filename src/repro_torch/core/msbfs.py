@@ -19,9 +19,13 @@ visited/frontier bit):
 * **direction optimization** is decided per lane from per-lane FV/BV
   estimates, in float32 with the reference's expression order.
 
-Every function works on the *stacked* partition axis: tensors carry a
-leading ``p`` dimension and the collectives run over it (the emulated
-backend -- the reference's ``vmap(axis_name="p")``). The state has the
+Every function works on a *stacked* partition axis: tensors carry a
+leading dimension of the partitions this process holds. Emulated, that is
+all ``p`` of them and the collectives run over it (the reference's
+``vmap(axis_name="p")``); sharded (``mesh=``, a
+:class:`~repro_torch.core.comm.dist.PartitionMesh`), each rank holds its
+own partition -- leading dimension 1 -- and the collectives run over the
+process group (the reference's ``shard_map``). The state has the
 reference's leaves, shapes and dtypes (lane words as int32 bit patterns),
 so states compare leaf by leaf after every sweep.
 
@@ -30,12 +34,15 @@ frontier gate, per-lane target words latch ``lane_stop`` once covered,
 and ``track_levels=False`` runs reachability-only batches on bool visited
 words with explicit frontier words.
 
-The host driver :func:`run_msbfs_emulated` loops one sweep at a time and
-reads one scalar per sweep for its loop condition (PyTorch has no
-device-side while loop). The refill pipeline reseeds converged lanes in
-place on the device (:func:`reseed_lanes`), and its fused blocks
-(:func:`make_msbfs_block_emulated`) run gated sweeps that stop at the
-exact sweep a watched lane retires -- CUDA graph replays on a card.
+The host drivers (:func:`run_msbfs_emulated`, :func:`make_sharded_msbfs`)
+loop one sweep at a time and read one scalar per sweep for their loop
+condition (PyTorch has no device-side while loop; the scalar is
+replicated, so every rank takes the same decision). The refill pipeline
+reseeds converged lanes in place on the device (:func:`reseed_lanes`),
+and its fused blocks (:func:`make_msbfs_block_emulated`,
+:func:`make_sharded_msbfs_block`) run gated sweeps that stop at the exact
+sweep a watched lane retires -- CUDA graph replays on a card where every
+collective of the sweep can be captured.
 """
 from __future__ import annotations
 
@@ -191,11 +198,18 @@ def lane_descriptors(pg: PartitionedGraph, w: int, lanes, sources, *,
             tpart, tlocal, tdpos, tisd, tvalid)
 
 
+def _part0(mesh) -> int:
+    """The first partition a process holds: its rank when sharded."""
+    return 0 if mesh is None else mesh.rank
+
+
 def _empty_state(pg: PartitionedGraph, cfg: MSBFSConfig,
-                 dev: torch.device) -> MSBFSState:
-    """A state with no lane seeded, built on ``dev`` (``pg`` may be the
-    host graph or its device view: only its sizes are read)."""
-    p, nl, w, mi = pg.p, pg.n_local, cfg.n_queries, cfg.max_iters
+                 dev: torch.device, rows: int | None = None) -> MSBFSState:
+    """A state with no lane seeded, built on ``dev`` with ``rows``
+    partition rows (default all ``pg.p``; ``pg`` may be the host graph or
+    its device view: only its sizes are read)."""
+    p = pg.p if rows is None else rows
+    nl, w, mi = pg.n_local, cfg.n_queries, cfg.max_iters
     d = max(pg.d, 1)
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
     b = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
@@ -237,10 +251,13 @@ def _upload_descriptors(desc: tuple, dev: torch.device) -> torch.Tensor:
     return host.to(dev)
 
 
-def _seed_lanes(state: MSBFSState, desc: torch.Tensor) -> MSBFSState:
+def _seed_lanes(state: MSBFSState, desc: torch.Tensor,
+                part0: int = 0) -> MSBFSState:
     """Retire the lanes of ``desc``'s mask and seed them in place of the
     old tenants, on the state's device (``desc``: the packed descriptors
-    of :func:`_upload_descriptors`). Every other lane stays bit-identical.
+    of :func:`_upload_descriptors`; the state's rows are partitions
+    ``part0, part0 + 1, ...``, and a seed or target on another partition
+    leaves them untouched). Every other lane stays bit-identical.
 
     Each seeded lane's columns are cleared (INF levels, or no visited /
     frontier bit), its source is seeded at the *current* iteration
@@ -255,9 +272,12 @@ def _seed_lanes(state: MSBFSState, desc: torch.Tensor) -> MSBFSState:
     lanes = torch.arange(w, device=desc.device)
     mask, isd = desc[:, 0] > 0, desc[:, 4] > 0
     part, local, dpos = (desc[:, i].long() for i in (1, 2, 3))
+    rows = state.level_n.shape[0]
+    part = part - part0
+    mine = (part >= 0) & (part < rows)
     it = state.it[0]                      # replicated across partitions
     clear = mask[None, None, :]
-    seed_n, seed_d = mask & ~isd, mask & isd
+    seed_n, seed_d = mask & ~isd & mine, mask & isd
     idx_n = (torch.where(seed_n, part, 0), torch.where(seed_n, local, 0), lanes)
     idx_d = torch.where(seed_d, dpos, 0)
     if state.level_n.dtype == torch.bool:
@@ -283,9 +303,10 @@ def _seed_lanes(state: MSBFSState, desc: torch.Tensor) -> MSBFSState:
     tp, tl, tdp, tisd, tv = (desc[:, 6 + i * t:6 + (i + 1) * t]
                              for i in range(5))
     tv, tisd = tv > 0, tisd > 0
+    tp = tp - part0
     lanes_wt = lanes[:, None].expand(w, t)
     target_n = state.target_n & ~clear
-    tn = tv & ~tisd & mask[:, None]
+    tn = tv & ~tisd & mask[:, None] & (tp >= 0) & (tp < rows)
     target_n.view(torch.uint8).index_put_(
         (torch.where(tn, tp, 0).long(), torch.where(tn, tl, 0).long(),
          lanes_wt), tn.to(torch.uint8), accumulate=True)
@@ -316,11 +337,12 @@ def _seed_lanes(state: MSBFSState, desc: torch.Tensor) -> MSBFSState:
 def init_multi_state(
     pg: PartitionedGraph, sources: Sequence[int], cfg: MSBFSConfig,
     *, depth_caps: Sequence | None = None, targets: Sequence | None = None,
-    device="cuda",
+    device="cuda", mesh=None,
 ) -> MSBFSState:
     """Seed one lane per source, on ``device``: the planes are filled
     there and the seed coordinates go up as one small descriptor tensor
-    (nothing of ``[p, n_local, W]`` is built on the host). Fewer than
+    (nothing of ``[p, n_local, W]`` is built on the host); with ``mesh``
+    it holds this rank's partition only (leading dimension 1). Fewer than
     ``n_queries`` sources leaves the tail lanes unseeded. ``depth_caps``
     gives lane ``q`` a max hop depth (``None`` = unlimited); ``targets``
     gives lane ``q`` target vertex ids (the lane retires the sweep all of
@@ -335,8 +357,9 @@ def init_multi_state(
         raise ValueError("targets given but cfg.enable_targets is False")
     desc = lane_descriptors(pg, w, range(sources.size), sources,
                             depth_caps=depth_caps, targets=targets)
-    return _seed_lanes(_empty_state(pg, cfg, dev),
-                       _upload_descriptors(desc, dev))
+    rows = None if mesh is None else 1
+    return _seed_lanes(_empty_state(pg, cfg, dev, rows),
+                       _upload_descriptors(desc, dev), _part0(mesh))
 
 
 def reseed_lanes(
@@ -344,7 +367,7 @@ def reseed_lanes(
     src_is_delegate, depth_cap=None, tgt_part=None, tgt_local=None,
     tgt_dpos=None, tgt_is_delegate=None, tgt_valid=None, pay_lane=None,
     pay_seed_all=None, pay_weighted=None, pay_delta=None, gid_n=None,
-    gid_d=None,
+    gid_d=None, *, mesh=None,
 ) -> MSBFSState:
     """Retire converged lanes and reseed them with fresh queries in place
     (the reference's ``reseed_lanes``, same arguments and semantics, on the
@@ -356,7 +379,8 @@ def reseed_lanes(
     to the state's device as one small tensor and the reseed runs there
     (:func:`_seed_lanes`); untouched lanes are bit-identical. The result
     is a new state: unchanged leaves are shared with ``state``, the others
-    are new tensors. The payload lane arguments raise."""
+    are new tensors. ``mesh``: the state is this rank's partition of a
+    sharded run. The payload lane arguments raise."""
     if any(a is not None for a in (pay_lane, pay_seed_all, pay_weighted,
                                    pay_delta, gid_n, gid_d)):
         raise NotImplementedError(
@@ -370,7 +394,8 @@ def reseed_lanes(
     if tgt_valid is None:
         tgt = tuple(np.zeros((w, 0), dtype=np.int32) for _ in range(5))
     desc = (mask, src_part, src_local, src_dpos, src_is_delegate, cap) + tgt
-    return _seed_lanes(state, _upload_descriptors(desc, state.it.device))
+    return _seed_lanes(state, _upload_descriptors(desc, state.it.device),
+                       _part0(mesh))
 
 
 # -----------------------------------------------------------------------------
@@ -428,15 +453,17 @@ def _lane_degree_sum(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
 
 
 def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
-               cfg: MSBFSConfig) -> MSBFSState:
-    """One sweep of every partition. ``pgv``/``plan`` are device views
-    (:func:`repro_torch.core.bfs.device_view`,
-    :func:`repro_torch.core.engine.device_plan`)."""
+               cfg: MSBFSConfig, mesh=None) -> MSBFSState:
+    """One sweep of every partition the state holds. ``pgv``/``plan`` are
+    device views (:func:`repro_torch.core.bfs.device_view`,
+    :func:`repro_torch.core.engine.device_plan`), of this rank's
+    partition when ``mesh`` is given."""
     p, nl = pgv.p, pgv.n_local
+    rows = state.it.shape[0]
     w = cfg.n_queries
     d = state.level_d.shape[1]
     it = state.it
-    cplan = comm.plan_for(cfg.comm, p)
+    cplan = comm.plan_for(cfg.comm, p if mesh is None else mesh)
 
     # typed-query liveness gate: a lane with a latched stop or at its depth
     # cap contributes no frontier this sweep
@@ -484,7 +511,8 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         # frontier word could never satisfy the early exit
         backward = backward & state.lane_active[:, None, :]
     else:
-        backward = torch.zeros((p, 3, w), dtype=torch.bool, device=it.device)
+        backward = torch.zeros((rows, 3, w), dtype=torch.bool,
+                               device=it.device)
     bwd_dd, bwd_dn, bwd_nd = (backward[:, i, None, :] for i in range(3))
 
     # Lanes in forward mode push their frontier word; lanes in backward
@@ -514,8 +542,8 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     # ---- nn: normal -> normal, forward only, static slot exchange ---------
     sa, act_nn_sum = _nn_slots_multi(pgv.nn, frontier_n, plan)
     recv, nn_bytes, nn_sparse, nn_ovf = comm.nn_exchange_words(
-        cplan, _dense_slots(plan, sa), plan.recv_local, nl)
-    sent = sa.reshape(p, -1).sum(1)
+        cplan, _dense_slots(plan, sa, p), plan.recv_local, nl)
+    sent = sa.reshape(rows, -1).sum(1)
 
     # ---- delegate global reduction: packed-word bitwise-OR combine, with
     # the delegate level / visited update and lane flags in its launch ----
@@ -539,12 +567,13 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     # (flag 1: "lane q still has an unvisited target somewhere")
     if cfg.enable_targets:
         unhit_n = (state.target_n & unvis_n & ~newly_n).any(1)
-        red = comm.lane_any_reduce(torch.stack([newly_n.any(1), unhit_n], 1))
+        red = comm.lane_any_reduce(torch.stack([newly_n.any(1), unhit_n], 1),
+                                   mesh)
         unhit = red[:, 1] | dl.lane_unhit
         upd_global = red[:, 0]
         stop_targets = state.has_targets & ~unhit
     else:
-        upd_global = comm.lane_any_reduce(newly_n.any(1))
+        upd_global = comm.lane_any_reduce(newly_n.any(1), mesh)
         stop_targets = torch.zeros_like(state.lane_stop)
     # latch the stop: every target covered, or the next sweep would exceed
     # the lane's depth cap
@@ -561,7 +590,7 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         # keeps the frontier degree-sum estimates
         w_fwd = w_fwd + act_nn_sum
     w_bwd = work_dd_b + work_nd_b + work_dn_b
-    at = (torch.arange(p, device=it.device),
+    at = (torch.arange(rows, device=it.device),
           it.clamp(0, cfg.max_iters - 1).long())
 
     def put(buf, val):
@@ -614,13 +643,32 @@ def msbfs_step_emulated(pgv: PartitionedGraph, plan, state: MSBFSState,
 
 
 def run_msbfs_emulated(pgv: PartitionedGraph, plan, state: MSBFSState,
-                       cfg: MSBFSConfig) -> MSBFSState:
+                       cfg: MSBFSConfig, mesh=None) -> MSBFSState:
     """Sweep until every partition reports done or ``max_iters`` is hit:
     the reference's loop condition ``~all(done) & all(it < max_iters)``,
-    read as one scalar per sweep."""
+    read as one scalar per sweep (``done`` and ``it`` are replicated, so a
+    rank's own rows decide for the world)."""
     while bool((~state.done.all()) & (state.it < cfg.max_iters).all()):
-        state = msbfs_step(pgv, plan, state, cfg)
+        state = msbfs_step(pgv, plan, state, cfg, mesh)
     return state
+
+
+def make_sharded_msbfs(mesh, partition_axes, cfg: MSBFSConfig):
+    """msBFS over a :class:`~repro_torch.core.comm.dist.PartitionMesh`,
+    one partition per rank: ``run(pgv, plan, state) -> state`` on this
+    rank's views (:func:`repro_torch.core.bfs.local_partition` and
+    :func:`repro_torch.core.engine.local_plan`, placed on its device) and
+    state (``init_multi_state(..., mesh=mesh)``). Every rank calls it with
+    the same sources in the same order."""
+    mesh.check_axes(partition_axes)
+    return lambda pgv, plan, st: run_msbfs_emulated(pgv, plan, st, cfg, mesh)
+
+
+def make_sharded_msbfs_step(mesh, partition_axes, cfg: MSBFSConfig):
+    """One sharded superstep: ``step(pgv, plan, state) -> state`` (the
+    mesh sibling of :func:`msbfs_step_emulated`, for the refill engine)."""
+    mesh.check_axes(partition_axes)
+    return lambda pgv, plan, st: msbfs_step(pgv, plan, st, cfg, mesh)
 
 
 # -----------------------------------------------------------------------------
@@ -649,14 +697,16 @@ class Probe:
 
 
 def _gated_step(pgv, plan, state: MSBFSState, watch: torch.Tensor,
-                cfg: MSBFSConfig, out: MSBFSState | None = None):
+                cfg: MSBFSConfig, out: MSBFSState | None = None, mesh=None):
     """One sweep of a block, gated on the device: the step where no
     watched lane has retired, the state unchanged otherwise (the
     reference's ``_block_loop`` condition, evaluated per sweep). Writes
     into ``out`` where given. Returns ``(state, probe)``: ``probe`` int32
-    ``[2W + 2]`` = lane_active[0], lane_stop[0], it[0], ran."""
+    ``[2W + 2]`` = lane_active[0], lane_stop[0], it[0], ran. The sweep
+    always runs (with its collectives, on every rank): only its result is
+    gated, and ``lane_active`` is replicated, so every rank gates alike."""
     go = ~(watch[None, :] & ~state.lane_active).any()
-    new = msbfs_step(pgv, plan, state, cfg)
+    new = msbfs_step(pgv, plan, state, cfg, mesh)
     if out is None:
         out = MSBFSState(**{k: torch.where(go, getattr(new, k),
                                            getattr(state, k))
@@ -738,10 +788,13 @@ class _Runner:
     dispatch before the host reads that state. The captured launches do not
     count in ``ops.LAUNCHES``; each replay adds them to ``ops.REPLAYED``.
     With ``graph=False`` on a card the same gated sweep runs eagerly (for
-    timing the two apart)."""
+    timing the two apart). Sharded (``mesh``), every rank dispatches the
+    same sweeps in the same order, so the captured collectives of their
+    replays match."""
 
-    def __init__(self, pgv, plan, cfg: MSBFSConfig, graph: bool, pool=None):
-        self.pgv, self.plan, self.cfg = pgv, plan, cfg
+    def __init__(self, pgv, plan, cfg: MSBFSConfig, graph: bool, pool=None,
+                 mesh=None):
+        self.pgv, self.plan, self.cfg, self.mesh = pgv, plan, cfg, mesh
         self.device = pgv.normal_valid.device
         self.cuda = self.device.type == "cuda"
         self.lookahead = LOOKAHEAD
@@ -764,7 +817,8 @@ class _Runner:
         n = self.lookahead + 1
         if pool is None:
             pool = torch.cuda.graph_pool_handle()
-        self.bufs = [_empty_state(self.pgv, self.cfg, self.device)
+        rows = self.pgv.normal_valid.shape[0]
+        self.bufs = [_empty_state(self.pgv, self.cfg, self.device, rows)
                      for _ in range(n)]
         self.watch = torch.zeros(self.cfg.n_queries, dtype=torch.bool,
                                  device=self.device)
@@ -773,10 +827,10 @@ class _Runner:
                        for _ in range(n)]
         step = lambda a: self.probes[(a + 1) % n].copy_(_gated_step(
             self.pgv, self.plan, self.bufs[a], self.watch, self.cfg,
-            out=self.bufs[(a + 1) % n])[1])
+            out=self.bufs[(a + 1) % n], mesh=self.mesh)[1])
         # one eager sweep on a side stream first: it builds whatever a
-        # kernel wrapper prepares on first use, so the capture records
-        # launches only
+        # kernel wrapper prepares on first use (and a communicator its
+        # first collective), so the capture records launches only
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -852,7 +906,8 @@ class _Runner:
             if self.cuda:
                 start.record()
             blk.out, probe = _gated_step(self.pgv, self.plan, prev,
-                                         blk.watch_dev, self.cfg)
+                                         blk.watch_dev, self.cfg,
+                                         mesh=self.mesh)
         if self.cuda:
             host = self.host[self.slot]
             self.slot = (self.slot + 1) % self.host.shape[0]
@@ -908,21 +963,30 @@ class SweepBlock:
     sweeps, stopping at the exact sweep any watched lane converges (see
     :class:`BlockRun`); ``state`` may be a :class:`BlockRun` to chain
     behind. Its runner is built on the first call (on a card with
-    ``graph`` true, the default there, that call captures the sweep)."""
+    ``graph`` true, the default there where it can be, that call captures
+    the sweep). Sharded (``mesh``), ``graph`` defaults to true only on
+    ``nccl`` (gloo collectives are host operations) and for a fixed nn
+    format (the adaptive one reads its agreed scalar on the host)."""
 
     def __init__(self, cfg: MSBFSConfig, k: int, graph: bool | None = None,
-                 pool=None):
+                 pool=None, mesh=None):
         if int(k) < 1:
             raise ValueError(f"a block runs k >= 1 sweeps, got {k}")
         self.cfg, self.k, self.graph, self.pool = cfg, int(k), graph, pool
+        self.mesh = mesh
         self.runner: _Runner | None = None
+
+    def capturable(self, cuda: bool) -> bool:
+        """Whether this block's sweep can be a CUDA graph."""
+        return cuda and (self.mesh is None or (
+            self.mesh.backend == "nccl" and self.cfg.comm.nn != "adaptive"))
 
     def __call__(self, pgv, plan, state, watch) -> BlockRun:
         if self.runner is None:
             cuda = pgv.normal_valid.device.type == "cuda"
-            self.runner = _Runner(pgv, plan, self.cfg,
-                                  cuda if self.graph is None else self.graph,
-                                  self.pool)
+            graph = self.capturable(cuda) if self.graph is None else self.graph
+            self.runner = _Runner(pgv, plan, self.cfg, graph, self.pool,
+                                  self.mesh)
         elif self.runner.pgv is not pgv or self.runner.plan is not plan:
             raise ValueError("a SweepBlock serves the one graph it was "
                              "first called on")
@@ -941,6 +1005,18 @@ def make_msbfs_block_emulated(cfg: MSBFSConfig, k: int,
     return SweepBlock(cfg, k, graph, pool)
 
 
+def make_sharded_msbfs_block(mesh, partition_axes, cfg: MSBFSConfig, k: int,
+                             graph: bool | None = None,
+                             pool=None) -> SweepBlock:
+    """The mesh sibling of :func:`make_msbfs_block_emulated`: up to ``k``
+    gated sharded sweeps per block with the same stop-at-retirement
+    contract, on this rank's views and state. Captured on a card under
+    ``nccl`` for a fixed nn format (every rank captures and replays the
+    same graphs in the same order), eager otherwise."""
+    mesh.check_axes(partition_axes)
+    return SweepBlock(cfg, k, graph, pool, mesh)
+
+
 class LaneGather:
     """Per-lane global vertex rows on their way to the host.
 
@@ -952,9 +1028,12 @@ class LaneGather:
     cannot overwrite what the copy reads. :meth:`rows` waits for the copy:
     hop distances ``[k, n]`` int32 (INF_LEVEL where unreached) from a
     levels state, reachability masks ``[k, n]`` bool from a reach-only
-    one."""
+    one. A sharded state (``mesh``) first all-gathers the partitions'
+    selected lane columns (unpack traffic, not counted as wire): every
+    rank calls it alike and gets every row."""
 
-    def __init__(self, pg: PartitionedGraph, state: MSBFSState, lanes=None):
+    def __init__(self, pg: PartitionedGraph, state: MSBFSState, lanes=None,
+                 mesh=None):
         level_n, level_d, bi = state.level_n, state.level_d[0], state.base_it[0]
         dev = level_n.device
         cuda = dev.type == "cuda"
@@ -963,6 +1042,8 @@ class LaneGather:
             sel = sel.pin_memory().to(dev, non_blocking=True) if cuda \
                 else sel.to(dev)
             level_n, level_d, bi = level_n[..., sel], level_d[..., sel], bi[sel]
+        if mesh is not None:
+            level_n = comm.dist.all_gather(mesh, level_n[0])
         p, nl, k = level_n.shape
         v = torch.arange(pg.n, device=dev)
         slot = (((v % pg.p_rank) * pg.p_gpu + (v // pg.p_rank) % pg.p_gpu)
@@ -997,14 +1078,14 @@ class LaneGather:
 
 
 def gather_levels_multi(pg: PartitionedGraph, state: MSBFSState,
-                        lanes=None) -> np.ndarray:
+                        lanes=None, mesh=None) -> np.ndarray:
     """Per-query global hop distances ``[W, n]`` int32 (``[len(lanes), n]``
     when ``lanes`` is given); ``base_it`` is subtracted per lane."""
-    return LaneGather(pg, state, lanes).rows()
+    return LaneGather(pg, state, lanes, mesh).rows()
 
 
 def gather_reachable_multi(pg: PartitionedGraph, state: MSBFSState,
-                           lanes=None) -> np.ndarray:
+                           lanes=None, mesh=None) -> np.ndarray:
     """Per-query reachability masks ``[W, n]`` bool from the reachability-
     only variant's visited words."""
-    return LaneGather(pg, state, lanes).rows()
+    return LaneGather(pg, state, lanes, mesh).rows()

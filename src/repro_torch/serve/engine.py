@@ -2,7 +2,13 @@
 
 One ``BFSServeEngine`` owns a partitioned graph and its static exchange
 plan on one device, with the partitions emulated on the stacked leading
-axis. ``submit`` answers typed :class:`~repro_torch.serve.queries.Query`
+axis -- or, given a multi-rank ``mesh`` (a
+:class:`~repro_torch.core.comm.dist.PartitionMesh`), one partition per
+rank: multi-controller, every rank builds the engine on the same graph and
+submits the same queries in the same order, and every rank returns every
+answer. Host decisions read only replicated values (the lane word after
+its all-reduce), so all ranks take the same ones. ``submit`` answers
+typed :class:`~repro_torch.serve.queries.Query`
 descriptors -- full levels, reachability masks, distance-limited levels,
 multi-target depths -- and ``query`` stays as the classic full-levels
 sugar. Cache hits and already-mapped components are answered without a
@@ -128,16 +134,24 @@ class ServeStats:
         self.early_stops_by_kind[kind.value] = (
             self.early_stops_by_kind.get(kind.value, 0) + 1)
 
-    def note_traversal(self, state) -> None:
-        """Fold one finished traversal state's comm counters in."""
-        self.wire_delegate_bytes += int(state.wire_delegate.sum())
-        self.wire_nn_bytes += int(state.wire_nn.sum())
-        self.wire_pay_delegate_bytes += int(state.wire_pay_delegate.sum())
-        self.wire_pay_nn_bytes += int(state.wire_pay_nn.sum())
+    def note_traversal(self, state, mesh=None) -> None:
+        """Fold one finished traversal state's comm counters in (a sharded
+        state's per-rank sums are all-gathered: cluster totals)."""
+        sums = torch.stack([state.wire_delegate.sum(), state.wire_nn.sum(),
+                            state.wire_pay_delegate.sum(),
+                            state.wire_pay_nn.sum(),
+                            state.nn_overflow.sum()])
+        if mesh is not None:
+            sums = C.dist.all_gather(mesh, sums).sum(0)
+        wd, wn, wpd, wpn, ovf = (int(v) for v in sums.tolist())
+        self.wire_delegate_bytes += wd
+        self.wire_nn_bytes += wn
+        self.wire_pay_delegate_bytes += wpd
+        self.wire_pay_nn_bytes += wpn
         # the format flag is a global decision (replicated): row 0 only;
         # overflow is per-device send-side drops: sum every partition
         self.nn_sparse_sweeps += int(state.nn_sparse[0].sum())
-        self.nn_overflow += int(state.nn_overflow.sum())
+        self.nn_overflow += ovf
 
     def as_dict(self) -> dict:
         """Every counter field plus the derived ``wire_bytes_total``."""
@@ -228,6 +242,16 @@ class BFSServeEngine:
     device : where the partition lives and the sweeps run (default
         ``"cuda"``; raises without a card -- pass ``"cpu"`` for the plain
         PyTorch path).
+    mesh / partition_axes : a
+        :class:`~repro_torch.core.comm.dist.PartitionMesh` to run sweeps
+        on, one partition per rank (``partition_axes`` must be the mesh's
+        axes; their sizes' product must equal ``pg.p``, or ``ValueError``).
+        ``None`` -- or a mesh of one rank -- keeps the emulated path. Each
+        rank holds its partition's views, plan rows and state rows only;
+        ``pg`` may be the whole graph or, with ``plan``, this rank's
+        :func:`~repro_torch.core.bfs.local_partition` alone.
+    plan : the host :class:`~repro_torch.core.engine.ExchangePlan` of
+        ``pg`` (built here where None; needed for a one-partition ``pg``).
 
     State reuse: the reference donates a block's input buffers; here every
     traversal state is a new set of tensors, except inside a fused block
@@ -255,6 +279,9 @@ class BFSServeEngine:
         specialize_reachability: bool = True,
         reuse_components: bool = True,
         device="cuda",
+        mesh=None,
+        partition_axes=None,
+        plan=None,
     ):
         self.device = B.resolve_device(device)
         if pg is None:
@@ -279,8 +306,30 @@ class BFSServeEngine:
         self.reuse_components = bool(reuse_components)
         self._comp_id = np.full(pg.n, -1, dtype=np.int32)
         self._comp_masks: dict[int, np.ndarray] = {}
-        self.pgv = B.device_view(pg, self.device)
-        self.plan = E.device_plan(E.build_exchange_plan(pg), self.device)
+        #: the mesh the sweeps run over (None: emulated)
+        self.mesh = None
+        self.sharded = False
+        one_part = pg.p > 1 and np.asarray(pg.normal_valid).shape[0] == 1
+        if plan is None:
+            if one_part:
+                raise ValueError("a one-partition pg needs its plan=")
+            plan = E.build_exchange_plan(pg)
+        pg_view = pg
+        if mesh is not None:
+            mesh.check_axes(partition_axes)
+            if mesh.world > 1:
+                if mesh.world != pg.p:
+                    raise ValueError(
+                        f"mesh axes {mesh.axes} span {mesh.world} ranks but "
+                        f"the graph has p={pg.p} partitions")
+                self.mesh, self.sharded = mesh, True
+                if not one_part:
+                    pg_view = B.local_partition(pg, mesh.rank)
+                    plan = E.local_plan(plan, mesh.rank)
+        if one_part and not self.sharded:
+            raise ValueError("a one-partition pg runs only on a mesh")
+        self.pgv = B.device_view(pg_view, self.device)
+        self.plan = E.device_plan(plan, self.device)
         self.graph_id = graph_id if graph_id is not None else default_graph_id(pg)
         self.cache = LRUCache(cache_capacity, ttl=cache_ttl)
         self.stats = ServeStats()
@@ -308,6 +357,24 @@ class BFSServeEngine:
             return self.cfg
         return _dc_replace(self.cfg, enable_targets=False)
 
+    def _run(self, cfg: M.MSBFSConfig, st):
+        """A traversal to convergence (the sharded runner on a mesh)."""
+        if self.sharded:
+            return M.make_sharded_msbfs(self.mesh, None, cfg)(
+                self.pgv, self.plan, st)
+        return M.run_msbfs_emulated(self.pgv, self.plan, st, cfg)
+
+    def _step(self, cfg: M.MSBFSConfig, st):
+        """One sweep (the sharded step on a mesh)."""
+        if self.sharded:
+            return M.make_sharded_msbfs_step(self.mesh, None, cfg)(
+                self.pgv, self.plan, st)
+        return M.msbfs_step_emulated(self.pgv, self.plan, st, cfg)
+
+    def _init(self, sources, cfg: M.MSBFSConfig, **kw):
+        return M.init_multi_state(self.pg, sources, cfg, device=self.device,
+                                  mesh=self.mesh, **kw)
+
     def _block(self, cfg: M.MSBFSConfig, stream: bool) -> M.SweepBlock:
         """The fused ``sweep_block``-sweep block of ``cfg`` (one per
         variant and session kind; all of an engine's captured sweeps share
@@ -317,8 +384,14 @@ class BFSServeEngine:
         if blk is None:
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            blk = self.blocks[key] = M.make_msbfs_block_emulated(
-                cfg, self.sweep_block, pool=self._graph_pool)
+            if self.sharded:
+                blk = M.make_sharded_msbfs_block(
+                    self.mesh, None, cfg, self.sweep_block,
+                    pool=self._graph_pool)
+            else:
+                blk = M.make_msbfs_block_emulated(
+                    cfg, self.sweep_block, pool=self._graph_pool)
+            self.blocks[key] = blk
         return blk
 
     def _validate_queries(self, queries) -> None:
@@ -369,12 +442,12 @@ class BFSServeEngine:
         self._validate_queries(queries)
         reach_fast = self._reach_fast(queries)
         cfg = self._session_cfg(queries)
-        st = M.init_multi_state(
-            self.pg, [q.source for q in queries], cfg,
-            depth_caps=[q.depth_cap for q in queries],
-            targets=[q.targets for q in queries], device=self.device)
-        out = M.run_msbfs_emulated(self.pgv, self.plan, st, cfg)
-        rows = M.LaneGather(self.pg, out, np.arange(len(queries))).rows()
+        st = self._init([q.source for q in queries], cfg,
+                        depth_caps=[q.depth_cap for q in queries],
+                        targets=[q.targets for q in queries])
+        out = self._run(cfg, st)
+        rows = M.LaneGather(self.pg, out, np.arange(len(queries)),
+                            self.mesh).rows()
         self.traversal_sweeps += int(out.it[0])
         if reach_fast:
             self.stats.reach_fast_batches += 1
@@ -382,7 +455,7 @@ class BFSServeEngine:
         self.stats.batches += 1
         self.stats.lanes_used += len(queries)
         self.stats.lanes_padded += w - len(queries)
-        self.stats.note_traversal(out)
+        self.stats.note_traversal(out, self.mesh)
         for i, q in enumerate(queries):
             if stops[i]:
                 self.stats.note_early_stop(q.kind)
@@ -449,7 +522,7 @@ class BFSServeEngine:
         sess = _Session(
             cfg=cfg, reach_fast=reach_fast,
             sched=LaneScheduler(w, pending=() if stream else queries),
-            state=M.init_multi_state(self.pg, [], cfg, device=self.device),
+            state=self._init([], cfg),
             stream=stream, n_queries_seen=0 if stream else len(queries),
             has_reach=any(q.kind is QueryKind.REACHABILITY for q in queries))
         if self.overlap or stream:
@@ -463,7 +536,8 @@ class BFSServeEngine:
         return sess
 
     def _reseed(self, sess: _Session, assignments):
-        return M.reseed_lanes(sess.state, *self._seed_descriptors(assignments))
+        return M.reseed_lanes(sess.state, *self._seed_descriptors(assignments),
+                              mesh=self.mesh)
 
     def _fill(self, sess: _Session, initial: bool = False) -> list:
         """Assign pending queries to idle lanes and reseed them on the
@@ -506,7 +580,7 @@ class BFSServeEngine:
         fin_items = [sched.lane_item[int(q)] for q in fin_lanes]
         # the retired lanes' rows (hop distances, or reachability masks on
         # a reach-only state), assembled on the device and on their way
-        gather = M.LaneGather(self.pg, sess.state, fin_lanes)
+        gather = M.LaneGather(self.pg, sess.state, fin_lanes, self.mesh)
         if stops is None:
             stops = sess.state.lane_stop[0].cpu().numpy()
         if not defer:
@@ -563,7 +637,7 @@ class BFSServeEngine:
     def _close_session(self, sess: _Session) -> None:
         if sess.block is not None and sess.block.runner is not None:
             sess.block.runner.drain()
-        self.stats.note_traversal(sess.state)
+        self.stats.note_traversal(sess.state, self.mesh)
         if sess.stream:
             self.stats.lanes_padded += max(
                 0, self.cfg.n_queries - sess.lanes_seeded)
@@ -577,8 +651,7 @@ class BFSServeEngine:
         w = self.cfg.n_queries
         while sched.n_busy:
             busy_now = sched.n_busy
-            sess.state = M.msbfs_step_emulated(self.pgv, self.plan,
-                                               sess.state, sess.cfg)
+            sess.state = self._step(sess.cfg, sess.state)
             sess.sweeps += 1
             self.stats.sweeps += 1
             self.stats.lane_sweeps_busy += busy_now
@@ -905,13 +978,14 @@ class BFSServeEngine:
             cfgs.append(_dc_replace(self.cfg, track_levels=False,
                                     enable_targets=False))
         for cfg in cfgs:
-            st = M.init_multi_state(self.pg, [0], cfg, device=self.device)
+            st = self._init([0], cfg)
             if self.refill:
-                M.msbfs_step_emulated(self.pgv, self.plan, st, cfg)
-                M.reseed_lanes(st, *self._seed_descriptors([]))
+                self._step(cfg, st)
+                M.reseed_lanes(st, *self._seed_descriptors([]),
+                               mesh=self.mesh)
                 if self.overlap:
                     self._block(cfg, False)(
                         self.pgv, self.plan, st,
                         np.ones(self.cfg.n_queries, dtype=bool)).wait()
             else:
-                M.run_msbfs_emulated(self.pgv, self.plan, st, cfg)
+                self._run(cfg, st)

@@ -914,3 +914,111 @@ def test_recsys_wrappers_reject_bad_inputs(card):
                         torch.zeros((2, 4), device=card))
     with pytest.raises(ValueError):
         ops.ell_pull_payload(idx, idx, idx, idx.t())
+
+
+STRATEGY_COMMS = [dict(delegate=d, nn=nn) for d in ("ring", "hier")
+                  for nn in ("dense", "sparse", "adaptive")]
+
+
+@pytest.mark.parametrize("comm", STRATEGY_COMMS,
+                         ids=lambda c: f"{c['delegate']}-{c['nn']}")
+def test_strategies_msbfs_on_card_equal_cpu(card, comm):
+    """The emulated msBFS under the ring / hier combines and every nn
+    format (p = 4) on the card: every state leaf equals the CPU run's
+    after every sweep (the adaptive format's device-side select included),
+    one pull and one fold launch a sweep."""
+    from repro_torch.core import msbfs as TM
+    pg = partition_graph(rmat_graph(10, seed=7), th=32, p_rank=2, p_gpu=2)
+    plan = TE.build_exchange_plan(pg)
+    cfg = TM.MSBFSConfig(n_queries=32, max_iters=24, pull_chunk=16,
+                         comm=TC.CommConfig(**comm))
+    srcs = [int(s) for s in pick_sources(rmat_graph(10, seed=7), 12, seed=1)]
+    views = {dev: (TB.device_view(pg, dev), TE.device_plan(plan, dev))
+             for dev in (card, "cpu")}
+    st = {dev: TM.init_multi_state(pg, srcs, cfg, device=dev)
+          for dev in views}
+    ops.reset_launches()
+    sweeps = 0
+    while not bool(st["cpu"].done.all()):
+        for dev, (pgv, pl) in views.items():
+            st[dev] = TM.msbfs_step(pgv, pl, st[dev], cfg)
+        sweeps += 1
+        a, b = (convert.state_to_numpy(st[d]) for d in (card, "cpu"))
+        for k in TM.STATE_LEAVES:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{k} {sweeps}")
+    assert sweeps >= 3
+    assert ops.LAUNCHES["ell_pull_multi"] == sweeps
+    assert ops.LAUNCHES["mask_reduce"] == sweeps
+
+
+@pytest.mark.parametrize("nn", ["dense", "sparse", "adaptive"])
+@pytest.mark.parametrize("delegate", ["allgather", "ring", "hier"])
+def test_strategies_bfs_on_card_equal_cpu(card, delegate, nn):
+    """The single-source step with the static bit exchange under every
+    strategy and format: every leaf equal on the card and the CPU."""
+    pg = partition_graph(rmat_graph(10, seed=7), th=32, p_rank=2, p_gpu=2)
+    plan = TE.build_exchange_plan(pg)
+    cfg = TB.BFSConfig(max_iters=24, pull_chunk=16, static_exchange=True,
+                       comm=TC.CommConfig(delegate=delegate, nn=nn))
+    outs = []
+    for dev in (card, "cpu"):
+        st = TB.run_bfs_emulated(TB.device_view(pg, dev),
+                                 TB.init_state(pg, 3, cfg, device=dev), cfg,
+                                 TE.device_plan(plan, dev))
+        outs.append(convert.bfs_state_to_numpy(st))
+    for k in TB.STATE_LEAVES:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+
+
+@pytest.mark.parametrize("comm", [dict(), dict(delegate="hier"),
+                                  dict(delegate="ring")],
+                         ids=["allgather", "hier", "ring"])
+def test_sharded_world1_nccl_equals_emulated(card, comm):
+    """``make_sharded_msbfs``, its step and its block (captured: NCCL and a
+    fixed nn format) on a world of one rank under NCCL, in a spawned
+    process (hard timeout), each equal to the emulated run, every leaf."""
+    import _torch_world as TW
+    spec = dict(scale=10, seed=7, th=32, comm=comm,
+                sources=[int(s) for s in pick_sources(rmat_graph(10, seed=7),
+                                                      20, seed=1)])
+    (res,) = TC.dist.spawn(TW.nccl_world, 1, (spec,), backend="nccl",
+                           timeout=240)
+    assert res["run"] == [] and res["step"] == [] and res["block"] == []
+    assert res["captured"] and res["sweeps"] == 3
+
+
+def test_sharded_world4_nccl_equals_emulated(card):
+    """The sharded world of ``tests/test_torch_sharded.py`` on four cards
+    under NCCL (one partition a card, mesh (2, 2); the blocks of the
+    overlap and stream engines captured as CUDA graphs with their
+    collectives): every gathered leaf, level, answer and ``ServeStats``
+    field equal to the emulated run on the CPU, ``wire_delegate`` in the
+    (2, 2) plan's formula. Needs four cards: NCCL refuses two ranks on one
+    device."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (NCCL refuses two ranks on one card)")
+    import _torch_world as TW
+    from repro_torch.kernels import _build
+    _build.build()                       # once, before the ranks load it
+    spec = TW.default_spec("cuda")
+    ranks = TC.dist.spawn(TW.sharded_world, 4, (spec,), backend="nccl",
+                          timeout=600)
+    _, pg = TW.graph(spec)
+    pgv = TB.device_view(pg, "cpu")
+    plan = TE.device_plan(TE.build_exchange_plan(pg), "cpu")
+    port_plan = lambda comm, axes, sizes: TC.CommPlan(TC.CommConfig(**comm),
+                                                      axes, sizes)
+    for name, case in spec["msbfs"].items():
+        TW.check_state_case(ranks, "msbfs", name, case, pg,
+                            TW.run_msbfs(pg, pgv, plan, case, "cpu"),
+                            port_plan)
+    for name, case in spec["bfs"].items():
+        TW.check_state_case(ranks, "bfs", name, case, pg,
+                            TW.run_bfs(pg, pgv, plan, case, "cpu"), port_plan)
+    qs = TW.queries(spec["queries"])
+    for name in list(spec["engine"]) + ["batch-local"]:
+        case = spec["engine"]["batch" if name == "batch-local" else name]
+        want = TW.serve(TW.make_engine(pg, case, "cpu"), case["mode"], qs)
+        TW.check_engine_case(ranks, name, case, want, pg, port_plan)
+    for r in ranks:
+        assert r["rows"] == {(True, 1)} and r["mismatch"] is not None
