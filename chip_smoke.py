@@ -68,7 +68,9 @@
    p = 1 partition of a scale-16 graph; scale cut from 20 for time):
    ``make_sharded_msbfs`` (timed in turns with the emulated run after a
    first call that sets up the communicators), two steps, a block of 4
-   captured as CUDA graphs and the same block eagerly, and
+   captured as CUDA graphs and the same block eagerly, a payload lane
+   batch (16 SSSP, 8 components, 8 bit lanes) through the sharded run
+   and a captured sharded block of 4, and
    ``make_sharded_bfs`` with and without the plan, every leaf equal to
    the emulated run. (d) The engine on a world of two spawned ranks
    sharing the card under gloo (NCCL refuses two ranks on one device;
@@ -124,7 +126,29 @@
    on seeded planes of the paths' shapes) are also measured right after
    set-up, before any profiler session (which raises the wrappers' host
    cost for the rest of the process).
-10. Refill path, last (its long profiled runs come after every short
+10. Payload path (WEIGHTED_SSSP, COMPONENTS, KHOP_SAMPLE) on the same
+   graph and partition at W = 32: (a) three lane batches of 32 queries
+   (SSSP, COMPONENTS without component reuse, KHOP_SAMPLE with k = 3),
+   each one ``submit_many`` after ``warmup(payload=True)``: sweeps, ms a
+   sweep, queries/s, payload wire bytes, peak memory; (c) the SSSP batch
+   again under ``CommConfig(delegate="allgather")``, launch counts zeroed
+   before and read after: one ``payload_min_fold`` (B4, the payload
+   delegate update at ``n = d * W``), one B1 and one B2 launch a sweep,
+   answers equal to (a)'s; (d) the parts of one payload sweep on a
+   mid-run state timed alone (min-plus pushes, bit pushes, the payload nn
+   exchange, B4 against its plain version with its device time and bound,
+   the whole sweep) and one SSSP batch under ``torch.profiler`` (B1, B2,
+   B4 in the trace, busy share, the operators' device time); (b) 64
+   queries of the seven kinds through the per-sweep refill driver and the
+   overlapped one (``sweep_block=8``, blocks captured by the warm-up):
+   answers equal, every ServeStats field but ``sweep_blocks`` equal. Four
+   answers of each kind are held against the oracles: scipy's
+   ``dijkstra`` over the port's edge weights and ``connected_components``
+   (each component's minimum id) for the payload kinds, the numpy oracle
+   for the others. (e) runs in 7(c): a payload lane batch through
+   ``make_sharded_msbfs`` and a captured sharded block under NCCL, equal
+   to the emulated run.
+11. Refill path, last (its long profiled runs come after every short
    profiler session above): the graph with 8 tails of 96 (``with_tails``,
    seed 5; ``max_iters=240``, W=32, no cache, no component reuse), 120
    queries (the 8 tips spread through 112 core sources, the four kinds
@@ -144,12 +168,13 @@
    eagerly (equal leaves, both timed); and the overlap run with two
    sweeps in flight instead of one (counters equal, gated sweeps
    printed).
-11. Prints one JSON line describing every kernel, then, last, the device
+12. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
-Option: ``--only segment_bag,ell_pull_payload,sharded`` (those phases
-alone, on the same inputs; ``sharded`` is 7 after the main serving run
-and 4 FULL keys it is held against).
+Option: ``--only segment_bag,ell_pull_payload,sharded,payload`` (those
+phases alone, on the same inputs; ``sharded`` is 7 after the main
+serving run and 4 FULL keys it is held against, ``payload`` is 10 and
+7(c)).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -185,6 +210,9 @@ HOT_FRACTION = 0.005
 BAG_WIDTH = 8                       # segment_bag bags: 8 slots each,
 BULK_PAD = 0.25                     # a quarter of them -1
 PAYLOAD_ROWS_ON = 0.1               # ell_pull_payload's sparse case
+# payload path: three lane batches of W = 32 (WEIGHTED_SSSP, COMPONENTS,
+# KHOP_SAMPLE with k = 3) and a seven-kind mixed stream of 64 queries
+PAYLOAD_BATCH, PAYLOAD_MIXED, KHOP_K = 32, 64, 3
 # flushed kernel times: a scratch buffer written before each call, so L2
 # (50 MB) holds nothing of the last call
 FLUSH_BYTES, FLUSH_REPS = 512 << 20, 20
@@ -687,6 +715,13 @@ def ell_contract_check(device) -> None:
     print("kernel ell_pull_multi [ELL contract, 4 shapes]: exact=True")
 
 
+def _device_us(ev) -> float:
+    """A profiler row's self device microseconds (the attribute's name
+    differs across PyTorch versions)."""
+    us = getattr(ev, "self_device_time_total", None)
+    return ev.self_cuda_time_total if us is None else us
+
+
 def report_profile(prof, wall_ms: float, header: str, names):
     """Print the device busy share and the top operators and kernels of a
     ``torch.profiler`` run, and each port kernel's per-launch device time
@@ -694,9 +729,7 @@ def report_profile(prof, wall_ms: float, header: str, names):
     per launch}, [names not in the trace], device ms)``."""
     rows = []
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
+        dev_us = _device_us(ev)
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
@@ -730,7 +763,8 @@ def profile_run(run, header, names, into: dict | None = None) -> dict:
     ``header(result)`` names the phase. A trace that misses a named
     kernel, or holds no device time, is profiled once more; a second miss
     fails the run. Returns ``{name: us per launch}``; ``into`` (where
-    given) gets the run's ``wall_ms``, ``busy_ms`` and result ``out``."""
+    given) gets the run's ``wall_ms``, ``busy_ms``, result ``out`` and
+    each operator's device ms (``ops``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -746,7 +780,10 @@ def profile_run(run, header, names, into: dict | None = None) -> dict:
                                                       header(out), names)
         if not missing and busy_ms > 0:
             if into is not None:
-                into.update(wall_ms=wall_ms, busy_ms=busy_ms, out=out)
+                into.update(wall_ms=wall_ms, busy_ms=busy_ms, out=out,
+                            ops={ev.key: _device_us(ev) / 1e3
+                                 for ev in prof.key_averages()
+                                 if ev.key.startswith("aten::")})
             return per_launch
         print(f"  profile attempt {attempt} of {header(out)}: missing "
               f"{missing}, device time {busy_ms:.1f} ms")
@@ -1623,8 +1660,10 @@ def sharded_nccl_phase(backend: str = "nccl") -> None:
     NCCL (a p = 1 partition of a scale-16 graph): ``make_sharded_msbfs``,
     two sweeps of ``make_sharded_msbfs_step``, a block of
     ``make_sharded_msbfs_block`` captured as CUDA graphs and the same
-    block eagerly, and ``make_sharded_bfs`` with and without the static
-    plan, each against the emulated run on the same views, every leaf."""
+    block eagerly, a payload lane batch through the sharded run and a
+    captured sharded block, and ``make_sharded_bfs`` with and without the
+    static plan, each against the emulated run on the same views, every
+    leaf."""
     import tempfile
 
     import torch
@@ -1698,6 +1737,35 @@ def sharded_nccl_phase(backend: str = "nccl") -> None:
     _states_equal(blocks["graph"][0], ref_blk.out, TM.STATE_LEAVES,
                   "sharded block = emulated block")
     replays = blocks["graph"][1].replays
+    # (e) of the payload path: one payload lane batch (SSSP, components and
+    # bit lanes) through the sharded run and a captured sharded block
+    pcfg = TM.MSBFSConfig(n_queries=32, max_iters=384, payload=True,
+                          enable_targets=False)
+    modes = ["sssp"] * 16 + ["components"] * 8 + [None] * 8
+    pinit = lambda m: TM.init_multi_state(pg, srcs, pcfg, payload_modes=modes,
+                                          device=DEVICE, mesh=m)
+    pe, pe_ms = timed(lambda: TM.run_msbfs_emulated(pgv, plan, pinit(None),
+                                                    pcfg))
+    ps, ps_ms = timed(lambda: TM.make_sharded_msbfs(mesh, axes, pcfg)(
+        pgv, plan, pinit(mesh)))
+    _states_equal(ps, pe, TM.STATE_LEAVES, "sharded payload msBFS (world 1)")
+    check(int(ps.wire_pay_nn.sum()) == 0 and bool(ps.done.all()),
+          "sharded payload msBFS: converged (p = 1 ships nothing)")
+    pblk = TM.make_sharded_msbfs_block(mesh, axes, pcfg, 4)
+    r = pblk(pgv, plan, pinit(mesh), watch)
+    r.wait()
+    pblk.runner.drain()
+    ref_blk = TM.make_msbfs_block_emulated(pcfg, 4)(pgv, plan, pinit(None),
+                                                    watch)
+    ref_blk.wait()
+    _states_equal(r.out, ref_blk.out, TM.STATE_LEAVES,
+                  "sharded payload block = emulated block")
+    check((pblk.runner.graphs is not None) == (DEVICE == "cuda"),
+          "the payload NCCL block is captured")
+    payload_line = (f"payload batch (16 SSSP, 8 components, 8 bit lanes) "
+                    f"{int(ps.it[0])} sweeps sharded {ps_ms:.1f} ms, emulated "
+                    f"{pe_ms:.1f} ms, every leaf equal; payload block of 4 "
+                    f"captured = emulated")
     bfs_ms = {}
     for with_plan in (False, True):
         bcfg = TB.BFSConfig(max_iters=64, pull_chunk=64,
@@ -1721,8 +1789,8 @@ def sharded_nccl_phase(backend: str = "nccl") -> None:
           f"{bfs_ms[False][0]:.1f} ms (emulated {bfs_ms[False][1]:.1f}, "
           f"{bfs_ms[False][2]} sweeps), static {bfs_ms[True][0]:.1f} ms "
           f"(emulated {bfs_ms[True][1]:.1f}, {bfs_ms[True][2]} sweeps), equal; "
-          f"phase {time.perf_counter() - t_start:.1f} s")
-    del blocks
+          f"{payload_line}; phase {time.perf_counter() - t_start:.1f} s")
+    del blocks, pblk
     _teardown("world 1")
 
 
@@ -1852,6 +1920,372 @@ def sharded_gloo_phase(eng, hplan, queries, want, stats, full) -> None:
           f"launches a rank {r0['launches']}; answers, every stats field, "
           f"levels and counters equal the emulated p = 2 runs; phase "
           f"{time.perf_counter() - t_start:.1f} s")
+
+
+# -----------------------------------------------------------------------------
+# Payload path: WEIGHTED_SSSP, COMPONENTS and KHOP_SAMPLE at full width
+
+
+def scipy_oracles(g, srcs):
+    """The payload kinds' answers at this size, by scipy (the port's heapq
+    Dijkstra takes minutes on 33.5 M edges): SSSP distances of ``srcs``
+    by ``dijkstra`` over the synthetic weights of the port's
+    ``edge_weights`` (held to the reference's by the CPU tests), on the
+    deduplicated (u, v) pairs -- ``csr_matrix`` sums duplicate entries,
+    and RMAT has many -- and the component label map, each component
+    labelled with its minimum vertex id (``connected_components``)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components, dijkstra
+    from repro_torch.core.types import INF_LEVEL
+    from repro_torch.core.weights import edge_weights
+
+    import scipy
+
+    t = [time.perf_counter()]
+    # distinct (u, v) pairs: one sort and a neighbour compare
+    key = np.sort(np.asarray(g.src, np.int64) * g.n
+                  + np.asarray(g.dst, np.int64))
+    key = key[np.concatenate([[True], key[1:] != key[:-1]])]
+    u, v = key // g.n, key % g.n
+    a = csr_matrix((edge_weights(u, v).astype(np.float64), (u, v)),
+                   shape=(g.n, g.n))
+    t.append(time.perf_counter())
+    dist = dijkstra(a, directed=True, indices=np.asarray(srcs))
+    sssp = np.where(np.isinf(dist), INF_LEVEL,
+                    np.nan_to_num(dist, posinf=0)).astype(np.int32)
+    t.append(time.perf_counter())
+    k, lab = connected_components(a, directed=False)
+    # each component's minimum id: its first vertex in a stable sort
+    order = np.argsort(lab, kind="stable")
+    first = order[np.searchsorted(lab[order], np.arange(k))]
+    t.append(time.perf_counter())
+    print("payload oracles (numpy {}, scipy {}): matrix {:.1f} s, dijkstra "
+          "{:.1f} s, components {:.1f} s".format(np.__version__,
+                                                 scipy.__version__,
+                                                 *np.diff(t)))
+    return {int(s): sssp[i] for i, s in enumerate(srcs)}, \
+        first[lab].astype(np.int32)
+
+
+def payload_queries(g):
+    """The payload path's queries: three lane batches of PAYLOAD_BATCH
+    (WEIGHTED_SSSP, COMPONENTS, KHOP_SAMPLE with k = KHOP_K) on one set of
+    sources, and a seven-kind mixed stream of PAYLOAD_MIXED on another."""
+    from repro_torch.graphs.rmat import pick_sources
+    from repro_torch.serve import Query, QueryKind as K
+
+    srcs = [int(s) for s in pick_sources(g, PAYLOAD_BATCH, seed=21)]
+    batches = {
+        "weighted_sssp": [Query(s, K.WEIGHTED_SSSP) for s in srcs],
+        "components": [Query(s, K.COMPONENTS) for s in srcs],
+        "khop_sample": [Query(s, K.KHOP_SAMPLE, max_depth=KHOP_K)
+                        for s in srcs]}
+    mix = [int(s) for s in pick_sources(g, PAYLOAD_MIXED, seed=22)]
+    # the first four SSSP queries of the stream share the batch's first
+    # four sources, so four Dijkstra runs serve both oracle checks
+    for j, i in enumerate(range(4, 4 + 7 * 4, 7)):
+        mix[i] = srcs[j]
+    tpool = tuple(mix[:2])
+    kinds = [lambda s: Query(s), lambda s: Query(s, K.REACHABILITY),
+             lambda s: Query(s, K.DISTANCE_LIMITED, max_depth=3),
+             lambda s: Query(s, K.MULTI_TARGET, targets=tpool),
+             lambda s: Query(s, K.WEIGHTED_SSSP),
+             lambda s: Query(s, K.COMPONENTS),
+             lambda s: Query(s, K.KHOP_SAMPLE, max_depth=2)]
+    return batches, [kinds[i % 7](s) for i, s in enumerate(mix)]
+
+
+def payload_oracle(g, csr, q, a, sssp, labels) -> bool:
+    """One answer of any kind against its oracle (``sssp`` / ``labels``
+    from :func:`scipy_oracles`)."""
+    import numpy as np
+    from repro_torch.core import oracle as O
+    from repro_torch.serve import QueryKind as K
+
+    if q.kind is K.WEIGHTED_SSSP:
+        return np.array_equal(a, sssp[q.source])
+    if q.kind is K.COMPONENTS:
+        return np.array_equal(a, labels)
+    if q.kind is K.KHOP_SAMPLE:
+        return np.array_equal(a, O.khop_nodes(g, q.source, q.max_depth, csr))
+    if q.kind is K.LEVELS:
+        return np.array_equal(a, O.bfs_levels(g, q.source, csr))
+    if q.kind is K.REACHABILITY:
+        return np.array_equal(a, O.reachable_mask(g, q.source, csr))
+    if q.kind is K.DISTANCE_LIMITED:
+        return np.array_equal(a, O.bfs_levels_limited(g, q.source,
+                                                      q.max_depth, csr))
+    return a == O.target_depths(g, q.source, q.targets, csr)
+
+
+def payload_batches(pg, batches) -> tuple:
+    """(a) The three lane batches, each one ``submit_many`` of
+    PAYLOAD_BATCH queries on a warmed-up engine: sweeps, ms a sweep,
+    queries/s, payload wire bytes and peak memory."""
+    import torch
+    from repro_torch.serve import BFSServeEngine
+
+    eng = BFSServeEngine(pg=pg, cache_capacity=0, reuse_components=False,
+                         device=DEVICE)
+    eng.warmup(payload=True)
+    answers, rows = {}, {}
+    for name, qs in batches.items():
+        before, sweeps0 = eng.stats.as_dict(), eng.traversal_sweeps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        answers[name] = eng.submit_many(qs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = {k: v - before[k] for k, v in eng.stats.as_dict().items()
+              if not isinstance(v, dict)}
+        sweeps = eng.traversal_sweeps - sweeps0
+        rows[name] = dict(sweeps=sweeps, ms_per_sweep=dt * 1e3 / sweeps,
+                          qps=len(qs) / dt,
+                          peak=torch.cuda.max_memory_allocated(),
+                          **{k: st[k] for k in (
+                              "wire_delegate_bytes", "wire_nn_bytes",
+                              "wire_pay_delegate_bytes",
+                              "wire_pay_nn_bytes", "nn_overflow")})
+        r = rows[name]
+        print(f"payload batch {name}: {len(qs)} queries in {dt:.3f} s = "
+              f"{r['qps']:.2f} queries/s; sweeps={sweeps} ms/sweep="
+              f"{r['ms_per_sweep']:.2f} wire_pay_delegate_bytes="
+              f"{r['wire_pay_delegate_bytes']} wire_pay_nn_bytes="
+              f"{r['wire_pay_nn_bytes']} wire_delegate_bytes="
+              f"{r['wire_delegate_bytes']} wire_nn_bytes={r['wire_nn_bytes']}"
+              f" nn_overflow={r['nn_overflow']} max_memory_allocated="
+              f"{r['peak']} B ({card_line()})")
+        check(r["nn_overflow"] == 0, f"payload batch {name}: no slot dropped")
+        pay = name != "khop_sample"
+        check((r["wire_pay_nn_bytes"] > 0) == pay
+              and (r["wire_pay_delegate_bytes"] > 0) == pay,
+              f"payload batch {name}: payload bytes only on the payload kinds")
+    return eng, answers, rows
+
+
+def payload_allgather(pg, qs, want) -> dict:
+    """(c) One SSSP lane batch under ``CommConfig(delegate="allgather")``:
+    launch counts zeroed just before and read just after -- one B4
+    (``payload_min_fold_apply``), one B1 and one B2 launch a sweep; the
+    answers equal the default run's."""
+    import torch
+    from repro_torch.core import comm as TC
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BFSServeEngine
+
+    eng = BFSServeEngine(pg=pg, cache_capacity=0, reuse_components=False,
+                         comm=TC.CommConfig(delegate="allgather"),
+                         device=DEVICE)
+    eng.warmup(payload=True)
+    sweeps0 = eng.traversal_sweeps
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got = eng.submit_many(qs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    sweeps = eng.traversal_sweeps - sweeps0
+    print(f"payload allgather: {len(qs)} SSSP queries in {dt:.3f} s, "
+          f"sweeps={sweeps} ms/sweep={dt * 1e3 / sweeps:.2f} "
+          f"launches={launches} ({card_line()})")
+    check(launches["payload_min_fold"] == sweeps > 0,
+          "payload allgather: one B4 launch a sweep")
+    check(launches["ell_pull_multi"] == launches["mask_reduce"] == sweeps,
+          "payload allgather: one B1 and one B2 launch a sweep")
+    check(all(a.shape == b.shape and (a == b).all()
+              for a, b in zip(got, want)),
+          "payload allgather: answers equal the default run's")
+    return dict(eng=eng, launches=launches, sweeps=sweeps)
+
+
+def payload_breakdown(eng, qs) -> dict:
+    """(d) Where a payload sweep's time goes, on a real mid-run state (an
+    SSSP lane batch after 4 sweeps, allgather): each part of the sweep
+    alone (CUDA events, median of 3) -- the min-plus pushes with the nn
+    slot fold, the bit pushes with theirs, the payload nn exchange, the B4
+    delegate update at ``n = d * W`` (held against its plain version,
+    device time, bound) and the whole sweep; then one lane batch under
+    ``torch.profiler`` (B1, B2 and B4 in the trace, the device busy share,
+    the operators' device time)."""
+    import torch
+    from repro_torch.core import comm as TC, msbfs as TM
+    from repro_torch.kernels import mask_reduce as MR
+
+    cfg = eng._session_cfg(qs)
+    pgv, plan = eng.pgv, eng.plan
+    st = eng._init([q.source for q in qs], cfg,
+                   payload_modes=[q.payload_mode for q in qs])
+    for _ in range(4):
+        st = TM.msbfs_step(pgv, plan, st, cfg)
+    pv = TM.payload_view(pgv, plan)
+    p, nl, (rows, d, w) = pgv.p, pgv.n_local, st.payload_d.shape
+    cplan = TC.plan_for(cfg.comm, p)
+    bucket = st.pay_bucket[:, None, :]
+    nv = pgv.normal_valid[:, :, None]
+    fn = st.pay_pending_n & nv & (st.payload_n < bucket)
+    fd = st.pay_pending_d & (st.payload_d < bucket)
+    wsel = st.pay_weighted
+    lev_n = st.level_n == st.it[:, None, None]
+
+    def minplus():
+        return (TM._push_payload(pgv.dd, fd, st.payload_d, pv.w_dd, wsel, d),
+                TM._push_payload(pgv.nd, fn, st.payload_n, pv.w_nd, wsel, d),
+                TM._push_payload(pgv.dn, fd, st.payload_d, pv.w_dn, wsel, nl),
+                TM._nn_slots_payload(pv, fn, st.payload_n, wsel, plan))
+
+    def bits():
+        fdb = st.level_d == st.it[:, None, None]
+        return (TM._push_multi(pgv.dd, fdb, d), TM._push_multi(pgv.nd, lev_n, d),
+                TM._push_multi(pgv.dn, fdb, nl),
+                TM._nn_slots_multi(pgv.nn, lev_n, plan))
+
+    pdd, pnd, _, sa = minplus()
+    dense = TM._dense_slots_payload(plan, sa, p)
+    exchange = lambda: TC.nn_exchange_payload(
+        cplan, TM._dense_slots_payload(plan, sa, p), plan.recv_local, nl)
+    gathered = torch.minimum(pdd, pnd).reshape(rows, d * w).contiguous()
+    prev = st.payload_d.reshape(rows, d * w).contiguous()
+    got = MR.payload_min_fold_apply_cuda(gathered, prev)
+    want = MR.payload_min_fold_apply_plain(gathered, prev)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "payload_min_fold_apply at n = d * W: kernel != plain")
+    b4 = lambda: MR.payload_min_fold_apply_cuda(gathered, prev)
+    nbytes = gathered.numel() * 4 + 2 * prev.numel() * 4 + 4 * -(-rows // 4)
+    b_ms, b_by = bound(nbytes, (rows + 1) * prev.numel())
+    out = dict(
+        minplus_ms=time_ms(minplus, 3), bits_ms=time_ms(bits, 3),
+        exchange_ms=time_ms(exchange, 5),
+        sweep_ms=time_ms(lambda: TM.msbfs_step(pgv, plan, st, cfg), 3),
+        b4_ms=time_ms(b4, 50), b4_device_us=device_us(
+            b4, "payload_min_fold_apply_kernel"),
+        b4_plain_ms=time_ms(lambda: MR.payload_min_fold_apply_plain(
+            gathered, prev), 10),
+        b4_bound_ms=b_ms, b4_bound_by=b_by,
+        b4_library_ms=time_ms(lambda: torch.minimum(prev, gathered.amin(0)),
+                              50), b4_err=0)
+    print(f"payload sweep parts (SSSP batch, sweep {int(st.it[0])}, "
+          f"allgather; {card_line()}): min-plus pushes + nn slot fold "
+          f"{out['minplus_ms']:.3f} ms, bit pushes + nn slot fold "
+          f"{out['bits_ms']:.3f} ms, payload nn exchange (bin + a2a + "
+          f"scatter) {out['exchange_ms']:.3f} ms, whole sweep "
+          f"{out['sweep_ms']:.3f} ms; pending vertex-lane pairs "
+          f"{int(fn.sum()) + int(fd.sum())} (active slots "
+          f"{int((dense < int(TM.PAY_IDENT)).any(-1).sum())})")
+    print(f"kernel payload_min_fold_apply [payload plane, n = d*W = {d * w}]"
+          f": K={rows} P={rows} ms={out['b4_ms']:.4f} device_us="
+          f"{out['b4_device_us']:.2f} plain_ms={out['b4_plain_ms']:.4f} "
+          f"library_ms(minimum(prev, amin))={out['b4_library_ms']:.4f} "
+          f"bound_ms={b_ms:.6f} ({b_by}) bound/device="
+          f"{b_ms * 1e3 / out['b4_device_us']:.3f} exact=True")
+    prof = {}
+    sweeps0 = eng.traversal_sweeps
+    per_launch = profile_run(
+        lambda: eng.run_batch_queries(qs),
+        lambda _: f"one payload lane batch of {len(qs)} SSSP queries "
+                  f"(allgather), sweeps={eng.traversal_sweeps - sweeps0}",
+        ("pull_rows_kernel<pull::WordGather", "mask_reduce_apply_kernel",
+         "payload_min_fold_apply_kernel"), into=prof)
+    for op in ("aten::scatter_reduce_", "aten::addcmul_", "aten::index",
+               "aten::index_add_", "aten::where", "aten::minimum"):
+        print(f"  payload profile operator {op}: "
+              f"{prof['ops'].get(op, 0.0):.3f} ms device")
+    out.update(busy=prof["busy_ms"] / prof["wall_ms"], per_launch=per_launch,
+               prof_ops=prof["ops"])
+    return out
+
+
+def payload_mixed(pg, mixed, csr, g, sssp, labels) -> dict:
+    """(b) The seven-kind mixed stream through the per-sweep refill driver
+    and the overlapped one (``sweep_block`` SWEEP_BLOCK, blocks captured
+    by ``warmup(payload=True, targets=True)``): equal answers, every
+    ServeStats field equal but ``sweep_blocks``; 4 answers of each kind
+    held against the oracles."""
+    from repro_torch.serve import BFSServeEngine
+
+    eng = BFSServeEngine(pg=pg, cache_capacity=0, reuse_components=False,
+                         refill=True, overlap=True, sweep_block=SWEEP_BLOCK,
+                         device=DEVICE)
+    t0 = time.perf_counter()
+    eng.warmup(payload=True, targets=True)
+    t_warm = time.perf_counter() - t0
+    runs = {mode: drive(eng, mode, mixed) for mode in ("sync", "overlap")}
+    for mode, r in runs.items():
+        st = r["stats"]
+        print(f"payload mixed {mode}: {len(mixed)} queries in "
+              f"{r['time_s']:.3f} s = {len(mixed) / r['time_s']:.2f} "
+              f"queries/s; sweeps={r['sweeps']} executed={r['executed']} "
+              f"refills={st['refills']} lane_utilization="
+              f"{st['lane_sweeps_busy'] / max(st['lane_sweeps_total'], 1):.4f}"
+              f" sweep_blocks={st['sweep_blocks']} replays="
+              f"{r['blocks']['replays']} wire_pay_delegate_bytes="
+              f"{st['wire_pay_delegate_bytes']} wire_pay_nn_bytes="
+              f"{st['wire_pay_nn_bytes']} launches={r['launches']} "
+              f"({card_line()}; warm-up with captures {t_warm:.1f} s)")
+    s, o = runs["sync"]["stats"], runs["overlap"]["stats"]
+    check({k: v for k, v in s.items() if k != "sweep_blocks"}
+          == {k: v for k, v in o.items() if k != "sweep_blocks"},
+          "payload mixed: sync and overlap counters equal")
+    check(o["sweep_blocks"] > 0 and runs["overlap"]["blocks"]["replays"] > 0,
+          "payload mixed: the overlap run replays captured blocks")
+    ra, rb = runs["sync"]["results"], runs["overlap"]["results"]
+    check(all(payload_answer_equal(ra[q], rb[q]) for q in mixed),
+          "payload mixed: sync and overlap answers equal")
+    checked: dict = {}
+    for q in mixed:
+        if checked.get(q.kind, 0) < 4:
+            check(payload_oracle(g, csr, q, ra[q], sssp, labels),
+                  f"payload mixed oracle: {q}")
+            checked[q.kind] = checked.get(q.kind, 0) + 1
+    print(f"payload mixed oracle: {dict((k.value, v) for k, v in checked.items())}"
+          " answers exact")
+    check(len(checked) == 7 and min(checked.values()) == 4,
+          "payload mixed: 4 oracle checks of each kind")
+    return runs
+
+
+def payload_answer_equal(a, b) -> bool:
+    import numpy as np
+    return a == b if isinstance(a, dict) else np.array_equal(a, b)
+
+
+def payload_path(g, pg, csr) -> dict:
+    """(a)-(d) of the payload path on the scale-20 graph and its p = 2
+    partition, at W = 32; (e) runs with the sharded NCCL phase. Returns
+    the numbers the kernel line and PERF.md take."""
+    import torch
+
+    t_start = time.perf_counter()
+    batches, mixed = payload_queries(g)
+    t0 = time.perf_counter()
+    sssp_srcs = [q.source for q in batches["weighted_sssp"][:4]]
+    sssp, labels = scipy_oracles(g, sssp_srcs)
+    print(f"payload oracles (scipy dijkstra x{len(sssp_srcs)}, "
+          f"connected_components): {time.perf_counter() - t0:.1f} s, "
+          f"{len(set(labels.tolist()))} components")
+    eng, answers, rows = payload_batches(pg, batches)
+    for name, qs in batches.items():
+        for q, a in list(zip(qs, answers[name]))[:4]:
+            check(payload_oracle(g, csr, q, a, sssp, labels),
+                  f"payload batch oracle: {q}")
+    check(all(payload_answer_equal(a, labels)
+              for a in answers["components"]),
+          "payload batch: every COMPONENTS answer is the label map")
+    print("payload batch oracle: 4 answers of each kind exact")
+    del eng
+    torch.cuda.empty_cache()
+    ag = payload_allgather(pg, batches["weighted_sssp"],
+                           answers["weighted_sssp"])
+    parts = payload_breakdown(ag["eng"], batches["weighted_sssp"])
+    del ag["eng"]
+    torch.cuda.empty_cache()
+    mixed_runs = payload_mixed(pg, mixed, csr, g, sssp, labels)
+    print(f"payload path: {time.perf_counter() - t_start:.1f} s")
+    return dict(rows=rows, allgather=ag, parts=parts,
+                mixed={m: r["stats"] for m, r in mixed_runs.items()})
 
 
 def recsys_setup():
@@ -2807,6 +3241,11 @@ def run() -> None:
     launch_cost_phase(LAUNCH_CASES, "after the paths")
     stamp("recsys path and launch cost done")
 
+    # ---- payload path: the three payload kinds at full width --------------
+    torch.cuda.empty_cache()
+    payload = payload_path(g, pg, csr)
+    stamp("payload path done")
+
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
     torch.cuda.empty_cache()
@@ -2814,7 +3253,11 @@ def run() -> None:
     stamp("refill path done")
 
     or_apply = fold["apply"]["levels + targets"]
-    min_apply = min_fold["apply"]
+    print(f"single-source payload_min_fold_apply (n = d): ms="
+          f"{min_fold['apply']['ms']:.4f} bound_ms="
+          f"{min_fold['apply']['bound_ms']:.6f} launches over the 4 "
+          f"allgather keys {ss_launches['allgather']['payload_min_fold']}")
+    pparts = payload["parts"]
     kernels = [
         {"name": "ell_pull_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ell_pull_multi.cu",
@@ -2840,10 +3283,10 @@ def run() -> None:
         {"name": "payload_min_fold", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mask_reduce.cu",
          "replaces": "src/repro/kernels/mask_reduce.py:145",
-         "launches": ss_launches["allgather"]["payload_min_fold"],
-         "max_abs_err": float(min_apply["err"]), "ms": min_apply["ms"],
-         "plain_ms": min_apply["plain_ms"], "bound_ms": min_apply["bound_ms"],
-         "bound_by": min_apply["bound_by"], "library_ms": None},
+         "launches": payload["allgather"]["launches"]["payload_min_fold"],
+         "max_abs_err": float(pparts["b4_err"]), "ms": pparts["b4_ms"],
+         "plain_ms": pparts["b4_plain_ms"], "bound_ms": pparts["b4_bound_ms"],
+         "bound_by": pparts["b4_bound_by"], "library_ms": None},
         {"name": "cin_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cin_fused.cu",
          "replaces": "src/repro/kernels/cin_fused.py:57",
@@ -2860,12 +3303,14 @@ def run() -> None:
     print("ell_pull_multi / ell_pull ms: one launch of a sweep's three "
           "pulls; plain_ms, bound_ms: sum of the three; mask_reduce / "
           "payload_min_fold: the fused delegate update of the path "
-          "(mask_reduce_apply on int32 levels with targets, "
-          "payload_min_fold_apply; library_ms null: no single PyTorch call "
+          "(mask_reduce_apply on int32 levels with targets; "
+          "payload_min_fold_apply on the payload plane, n = d * W, on a "
+          "mid-run SSSP batch; library_ms null: no single PyTorch call "
           "folds and applies; the standalone folds and torch.amin are "
           "printed above). Launches: ell_pull_multi and "
           "mask_reduce over the 64-query serving run, ell_pull over the 16 "
-          "FULL search keys, payload_min_fold over the 4 allgather keys. "
+          "FULL search keys, payload_min_fold over the payload path's "
+          "allgather SSSP batch. "
           "cin_fused (path: recsys serving): ms, plain_ms, bound_ms, "
           "library_ms summed over the 3 CIN layers of one serve_p99 forward "
           "(bound_ms: 3xTF32, three TF32 tensor-core products per float32 "
@@ -2918,11 +3363,13 @@ def sharded_alone() -> None:
 
 def run_alone(names) -> None:
     """``--only``: the named phases (``segment_bag``, ``ell_pull_payload``,
-    ``sharded``) on their inputs (the recsys model and ClickStream
-    batches, the scale-20 graph, made as ``run`` makes them), nothing else;
-    then the device line."""
+    ``sharded``, ``payload``) on their inputs (the recsys model and
+    ClickStream batches, the scale-20 graph, made as ``run`` makes them),
+    nothing else (``payload`` adds the sharded world-1 NCCL phase, which
+    holds its (e)); then the device line."""
     import torch
     from repro_torch.core import oracle as O
+    from repro_torch.core.partition import partition_graph
     from repro_torch.graphs.rmat import rmat_graph
     from repro_torch.kernels import _build
 
@@ -2940,6 +3387,13 @@ def run_alone(names) -> None:
         kernel_phase_payload(g, O.csr_from_coo(g))
     if "sharded" in names:
         sharded_alone()
+    if "payload" in names:
+        g = rmat_graph(SCALE, seed=0)
+        pg = partition_graph(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU)
+        payload_path(g, pg, O.csr_from_coo(g))
+        if "sharded" not in names:
+            torch.cuda.empty_cache()
+            sharded_nccl_phase()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2953,13 +3407,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
-                         "segment_bag, ell_pull_payload, sharded")
+                         "segment_bag, ell_pull_payload, sharded, payload")
     args = ap.parse_args()
     only = None if args.only is None else set(args.only.split(","))
     if only is not None and not only <= {"segment_bag", "ell_pull_payload",
-                                         "sharded"}:
+                                         "sharded", "payload"}:
         ap.error(f"--only takes segment_bag, ell_pull_payload, sharded, "
-                 f"not {only}")
+                 f"payload, not {only}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)

@@ -5,10 +5,11 @@ Two classes of traffic, exactly as the paper prescribes:
 
 * **delegates** -- visited status combined with a global bitwise-OR
   reduction (all-gather + the ``mask_reduce`` fold kernel), or, on the
-  single-source path, levels with a min reduction (:mod:`.reduce`);
-* **normal vertices** -- newly visited vertices of cutting nn edges
-  exchanged point-to-point, over the static slot plan or in runtime-binned
-  id lists (:mod:`.exchange`).
+  single-source path and the payload plane, values with a min reduction
+  (:mod:`.reduce`);
+* **normal vertices** -- newly visited vertices (or the payload plane's
+  per-slot minimums) of cutting nn edges exchanged point-to-point, over
+  the static slot plan or in runtime-binned id lists (:mod:`.exchange`).
 
 :mod:`.base` holds the strategy config and the wire-byte formulas,
 :mod:`.wire` the lane-word packing that is the wire format itself.
@@ -24,16 +25,18 @@ from .base import (
     plan_for,
 )
 from .exchange import (bin_by_owner, exchange_normal, nn_exchange_bits,
-                       nn_exchange_words)
-from .reduce import (any_reduce, delegate_combine, delegate_min_apply,
-                     delegate_or_apply, lane_any_reduce)
+                       nn_exchange_payload, nn_exchange_words)
+from .reduce import (any_reduce, delegate_allreduce_sum, delegate_combine,
+                     delegate_min_apply, delegate_or_apply, lane_any_reduce,
+                     lane_fold_reduce)
 from .wire import n_words, pack_lanes, unpack_lanes
 
 __all__ = [
     "COMBINE_SPECS", "DELEGATE_STRATEGIES", "NN_FORMATS", "CombineSpec",
     "CommConfig", "CommPlan", "any_reduce", "bin_by_owner",
-    "delegate_combine", "dist", "delegate_min_apply", "delegate_or_apply",
-    "exchange_normal", "lane_any_reduce", "n_words",
-    "nn_exchange_bits", "nn_exchange_words", "pack_lanes", "plan_for",
+    "delegate_allreduce_sum", "delegate_combine", "dist",
+    "delegate_min_apply", "delegate_or_apply", "exchange_normal",
+    "lane_any_reduce", "lane_fold_reduce", "n_words", "nn_exchange_bits",
+    "nn_exchange_payload", "nn_exchange_words", "pack_lanes", "plan_for",
     "unpack_lanes",
 ]

@@ -14,7 +14,7 @@ carries CUDA tensors for the collectives it implements for them).
   same order), so a strategy can reduce over one axis (ring) or a group of
   axes (hierarchical) as well as over the world.
 * The collectives the port uses: :func:`all_gather`, :func:`all_to_all`,
-  :func:`all_reduce` (``"max"`` / ``"min"``, integer tensors) and
+  :func:`all_reduce` (``"max"`` / ``"min"`` / ``"sum"``) and
   :func:`ppermute` (the ring's hop: an ``all_to_all_single`` whose split
   sizes are non-zero only for the neighbours, so the wire carries exactly
   the ring's chunk, on ``gloo`` and ``nccl`` alike). There is no OR
@@ -184,13 +184,14 @@ def all_to_all(mesh: PartitionMesh, x: torch.Tensor, axes=None
     return _unwire(out, x.dtype)
 
 
-_OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+_OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+        "sum": dist.ReduceOp.SUM}
 
 
 def all_reduce(mesh: PartitionMesh, x: torch.Tensor, op: str, axes=None
                ) -> torch.Tensor:
-    """Elementwise ``op`` (``"max"`` or ``"min"``) of every member's ``x``
-    (an integer tensor; bool travels as uint8) -> a new tensor."""
+    """Elementwise ``op`` (``"max"``, ``"min"`` or ``"sum"``) of every
+    member's ``x`` (bool travels as uint8) -> a new tensor."""
     out = _wire(x).clone()
     dist.all_reduce(out, op=_OPS[op], group=mesh.group(axes))
     return _unwire(out, x.dtype)

@@ -6,7 +6,9 @@ slot layout of the :class:`~repro_torch.core.engine.ExchangePlan`:
 
 * **dense** -- one bit per (slot, query): lane words for the batched path
   (:func:`nn_exchange_words`), a slot bitmask for the single-source path
-  (:func:`nn_exchange_bits`); fixed volume per sweep;
+  (:func:`nn_exchange_bits`); one int32 per (slot, query) for the payload
+  plane (:func:`nn_exchange_payload`, receivers fold with min); fixed
+  volume per sweep;
 * **sparse** -- only active slots ship, as (slot id, lane word) pairs or
   bare slot ids, capped per peer; active slots beyond the cap are dropped
   and counted in the returned overflow (a valid run needs 0);
@@ -30,8 +32,11 @@ from __future__ import annotations
 import torch
 
 from . import dist as D
-from .base import CommPlan
+from .base import COMBINE_SPECS, CommPlan
 from .wire import n_words, pack_lanes, unpack_lanes
+
+#: the payload plane's "nothing arrived" value: the min_plus identity
+PAY_IDENT = int(COMBINE_SPECS["min_plus"].identity)
 
 
 def _a2a(plan: CommPlan, x: torch.Tensor) -> torch.Tensor:
@@ -217,6 +222,66 @@ def nn_exchange_words(plan: CommPlan, dense: torch.Tensor,
         loc = _received_local(recv_local, _a2a(plan, ids))
         rlanes = unpack_lanes(_a2a(plan, sw), w)
         return _scatter_recv_words(rlanes, loc, nl), overflow
+
+    mode = plan.cfg.nn
+    if mode == "adaptive" and sparse_bytes >= dense_bytes:
+        mode = "dense"                      # sparse can never win: skip it
+    if mode == "dense":
+        return dense_path(), dense_bytes, 0, 0
+    if mode == "sparse":
+        recv, overflow = sparse_path()
+        return recv, sparse_bytes, 1, overflow
+    return _adaptive(plan, act, cap_sparse, dense_path, sparse_path,
+                     sparse_bytes, dense_bytes)
+
+
+def _scatter_recv_payload(rvals: torch.Tensor, loc: torch.Tensor,
+                          nl: int) -> torch.Tensor:
+    """Scatter-min received payload rows onto local normal ids (-1 loc =
+    dead slot, which carries the identity: a no-op under min).
+    ``rvals [p, ..., W]`` int32 and ``loc [p, ...]`` per receiving
+    partition -> ``[p, nl, W]`` int32, the identity where nothing
+    arrived. Min is order-free, so the scatter is exact."""
+    p, w = rvals.shape[0], rvals.shape[-1]
+    idx = loc.reshape(p, -1).long().clamp(0, nl - 1)
+    idx = (idx + torch.arange(p, device=idx.device)[:, None] * nl).reshape(-1)
+    vals = torch.where((loc >= 0)[..., None], rvals, PAY_IDENT)
+    out = torch.full((p * nl, w), PAY_IDENT, dtype=torch.int32,
+                     device=rvals.device)
+    out.scatter_reduce_(0, idx[:, None].expand(-1, w), vals.reshape(-1, w),
+                        "amin")
+    return out.reshape(p, nl, w)
+
+
+def nn_exchange_payload(plan: CommPlan, dense_pay: torch.Tensor,
+                        recv_local: torch.Tensor, nl: int):
+    """Per-lane *payload* nn exchange (the ``min_plus`` combine).
+
+    ``dense_pay [rows, p, cap_peer, W]`` int32 carries each slot's
+    per-lane distance or label candidates (the identity for lanes with
+    nothing to ship); a slot is *active* when a lane carries less than the
+    identity. Dense ships ``cap_peer * W`` int32 per peer, sparse the
+    active slots as (slot id, ``W`` int32) records capped per peer,
+    adaptive switches as for the lane words; receivers fold duplicates
+    with min. Returns ``(recv [rows, nl, W] int32 -- the identity where
+    nothing arrived, wire_bytes, sparse_used, overflow)``, as
+    :func:`nn_exchange_bits` types them."""
+    cap, w = dense_pay.shape[-2:]
+    dense_bytes = plan.nn_dense_payload_bytes(cap, w)
+    cap_sparse = plan.sparse_cap_words(cap)
+    sparse_bytes = plan.nn_sparse_payload_bytes(cap_sparse, w)
+    act = (dense_pay < PAY_IDENT).any(-1)                   # [rows, p, cap]
+
+    def dense_path():
+        return _scatter_recv_payload(_a2a(plan, dense_pay), recv_local, nl)
+
+    def sparse_path():
+        ids, valid, overflow = _compact_active(act, cap_sparse)
+        sv = dense_pay.gather(2, ids.clamp(min=0).long()[..., None].expand(
+            ids.shape + (w,)))
+        sv = torch.where(valid[..., None], sv, PAY_IDENT)   # [rows, p, S, W]
+        loc = _received_local(recv_local, _a2a(plan, ids))
+        return _scatter_recv_payload(_a2a(plan, sv), loc, nl), overflow
 
     mode = plan.cfg.nn
     if mode == "adaptive" and sparse_bytes >= dense_bytes:

@@ -6,10 +6,10 @@ bitmasks. Neither NCCL nor the emulated backend has an OR reduction, so an
 ``mask_reduce`` kernel. The strategies of
 :class:`~repro_torch.core.comm.base.CommConfig`:
 
-* ``auto``      -- native reductions for ``"min"`` / ``"max"`` (an
-                   ``all_reduce`` when distributed, ``amin`` / ``amax`` over
-                   the stacked rows when emulated); ``"or"`` resolves to
-                   ``allgather``;
+* ``auto``      -- native reductions for ``"min"`` / ``"max"`` /
+                   ``"sum"`` (an ``all_reduce`` when distributed, ``amin`` /
+                   ``amax`` / ``sum`` over the stacked rows when emulated);
+                   ``"or"`` resolves to ``allgather``;
 * ``allgather`` -- gather every partition's partial, K-way fold
                    (``mask_reduce`` for OR, ``payload_min_fold`` for the
                    int32 min);
@@ -22,14 +22,17 @@ bitmasks. Neither NCCL nor the emulated backend has an OR reduction, so an
                    then the rest); the intra-group OR folds run the
                    standalone ``mask_reduce``.
 
-Every strategy is bit-exact with every other: the folds are associative
-and commutative and the result is replicated.
+Every strategy is bit-exact with every other for the integer combines:
+the folds are associative and commutative (an int32 sum wraps, as the
+reference's does) and the result is replicated. A float ``"sum"`` is
+exact where the values' sums are order-free.
 
 The traversal steps call the ``*_apply`` combines: the same strategies,
 with the step's update of its delegate state fused into the last fold's
 launch (:func:`delegate_or_apply`: ``mask_reduce_apply`` over the last
 group's gathered words, or over the ring's one reduced row;
-:func:`delegate_min_apply`: ``payload_min_fold_apply`` under allgather).
+:func:`delegate_min_apply`: ``payload_min_fold_apply`` under allgather,
+for the single-source levels and the payload plane's delegate values).
 """
 from __future__ import annotations
 
@@ -38,17 +41,23 @@ import torch
 from repro_torch.kernels import ops
 
 from . import dist as D
-from .base import COMBINE_SPECS, CommPlan
+from .base import COMBINE_SPECS, CommPlan, plan_for
 
 _BINARY = {"or": torch.bitwise_or, "min": torch.minimum,
-           "max": torch.maximum}
+           "max": torch.maximum, "sum": torch.add}
 
 
 def _check_op(op: str) -> None:
     if op not in _BINARY:
-        raise NotImplementedError(
-            f"combine op {op!r} is not ported yet: ROADMAP.md queue A, "
-            "item A9 (payload plane)")
+        raise ValueError(f"unknown combine op {op!r}; one of {sorted(_BINARY)}")
+
+
+def _sum_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum along ``dim`` in ``x``'s dtype: integers wrap as the
+    reference's int32 sums do (the low bits of the exact sum)."""
+    if x.is_floating_point():
+        return x.sum(dim)
+    return x.sum(dim, dtype=torch.int64).to(x.dtype)
 
 
 def _fold(partials: torch.Tensor, op: str) -> torch.Tensor:
@@ -62,6 +71,8 @@ def _fold(partials: torch.Tensor, op: str) -> torch.Tensor:
             partials, torch.full(n, COMBINE_SPECS["min"].identity,
                                  dtype=torch.int32, device=partials.device),
             with_count=False)[0]
+    if op == "sum":
+        return _sum_rows(partials)
     return partials.amin(0) if op == "min" else partials.amax(0)
 
 
@@ -159,10 +170,11 @@ def _group_fold(plan: CommPlan, x2: torch.Tensor, group, op: str):
 
 def _combine(plan: CommPlan, x2: torch.Tensor, op: str) -> torch.Tensor:
     strategy = plan.effective_delegate(op)
-    if strategy == "auto":                      # native min / max
+    if strategy == "auto":                      # native min / max / sum
         if plan.mesh is not None:
             return D.all_reduce(plan.mesh, x2, op)
-        red = x2.amin(0) if op == "min" else x2.amax(0)
+        red = {"min": lambda: x2.amin(0), "max": lambda: x2.amax(0),
+               "sum": lambda: _sum_rows(x2)}[op]()
         return red[None].expand(x2.shape)
     if strategy == "ring":
         for a, s in zip(plan.axes, plan.sizes):
@@ -174,8 +186,8 @@ def _combine(plan: CommPlan, x2: torch.Tensor, op: str) -> torch.Tensor:
 
 
 def delegate_combine(plan: CommPlan, x: torch.Tensor, op: str = "or"):
-    """Global elementwise ``op``-allreduce (``"or"``, ``"min"`` or
-    ``"max"``) of ``x [rows, ...]`` with the plan's strategy. Returns
+    """Global elementwise ``op``-allreduce (``"or"``, ``"min"``, ``"max"``
+    or ``"sum"``) of ``x [rows, ...]`` with the plan's strategy. Returns
     ``(reduced [rows, ...], wire_bytes)`` -- bytes is a Python int (the
     plan formula for one partition's payload, ``auto`` resolved per op)."""
     _check_op(op)
@@ -224,9 +236,17 @@ def delegate_or_apply(plan: CommPlan, words: torch.Tensor,
                                  target), nbytes
 
 
+def delegate_allreduce_sum(vals: torch.Tensor, p, cfg=None) -> torch.Tensor:
+    """Global sum of delegate partials ``vals [rows, ...]`` over the
+    emulated axis of ``p`` partitions or a mesh (default strategy: the
+    native sum)."""
+    return delegate_combine(plan_for(cfg, p), vals, "sum")[0]
+
+
 def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):
-    """The single-source step's delegate ``"min"`` combine of the int32
-    candidate levels ``x [rows, d]`` folded into ``prev [rows, d]``:
+    """A step's delegate ``"min"`` combine of int32 candidates ``x [rows,
+    n]`` folded into ``prev [rows, n]`` (the single-source levels, ``n =
+    d``; the payload plane's values, ``n = d * W``):
     returns ``(min(prev, combined) [rows, d], improved [rows] bool,
     wire_bytes)``. Under ``allgather`` the fold and the update are one
     launch (``kernels.ops.payload_min_fold_apply``) over the gathered
@@ -246,15 +266,24 @@ def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):
     return out, (out < prev).any(1), nbytes
 
 
+def lane_fold_reduce(lane_vals: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Global per-lane int32 max of stacked ``[rows, k, W]`` rows,
+    replicated to every row: ``amax`` over the stacked rows, or one
+    ``all_reduce(MAX)`` over ``mesh``. The payload step stacks its rows
+    (pending-any, under-bucket-any and the *negated* pending minimum, so
+    one max also gives a global min) with the bit flags into this one
+    reduction."""
+    if mesh is not None:
+        return D.all_reduce(mesh, lane_vals, "max")
+    return lane_vals.amax(0, keepdim=True).expand(lane_vals.shape)
+
+
 def lane_any_reduce(lane_flags: torch.Tensor, mesh=None) -> torch.Tensor:
     """Global per-lane OR of ``[rows, ...]`` bool flags, replicated to
-    every row: the elementwise max over the stacked rows, or an int32
-    ``all_reduce(MAX)`` over ``mesh``. The convergence word of the serving
-    path: one W-bit word per partition, excluded from the wire counters as
-    constant."""
-    if mesh is not None:
-        return D.all_reduce(mesh, lane_flags.to(torch.int32), "max") > 0
-    return lane_flags.any(dim=0, keepdim=True).expand(lane_flags.shape)
+    every row: :func:`lane_fold_reduce` of the flags as int32, ``> 0``.
+    The convergence word of the serving path: one W-bit word per
+    partition, excluded from the wire counters as constant."""
+    return lane_fold_reduce(lane_flags.to(torch.int32), mesh) > 0
 
 
 def any_reduce(flag: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -71,7 +71,8 @@ def plan_from_arrays(arrays: dict, meta: dict) -> ExchangePlan:
 def state_to_numpy(state: MSBFSState) -> dict:
     """Every :class:`MSBFSState` leaf as a host numpy array (lane words
     stay int32 bit patterns; ``.view(np.uint32)`` gives the reference's
-    uint32)."""
+    uint32), the payload plane's real-width leaves of a ``cfg.payload``
+    state included."""
     return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_LEAVES}
 
 

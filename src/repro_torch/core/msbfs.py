@@ -34,6 +34,18 @@ frontier gate, per-lane target words latch ``lane_stop`` once covered,
 and ``track_levels=False`` runs reachability-only batches on bool visited
 words with explicit frontier words.
 
+``MSBFSConfig(payload=True)`` carries a second plane beside the lane
+words: an int32 value per (vertex, lane) under the ``min_plus`` combine
+(weighted SSSP distances over the synthetic edge weights of
+:mod:`~repro_torch.core.weights`, with delta-stepping buckets; connected
+component labels, by min-label propagation). A payload sweep relaxes the
+pending vertices under each lane's bucket with a dense min-plus scatter
+along every edge, folds the delegate values with a global min
+(``comm.delegate_min_apply``: one ``payload_min_fold_apply`` launch under
+``allgather``) and ships per-slot minimums to the normal vertices' owners
+(``comm.nn_exchange_payload``); its convergence rows ride the bit lanes'
+one lane reduction. Payload lanes and bit lanes mix in one batch.
+
 The host drivers (:func:`run_msbfs_emulated`, :func:`make_sharded_msbfs`)
 loop one sweep at a time and read one scalar per sweep for their loop
 condition (PyTorch has no device-side while loop; the scalar is
@@ -47,6 +59,7 @@ collective of the sweep can be captured.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from collections import deque
 from dataclasses import dataclass, fields
 from typing import Any, Sequence
@@ -55,14 +68,22 @@ import numpy as np
 import torch
 
 from . import comm
-from .bfs import (_bv_estimate, _count, _decide_direction, _dense_slots,
-                  _row_degrees, _scatter_or, resolve_device)
+from .bfs import (_DEFERRED, _bv_estimate, _count, _decide_direction,
+                  _dense_slots, _row_degrees, _scatter_or, resolve_device)
 from .comm import n_words, pack_lanes, unpack_lanes
 from .types import CSR, INF_LEVEL, PartitionedGraph, PartitionLayout
+from .weights import SSSP_DELTA, edge_weights
 from repro_torch.kernels import ops
 
 # Sentinel per-lane depth cap meaning "unlimited".
 NO_DEPTH_CAP = np.int32(INF_LEVEL)
+
+# The per-lane payload combine identity (the min / min_plus specs): +inf
+# of the min semiring, equal to INF_LEVEL, so "unreached" means the same
+# in the level and payload planes.
+PAY_IDENT = np.int32(comm.COMBINE_SPECS["min_plus"].identity)
+assert int(PAY_IDENT) == int(INF_LEVEL)
+_PAY = int(PAY_IDENT)
 
 
 # -----------------------------------------------------------------------------
@@ -85,6 +106,22 @@ class MSBFSConfig:
     # no MULTI_TARGET lane; seeding targets then raises
     enable_targets: bool = True
     comm: comm.CommConfig = comm.CommConfig()
+    # True carries the per-lane int32 payload plane (weighted SSSP and
+    # component lanes, mixed freely with bit lanes); False keeps its leaves
+    # zero-width and every bit-only counter as it was
+    payload: bool = False
+    # the reference's out-of-core sweep mode and device telemetry; only the
+    # defaults (0, False) are ported
+    edge_chunk: int = 0
+    telemetry: bool = False
+
+    def __post_init__(self):
+        if self.edge_chunk > 0:
+            raise NotImplementedError(
+                f"edge_chunk > 0 is not ported yet: {_DEFERRED}")
+        if self.telemetry:
+            raise NotImplementedError(
+                f"telemetry=True is not ported yet: {_DEFERRED}")
 
 
 @dataclass
@@ -95,8 +132,12 @@ class MSBFSState:
     Levels are stored *absolute*: a lane seeded at global iteration ``b``
     records its source at ``b`` (``base_it``) and depth-k vertices at
     ``b + k``; :func:`gather_levels_multi` subtracts ``base_it``. The
-    telemetry and payload leaves are zero-width, as the reference keeps
-    them when those modes are off.
+    telemetry leaves are zero-width, as the reference keeps them when that
+    mode is off; the payload leaves are too unless ``cfg.payload``
+    (``Wp = W`` then, ``0`` otherwise). Payload values are absolute (SSSP
+    distances from the seed's 0, component labels = global ids),
+    ``PAY_IDENT`` where unreached; ``pay_pending_*`` marks vertices whose
+    value improved and was not expanded yet.
     """
 
     level_n: Any     # [p, n_local, W] int32 (bool visited in reach-only mode)
@@ -124,15 +165,15 @@ class MSBFSState:
     tm_frontier_n: Any   # [p, 0] int32 (telemetry off)
     tm_frontier_d: Any   # [p, 0] int32
     tm_backward: Any     # [p, 0, 3, n_words(W)] int32
-    payload_n: Any       # [p, n_local, 0] int32 (payload plane off)
-    payload_d: Any       # [p, d, 0] int32
-    pay_pending_n: Any   # [p, n_local, 0] bool
-    pay_pending_d: Any   # [p, d, 0] bool
-    pay_bucket: Any      # [p, 0] int32
-    pay_delta: Any       # [p, 0] int32
-    pay_weighted: Any    # [p, 0] bool
-    wire_pay_delegate: Any   # [p, 0] int32
-    wire_pay_nn: Any         # [p, 0] int32
+    payload_n: Any       # [p, n_local, Wp] int32
+    payload_d: Any       # [p, d, Wp] int32 (replicated content)
+    pay_pending_n: Any   # [p, n_local, Wp] bool
+    pay_pending_d: Any   # [p, d, Wp] bool
+    pay_bucket: Any      # [p, Wp] int32 -- delta-stepping threshold
+    pay_delta: Any       # [p, Wp] int32 -- bucket width (PAY_IDENT: none)
+    pay_weighted: Any    # [p, Wp] bool -- pushes add the edge weight
+    wire_pay_delegate: Any   # [p, max_iters or 0] int32 -- payload bytes
+    wire_pay_nn: Any         # [p, max_iters or 0] int32
 
 
 STATE_LEAVES = tuple(f.name for f in fields(MSBFSState))
@@ -198,6 +239,44 @@ def lane_descriptors(pg: PartitionedGraph, w: int, lanes, sources, *,
             tpart, tlocal, tdpos, tisd, tvalid)
 
 
+def payload_descriptors(w: int, lanes, modes) -> tuple:
+    """Host-side payload parameters of ``lanes`` (aligned with ``modes``:
+    ``"sssp"``, ``"components"`` or None for a bit lane): ``(pay_lane,
+    pay_seed_all, pay_weighted, pay_delta)`` ``[W]`` arrays -- the payload
+    arguments of :func:`reseed_lanes`, as the reference engine builds
+    them. An SSSP lane adds the edge weights under buckets of
+    ``SSSP_DELTA``; a components lane seeds every vertex with its own id
+    under one infinite bucket (plain min-label propagation)."""
+    play, seed_all, weighted = (np.zeros(w, dtype=bool) for _ in range(3))
+    delta = np.full(w, PAY_IDENT, dtype=np.int32)
+    for q, mode in zip(lanes, modes):
+        if mode is None:
+            continue
+        if mode not in ("sssp", "components"):
+            raise ValueError(f"unknown payload mode {mode!r}")
+        play[q] = True
+        if mode == "sssp":
+            weighted[q] = True
+            delta[q] = np.int32(SSSP_DELTA)
+        else:
+            seed_all[q] = True
+    return play, seed_all, weighted, delta
+
+
+def gid_planes(pg: PartitionedGraph) -> tuple:
+    """The global-id planes components lanes are seeded from: ``gid_n [p,
+    n_local]`` int32 (``PAY_IDENT`` at slots holding no vertex) and
+    ``gid_d [max(d, 1)]`` int32 (``PAY_IDENT`` at the padding slot); the
+    identity keeps those slots out of the worklist."""
+    k = np.arange(pg.p, dtype=np.int64)[:, None]
+    gids = ((k // pg.p_gpu) + pg.p_rank * (k % pg.p_gpu)
+            + pg.p * np.arange(pg.n_local, dtype=np.int64)[None, :])
+    gid_n = np.where(np.asarray(pg.normal_valid), gids, PAY_IDENT)
+    gid_d = np.full(max(pg.d, 1), PAY_IDENT, dtype=np.int32)
+    gid_d[: pg.d] = np.asarray(pg.delegate_vids).reshape(-1)[: pg.d]
+    return gid_n.astype(np.int32), gid_d
+
+
 def _part0(mesh) -> int:
     """The first partition a process holds: its rank when sharded."""
     return 0 if mesh is None else mesh.rank
@@ -221,6 +300,8 @@ def _empty_state(pg: PartitionedGraph, cfg: MSBFSConfig,
     else:
         level_n, level_d = b(p, nl, w), b(p, d, w)      # visited words
         frontier_n, frontier_d = b(p, nl, w), b(p, d, w)
+    wp, pmi = (w, mi) if cfg.payload else (0, 0)
+    ident = lambda *s: torch.full(s, _PAY, dtype=torch.int32, device=dev)
     return MSBFSState(
         level_n=level_n, level_d=level_d, backward=b(p, 3, w), it=i32(p),
         done=b(p), lane_active=b(p, w), base_it=i32(p, w), lane_stop=b(p, w),
@@ -233,15 +314,17 @@ def _empty_state(pg: PartitionedGraph, cfg: MSBFSConfig,
         wire_nn=i32(p, mi), nn_sparse=i32(p, mi), nn_overflow=i32(p, mi),
         tm_frontier_n=i32(p, 0), tm_frontier_d=i32(p, 0),
         tm_backward=i32(p, 0, 3, n_words(w)),
-        payload_n=i32(p, nl, 0), payload_d=i32(p, d, 0),
-        pay_pending_n=b(p, nl, 0), pay_pending_d=b(p, d, 0),
-        pay_bucket=i32(p, 0), pay_delta=i32(p, 0), pay_weighted=b(p, 0),
-        wire_pay_delegate=i32(p, 0), wire_pay_nn=i32(p, 0))
+        payload_n=ident(p, nl, wp), payload_d=ident(p, d, wp),
+        pay_pending_n=b(p, nl, wp), pay_pending_d=b(p, d, wp),
+        pay_bucket=ident(p, wp), pay_delta=ident(p, wp),
+        pay_weighted=b(p, wp), wire_pay_delegate=i32(p, pmi),
+        wire_pay_nn=i32(p, pmi))
 
 
 def _upload_descriptors(desc: tuple, dev: torch.device) -> torch.Tensor:
-    """The descriptor tuple of :func:`lane_descriptors` as one int32
-    ``[W, 6 + 5T]`` tensor on ``dev``: one host-to-device copy, from
+    """The descriptor tuple of :func:`lane_descriptors` (followed by the
+    four of :func:`payload_descriptors` for a payload reseed) as one int32
+    ``[W, 6 + 5T (+ 4)]`` tensor on ``dev``: one host-to-device copy, from
     pinned memory on a card (so it never waits for the sweeps in flight)."""
     w = desc[0].shape[0]
     host = torch.from_numpy(np.concatenate(
@@ -251,8 +334,8 @@ def _upload_descriptors(desc: tuple, dev: torch.device) -> torch.Tensor:
     return host.to(dev)
 
 
-def _seed_lanes(state: MSBFSState, desc: torch.Tensor,
-                part0: int = 0) -> MSBFSState:
+def _seed_lanes(state: MSBFSState, desc: torch.Tensor, part0: int = 0,
+                gids: tuple | None = None) -> MSBFSState:
     """Retire the lanes of ``desc``'s mask and seed them in place of the
     old tenants, on the state's device (``desc``: the packed descriptors
     of :func:`_upload_descriptors`; the state's rows are partitions
@@ -266,9 +349,15 @@ def _seed_lanes(state: MSBFSState, desc: torch.Tensor,
     forward, and its depth cap, target words and stop latch are replaced.
     The seed scatters write one slot per lane, so they are plain index
     writes; the target words of a lane are distinct vertices, so their
-    scatter is an exact add of 0/1 bytes onto the cleared columns."""
+    scatter is an exact add of 0/1 bytes onto the cleared columns.
+
+    ``gids`` (the device planes of :func:`gid_planes`) marks a payload
+    reseed: ``desc`` then ends in the four payload columns. Seeded lanes'
+    payload columns are cleared to the identity; a payload lane keeps its
+    bit columns empty and is seeded by kind (0 at an SSSP source; every
+    vertex's own id for components), its bucket set to its delta."""
     w = desc.shape[0]
-    t = (desc.shape[1] - 6) // 5
+    t = (desc.shape[1] - (10 if gids is not None else 6)) // 5
     lanes = torch.arange(w, device=desc.device)
     mask, isd = desc[:, 0] > 0, desc[:, 4] > 0
     part, local, dpos = (desc[:, i].long() for i in (1, 2, 3))
@@ -278,6 +367,13 @@ def _seed_lanes(state: MSBFSState, desc: torch.Tensor,
     it = state.it[0]                      # replicated across partitions
     clear = mask[None, None, :]
     seed_n, seed_d = mask & ~isd & mine, mask & isd
+    extra = {}
+    if gids is not None:
+        play, seed_all = desc[:, -4] > 0, desc[:, -3] > 0
+        # payload lanes keep their bit columns empty
+        seed_n, seed_d = seed_n & ~play, seed_d & ~play
+        extra = _seed_payload(state, desc, gids, part0, mask, isd, part,
+                              local, dpos, play, seed_all)
     idx_n = (torch.where(seed_n, part, 0), torch.where(seed_n, local, 0), lanes)
     idx_d = torch.where(seed_d, dpos, 0)
     if state.level_n.dtype == torch.bool:
@@ -331,12 +427,67 @@ def _seed_lanes(state: MSBFSState, desc: torch.Tensor,
         has_targets=torch.where(m, tv.any(1)[None, :], state.has_targets),
         target_n=target_n, target_d=target_d,
         done=state.done & ~mask.any(),
+        **extra,
     )
+
+
+def _seed_payload(state: MSBFSState, desc, gids, part0: int, mask, isd,
+                  part, local, dpos, play, seed_all) -> dict:
+    """The payload leaves of :func:`_seed_lanes`' reseed (``part`` is
+    already relative to this process's first row)."""
+    w = mask.shape[0]
+    rows = state.payload_n.shape[0]
+    if state.payload_n.shape[-1] != w:
+        raise ValueError("payload lanes need a cfg.payload state")
+    lanes = torch.arange(w, device=mask.device)
+    gid_n = gids[0][part0:part0 + rows]                     # [rows, nl]
+    gid_d = gids[1]                                         # [d]
+    clear = mask[None, None, :]
+    pay_n = torch.where(clear, _PAY, state.payload_n)
+    pay_d = torch.where(clear, _PAY, state.payload_d)
+    pend_n = state.pay_pending_n & ~clear
+    pend_d = state.pay_pending_d & ~clear
+    # seed-all lanes (components): every vertex's own id; the identity at
+    # slots holding no vertex keeps them out of the worklist
+    sa = (mask & play & seed_all)[None, None, :]
+    pay_n = torch.where(sa, gid_n[..., None], pay_n)
+    pend_n = pend_n | (sa & (gid_n[..., None] < _PAY))
+    pay_d = torch.where(sa, gid_d[None, :, None], pay_d)
+    pend_d = pend_d | (sa & (gid_d[None, :, None] < _PAY))
+    # single-source lanes (sssp): 0 at the source, one slot per lane
+    ss = mask & play & ~seed_all
+    ss_n = ss & ~isd & (part >= 0) & (part < rows)
+    ss_d = ss & isd
+    seed = lambda on: torch.where(on, 0, _PAY).to(torch.int32)
+    idx_n = (torch.where(ss_n, part, 0), torch.where(ss_n, local, 0), lanes)
+    pay_n[idx_n] = torch.minimum(pay_n[idx_n], seed(ss_n))
+    pend_n[idx_n] |= ss_n
+    idx_d = torch.where(ss_d, dpos, 0)
+    pay_d[:, idx_d, lanes] = torch.minimum(pay_d[:, idx_d, lanes],
+                                           seed(ss_d)[None, :])
+    pend_d[:, idx_d, lanes] |= ss_d[None, :]
+    m = mask[None, :]
+    delta = desc[:, -1][None, :]
+    return dict(payload_n=pay_n, payload_d=pay_d, pay_pending_n=pend_n,
+                pay_pending_d=pend_d,
+                pay_bucket=torch.where(m, delta, state.pay_bucket),
+                pay_delta=torch.where(m, delta, state.pay_delta),
+                pay_weighted=torch.where(m, (desc[:, -2] > 0)[None, :],
+                                         state.pay_weighted))
+
+
+def _device_gids(gids, dev: torch.device) -> tuple:
+    """``(gid_n, gid_d)`` as int32 tensors on ``dev`` (no copy when they
+    are there already)."""
+    return tuple(torch.as_tensor(np.asarray(g) if not isinstance(
+        g, torch.Tensor) else g, dtype=torch.int32, device=dev)
+        for g in gids)
 
 
 def init_multi_state(
     pg: PartitionedGraph, sources: Sequence[int], cfg: MSBFSConfig,
     *, depth_caps: Sequence | None = None, targets: Sequence | None = None,
+    payload_modes: Sequence | None = None, gids: tuple | None = None,
     device="cuda", mesh=None,
 ) -> MSBFSState:
     """Seed one lane per source, on ``device``: the planes are filled
@@ -346,7 +497,10 @@ def init_multi_state(
     ``n_queries`` sources leaves the tail lanes unseeded. ``depth_caps``
     gives lane ``q`` a max hop depth (``None`` = unlimited); ``targets``
     gives lane ``q`` target vertex ids (the lane retires the sweep all of
-    them are visited)."""
+    them are visited). ``payload_modes`` (needs ``cfg.payload``) makes
+    lane ``q`` an ``"sssp"`` or ``"components"`` payload lane (``None``:
+    a bit lane); ``gids`` are :func:`gid_planes` already on ``device``
+    (made and uploaded here where None)."""
     dev = resolve_device(device)
     w = cfg.n_queries
     sources = validate_sources(pg, sources)
@@ -355,11 +509,20 @@ def init_multi_state(
     if (targets is not None and not cfg.enable_targets
             and any(tg is not None and len(tg) for tg in targets)):
         raise ValueError("targets given but cfg.enable_targets is False")
+    modes = list(payload_modes) if payload_modes is not None else []
+    modes += [None] * (sources.size - len(modes))
+    if any(m is not None for m in modes) and not cfg.payload:
+        raise ValueError("payload_modes given but cfg.payload is False")
     desc = lane_descriptors(pg, w, range(sources.size), sources,
                             depth_caps=depth_caps, targets=targets)
+    if cfg.payload:
+        desc += payload_descriptors(w, range(sources.size), modes)
+        gids = _device_gids(gids if gids is not None else gid_planes(pg),
+                            dev)
     rows = None if mesh is None else 1
     return _seed_lanes(_empty_state(pg, cfg, dev, rows),
-                       _upload_descriptors(desc, dev), _part0(mesh))
+                       _upload_descriptors(desc, dev), _part0(mesh),
+                       gids if cfg.payload else None)
 
 
 def reseed_lanes(
@@ -370,22 +533,25 @@ def reseed_lanes(
     gid_d=None, *, mesh=None,
 ) -> MSBFSState:
     """Retire converged lanes and reseed them with fresh queries in place
-    (the reference's ``reseed_lanes``, same arguments and semantics, on the
-    bit planes: levels and reach-only, with depth caps and targets).
+    (the reference's ``reseed_lanes``, same arguments and semantics: bit
+    lanes on levels and reach-only planes, with depth caps and targets,
+    and payload lanes).
 
     The arguments are host arrays (``[W]``, and ``[W, T]`` for the
-    targets), as :func:`lane_descriptors` builds them; omitted typed-query
-    arrays reset reseeded lanes to plain full-levels semantics. They go up
-    to the state's device as one small tensor and the reseed runs there
-    (:func:`_seed_lanes`); untouched lanes are bit-identical. The result
+    targets), as :func:`lane_descriptors` and :func:`payload_descriptors`
+    build them; omitted typed-query arrays reset reseeded lanes to plain
+    full-levels semantics. They go up to the state's device as one small
+    tensor and the reseed runs there (:func:`_seed_lanes`); untouched lanes
+    are bit-identical. The payload arguments are all-or-none and need a
+    ``cfg.payload`` state; ``gid_n [p, n_local]`` / ``gid_d [d]`` are
+    :func:`gid_planes` (tensors already on the state's device are used as
+    they are). Without them the payload leaves are left alone. The result
     is a new state: unchanged leaves are shared with ``state``, the others
     are new tensors. ``mesh``: the state is this rank's partition of a
-    sharded run. The payload lane arguments raise."""
-    if any(a is not None for a in (pay_lane, pay_seed_all, pay_weighted,
-                                   pay_delta, gid_n, gid_d)):
-        raise NotImplementedError(
-            "payload lanes are not ported yet: ROADMAP.md queue A, item A9 "
-            "(payload plane and the payload kinds)")
+    sharded run."""
+    pay = (pay_lane, pay_seed_all, pay_weighted, pay_delta, gid_n, gid_d)
+    if any(a is not None for a in pay) and any(a is None for a in pay):
+        raise ValueError("the payload reseed arguments are all-or-none")
     mask = np.asarray(lane_mask, dtype=bool)
     w = mask.shape[0]
     cap = (np.full(w, NO_DEPTH_CAP, dtype=np.int32) if depth_cap is None
@@ -394,8 +560,13 @@ def reseed_lanes(
     if tgt_valid is None:
         tgt = tuple(np.zeros((w, 0), dtype=np.int32) for _ in range(5))
     desc = (mask, src_part, src_local, src_dpos, src_is_delegate, cap) + tgt
-    return _seed_lanes(state, _upload_descriptors(desc, state.it.device),
-                       _part0(mesh))
+    dev = state.it.device
+    gids = None
+    if pay_lane is not None:
+        desc += (pay_lane, pay_seed_all, pay_weighted, pay_delta)
+        gids = _device_gids((gid_n, gid_d), dev)
+    return _seed_lanes(state, _upload_descriptors(desc, dev), _part0(mesh),
+                       gids)
 
 
 # -----------------------------------------------------------------------------
@@ -446,6 +617,200 @@ def _pull_sweep_multi(pulls, chunk: int):
 def _lane_degree_sum(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     """Per-lane frontier out-degree sum (FV estimate) -> ``[p, W]`` int32."""
     return (mask.to(torch.int32) * deg[..., None]).sum(1, dtype=torch.int32)
+
+
+# -----------------------------------------------------------------------------
+# Payload-plane primitives (min_plus combine, stacked over the partitions)
+
+
+@dataclass
+class PayloadView:
+    """What a payload sweep reads of a device view besides the view
+    itself, built once per view and plan (:func:`payload_view`): each
+    subgraph's per-edge weights (the reference hashes the endpoints'
+    global ids inside every sweep; the weights depend only on the graph,
+    so they are hashed once here, to the same values) and the nn edges'
+    gather index in the plan's order."""
+
+    w_dd: torch.Tensor    # [rows, E_dd] int32 per-edge weights
+    w_nd: torch.Tensor    # [rows, E_nd]
+    w_dn: torch.Tensor    # [rows, E_dn]
+    w_nn: torch.Tensor    # [rows, E_nn], in the plan's permuted edge order
+    nn_rows: torch.Tensor  # [rows * E_nn] int64: permuted nn gather index
+
+
+def _edge_weights_of(csr: CSR, gid_rows: torch.Tensor,
+                     gid_cols: torch.Tensor) -> torch.Tensor:
+    """``[rows, E]`` weights of a stacked CSR's edge slots from the row and
+    column domains' global ids (``[rows, R]``, ``[rows, C]``; padding edges
+    hash row id 0, as the reference's extended id vector gives them; their
+    value never lands)."""
+    g_ext = torch.cat([gid_rows, gid_rows.new_zeros((gid_rows.shape[0], 1))],
+                      1)
+    return edge_weights(g_ext.gather(1, csr.rowids.long()),
+                        gid_cols.gather(1, csr.cols.long().clamp(
+                            0, gid_cols.shape[1] - 1)))
+
+
+def payload_view(pgv: PartitionedGraph, plan, mesh=None) -> PayloadView:
+    """The :class:`PayloadView` of a device view and plan (of this rank's
+    partition on ``mesh``), cached on the view: payload sessions build it
+    on their first sweep, bit-only ones never."""
+    cache = pgv.__dict__.setdefault("_payload_views", [])
+    part0 = _part0(mesh)
+    for pl, k, view in cache:
+        if pl is plan and k == part0:
+            return view
+    rows, nl = pgv.normal_valid.shape
+    dev = pgv.normal_valid.device
+    k = torch.arange(part0, part0 + rows, device=dev)[:, None]
+    gid_n = ((k // pgv.p_gpu) + pgv.p_rank * (k % pgv.p_gpu)
+             + pgv.p * torch.arange(nl, device=dev)[None, :]).to(torch.int32)
+    d = max(pgv.d, 1)
+    dv = pgv.delegate_vids[0]
+    gid_d = torch.zeros(d, dtype=torch.int32, device=dev)
+    kd = min(dv.shape[0], d)
+    gid_d[:kd] = dv[:kd]
+    gid_d = gid_d[None].expand(rows, d)
+    own = pgv.nn_owner.long()
+    nn_dst = ((own // pgv.p_gpu) + pgv.p_rank * (own % pgv.p_gpu)
+              + pgv.p * pgv.nn.cols.long()).to(torch.int32)
+    perm = plan.perm.long()
+    g_ext = torch.cat([gid_n, gid_n.new_zeros((rows, 1))], 1)
+    view = PayloadView(
+        w_dd=_edge_weights_of(pgv.dd, gid_d, gid_d),
+        w_nd=_edge_weights_of(pgv.nd, gid_n, gid_d),
+        w_dn=_edge_weights_of(pgv.dn, gid_d, gid_n),
+        w_nn=edge_weights(g_ext.gather(1, pgv.nn.rowids.long().gather(1, perm)),
+                          nn_dst.gather(1, perm)),
+        nn_rows=pgv.nn.flat_rows.view(rows, -1).gather(1, perm).reshape(-1))
+    cache.append((plan, part0, view))
+    return view
+
+
+def _relax(vals: torch.Tensor, index: torch.Tensor, wts: torch.Tensor,
+           wsel: torch.Tensor) -> torch.Tensor:
+    """The min-plus candidates of one edge set, ``[p * E, W]`` int32: each
+    edge's source row of ``vals [p, R, W]`` (the identity where a (row,
+    lane) pair does not relax; ``index`` points into it extended by one
+    identity row per partition) plus the edge's weight ``wts [p, E]`` in
+    the lanes of ``wsel [p, W]``. Identity + weight >= identity, so padding
+    edges and gated lanes are no-ops of the min that follows."""
+    p, _, w = vals.shape
+    ext = torch.cat([vals, vals.new_full((p, 1, w), _PAY)], 1).reshape(-1, w)
+    cand = ext[index].view(p, -1, w)
+    cand.addcmul_(wts[:, :, None], wsel[:, None, :].to(torch.int32))
+    return cand.view(-1, w)
+
+
+def _scatter_min(n_out: int, index: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """Scatter-min of ``vals [E, W]`` int32 onto ``[n_out, W]`` rows that
+    start at the identity (min is order-free: the result is exact)."""
+    w = vals.shape[-1]
+    out = torch.full((n_out, w), _PAY, dtype=torch.int32, device=vals.device)
+    out.scatter_reduce_(0, index[:, None].expand(-1, w), vals, "amin")
+    return out
+
+
+def _push_payload(csr: CSR, front: torch.Tensor, pay_rows: torch.Tensor,
+                  wts: torch.Tensor, wsel: torch.Tensor,
+                  n_dst: int) -> torch.Tensor:
+    """Min-plus push: scatter-min of ``payload[src] + weight`` along every
+    edge onto the destination domain -> ``[p, n_dst, W]`` int32. ``front
+    [p, R, W]`` gates which (row, lane) pairs relax; ``wsel [p, W]`` picks
+    the lanes that add the weight (SSSP) or 0 (component labels). Padding
+    edges land on column 0 of their partition with the identity."""
+    p, _, w = front.shape
+    cand = _relax(torch.where(front, pay_rows, _PAY), csr.flat_rows, wts,
+                  wsel)
+    return _scatter_min(p * n_dst, csr.flat_cols, cand).view(p, n_dst, w)
+
+
+def _nn_slots_payload(pv: PayloadView, front_n: torch.Tensor,
+                      pay_n: torch.Tensor, wsel: torch.Tensor,
+                      plan) -> torch.Tensor:
+    """Sender-side per-slot payload minimums of the nn edges, each edge's
+    own weight added before the fold (weights differ per source at a
+    shared destination): ``[p, cap_total, W]`` int32. Padding edges land
+    in the trash segment the slice drops."""
+    p, _, w = front_n.shape
+    cand = _relax(torch.where(front_n, pay_n, _PAY), pv.nn_rows, pv.w_nn,
+                  wsel)
+    sa = _scatter_min(p * (plan.cap_total + 1), plan.flat_seg, cand)
+    return sa.view(p, plan.cap_total + 1, w)[:, : plan.cap_total]
+
+
+def _dense_slots_payload(plan, sa: torch.Tensor, p: int) -> torch.Tensor:
+    """Each sender's slot minimums ``sa [rows, cap_total, W]`` binned by
+    owner peer: ``[rows, p, cap_peer, W]`` int32, the identity where no
+    slot is (the min sibling of ``bfs._dense_slots``)."""
+    rows, _, w = sa.shape
+    owner = plan.seg_owner.long()
+    idx = (torch.arange(rows, device=sa.device)[:, None] * p
+           + owner.clamp(max=p - 1)) * plan.cap_peer + plan.seg_pos.long()
+    vals = torch.where((owner < p)[..., None], sa, _PAY)
+    return _scatter_min(rows * p * plan.cap_peer, idx.reshape(-1),
+                        vals.reshape(-1, w)).view(rows, p, plan.cap_peer, w)
+
+
+def _payload_sweep(pgv, plan, state: MSBFSState, cplan, mesh) -> dict:
+    """The payload plane's part of one sweep: relax every pending vertex
+    under its lane's bucket along all four subgraphs, combine the
+    delegates' candidates with a global min (one ``payload_min_fold_apply``
+    launch under ``allgather``) and exchange the nn slots' minimums.
+    Returns the new payload leaves, the three convergence rows ``[rows,
+    3, W]`` for the lane reduction, and the wire counters."""
+    pv = payload_view(pgv, plan, mesh)
+    p, nl = pgv.p, pgv.n_local
+    rows, d, w = state.payload_d.shape
+    wsel = state.pay_weighted
+    bucket = state.pay_bucket[:, None, :]
+    nv = pgv.normal_valid[:, :, None]
+    # frontier: worklist vertices under the lane's current bucket
+    front_n = state.pay_pending_n & nv & (state.payload_n < bucket)
+    front_d = state.pay_pending_d & (state.payload_d < bucket)
+    push_dd = _push_payload(pgv.dd, front_d, state.payload_d, pv.w_dd, wsel, d)
+    push_nd = _push_payload(pgv.nd, front_n, state.payload_n, pv.w_nd, wsel, d)
+    push_dn = _push_payload(pgv.dn, front_d, state.payload_d, pv.w_dn, wsel,
+                            nl)
+    sa = _nn_slots_payload(pv, front_n, state.payload_n, wsel, plan)
+    recv, nn_bytes, _, nn_ovf = comm.nn_exchange_payload(
+        cplan, _dense_slots_payload(plan, sa, p), plan.recv_local, nl)
+    new_d, _, d_bytes = comm.delegate_min_apply(
+        cplan, torch.minimum(push_dd, push_nd).reshape(rows, d * w),
+        state.payload_d.reshape(rows, d * w))
+    new_d = new_d.view(rows, d, w)
+    new_n = torch.where(nv, torch.minimum(state.payload_n,
+                                          torch.minimum(push_dn, recv)), _PAY)
+    # expanded vertices leave the worklist; improved ones (re)enter it
+    pend_n = (state.pay_pending_n & ~front_n) | (new_n < state.payload_n)
+    pend_d = (state.pay_pending_d & ~front_d) | (new_d < state.payload_d)
+    # local convergence rows: pending-any, under-bucket-any and the
+    # negated pending minimum (the lane max reduction then gives its min)
+    under = ((pend_n & (new_n < bucket)).any(1)
+             | (pend_d & (new_d < bucket)).any(1))
+    minpend = torch.minimum(torch.where(pend_n, new_n, _PAY).amin(1),
+                            torch.where(pend_d, new_d, _PAY).amin(1))
+    conv = torch.stack([(pend_n.any(1) | pend_d.any(1)).to(torch.int32),
+                        under.to(torch.int32), -minpend], 1)
+    return dict(payload_n=new_n, payload_d=new_d, pay_pending_n=pend_n,
+                pay_pending_d=pend_d, conv=conv, d_bytes=d_bytes,
+                nn_bytes=nn_bytes, nn_ovf=nn_ovf)
+
+
+def _bucket_advance(state: MSBFSState, red: torch.Tensor):
+    """The delta-stepping bucket advance from the reduced convergence rows
+    ``red [rows, 3, W]``: a lane with pending work anywhere but none under
+    its bucket jumps to the bucket boundary past the global pending
+    minimum. Components lanes (delta = bucket = +inf) never advance.
+    Returns ``(pending-anywhere [rows, W] bool, new bucket)``."""
+    g_pend, g_under, g_min = red[:, 0] > 0, red[:, 1] > 0, -red[:, 2]
+    step = state.pay_delta.clamp(min=1).long()
+    nb = (g_min.clamp(0, _PAY).long() // step + 1) * step
+    bucket = torch.where(g_pend & ~g_under, nb.clamp(max=_PAY).to(torch.int32),
+                         state.pay_bucket)
+    return g_pend, bucket
 
 
 # -----------------------------------------------------------------------------
@@ -552,6 +917,10 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         state.target_d if cfg.enable_targets else None)
     new_d_any = dl.any_new
 
+    # ---- payload plane sweep (cfg.payload only) ---------------------------
+    pay = _payload_sweep(pgv, plan, state, cplan, mesh) if cfg.payload \
+        else None
+
     # ---- level / visited updates ------------------------------------------
     newly_n = (cand_dn | recv) & unvis_n
     if cfg.track_levels:
@@ -563,22 +932,33 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         new_frontier_n, new_frontier_d = newly_n, dl.frontier
 
     # per-lane convergence: lane q stays live iff it marked a new vertex on
-    # some partition this sweep; the target word rides the same reduction
-    # (flag 1: "lane q still has an unvisited target somewhere")
+    # some partition this sweep; the target word (flag 1: "lane q still has
+    # an unvisited target somewhere") and the payload plane's convergence
+    # rows ride the same one reduction
+    flags = [newly_n.any(1)]
     if cfg.enable_targets:
-        unhit_n = (state.target_n & unvis_n & ~newly_n).any(1)
-        red = comm.lane_any_reduce(torch.stack([newly_n.any(1), unhit_n], 1),
-                                   mesh)
-        unhit = red[:, 1] | dl.lane_unhit
-        upd_global = red[:, 0]
-        stop_targets = state.has_targets & ~unhit
+        flags.append((state.target_n & unvis_n & ~newly_n).any(1))
+    flags = torch.stack(flags, 1)                            # [rows, f, W]
+    if cfg.payload:
+        red = comm.lane_fold_reduce(
+            torch.cat([flags.to(torch.int32), pay["conv"]], 1), mesh)
+        pay_red, red = red[:, -3:], red[:, :-3] > 0
     else:
-        upd_global = comm.lane_any_reduce(newly_n.any(1), mesh)
+        red = comm.lane_any_reduce(flags, mesh)
+    upd_global = red[:, 0]
+    if cfg.enable_targets:
+        stop_targets = state.has_targets & ~(red[:, 1] | dl.lane_unhit)
+    else:
         stop_targets = torch.zeros_like(state.lane_stop)
     # latch the stop: every target covered, or the next sweep would exceed
     # the lane's depth cap
     new_stop = state.lane_stop | stop_targets | (depth + 1 >= state.depth_cap)
     lane_upd = (upd_global | dl.lane_new) & ~new_stop
+    if cfg.payload:
+        # payload lanes stay live while pending work remains anywhere
+        # (their bit planes are empty, so the bit flags never fire for them)
+        g_pend, new_bucket = _bucket_advance(state, pay_red)
+        lane_upd = lane_upd | g_pend
     updated = lane_upd.any(1)
 
     # ---- statistics (int32, the reference's wraparound included) ----------
@@ -603,6 +983,20 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         out[at] += val
         return out
 
+    if cfg.payload:
+        # the overflow guard covers both planes
+        nn_ovf = nn_ovf + pay["nn_ovf"]
+        pay_leaves = dict(
+            payload_n=pay["payload_n"], payload_d=pay["payload_d"],
+            pay_pending_n=pay["pay_pending_n"],
+            pay_pending_d=pay["pay_pending_d"], pay_bucket=new_bucket,
+            pay_delta=state.pay_delta, pay_weighted=state.pay_weighted,
+            wire_pay_delegate=add(state.wire_pay_delegate, pay["d_bytes"]),
+            wire_pay_nn=add(state.wire_pay_nn, pay["nn_bytes"]))
+    else:
+        pay_leaves = {k: getattr(state, k) for k in STATE_LEAVES
+                      if k.startswith(("pay", "wire_pay"))}
+
     return MSBFSState(
         level_n=new_level_n,
         level_d=dl.level,
@@ -626,8 +1020,9 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         wire_nn=add(state.wire_nn, nn_bytes),
         nn_sparse=add(state.nn_sparse, nn_sparse),
         nn_overflow=add(state.nn_overflow, nn_ovf),
-        **{k: getattr(state, k) for k in STATE_LEAVES
-           if k.startswith(("tm_", "pay", "wire_pay"))},
+        tm_frontier_n=state.tm_frontier_n, tm_frontier_d=state.tm_frontier_d,
+        tm_backward=state.tm_backward,
+        **pay_leaves,
     )
 
 
@@ -839,11 +1234,22 @@ class _Runner:
         cur.wait_stream(side)
         before = dict(ops.LAUNCHES)
         self.graphs = []
-        for a in range(n):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool):
-                step(a)
-            self.graphs.append(g)
+        # a CUDA graph destroyed while another is being captured invalidates
+        # that capture, and the graphs of a dropped engine die with its
+        # reference cycles (runner <-> blocks) whenever the collector runs:
+        # collect them now, and keep the collector off during the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for a in range(n):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=pool):
+                    step(a)
+                self.graphs.append(g)
+        finally:
+            if collecting:
+                gc.enable()
         self.per_replay = {k: (ops.LAUNCHES[k] - before[k]) // n
                            for k in before}
         ops.LAUNCHES.update(before)     # captured, not launched
@@ -1028,20 +1434,26 @@ class LaneGather:
     cannot overwrite what the copy reads. :meth:`rows` waits for the copy:
     hop distances ``[k, n]`` int32 (INF_LEVEL where unreached) from a
     levels state, reachability masks ``[k, n]`` bool from a reach-only
-    one. A sharded state (``mesh``) first all-gathers the partitions'
-    selected lane columns (unpack traffic, not counted as wire): every
-    rank calls it alike and gets every row."""
+    one. ``payload=True`` reads the payload plane instead: absolute int32
+    values (SSSP distances, component labels; ``PAY_IDENT`` where
+    unreached), nothing subtracted. A sharded state (``mesh``) first
+    all-gathers the partitions' selected lane columns (unpack traffic, not
+    counted as wire): every rank calls it alike and gets every row."""
 
     def __init__(self, pg: PartitionedGraph, state: MSBFSState, lanes=None,
-                 mesh=None):
-        level_n, level_d, bi = state.level_n, state.level_d[0], state.base_it[0]
+                 mesh=None, payload: bool = False):
+        level_n, level_d, bi = ((state.payload_n, state.payload_d[0], None)
+                                if payload else
+                                (state.level_n, state.level_d[0],
+                                 state.base_it[0]))
         dev = level_n.device
         cuda = dev.type == "cuda"
         if lanes is not None:
             sel = torch.as_tensor(np.asarray(lanes), dtype=torch.long)
             sel = sel.pin_memory().to(dev, non_blocking=True) if cuda \
                 else sel.to(dev)
-            level_n, level_d, bi = level_n[..., sel], level_d[..., sel], bi[sel]
+            level_n, level_d = level_n[..., sel], level_d[..., sel]
+            bi = None if bi is None else bi[sel]
         if mesh is not None:
             level_n = comm.dist.all_gather(mesh, level_n[0])
         p, nl, k = level_n.shape
@@ -1057,7 +1469,7 @@ class LaneGather:
                 else dv.to(dev)
             rows[dv] = level_d[: pg.d]
         rows = rows.t()
-        if rows.dtype != torch.bool:
+        if bi is not None and rows.dtype != torch.bool:
             inf = int(INF_LEVEL)
             rows = torch.where(rows == inf, inf, rows - bi[:, None])
         rows = rows.contiguous()
@@ -1089,3 +1501,10 @@ def gather_reachable_multi(pg: PartitionedGraph, state: MSBFSState,
     """Per-query reachability masks ``[W, n]`` bool from the reachability-
     only variant's visited words."""
     return LaneGather(pg, state, lanes, mesh).rows()
+
+
+def gather_payload_multi(pg: PartitionedGraph, state: MSBFSState,
+                         lanes=None, mesh=None) -> np.ndarray:
+    """Per-lane global payload columns ``[k, n]`` int32 (absolute values,
+    ``PAY_IDENT`` where unreached; no ``base_it`` subtraction)."""
+    return LaneGather(pg, state, lanes, mesh, payload=True).rows()

@@ -34,7 +34,12 @@ Two scheduling modes, picked at construction:
 
 A batch or session that is homogeneously ``REACHABILITY`` runs the
 levels-free variant (``track_levels=False``); one without a
-``MULTI_TARGET`` lane drops the target scan (``enable_targets=False``).
+``MULTI_TARGET`` lane drops the target scan (``enable_targets=False``);
+one with a ``WEIGHTED_SSSP`` or ``COMPONENTS`` lane carries the payload
+plane (``payload=True``, with ``PAYLOAD_ITERS_FACTOR`` times the sweep
+budget). A ``COMPONENTS`` answer is the whole graph's label map: once one
+is served, later ``COMPONENTS`` and ``REACHABILITY`` queries are answered
+from it without a traversal (``reuse_components``).
 """
 from __future__ import annotations
 
@@ -53,8 +58,13 @@ from repro_torch.core.types import COOGraph, PartitionLayout, PartitionedGraph
 
 from .batcher import LaneScheduler
 from .cache import LRUCache
-from .queries import (DEFERRED_KINDS, MAX_TARGETS, Query, QueryKind, as_query,
+from .queries import (MAX_TARGETS, PAYLOAD_KINDS, Query, QueryKind, as_query,
                       dedupe, unpack_result)
+
+# max_iters stretch factor for payload sessions: weighted distances run up
+# to SSSP_WMAX x the hop depth, and delta-stepping revisits a vertex once
+# per improving bucket, so the sweep budget scales past the bit diameter
+PAYLOAD_ITERS_FACTOR = 6
 
 
 def default_graph_id(pg: PartitionedGraph) -> str:
@@ -91,8 +101,8 @@ class ServeStats:
       the stream API): ``sweeps / sweep_blocks`` is the fusion factor.
     * ``dedup_hits`` counts exact duplicates dropped by the refill and
       stream entry points.
-
-    The payload counters stay 0 until the payload plane is ported."""
+    * ``wire_pay_delegate_bytes`` / ``wire_pay_nn_bytes`` are the payload
+      plane's combine and exchange bytes: 0 outside payload sessions."""
 
     queries: int = 0
     batches: int = 0
@@ -306,6 +316,10 @@ class BFSServeEngine:
         self.reuse_components = bool(reuse_components)
         self._comp_id = np.full(pg.n, -1, dtype=np.int32)
         self._comp_masks: dict[int, np.ndarray] = {}
+        # the whole graph's component label map ([n] int32, min vertex id),
+        # once a COMPONENTS traversal finished
+        self._comp_labels: np.ndarray | None = None
+        self._gids = None        # payload seed id planes, on the device
         #: the mesh the sweeps run over (None: emulated)
         self.mesh = None
         self.sharded = False
@@ -348,14 +362,24 @@ class BFSServeEngine:
         return (self.specialize_reachability
                 and all(q.kind is QueryKind.REACHABILITY for q in queries))
 
+    def _payload_cfg(self, cfg: M.MSBFSConfig) -> M.MSBFSConfig:
+        """The ``payload=True`` sibling of ``cfg``, with the sweep budget
+        stretched (weighted distances and bucket revisits outrun the bit
+        diameter bound)."""
+        return _dc_replace(cfg, payload=True,
+                           max_iters=cfg.max_iters * PAYLOAD_ITERS_FACTOR)
+
     def _session_cfg(self, queries) -> M.MSBFSConfig:
         """The msBFS variant this batch or session runs."""
         if self._reach_fast(queries):
             return _dc_replace(self.cfg, track_levels=False,
                                enable_targets=False)
-        if any(q.kind is QueryKind.MULTI_TARGET for q in queries):
-            return self.cfg
-        return _dc_replace(self.cfg, enable_targets=False)
+        cfg = self.cfg
+        if not any(q.kind is QueryKind.MULTI_TARGET for q in queries):
+            cfg = _dc_replace(cfg, enable_targets=False)
+        if any(q.kind in PAYLOAD_KINDS for q in queries):
+            cfg = self._payload_cfg(cfg)
+        return cfg
 
     def _run(self, cfg: M.MSBFSConfig, st):
         """A traversal to convergence (the sharded runner on a mesh)."""
@@ -372,8 +396,26 @@ class BFSServeEngine:
         return M.msbfs_step_emulated(self.pgv, self.plan, st, cfg)
 
     def _init(self, sources, cfg: M.MSBFSConfig, **kw):
+        if cfg.payload:
+            kw["gids"] = self._pay_gids()
         return M.init_multi_state(self.pg, sources, cfg, device=self.device,
                                   mesh=self.mesh, **kw)
+
+    def _pay_gids(self) -> tuple:
+        """The payload seed id planes (:func:`msbfs.gid_planes`), uploaded
+        to the device once per engine."""
+        if self._gids is None:
+            self._gids = tuple(torch.from_numpy(a).to(self.device)
+                               for a in M.gid_planes(self.pg))
+        return self._gids
+
+    def _gather(self, cfg: M.MSBFSConfig, state, lanes,
+                items) -> "_KindGather":
+        """The result rows of ``lanes`` (serving ``items``), on their way
+        to the host."""
+        return _KindGather(self.pg, state, lanes, [
+            cfg.payload and as_query(it).kind in PAYLOAD_KINDS
+            for it in items], self.mesh)
 
     def _block(self, cfg: M.MSBFSConfig, stream: bool) -> M.SweepBlock:
         """The fused ``sweep_block``-sweep block of ``cfg`` (one per
@@ -395,29 +437,45 @@ class BFSServeEngine:
         return blk
 
     def _validate_queries(self, queries) -> None:
-        """Reject deferred kinds and range-check every source and target
-        before any lane is seeded."""
-        for q in queries:
-            if q.kind in DEFERRED_KINDS:
-                raise NotImplementedError(
-                    f"{q.kind.value} queries are not ported yet: ROADMAP.md "
-                    "queue A, item A9 (payload plane and KHOP_SAMPLE)")
+        """Range-check every source and target before any lane is
+        seeded."""
         ids = [q.source for q in queries]
         for q in queries:
             ids.extend(q.targets or ())
         M.validate_sources(self.pg, ids)
 
-    # -- per-component reuse (reachability masks) ---------------------------
+    # -- per-component reuse (reachability masks + COMPONENTS labels) -------
     def _component_of(self, q: Query):
-        """The memoized reachable mask covering ``q``'s source, or None."""
-        if not self.reuse_components or q.kind is not QueryKind.REACHABILITY:
+        """The memoized component answer covering ``q``, or None:
+        REACHABILITY, the source's reachable mask (registered, or made and
+        registered from the label map); COMPONENTS, the label map itself
+        once any traversal computed it."""
+        if not self.reuse_components:
+            return None
+        if q.kind is QueryKind.COMPONENTS:
+            return self._comp_labels
+        if q.kind is not QueryKind.REACHABILITY:
             return None
         cid = self._comp_id[q.source]
-        return self._comp_masks[cid] if cid >= 0 else None
+        if cid >= 0:
+            return self._comp_masks[cid]
+        if self._comp_labels is not None:
+            mask = self._comp_labels == self._comp_labels[q.source]
+            cid = len(self._comp_masks)
+            self._comp_masks[cid] = mask
+            self._comp_id[mask] = cid
+            return mask
+        return None
 
     def _register_component(self, q: Query, result) -> None:
-        """Record a served reachability mask as its source's component."""
-        if (self.reuse_components and q.kind is QueryKind.REACHABILITY
+        """Record a served reachability mask as its source's component, or
+        a served COMPONENTS label map as the whole graph's."""
+        if not self.reuse_components:
+            return
+        if q.kind is QueryKind.COMPONENTS:
+            if self._comp_labels is None:
+                self._comp_labels = np.array(result)
+        elif (q.kind is QueryKind.REACHABILITY
                 and self._comp_id[q.source] < 0):
             cid = len(self._comp_masks)
             self._comp_masks[cid] = np.array(result)
@@ -444,10 +502,11 @@ class BFSServeEngine:
         cfg = self._session_cfg(queries)
         st = self._init([q.source for q in queries], cfg,
                         depth_caps=[q.depth_cap for q in queries],
-                        targets=[q.targets for q in queries])
+                        targets=[q.targets for q in queries],
+                        payload_modes=[q.payload_mode for q in queries])
         out = self._run(cfg, st)
-        rows = M.LaneGather(self.pg, out, np.arange(len(queries)),
-                            self.mesh).rows()
+        rows = self._gather(cfg, out, np.arange(len(queries)),
+                            queries).rows()
         self.traversal_sweeps += int(out.it[0])
         if reach_fast:
             self.stats.reach_fast_batches += 1
@@ -463,17 +522,24 @@ class BFSServeEngine:
                 for i, q in enumerate(queries)}
 
     # -- refill path --------------------------------------------------------
-    def _seed_descriptors(self, assignments) -> tuple:
+    def _seed_descriptors(self, assignments, payload: bool = False) -> tuple:
         """Host-side lane seed coordinates + typed-query parameters for
-        ``msbfs.reseed_lanes`` (targets padded to ``MAX_TARGETS``)."""
+        ``msbfs.reseed_lanes`` (targets padded to ``MAX_TARGETS``);
+        ``payload=True`` (payload sessions) appends the payload lane
+        parameters and the engine's device id planes."""
         qs = [as_query(a.item if a.item is not None else a.source)
               for a in assignments]
-        return M.lane_descriptors(
-            self.pg, self.cfg.n_queries, [a.lane for a in assignments],
-            [a.source for a in assignments],
+        w, lanes = self.cfg.n_queries, [a.lane for a in assignments]
+        desc = M.lane_descriptors(
+            self.pg, w, lanes, [a.source for a in assignments],
             depth_caps=[q.depth_cap for q in qs],
             targets=[q.targets for q in qs], n_targets=MAX_TARGETS,
             layout=self._layout, dvids=self._dvids)
+        if not payload:
+            return desc
+        return (desc + M.payload_descriptors(w, lanes,
+                                             [q.payload_mode for q in qs])
+                + self._pay_gids())
 
     def run_refill(self, sources: np.ndarray) -> dict:
         """Classic full-levels drain: dedups ``sources`` (counted in
@@ -517,8 +583,16 @@ class BFSServeEngine:
         MULTI_TARGET submissions can be seeded."""
         w = self.cfg.n_queries
         reach_fast = self._reach_fast(queries)
-        cfg = (self.cfg if stream and not reach_fast
-               else self._session_cfg(queries))
+        if stream and not reach_fast:
+            # open-ended feed: the fully general variant, so later
+            # MULTI_TARGET submissions can be seeded; the payload plane
+            # only if the opening set asks for it (later payload
+            # submissions to a bit-only stream raise)
+            cfg = self.cfg
+            if any(q.kind in PAYLOAD_KINDS for q in queries):
+                cfg = self._payload_cfg(cfg)
+        else:
+            cfg = self._session_cfg(queries)
         sess = _Session(
             cfg=cfg, reach_fast=reach_fast,
             sched=LaneScheduler(w, pending=() if stream else queries),
@@ -536,8 +610,8 @@ class BFSServeEngine:
         return sess
 
     def _reseed(self, sess: _Session, assignments):
-        return M.reseed_lanes(sess.state, *self._seed_descriptors(assignments),
-                              mesh=self.mesh)
+        return M.reseed_lanes(sess.state, *self._seed_descriptors(
+            assignments, payload=sess.cfg.payload), mesh=self.mesh)
 
     def _fill(self, sess: _Session, initial: bool = False) -> list:
         """Assign pending queries to idle lanes and reseed them on the
@@ -578,9 +652,10 @@ class BFSServeEngine:
             return False, None
         fin_lanes = np.nonzero(finished)[0]
         fin_items = [sched.lane_item[int(q)] for q in fin_lanes]
-        # the retired lanes' rows (hop distances, or reachability masks on
-        # a reach-only state), assembled on the device and on their way
-        gather = M.LaneGather(self.pg, sess.state, fin_lanes, self.mesh)
+        # the retired lanes' rows (hop distances, reachability masks on a
+        # reach-only state, payload columns of payload lanes), assembled on
+        # the device and on their way
+        gather = self._gather(sess.cfg, sess.state, fin_lanes, fin_items)
         if stops is None:
             stops = sess.state.lane_stop[0].cpu().numpy()
         if not defer:
@@ -781,6 +856,12 @@ class BFSServeEngine:
                 raise ValueError(
                     "stream session was opened without target support; "
                     "drain_stream() before submitting MULTI_TARGET queries")
+            if not sess.cfg.payload and any(q.kind in PAYLOAD_KINDS
+                                            for q in qs):
+                raise ValueError(
+                    "stream session was opened without the payload plane; "
+                    "drain_stream() before submitting WEIGHTED_SSSP or "
+                    "COMPONENTS queries")
         else:
             self._stream = self._open_session(qs, stream=True)
             sess = self._stream
@@ -962,30 +1043,68 @@ class BFSServeEngine:
     def query_one(self, source: int) -> np.ndarray:
         return self.query([source])[0]
 
-    def warmup(self, reachability: bool = False, targets: bool = False) -> None:
+    def sample_khop(self, source: int, k: int, sampler):
+        """Serve a ``KHOP_SAMPLE`` query and feed its node pool to a
+        :class:`~repro_torch.graphs.sampler.NeighborSampler`: the traversal
+        finds the k-hop seed pool (cached under its typed key like any
+        query), the sampler draws the fanout-capped minibatch. Returns
+        ``sampler.sample(pool)``: ``(GraphBatch, node_ids)``."""
+        pool = self.submit(Query(int(source), kind=QueryKind.KHOP_SAMPLE,
+                                 max_depth=int(k)))
+        return sampler.sample(pool)
+
+    def warmup(self, reachability: bool = False, targets: bool = False,
+               payload: bool = False) -> None:
         """Run each variant once from vertex 0 (builds the kernels on first
         use; nothing lands in the cache or the stats). By default the
         target-free levels variant; ``targets=True`` adds the multi-target
-        variant, ``reachability=True`` the levels-free one. Refill engines
-        run one sweep and one reseed; overlap engines also run one block of
-        each variant's refill drains -- on a card that captures its sweep
-        graphs (the all-ones watch with only lane 0 seeded freezes the
-        block at entry)."""
+        variant, ``reachability=True`` the levels-free one, ``payload=True``
+        the payload one (WEIGHTED_SSSP / COMPONENTS; with ``targets`` also
+        the mixed variant carrying both). Refill engines run one sweep and
+        one reseed; overlap engines also run one block of each variant's
+        refill drains -- on a card that captures its sweep graphs (the
+        all-ones watch with only lane 0 seeded freezes the block at
+        entry)."""
         cfgs = [_dc_replace(self.cfg, enable_targets=False)]
         if targets:
             cfgs.append(self.cfg)
         if reachability and self.specialize_reachability:
             cfgs.append(_dc_replace(self.cfg, track_levels=False,
                                     enable_targets=False))
+        if payload:
+            cfgs.append(self._payload_cfg(_dc_replace(self.cfg,
+                                                      enable_targets=False)))
+            if targets:
+                cfgs.append(self._payload_cfg(self.cfg))
         for cfg in cfgs:
             st = self._init([0], cfg)
             if self.refill:
                 self._step(cfg, st)
-                M.reseed_lanes(st, *self._seed_descriptors([]),
-                               mesh=self.mesh)
+                M.reseed_lanes(st, *self._seed_descriptors(
+                    [], payload=cfg.payload), mesh=self.mesh)
                 if self.overlap:
                     self._block(cfg, False)(
                         self.pgv, self.plan, st,
                         np.ones(self.cfg.n_queries, dtype=bool)).wait()
             else:
                 self._run(cfg, st)
+
+
+class _KindGather:
+    """The result rows of some lanes on their way to the host, by kind:
+    payload lanes (``pay[i]``) from the payload plane, the others from the
+    level (or reach-only) plane -- one :class:`~repro_torch.core.msbfs.
+    LaneGather` per plane in use. :meth:`rows` waits and returns the rows
+    in the lanes' order."""
+
+    def __init__(self, pg, state, lanes, pay, mesh):
+        lanes, self.pay = np.asarray(lanes), np.asarray(pay, dtype=bool)
+        self.bits = (M.LaneGather(pg, state, lanes[~self.pay], mesh)
+                     if (~self.pay).any() else None)
+        self.vals = (M.LaneGather(pg, state, lanes[self.pay], mesh,
+                                  payload=True) if self.pay.any() else None)
+
+    def rows(self) -> list:
+        bits = iter(self.bits.rows() if self.bits is not None else ())
+        vals = iter(self.vals.rows() if self.vals is not None else ())
+        return [next(vals) if p else next(bits) for p in self.pay]

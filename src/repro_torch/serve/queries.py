@@ -6,14 +6,14 @@
 | ``REACHABILITY``   | --              | frontier empties         | ``[n] bool`` reachable mask |
 | ``DISTANCE_LIMITED``| ``max_depth``  | depth cap folded into the lane_active word | ``[n] int32``, ``INF_LEVEL`` beyond the cap |
 | ``MULTI_TARGET``   | ``targets``     | retires the sweep the last target is hit | ``{target: depth}`` (``INF_LEVEL`` if unreached) |
+| ``WEIGHTED_SSSP``  | --              | no vertex pending        | ``[n] int32`` distances over the synthetic edge weights |
+| ``COMPONENTS``     | --              | no vertex pending        | ``[n] int32`` min vertex id of each vertex's component |
+| ``KHOP_SAMPLE``    | ``max_depth`` (= k) | depth cap            | sorted ``int64`` ids within k hops |
 
-The descriptors of ``WEIGHTED_SSSP``, ``COMPONENTS`` and ``KHOP_SAMPLE``
-exist (so cache keys and validation equal the reference's), but this
-slice of the port does not serve them: the engine raises
-``NotImplementedError`` at submit (ROADMAP.md queue A, item A9).
-
-A batch that is homogeneously ``REACHABILITY`` runs the levels-free msBFS
-variant (``MSBFSConfig(track_levels=False)``).
+``WEIGHTED_SSSP`` and ``COMPONENTS`` (:data:`PAYLOAD_KINDS`) ride the
+int32 payload plane (``MSBFSConfig(payload=True)``); a batch holding one
+runs the payload variant. A batch that is homogeneously ``REACHABILITY``
+runs the levels-free msBFS variant (``MSBFSConfig(track_levels=False)``).
 
 Cache identity is the full query descriptor: ``(graph_id, kind, params,
 source)``.
@@ -43,9 +43,8 @@ class QueryKind(enum.Enum):
     KHOP_SAMPLE = "khop_sample"
 
 
-#: kinds whose descriptors exist but which this slice does not serve
-DEFERRED_KINDS = frozenset({QueryKind.WEIGHTED_SSSP, QueryKind.COMPONENTS,
-                            QueryKind.KHOP_SAMPLE})
+#: the kinds that ride the int32 payload plane instead of frontier bits
+PAYLOAD_KINDS = frozenset({QueryKind.WEIGHTED_SSSP, QueryKind.COMPONENTS})
 
 
 @dataclass(frozen=True)
@@ -98,6 +97,15 @@ class Query:
             return self.max_depth
         return None
 
+    @property
+    def payload_mode(self):
+        """The msBFS payload-lane mode (None: an ordinary bit lane)."""
+        if self.kind is QueryKind.WEIGHTED_SSSP:
+            return "sssp"
+        if self.kind is QueryKind.COMPONENTS:
+            return "components"
+        return None
+
     def key(self, graph_id: str) -> tuple:
         """Cache key: ``(graph_id, kind, params, source)``."""
         return (graph_id, self.kind.value, self.params, self.source)
@@ -129,4 +137,9 @@ def unpack_result(q: Query, row: np.ndarray, *, packed_reach: bool = False):
         return np.array(row if packed_reach else row != INF_LEVEL)
     if q.kind is QueryKind.MULTI_TARGET:
         return {t: int(row[t]) for t in q.targets}
+    if q.kind is QueryKind.KHOP_SAMPLE:
+        # the k-hop seed pool: sorted ids the depth-capped lane reached
+        return np.nonzero(row != INF_LEVEL)[0].astype(np.int64)
+    # LEVELS / DISTANCE_LIMITED (capped) / WEIGHTED_SSSP distances /
+    # COMPONENTS labels: absolute [n] int32 columns
     return np.array(row)

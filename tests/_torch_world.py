@@ -35,7 +35,10 @@ def default_spec(device: str = "cpu") -> dict:
     dense / adaptive, a step and a block; the sharded BFS with the static
     plan under the same six, binned under auto / ring / hier, and the
     uint8 combine; the engine in batch (twice), refill, overlap
-    (``sweep_block`` 1 and 4) and stream modes, on mixed typed queries."""
+    (``sweep_block`` 1 and 4) and stream modes, on mixed typed queries;
+    and the payload kinds on rmat scale 8 (seed 11): a batch of SSSP,
+    COMPONENTS and LEVELS queries and all seven kinds through refill,
+    overlap and stream sessions."""
     g, pg = graph(dict(scale=10, seed=7, th=32, sizes=SIZES))
     srcs = [int(s) for s in pick_sources(g, 10, seed=3)]
     dv = [int(v) for v in np.asarray(pg.delegate_vids)[:2]]
@@ -66,6 +69,34 @@ def default_spec(device: str = "cpu") -> dict:
              ("distance_limited", 2, None),
              ("multi_target", None, (srcs[1], srcs[2]))]
     qs = [(s, *kinds[i % 4]) for i, s in enumerate(srcs + dv + srcs[:2])]
+    # the reference's sharded payload cases, on its graph (rmat 8, seed 11)
+    g8, _ = graph(dict(scale=8, seed=11, th=32, sizes=SIZES))
+    s9 = [int(s) for s in pick_sources(g8, 4, seed=9)]
+    s3 = [int(s) for s in pick_sources(g8, 6, seed=3)]
+    seven = [(s3[0], "levels", None, None), (s3[1], "reachability", None, None),
+             (s3[2], "distance_limited", 2, None),
+             (s3[3], "multi_target", None, (s3[0], s3[1])),
+             (s3[4], "weighted_sssp", None, None),
+             (s3[5], "components", None, None),
+             (s3[0], "khop_sample", 2, None), (s3[2], "weighted_sssp", None,
+                                               None)]
+    payload = dict(scale=8, seed=11, th=32, sizes=SIZES, cases={
+        "payload-batch": dict(
+            mode="batch", k=1, w=4, max_iters=80, comm=dict(),
+            queries=[(s9[0], "weighted_sssp", None, None),
+                     (s9[1], "components", None, None),
+                     (s9[2], "levels", None, None),
+                     (s9[3], "weighted_sssp", None, None)]),
+        "payload-refill": dict(mode="refill", k=1, w=4, max_iters=80,
+                               comm=dict(), queries=seven),
+        "payload-overlap-allgather": dict(
+            mode="overlap", k=4, w=4, max_iters=80,
+            comm=dict(delegate="allgather"), queries=seven),
+        "payload-stream-ring-adaptive": dict(
+            mode="stream", k=2, w=4, max_iters=80,
+            comm=dict(delegate="ring", nn="adaptive"),
+            queries=seven[4:] + seven[:4]),
+    })
     engine = {
         "batch": dict(mode="batch", k=1, w=8, comm=dict()),
         "batch-hier-adaptive": dict(mode="batch", k=1, w=8,
@@ -77,7 +108,7 @@ def default_spec(device: str = "cpu") -> dict:
         "stream": dict(mode="stream", k=4, w=4, comm=dict()),
     }
     return dict(scale=10, seed=7, th=32, sizes=SIZES, msbfs=msbfs, bfs=bfs,
-                engine=engine, queries=qs, device=device)
+                engine=engine, queries=qs, payload=payload, device=device)
 
 
 def queries(spec: list) -> list:
@@ -150,7 +181,8 @@ def make_engine(pg, case: dict, device, **kw) -> BFSServeEngine:
         kw.update(refill=True, overlap=mode in ("overlap", "stream"),
                   sweep_block=case["k"])
     return BFSServeEngine(
-        pg=pg, cfg=M.MSBFSConfig(n_queries=case["w"], max_iters=48),
+        pg=pg, cfg=M.MSBFSConfig(n_queries=case["w"],
+                                 max_iters=case.get("max_iters", 48)),
         comm=C.CommConfig(**case["comm"]), device=device, **kw)
 
 
@@ -184,6 +216,12 @@ def sharded_world(rank: int, world: int, spec: dict) -> dict:
                       plan=E.local_plan(host_plan, mesh.rank))
     out["rows"].add((eng.sharded, int(eng.pgv.normal_valid.shape[0])))
     out["engine"]["batch-local"] = serve(eng, "batch", qs)
+    _, pg8 = graph(spec["payload"])
+    out["payload"] = {}
+    for name, case in spec["payload"]["cases"].items():
+        eng = make_engine(pg8, case, dev, mesh=mesh, partition_axes=AXES)
+        out["payload"][name] = serve(eng, case["mode"],
+                                     queries(case["queries"]))
     # a mesh that does not span the graph's partitions is refused
     g2 = partition_graph(g, th=spec["th"], p_rank=1, p_gpu=2)
     try:
@@ -313,18 +351,21 @@ def check_state_case(ranks: list, kind: str, name: str, case: dict, pg,
 
 
 def check_engine_case(ranks: list, name: str, case: dict, want: dict, pg,
-                      plan_of) -> None:
+                      plan_of, section: str = "engine") -> None:
     """Every rank's answers and ``ServeStats`` equal the emulated
-    engine's ``want``, its delegate bytes in the sharded plan's formula."""
+    engine's ``want``, its delegate bytes (and the payload plane's) in the
+    sharded plan's formula."""
     ws = dict(want["stats"])
-    f22, f4 = delegate_bytes_pair(plan_of, case["comm"], max(pg.d, 1)
-                                  * C.n_words(case["w"]), 4, "or")
-    combines, rest = divmod(ws["wire_delegate_bytes"], f4)
-    assert rest == 0 and combines > 0
-    ws["wire_delegate_bytes"] = combines * f22
-    ws["wire_bytes_total"] += combines * (f22 - f4)
+    for key, n, op in (("wire_delegate_bytes", C.n_words(case["w"]), "or"),
+                       ("wire_pay_delegate_bytes", case["w"], "min")):
+        f22, f4 = delegate_bytes_pair(plan_of, case["comm"],
+                                      max(pg.d, 1) * n, 4, op)
+        combines, rest = divmod(ws[key], f4)
+        assert rest == 0 and (combines > 0 or key != "wire_delegate_bytes")
+        ws[key] = combines * f22
+        ws["wire_bytes_total"] += combines * (f22 - f4)
     for r in ranks:
-        got = r["engine"][name]
+        got = r[section][name]
         assert got["stats"] == ws
         assert len(got["answers"]) == len(want["answers"])
         for a, b in zip(got["answers"], want["answers"]):

@@ -214,16 +214,30 @@ def test_byte_formulas_match_reference(p):
 
 @pytest.mark.parametrize("what", ["compressed", "sum"])
 def test_unported_strategies_raise(what):
-    """The two pieces of the comm layer still to port name their ROADMAP
-    items: the compressed nn codec (A10) and the ``"sum"`` combine of the
-    payload plane (A9)."""
+    """The compressed nn codec still names its ROADMAP item (A10); the
+    ``"sum"`` combine, deferred until the payload plane, is served: an
+    int32 sum that wraps as the reference's ``psum`` does, with the
+    reference's bytes (an unknown op is a ValueError)."""
     if what == "compressed":
         with pytest.raises(NotImplementedError, match="ROADMAP.*A10"):
             TC.CommConfig(nn="compressed")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A9"):
-            TC.delegate_combine(TC.plan_for(TC.CommConfig(), 2),
-                                torch.zeros((2, 4), dtype=torch.int32), "sum")
+        return
+    x = np.array([[2**31 - 1, 5, -3, 7], [1, -9, 2**31 - 1, 0]], np.int32)
+    seen = {}
+
+    def ref(v):
+        out, seen["bytes"] = RC.delegate_combine(
+            RC.plan_for(RC.CommConfig(), "p"), v, "sum")
+        return out
+
+    want = np.asarray(jax.vmap(ref, axis_name="p")(jnp.asarray(x)))
+    got, nbytes = TC.delegate_combine(TC.plan_for(TC.CommConfig(), 2),
+                                      torch.from_numpy(x), "sum")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert nbytes == seen["bytes"] and got.dtype == torch.int32
+    with pytest.raises(ValueError, match="unknown combine op"):
+        TC.delegate_combine(TC.plan_for(TC.CommConfig(), 2),
+                            torch.from_numpy(x), "xor")
 
 
 def test_unknown_strategy_is_a_value_error():

@@ -1,7 +1,8 @@
 """The port's comm strategies against the reference's on the same numpy
 inputs: every delegate combine strategy (auto / allgather / ring / hier)
 on one emulated axis (``vmap(axis_name="p")``) and on the emulated
-two-axis mesh (a nested vmap), for ``or`` / ``min`` / ``max``; the nn wire
+two-axis mesh (a nested vmap), for ``or`` / ``min`` / ``max`` / ``sum``
+(int32, wrapping); the nn wire
 formats (dense / sparse / adaptive) feasible, saturated and pinned-sparse
 overflowing; and the emulated msBFS reproducing ``BENCH_comm.json``'s
 ``comm_strategies`` rows. Exact equality throughout: values, wire bytes,
@@ -38,6 +39,8 @@ def _values(rng, op, shape):
     if op == "min":
         return np.where(rng.random(shape) < 0.5, rng.integers(0, 50, shape),
                         2**30).astype(np.int32)
+    if op == "sum":                  # int32 sums that wrap
+        return rng.integers(-2**31, 2**31, shape).astype(np.int32)
     return rng.integers(-7, 9, shape).astype(np.int32)
 
 
@@ -51,7 +54,7 @@ def _np(t, like):
 
 
 # ------------------------------------------------------ delegate combine
-@pytest.mark.parametrize("op", ["or", "min", "max"])
+@pytest.mark.parametrize("op", ["or", "min", "max", "sum"])
 @pytest.mark.parametrize("delegate", STRATEGIES)
 @pytest.mark.parametrize("p,n", [(2, 9), (3, 31), (4, 7), (5, 33)])
 def test_delegate_combine_matches_reference_vmap(delegate, op, p, n):
@@ -91,7 +94,7 @@ def test_delegate_combine_max_uint8_matches_reference_vmap():
         assert nbytes == seen["b"]
 
 
-@pytest.mark.parametrize("op", ["or", "min", "max"])
+@pytest.mark.parametrize("op", ["or", "min", "max", "sum"])
 @pytest.mark.parametrize("delegate,split", [("allgather", 1), ("ring", 1),
                                             ("hier", 1), ("auto", 1)])
 @pytest.mark.parametrize("sizes", [(2, 2), (2, 3), (3, 2)])

@@ -600,6 +600,28 @@ def test_overlap_counters_equal_sync_on_card(card, sweep_block):
         {k: v for k, v in s_c.items() if k != "sweep_blocks"}
 
 
+def test_capture_after_dropped_captured_engines(card):
+    """The captured graphs of a dropped engine die with its reference
+    cycles whenever the collector runs; destroying a graph while another
+    is being captured would invalidate that capture. With the collector
+    running at every allocation, engines are dropped and new ones capture
+    their blocks, and the last serves as the CPU does."""
+    import gc
+    pg, _, qs = tailed_setup()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for _ in range(3):
+            eng = serve_engine(pg, card, overlap=True, sweep_block=4)
+            eng.warmup(reachability=True, targets=True)
+        got = eng.submit_many(qs)
+    finally:
+        gc.set_threshold(*threshold)
+    cpu = serve_engine(pg, "cpu")
+    assert_answers_equal(got, cpu.submit_many(qs))
+    assert eng.stats.as_dict()["sweeps"] == cpu.stats.as_dict()["sweeps"]
+
+
 def test_stream_deliveries_on_card(card):
     """Chunks fed through submit_stream with poll() between them, then
     drain_stream(): each poll delivers the same queries and results on the
@@ -619,6 +641,115 @@ def test_stream_deliveries_on_card(card):
     assert [list(d) for d in da] == [list(d) for d in db]
     for x, y in zip(da, db):
         assert_answers_equal(list(x.values()), list(y.values()))
+
+
+# ------------------------------------------------------------ payload plane
+def payload_setup():
+    """rmat_graph(8, seed=11) on the delegate-rich (2, 2) partition
+    (th=16) and the seven kinds, payload ones first."""
+    g = rmat_graph(8, seed=11)
+    pg = partition_graph(g, th=16, p_rank=2, p_gpu=2)
+    s = [int(v) for v in pick_sources(g, 6, seed=3)]
+    K = QueryKind
+    qs = [Query(s[4], K.WEIGHTED_SSSP), Query(s[5], K.COMPONENTS),
+          Query(s[0], K.KHOP_SAMPLE, max_depth=2),
+          Query(s[2], K.WEIGHTED_SSSP), Query(s[0]),
+          Query(s[1], K.REACHABILITY),
+          Query(s[2], K.DISTANCE_LIMITED, max_depth=2),
+          Query(s[3], K.MULTI_TARGET, targets=(s[0], s[1]))]
+    return g, pg, qs
+
+
+@pytest.mark.parametrize("comm", [dict(), dict(delegate="allgather"),
+                                  dict(delegate="hier", nn="adaptive")],
+                         ids=["auto", "allgather", "hier-adaptive"])
+def test_payload_batch_on_card_equals_cpu(card, comm):
+    """The payload kinds in one lane batch beside the bit kinds: answers
+    and every ServeStats field equal between the card and the CPU; under
+    allgather the payload delegate update is one ``payload_min_fold``
+    launch a sweep (under hier the standalone fold: one a sweep too),
+    beside one pull and one OR fold."""
+    from repro_torch.core import msbfs as TM
+    _, pg, qs = payload_setup()
+    outs = []
+    for device in (card, "cpu"):
+        eng = BFSServeEngine(pg=pg, cfg=TM.MSBFSConfig(n_queries=8,
+                                                       max_iters=80),
+                             comm=TC.CommConfig(**comm), cache_capacity=0,
+                             device=device)
+        eng.warmup(payload=True, targets=True)
+        ops.reset_launches()
+        outs.append((eng.submit_many(qs), eng.stats.as_dict(),
+                     dict(ops.LAUNCHES), eng.traversal_sweeps))
+    (a, sa, la, sweeps), (b, sb, _, _) = outs
+    assert sa == sb and sa["wire_pay_delegate_bytes"] > 0
+    assert_answers_equal(a, b)
+    assert la["ell_pull_multi"] == la["mask_reduce"] == sweeps > 0
+    # allgather: the fused update; hier: the standalone fold of its one
+    # group (the emulated plan has one axis); auto: the native amin
+    want = 0 if comm.get("delegate") is None else sweeps
+    assert la["payload_min_fold"] == want
+
+
+def test_payload_graph_block_equals_eager_block(card):
+    """A payload block captured as CUDA graphs and the same block run
+    eagerly: every leaf equal, both equal to the per-sweep driver; under
+    allgather each replay counts one pull, one OR fold and one min fold."""
+    from repro_torch.core import msbfs as TM
+    _, pg, _ = payload_setup()
+    pgv = TB.device_view(pg, card)
+    plan = TE.device_plan(TE.build_exchange_plan(pg), card)
+    cfg = TM.MSBFSConfig(n_queries=4, max_iters=80, payload=True,
+                         enable_targets=False,
+                         comm=TC.CommConfig(delegate="allgather"))
+    srcs = [int(s) for s in pick_sources(rmat_graph(8, seed=11), 4, seed=1)]
+    st = TM.init_multi_state(pg, srcs, cfg, device=card,
+                             payload_modes=["sssp", None, "components",
+                                            "sssp"])
+    watch = np.array([True, True, True, True])
+    outs = []
+    for graph in (True, False):
+        blk = TM.make_msbfs_block_emulated(cfg, 64, graph=graph)
+        run = blk(pgv, plan, st, watch)
+        probe = run.wait()
+        blk.runner.drain()
+        outs.append((probe.it, convert.state_to_numpy(run.out), blk.runner))
+    (it_g, a, runner), (it_e, b, _) = outs
+    assert it_g == it_e and 0 < it_g < 64
+    ref = st
+    for _ in range(it_g):
+        ref = TM.msbfs_step(pgv, plan, ref, cfg)
+    want = convert.state_to_numpy(ref)
+    for k in TM.STATE_LEAVES:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_array_equal(a[k], want[k], err_msg=k)
+    assert runner.per_replay["payload_min_fold"] == 1
+    assert runner.per_replay["ell_pull_multi"] == 1
+    assert runner.per_replay["mask_reduce"] == 1
+
+
+def test_payload_overlap_session_on_card_equals_cpu(card):
+    """The seven kinds through the overlapped driver on the card (blocks
+    captured by ``warmup(payload=True)``), the per-sweep driver on the
+    card and on the CPU: equal answers, and every ServeStats field equal
+    but sweep_blocks."""
+    from repro_torch.core import msbfs as TM
+    _, pg, qs = payload_setup()
+    runs = []
+    for device, kw in ((card, dict(overlap=True, sweep_block=4)), (card, {}),
+                       ("cpu", {})):
+        eng = BFSServeEngine(pg=pg, cfg=TM.MSBFSConfig(n_queries=4,
+                                                       max_iters=80),
+                             cache_capacity=0, refill=True,
+                             reuse_components=False, device=device, **kw)
+        eng.warmup(payload=True, targets=True)
+        runs.append((eng.submit_many(qs), eng.stats.as_dict()))
+    (a_o, s_o), (a_s, s_s), (a_c, s_c) = runs
+    assert_answers_equal(a_o, a_c)
+    assert_answers_equal(a_s, a_c)
+    assert s_s == s_c and s_o["sweep_blocks"] > 0
+    assert {k: v for k, v in s_o.items() if k != "sweep_blocks"} == \
+        {k: v for k, v in s_c.items() if k != "sweep_blocks"}
 
 
 # ------------------------------------------------------------ recsys kernels
@@ -993,8 +1124,8 @@ def test_sharded_world4_nccl_equals_emulated(card):
     overlap and stream engines captured as CUDA graphs with their
     collectives): every gathered leaf, level, answer and ``ServeStats``
     field equal to the emulated run on the CPU, ``wire_delegate`` in the
-    (2, 2) plan's formula. Needs four cards: NCCL refuses two ranks on one
-    device."""
+    (2, 2) plan's formula; the payload cases' answers and stats too.
+    Needs four cards: NCCL refuses two ranks on one device."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards (NCCL refuses two ranks on one card)")
     import _torch_world as TW
@@ -1020,5 +1151,11 @@ def test_sharded_world4_nccl_equals_emulated(card):
         case = spec["engine"]["batch" if name == "batch-local" else name]
         want = TW.serve(TW.make_engine(pg, case, "cpu"), case["mode"], qs)
         TW.check_engine_case(ranks, name, case, want, pg, port_plan)
+    _, pg8 = TW.graph(spec["payload"])
+    for name, case in spec["payload"]["cases"].items():
+        want = TW.serve(TW.make_engine(pg8, case, "cpu"), case["mode"],
+                        TW.queries(case["queries"]))
+        TW.check_engine_case(ranks, name, case, want, pg8, port_plan,
+                             "payload")
     for r in ranks:
         assert r["rows"] == {(True, 1)} and r["mismatch"] is not None

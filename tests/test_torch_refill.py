@@ -19,7 +19,7 @@ from repro.serve.batcher import (LaneScheduler as RefScheduler,
                                  QueryBatcher as RefBatcher,
                                  pack_sources as ref_pack_sources)
 from repro_torch.core import convert, msbfs as TM
-from repro_torch.core.oracle import bfs_levels
+from repro_torch.core.oracle import bfs_levels, component_labels
 from repro_torch.core.types import COOGraph
 from repro_torch.graphs.synthetic import with_tails
 from repro_torch.serve import (BFSServeEngine, LaneScheduler, Query,
@@ -209,8 +209,11 @@ def test_reseed_lanes_every_leaf_equal(tailed, track_levels):
     # only the first six (no target arrays): plain full-levels semantics
     assert_state_equal(RM.reseed_lanes(rs, *map(jnp.asarray, desc[:6])),
                        TM.reseed_lanes(ts, *desc[:6]))
-    with pytest.raises(NotImplementedError, match="A9"):
-        TM.reseed_lanes(ts, *desc, pay_lane=np.zeros(W, bool))
+    # payload lanes are served now, on a cfg.payload state only (their
+    # parity is in tests/test_torch_payload.py)
+    pay = TM.payload_descriptors(W, [1, 2], ["sssp", "components"])
+    with pytest.raises(ValueError, match="cfg.payload"):
+        TM.reseed_lanes(ts, *desc, *pay, *TM.gid_planes(pg))
 
 
 # ------------------------------------------------------------- the block
@@ -416,8 +419,11 @@ def test_stream_variant_mismatch_and_generality(tailed):
     port.submit_stream([mt])
     out = port.drain_stream()
     assert out[mt] == {srcs[0]: int(bfs_levels(g, srcs[2])[srcs[0]])}
-    with pytest.raises(NotImplementedError, match="A9"):
-        port.submit_stream([Query(srcs[0], K.COMPONENTS)])
+    # a drained engine opens a payload stream for a COMPONENTS query
+    port.submit_stream([Query(srcs[0], K.COMPONENTS)])
+    np.testing.assert_array_equal(
+        port.drain_stream()[Query(srcs[0], K.COMPONENTS)],
+        component_labels(g))
 
 
 # ------------------------------------------------------- boundary cases

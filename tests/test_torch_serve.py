@@ -113,10 +113,18 @@ def test_answers_match_oracle_and_classic_api(setup):
     (QueryKind.WEIGHTED_SSSP, {}), (QueryKind.COMPONENTS, {}),
     (QueryKind.KHOP_SAMPLE, {"max_depth": 2})])
 def test_deferred_kinds_raise_at_submit(setup, kind, kw):
-    _, port = engines(setup)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.submit(Query(1, kind, **kw))
-    assert port.stats.queries == 0
+    """The three kinds deferred by earlier slices are served now: a batch
+    of one beside a LEVELS query, and its cache hit, equal to the
+    reference engine's answers and stats."""
+    g, _, _ = setup
+    ref, port = engines(setup)
+    src = int(pick_sources(g, 1, seed=4)[0])
+    qs = [Query(src, kind, **kw), Query(1)]
+    for _ in range(2):
+        assert_same(port.submit_many(qs),
+                    ref.submit_many([to_ref(q) for q in qs]))
+        assert port.stats.as_dict() == ref.stats.as_dict()
+    assert port.stats.queries == 4 and port.stats.cache_hits == 2
 
 
 def test_engine_needs_device_cpu_without_a_card(monkeypatch, setup):

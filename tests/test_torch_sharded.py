@@ -19,8 +19,8 @@ from repro.core import bfs as RB, comm as RC, engine as RE, msbfs as RM
 from repro.core.partition import partition_graph as ref_partition
 from repro.graphs.rmat import rmat_graph as ref_rmat
 from repro_torch.core import bfs as TB, comm as TC, convert, engine as TE
-from repro_torch.core import msbfs as TM
-from repro_torch.serve import BFSServeEngine
+from repro_torch.core import msbfs as TM, oracle as O
+from repro_torch.serve import BFSServeEngine, QueryKind
 
 WORLD_TIMEOUT = 300.0
 SPEC = TW.default_spec("cpu")
@@ -114,6 +114,45 @@ def test_sharded_engine_matches_emulated(world, graphs, name):
         assert want["stats"]["refills"] > 0
     if case["mode"] in ("overlap", "stream"):
         assert want["stats"]["sweep_blocks"] > 0
+
+
+@pytest.mark.parametrize("name", list(SPEC["payload"]["cases"]))
+def test_sharded_payload_kinds_match_emulated(world, name):
+    """The reference's sharded payload cases (a batch of SSSP, COMPONENTS
+    and LEVELS; all seven kinds through one refill session), and all
+    seven through overlap blocks under allgather and a stream under ring /
+    adaptive: every rank's answers and
+    stats equal the emulated engine's (payload delegate bytes in the (2,
+    2) plan's formula), whose answers are oracle-exact."""
+    spec = SPEC["payload"]
+    case = spec["cases"][name]
+    g, pg = TW.graph(spec)
+    qs = TW.queries(case["queries"])
+    want = TW.serve(TW.make_engine(pg, case, "cpu"), case["mode"], qs)
+    csr = O.csr_from_coo(g)
+    for q, a in zip(qs, want["answers"]):
+        oracle_check(g, q, a, csr)
+    assert want["stats"]["wire_pay_delegate_bytes"] > 0
+    TW.check_engine_case(world, name, case, want, pg, ref_plan, "payload")
+
+
+def oracle_check(g, q, a, csr) -> None:
+    K = QueryKind
+    if q.kind is K.WEIGHTED_SSSP:
+        np.testing.assert_array_equal(a, O.dijkstra_levels(g, q.source, csr))
+    elif q.kind is K.COMPONENTS:
+        np.testing.assert_array_equal(a, O.component_labels(g))
+    elif q.kind is K.KHOP_SAMPLE:
+        np.testing.assert_array_equal(a, O.khop_nodes(g, q.source,
+                                                      q.max_depth, csr))
+    elif q.kind is K.REACHABILITY:
+        np.testing.assert_array_equal(a, O.reachable_mask(g, q.source, csr))
+    elif q.kind is K.MULTI_TARGET:
+        assert a == O.target_depths(g, q.source, q.targets, csr)
+    else:
+        np.testing.assert_array_equal(a, O.bfs_levels_limited(
+            g, q.source, q.max_depth if q.max_depth is not None else 2**30,
+            csr))
 
 
 def test_each_rank_holds_its_partition_and_a_bad_mesh_raises(world):
