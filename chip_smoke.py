@@ -148,7 +148,30 @@
    for the others. (e) runs in 7(c): a payload lane batch through
    ``make_sharded_msbfs`` and a captured sharded block under NCCL, equal
    to the emulated run.
-11. Refill path, last (its long profiled runs come after every short
+11. Memory and telemetry modes, on the same graph and partition at W =
+   32: (a) a bit lane batch of the serving run's first 32 queries and a
+   WEIGHTED_SSSP lane batch of 32 (10's sources), each monolithic and
+   with ``edge_chunk=EDGE_CHUNK`` (printed): peak memory
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``), ms a
+   sweep and sweeps of each; every state leaf equal between the two, two
+   answers of each against the oracle (scipy's ``dijkstra`` for SSSP),
+   the chunked SSSP peak at least ``MIN_SSSP_SAVING`` below the
+   monolithic one; then 10's seven-kind stream through the overlapped
+   driver (blocks captured) both ways: every ServeStats field and answer
+   equal, peaks printed. (b) The bit batch with ``telemetry=True``: every
+   other leaf equal to (a)'s; ``tm_frontier_*`` equal to each sweep's
+   frontier counts and ``tm_backward`` to each sweep's packed directions,
+   read on the host from a sweep-by-sweep run; a captured block of
+   ``TELEMETRY_BLOCK`` sweeps with telemetry equal to the eager sweeps.
+   (c) The 64-query serving run under ``nn="compressed"``: answers equal
+   the dense run's; one mid-BFS sweep's ``wire_nn`` (and stream choice)
+   per partition equal to the host encoders (``rle_encode``,
+   ``delta_encode_ids``) over that sweep's sent slot maps. (d)
+   ``compress_partition`` of the partition (host seconds, bytes per edge
+   raw and compressed); partition 0's nd rows decoded into an ELL tile
+   (``decode_ell_tile``) feed B1 (``ops.ell_pull_multi``, one counted
+   launch) on a mid-BFS frontier, equal to its plain version.
+12. Refill path, last (its long profiled runs come after every short
    profiler session above): the graph with 8 tails of 96 (``with_tails``,
    seed 5; ``max_iters=240``, W=32, no cache, no component reuse), 120
    queries (the 8 tips spread through 112 core sources, the four kinds
@@ -168,13 +191,14 @@
    eagerly (equal leaves, both timed); and the overlap run with two
    sweeps in flight instead of one (counters equal, gated sweeps
    printed).
-12. Prints one JSON line describing every kernel, then, last, the device
+13. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
-Option: ``--only segment_bag,ell_pull_payload,sharded,payload`` (those
-phases alone, on the same inputs; ``sharded`` is 7 after the main
+Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory``
+(those phases alone, on the same inputs; ``sharded`` is 7 after the main
 serving run and 4 FULL keys it is held against, ``payload`` is 10 and
-7(c)).
+7(c), ``memory`` is 11 after the 64-query serving run it holds (c)
+against).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -213,6 +237,11 @@ PAYLOAD_ROWS_ON = 0.1               # ell_pull_payload's sparse case
 # payload path: three lane batches of W = 32 (WEIGHTED_SSSP, COMPONENTS,
 # KHOP_SAMPLE with k = 3) and a seven-kind mixed stream of 64 queries
 PAYLOAD_BATCH, PAYLOAD_MIXED, KHOP_K = 32, 64, 3
+# memory phase: edge slots of every partition per push block (the
+# chunked runs' edge_chunk), the SSSP answers held against scipy, and the
+# least saving of the chunked SSSP batch's peak over the monolithic one
+EDGE_CHUNK, MEMORY_SSSP_ORACLES, MIN_SSSP_SAVING = 1 << 18, 2, 3e9
+TELEMETRY_BLOCK = 4
 # flushed kernel times: a scratch buffer written before each call, so L2
 # (50 MB) holds nothing of the last call
 FLUSH_BYTES, FLUSH_REPS = 512 << 20, 20
@@ -2288,6 +2317,385 @@ def payload_path(g, pg, csr) -> dict:
                 mixed={m: r["stats"] for m, r in mixed_runs.items()})
 
 
+# -----------------------------------------------------------------------------
+# Memory and telemetry modes (edge_chunk, telemetry=True, nn="compressed",
+# the compressed partition)
+
+
+def lane_init(queries) -> dict:
+    """``init_multi_state`` keywords seeding one lane per typed bit query
+    (its source, depth cap and targets)."""
+    from repro_torch.serve import QueryKind as K
+
+    return dict(
+        sources=[q.source for q in queries],
+        depth_caps=[q.max_depth if q.kind is K.DISTANCE_LIMITED else None
+                    for q in queries],
+        targets=[q.targets if q.kind is K.MULTI_TARGET else None
+                 for q in queries])
+
+
+def memory_run(eng, cfg, init: dict, what: str):
+    """One lane batch to convergence on ``eng``'s partition: its state,
+    and the peak memory over the batch (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``, state build included), what was
+    allocated before it, the sweeps and the ms a sweep (CUDA-synchronized
+    host clock over the sweep loop)."""
+    import torch
+    from repro_torch.core import msbfs as M
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(init)
+    sources = kw.pop("sources")
+    if cfg.payload:
+        kw["gids"] = eng._pay_gids()
+    st = M.init_multi_state(eng.pg, sources, cfg, device=eng.device, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = M.run_msbfs_emulated(eng.pgv, eng.plan, st, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sweeps = int(st.it[0])
+    row = dict(peak=torch.cuda.max_memory_allocated(), base=base,
+               sweeps=sweeps, ms_per_sweep=dt * 1e3 / sweeps)
+    print(f"memory {what} edge_chunk={cfg.edge_chunk}: sweeps={sweeps} "
+          f"ms/sweep={row['ms_per_sweep']:.2f} max_memory_allocated="
+          f"{row['peak']} B (resident before the batch {base} B, batch "
+          f"{row['peak'] - base} B) ({card_line()})")
+    return st, row
+
+
+def memory_peaks(eng, g, csr, queries) -> dict:
+    """(1) Peak memory: a bit lane batch of the serving path's first 32
+    queries and a WEIGHTED_SSSP lane batch of 32 (the payload path's
+    sources), each monolithic and with ``edge_chunk=EDGE_CHUNK``: every
+    leaf equal between the two, answers equal to the oracle."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import convert, msbfs as M
+    from repro_torch.core import oracle as O
+    from repro_torch.graphs.rmat import pick_sources
+    from repro_torch.serve import QueryKind as K
+    from repro_torch.serve.engine import PAYLOAD_ITERS_FACTOR
+
+    out = {}
+    bit_qs = queries[:PAYLOAD_BATCH]
+    bit_cfg = M.MSBFSConfig(n_queries=PAYLOAD_BATCH)
+    srcs = [int(s) for s in pick_sources(g, PAYLOAD_BATCH, seed=21)]
+    pay_cfg = M.MSBFSConfig(n_queries=PAYLOAD_BATCH, payload=True,
+                            enable_targets=False,
+                            max_iters=64 * PAYLOAD_ITERS_FACTOR)
+    # resident in both runs: the payload plane's edge weights and seeds
+    M.payload_view(eng.pgv, eng.plan)
+    eng._pay_gids()
+    for name, cfg, init in (
+            ("bit", bit_cfg, lane_init(bit_qs)),
+            ("sssp", pay_cfg, dict(sources=srcs,
+                                   payload_modes=["sssp"] * len(srcs)))):
+        out[name] = {}
+        mono, out[name][0] = memory_run(
+            eng, dataclasses.replace(cfg, edge_chunk=0), init, name)
+        mono = convert.state_to_numpy(mono)   # off the card for the next
+        st, out[name][EDGE_CHUNK] = memory_run(
+            eng, dataclasses.replace(cfg, edge_chunk=EDGE_CHUNK), init, name)
+        got = convert.state_to_numpy(st)
+        diff = [k for k in M.STATE_LEAVES
+                if not np.array_equal(got[k], mono[k])]
+        check(not diff, f"memory {name}: every leaf equal, chunked and not "
+                        f"(differ: {diff})")
+        out[name]["state"] = st
+    st = out["bit"]["state"]
+    lv = [i for i, q in enumerate(bit_qs) if q.kind is K.LEVELS][:2]
+    for i, row in zip(lv, M.gather_levels_multi(eng.pg, st, lanes=lv)):
+        check((row == O.bfs_levels(g, bit_qs[i].source, csr)).all(),
+              f"memory bit: lane {i} equals the oracle")
+    sssp, _ = scipy_oracles(g, srcs[:MEMORY_SSSP_ORACLES])
+    pay = M.gather_payload_multi(eng.pg, out["sssp"]["state"],
+                                 lanes=list(range(MEMORY_SSSP_ORACLES)))
+    for i, row in enumerate(pay):
+        check((row == sssp[srcs[i]]).all(),
+              f"memory sssp: lane {i} equals scipy's dijkstra")
+    saving = out["sssp"][0]["peak"] - out["sssp"][EDGE_CHUNK]["peak"]
+    print(f"memory: edge_chunk={EDGE_CHUNK} saves {saving} B on the SSSP "
+          f"batch, {out['bit'][0]['peak'] - out['bit'][EDGE_CHUNK]['peak']} "
+          f"B on the bit batch ({card_line()})")
+    check(saving >= MIN_SSSP_SAVING,
+          f"memory sssp: the chunked peak is {MIN_SSSP_SAVING:.0f} B or more "
+          "below the monolithic one")
+    return out
+
+
+def memory_overlap(pg, mixed) -> dict:
+    """(1, end) The seven-kind stream of the payload path through the
+    overlapped refill driver (blocks captured by the warm-up), monolithic
+    and with ``edge_chunk``: every ServeStats field and every answer
+    equal; the peak of each run."""
+    import torch
+    from repro_torch.serve import BFSServeEngine
+
+    runs = {}
+    for ec in (0, EDGE_CHUNK):
+        eng = BFSServeEngine(pg=pg, cache_capacity=0, reuse_components=False,
+                             refill=True, overlap=True,
+                             sweep_block=SWEEP_BLOCK, edge_chunk=ec,
+                             device=DEVICE)
+        eng.warmup(payload=True, targets=True)
+        # a replay allocates nothing: its temporaries live in the graphs'
+        # pool, which memory_reserved counts (the free cache dropped)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pools = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        r = drive(eng, "overlap", mixed)
+        r["peak"] = torch.cuda.max_memory_allocated()
+        r["reserved"] = torch.cuda.max_memory_reserved()
+        r["pools"] = pools
+        print(f"memory overlap edge_chunk={ec}: {len(mixed)} queries in "
+              f"{r['time_s']:.3f} s = {len(mixed) / r['time_s']:.2f} "
+              f"queries/s; sweeps={r['sweeps']} sweep_blocks="
+              f"{r['stats']['sweep_blocks']} replays={r['blocks']['replays']}"
+              f" memory_reserved after the warm-up's captures={pools} B "
+              f"max_memory_reserved={r['reserved']} B max_memory_allocated="
+              f"{r['peak']} B ({card_line()})")
+        check(r["blocks"]["replays"] > 0,
+              f"memory overlap edge_chunk={ec}: captured blocks replayed")
+        runs[ec] = r
+        del eng
+        torch.cuda.empty_cache()
+    a, b = runs[0], runs[EDGE_CHUNK]
+    check(b["pools"] < a["pools"],
+          "memory overlap: the chunked blocks' graph pools are smaller")
+    check(a["stats"] == b["stats"],
+          "memory overlap: every ServeStats field equal, chunked and not")
+    check(all(payload_answer_equal(a["results"][q], b["results"][q])
+              for q in mixed), "memory overlap: answers equal")
+    return {ec: {k: r[k] for k in ("peak", "reserved", "pools", "time_s",
+                                   "sweeps")} for ec, r in runs.items()}
+
+
+def pack_rows(flags):
+    """Host lane packing of ``[..., W]`` bool -> ``[..., ceil(W/32)]``
+    uint32 (lane q -> bit q % 32 of word q // 32), as the wire packs."""
+    import numpy as np
+
+    w = flags.shape[-1]
+    nw = -(-w // 32)
+    pad = np.zeros(flags.shape[:-1] + (nw * 32,), dtype=np.uint64)
+    pad[..., :w] = flags
+    bits = pad.reshape(flags.shape[:-1] + (nw, 32))
+    return (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def memory_telemetry(eng, init: dict, plain) -> None:
+    """(2) The bit batch with ``telemetry=True``: every other leaf equal to
+    the run without it (``plain``); the ``tm_*`` leaves equal to the
+    frontier counts and packed directions read on the host from a
+    sweep-by-sweep run; a captured ``SweepBlock`` with telemetry equal to
+    the same sweeps run eagerly."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import msbfs as M
+
+    cfg = M.MSBFSConfig(n_queries=PAYLOAD_BATCH, telemetry=True)
+    kw = dict(init)
+    sources = kw.pop("sources")
+    init_state = lambda c: M.init_multi_state(eng.pg, sources, c,
+                                              device=eng.device, **kw)
+    st = M.run_msbfs_emulated(eng.pgv, eng.plan, init_state(cfg), cfg)
+    tm = ("tm_frontier_n", "tm_frontier_d", "tm_backward")
+    _states_equal(st, plain, [k for k in M.STATE_LEAVES if k not in tm],
+                  "memory telemetry: answers and counters unchanged")
+    off = dataclasses.replace(cfg, telemetry=False)
+    cur = init_state(off)
+    nv = eng.pgv.normal_valid.cpu().numpy()[:, :, None]
+    sweeps = int(st.it[0])
+    fn, fd, bw = (getattr(st, k).cpu().numpy() for k in tm)
+    for t in range(sweeps):
+        h = {k: getattr(cur, k).cpu().numpy() for k in (
+            "level_n", "level_d", "base_it", "lane_stop", "depth_cap")}
+        it = t
+        expand = (~h["lane_stop"] & (it - h["base_it"] < h["depth_cap"]))
+        front_n = (h["level_n"] == it) & nv & expand[:, None, :]
+        front_d = (h["level_d"] == it) & expand[:, None, :]
+        check((fn[:, t] == front_n.reshape(front_n.shape[0], -1).sum(1)).all()
+              and (fd[:, t] == front_d.reshape(front_d.shape[0], -1).sum(1))
+              .all(), f"memory telemetry: frontier counts of sweep {t}")
+        cur = M.msbfs_step(eng.pgv, eng.plan, cur, off)
+        check((bw[:, t].view(np.uint32)
+               == pack_rows(cur.backward.cpu().numpy())).all(),
+              f"memory telemetry: packed directions of sweep {t}")
+    check(int(fn[:, sweeps:].sum()) == 0 and int(bw.sum()) != 0,
+          "memory telemetry: nothing past the last sweep; some lane pulled")
+    blk = M.make_msbfs_block_emulated(cfg, TELEMETRY_BLOCK)
+    run = blk(eng.pgv, eng.plan, init_state(cfg),
+              np.zeros(PAYLOAD_BATCH, dtype=bool))
+    run.wait()
+    blk.runner.drain()
+    eager = init_state(cfg)
+    for _ in range(TELEMETRY_BLOCK):
+        eager = M.msbfs_step(eng.pgv, eng.plan, eager, cfg)
+    check(blk.runner.graphs is not None, "memory telemetry: block captured")
+    _states_equal(run.out, eager, M.STATE_LEAVES,
+                  f"memory telemetry: a captured block of {TELEMETRY_BLOCK} "
+                  "equals the eager sweeps")
+    print(f"memory telemetry: {sweeps} sweeps, tm_* equal to the host's "
+          f"per-sweep frontier counts and directions; captured block of "
+          f"{TELEMETRY_BLOCK} equal to eager; frontier_n per sweep "
+          f"{fn.sum(0)[:sweeps].tolist()}")
+
+
+def memory_compressed_nn(eng, g, queries, answers) -> None:
+    """(3) The 64-query serving run under ``nn="compressed"``: answers
+    equal to the dense run's; then one sweep's ``wire_nn`` on a mid-BFS
+    state equal to the host encoders (``rle_encode`` /
+    ``delta_encode_ids``) applied to that sweep's sent slot maps."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bfs as B, comm as C, msbfs as M
+    from repro_torch.core.comm import codec
+    from repro_torch.graphs.rmat import pick_sources
+    from repro_torch.serve import BFSServeEngine
+
+    comm = C.CommConfig(nn="compressed")
+    ce = BFSServeEngine(pg=eng.pg, comm=comm, device=DEVICE)
+    t0 = time.perf_counter()
+    got = ce.submit_many(queries)
+    dt = time.perf_counter() - t0
+    s = ce.stats
+    print(f"memory compressed nn: {len(queries)} queries in {dt:.3f} s; "
+          f"wire_nn_bytes={s.wire_nn_bytes} nn_sparse_sweeps (delta ids "
+          f"won on partition 0)={s.nn_sparse_sweeps} nn_overflow="
+          f"{s.nn_overflow} ({card_line()})")
+    check(all(payload_answer_equal(a, b) for a, b in zip(got, answers)),
+          "memory compressed nn: answers equal the dense run's")
+    check(s.nn_overflow == 0, "memory compressed nn: no slot dropped")
+    del ce
+    cfg = M.MSBFSConfig(n_queries=PAYLOAD_BATCH, enable_targets=False,
+                        comm=comm)
+    st = M.init_multi_state(eng.pg, [int(x) for x in pick_sources(
+        g, PAYLOAD_BATCH, seed=1)], cfg, device=eng.device)
+    for _ in range(2):
+        st = M.msbfs_step(eng.pgv, eng.plan, st, cfg)
+    # this sweep's sent slot maps, as msbfs_step builds them
+    it = st.it[:, None, None]
+    expand = (~st.lane_stop & (st.it[:, None] - st.base_it
+                               < st.depth_cap))[:, None, :]
+    front = (st.level_n == it) & eng.pgv.normal_valid[:, :, None] & expand
+    sa, _ = M._nn_slots_multi(eng.pgv.nn, front, eng.plan)
+    act = B._dense_slots(eng.plan, sa, eng.pg.p).any(-1).cpu().numpy()
+    t = int(st.it[0])
+    nxt = M.msbfs_step(eng.pgv, eng.plan, st, cfg)
+    wire = (nxt.wire_nn[:, t] - st.wire_nn[:, t]).cpu().numpy()
+    flag = (nxt.nn_sparse[:, t] - st.nn_sparse[:, t]).cpu().numpy()
+    nw = C.n_words(PAYLOAD_BATCH)
+    for k in range(eng.pg.p):
+        rle = delta = sent = 0
+        for j in range(eng.pg.p):
+            if j != k:
+                rle += codec.rle_encode(act[k, j]).size
+                delta += codec.delta_encode_ids(np.nonzero(act[k, j])[0]).size
+                sent += int(act[k, j].sum())
+        want = min(rle, delta) + sent * nw * 4
+        print(f"memory compressed nn sweep {t}, partition {k}: {sent} slots "
+              f"sent; rle {rle} B, delta {delta} B; wire_nn {int(wire[k])} "
+              f"(host encoders {want})")
+        check(int(wire[k]) == want and int(flag[k]) == int(delta <= rle),
+              f"memory compressed nn: wire_nn of partition {k} equals the "
+              "host encoders")
+    torch.cuda.synchronize()
+
+
+def memory_partition(eng, mid) -> dict:
+    """(4) ``compress_partition`` of the scale-20 partition (host seconds,
+    bytes per edge raw and compressed); then partition 0's nd rows decoded
+    into an ELL tile (``decode_ell_tile``) feed B1 (``ops.ell_pull_multi``,
+    one counted launch) on a real mid-BFS frontier (``mid``): equal to
+    B1's plain version on the same tile."""
+    import numpy as np
+    import torch
+    from repro_torch.core import partition as P
+    from repro_torch.core.comm import pack_lanes
+    from repro_torch.core.types import INF_LEVEL
+    from repro_torch.kernels import ops, ref
+
+    pg = eng.pg
+    t0 = time.perf_counter()
+    cp = P.compress_partition(pg)
+    t_c = time.perf_counter() - t0
+    mem = pg.memory_bytes(compressed=cp)
+    print(f"memory compressed partition: {t_c:.1f} s on the host; "
+          f"bytes_per_edge_raw={mem['bytes_per_edge_raw']:.4f} "
+          f"bytes_per_edge_compressed={mem['bytes_per_edge_compressed']:.4f} "
+          f"compressed_vs_raw={mem['compressed_vs_raw']:.4f} "
+          f"total={mem['total']} B compressed_total={mem['compressed_total']}"
+          f" B m={mem['m']} per subgraph {mem['compressed_per_subgraph']}")
+    deg = np.diff(np.asarray(pg.nd.offsets)[0])
+    k_max = int(deg.max()) + 1
+    t0 = time.perf_counter()
+    tile = P.decode_ell_tile(cp.nd, 0, 0, pg.n_local, k_max)
+    t_d = time.perf_counter() - t0
+    it = int(mid.it[0])
+    fw = pack_lanes(mid.level_d[0] == it)                     # [d, nw]
+    nv = eng.pgv.normal_valid[0][:, None]
+    aw = pack_lanes((mid.level_n[0] == int(INF_LEVEL)) & nv)  # [nl, nw]
+    tile_dev = torch.from_numpy(tile).to(eng.device)
+    ops.reset_launches()
+    got = ops.ell_pull_multi(tile_dev, fw, aw)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["ell_pull_multi"]
+    want = ref.ell_pull_multi_ref(torch.from_numpy(tile), fw.cpu(), aw.cpu())
+    found = int((got.cpu() != 0).any(1).sum())
+    print(f"memory decoded tile: partition 0 nd rows {tile.shape} (k_max "
+          f"{k_max}) decoded in {t_d:.1f} s; B1 launches={launches}; rows "
+          f"found {found} of {int((aw != 0).any(1).sum())} needing a lane "
+          f"({card_line()})")
+    check(launches == 1, "memory decoded tile: one B1 launch")
+    check(torch.equal(got.cpu(), want) and found > 0,
+          "memory decoded tile: B1 equals its plain version")
+    return dict(compress_s=t_c, decode_s=t_d, **{
+        k: mem[k] for k in ("bytes_per_edge_raw", "bytes_per_edge_compressed",
+                            "compressed_vs_raw", "total", "compressed_total",
+                            "m")})
+
+
+def memory_path(eng, g, csr, queries, answers) -> dict:
+    """The memory and telemetry modes on the scale-20 partition (p = 2
+    emulated, TH = 64, W = 32): (1) peaks, (2) telemetry, (3) the
+    compressed nn format, (4) the compressed partition."""
+    import torch
+    from repro_torch.core import msbfs as M
+
+    t_start = time.perf_counter()
+    print(f"memory phase: edge_chunk={EDGE_CHUNK} edge slots of every "
+          f"partition per push block (E_max nn/nd/dn/dd "
+          f"{eng.pg.nn.e_max}/{eng.pg.nd.e_max}/{eng.pg.dn.e_max}/"
+          f"{eng.pg.dd.e_max})")
+    peaks = memory_peaks(eng, g, csr, queries)
+    _, mixed = payload_queries(g)
+    peaks["overlap"] = memory_overlap(eng.pg, mixed)
+    bit_state = peaks["bit"].pop("state")
+    peaks["sssp"].pop("state")
+    init = lane_init(queries[:PAYLOAD_BATCH])
+    memory_telemetry(eng, init, bit_state)
+    del bit_state
+    torch.cuda.empty_cache()
+    memory_compressed_nn(eng, g, queries, answers)
+    kw = dict(init)
+    cfg = M.MSBFSConfig(n_queries=PAYLOAD_BATCH)
+    mid = M.init_multi_state(eng.pg, kw.pop("sources"), cfg,
+                             device=eng.device, **kw)
+    for _ in range(2):
+        mid = M.msbfs_step(eng.pgv, eng.plan, mid, cfg)
+    part = memory_partition(eng, mid)
+    print(f"memory path: {time.perf_counter() - t_start:.1f} s")
+    return dict(peaks=peaks, partition=part)
+
+
 def recsys_setup():
     """TF32 off, the FULL xDeepFM with seeded random weights on the card,
     and the ClickStream whose hot / cold row ids index its tables."""
@@ -3246,6 +3654,12 @@ def run() -> None:
     payload = payload_path(g, pg, csr)
     stamp("payload path done")
 
+    # ---- memory and telemetry modes: edge_chunk, telemetry, the
+    # compressed nn format and partition ----------------------------------
+    torch.cuda.empty_cache()
+    memory_path(eng, g, csr, queries, answers)
+    stamp("memory path done")
+
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
     torch.cuda.empty_cache()
@@ -3363,10 +3777,11 @@ def sharded_alone() -> None:
 
 def run_alone(names) -> None:
     """``--only``: the named phases (``segment_bag``, ``ell_pull_payload``,
-    ``sharded``, ``payload``) on their inputs (the recsys model and
-    ClickStream batches, the scale-20 graph, made as ``run`` makes them),
-    nothing else (``payload`` adds the sharded world-1 NCCL phase, which
-    holds its (e)); then the device line."""
+    ``sharded``, ``payload``, ``memory``) on their inputs (the recsys
+    model and ClickStream batches, the scale-20 graph, made as ``run``
+    makes them; ``memory`` first serves the 64 queries it holds the
+    compressed run against), nothing else (``payload`` adds the sharded
+    world-1 NCCL phase, which holds its (e)); then the device line."""
     import torch
     from repro_torch.core import oracle as O
     from repro_torch.core.partition import partition_graph
@@ -3394,6 +3809,16 @@ def run_alone(names) -> None:
         if "sharded" not in names:
             torch.cuda.empty_cache()
             sharded_nccl_phase()
+    if "memory" in names:
+        from repro_torch.serve import BFSServeEngine
+
+        torch.cuda.empty_cache()
+        g = rmat_graph(SCALE, seed=0)
+        eng = BFSServeEngine(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU,
+                             device=DEVICE)
+        queries = mixed_queries(g, eng.pg)
+        memory_path(eng, g, O.csr_from_coo(g), queries,
+                    eng.submit_many(queries))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3405,15 +3830,15 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
+              "memory")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
-                         "segment_bag, ell_pull_payload, sharded, payload")
+                         + ", ".join(phases))
     args = ap.parse_args()
     only = None if args.only is None else set(args.only.split(","))
-    if only is not None and not only <= {"segment_bag", "ell_pull_payload",
-                                         "sharded", "payload"}:
-        ap.error(f"--only takes segment_bag, ell_pull_payload, sharded, "
-                 f"payload, not {only}")
+    if only is not None and not only <= set(phases):
+        ap.error(f"--only takes {', '.join(phases)}, not {only}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)

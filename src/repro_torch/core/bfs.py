@@ -54,9 +54,6 @@ from repro_torch.kernels.pull_schedule import build_schedule
 _MIN_SPEC = comm.COMBINE_SPECS["min"]
 assert int(_MIN_SPEC.identity) == int(INF_LEVEL)
 
-_DEFERRED = "ROADMAP.md queue A, item A10 (memory and telemetry modes)"
-
-
 # -----------------------------------------------------------------------------
 # Config / state
 
@@ -80,25 +77,26 @@ class BFSConfig:
     factor0: tuple = (0.5, 0.05, 1e-7)
     factor1: tuple = (1e-3, 1e-4, 1e-9)
     comm: comm.CommConfig = comm.CommConfig()
-    # the reference's out-of-core sweep mode and device telemetry; only the
-    # defaults (0, False) are ported
+    # Out-of-core sweep mode: > 0 runs the dd/nd/dn pushes and the static
+    # exchange's slot fold over blocks of this many edge slots of every
+    # partition (a Python loop, one scatter per block into one output), so
+    # the per-edge temporaries are O(edge_chunk) instead of O(E_max).
+    # Scatter-OR and the counts are order-free, so every leaf equals the
+    # monolithic sweep's. The pulls read the CSR in place and need no
+    # block; the legacy binned nn path stays monolithic, as in the
+    # reference. 0 = monolithic.
     edge_chunk: int = 0
+    # True carries the per-sweep telemetry leaves tm_* ([p, max_iters]
+    # int32: frontier popcounts and the direction bitmask); False keeps
+    # them zero-width. Answers and counters are the same either way.
     telemetry: bool = False
-
-    def __post_init__(self):
-        if self.edge_chunk > 0:
-            raise NotImplementedError(
-                f"edge_chunk > 0 is not ported yet: {_DEFERRED}")
-        if self.telemetry:
-            raise NotImplementedError(
-                f"telemetry=True is not ported yet: {_DEFERRED}")
 
 
 @dataclass
 class BFSState:
     """Single-source traversal state (leaves, shapes and dtypes as in the
-    reference package). The telemetry leaves are zero-width, as the
-    reference keeps them when telemetry is off."""
+    reference package). The telemetry leaves are zero-width unless
+    ``cfg.telemetry``, as the reference keeps them."""
 
     level_n: Any      # [p, n_local] int32
     level_d: Any      # [p, d] int32 (replicated content)
@@ -114,9 +112,12 @@ class BFSState:
     wire_delegate: Any   # per-device bytes per sweep (comm/base.py)
     wire_nn: Any
     nn_sparse: Any    # 1 if the nn exchange shipped the sparse format
-    tm_frontier_n: Any  # [p, 0] int32 (telemetry off)
-    tm_frontier_d: Any  # [p, 0] int32
-    tm_backward: Any    # [p, 0] int32
+                      # (nn="compressed": 1 if the delta-id stream won)
+    # per-sweep telemetry ([p, max_iters] int32 with cfg.telemetry, [p, 0]
+    # otherwise); frontier counts accumulate, the direction bits are set:
+    tm_frontier_n: Any  # per-partition normal-frontier popcount
+    tm_frontier_d: Any  # delegate-frontier popcount (replicated content)
+    tm_backward: Any    # bits 1, 2, 4 set where dd, dn, nd pulled
 
 
 STATE_LEAVES = tuple(f.name for f in fields(BFSState))
@@ -215,6 +216,7 @@ def init_state(pg: PartitionedGraph, source: int, cfg: BFSConfig,
                 int(layout.local_of(np.int64(source)))] = 0
     i32 = lambda *s: np.zeros(s, dtype=np.int32)
     mi = cfg.max_iters
+    tmi = mi if cfg.telemetry else 0
     host = dict(
         level_n=level_n, level_d=level_d,
         backward=np.zeros((p, 3), dtype=bool), it=i32(p),
@@ -222,8 +224,8 @@ def init_state(pg: PartitionedGraph, source: int, cfg: BFSConfig,
         work_fwd=i32(p, mi), work_bwd=i32(p, mi), nn_sent=i32(p, mi),
         nn_overflow=i32(p, mi), delegate_round=i32(p, mi),
         wire_delegate=i32(p, mi), wire_nn=i32(p, mi), nn_sparse=i32(p, mi),
-        tm_frontier_n=i32(p, 0), tm_frontier_d=i32(p, 0),
-        tm_backward=i32(p, 0))
+        tm_frontier_n=i32(p, tmi), tm_frontier_d=i32(p, tmi),
+        tm_backward=i32(p, tmi))
     return BFSState(**{k: torch.from_numpy(v).to(dev)
                        for k, v in host.items()})
 
@@ -237,12 +239,20 @@ def _row_degrees(csr: CSR) -> torch.Tensor:
     return csr.offsets[..., 1:] - csr.offsets[..., :-1]
 
 
+def _extended(rows: torch.Tensor) -> torch.Tensor:
+    """``[p, R, ...]`` rows plus one all-zero row per partition (what
+    padding edges, rowid = R, gather), flattened to ``[p * (R + 1),
+    ...]``: the table ``CSR.flat_rows`` indexes."""
+    p, lanes = rows.shape[0], rows.shape[2:]
+    return torch.cat([rows, rows.new_zeros((p, 1) + lanes)],
+                     1).reshape((-1,) + lanes)
+
+
 def _edge_active(csr: CSR, frontier_rows: torch.Tensor) -> torch.Tensor:
     """Edge-parallel frontier gather: ``[p, E]`` active flag per (padded)
-    edge slot (padding edges, rowid = R, gather an all-False row)."""
+    edge slot (padding edges gather an all-False row)."""
     p = frontier_rows.shape[0]
-    ext = torch.cat([frontier_rows, frontier_rows.new_zeros((p, 1))], 1)
-    return ext.reshape(-1)[csr.flat_rows].reshape(p, -1)
+    return _extended(frontier_rows)[csr.flat_rows].reshape(p, -1)
 
 
 def _scatter_or(n_out: int, index: torch.Tensor,
@@ -256,26 +266,57 @@ def _scatter_or(n_out: int, index: torch.Tensor,
     return out > 0
 
 
-def _push_fused(csr: CSR, frontier_rows: torch.Tensor,
-                n_dst: int) -> torch.Tensor:
+def edge_blocks(e_max: int, edge_chunk: int) -> list:
+    """The edge slot ranges ``[a, b)`` a sweep visits, one scatter each:
+    one range of all ``e_max`` slots when ``edge_chunk`` is 0 or covers
+    them (monolithic), else blocks of ``edge_chunk`` slots, the last one
+    short (the reference pads it with edges that scatter nothing)."""
+    if edge_chunk <= 0 or edge_chunk >= e_max:
+        return [(0, e_max)]
+    return [(a, min(a + edge_chunk, e_max))
+            for a in range(0, e_max, edge_chunk)]
+
+
+def _block_index(flat: torch.Tensor, p: int, a: int, b: int) -> torch.Tensor:
+    """Slots ``[a, b)`` of every partition of a flat ``[p * E]`` index, as
+    one flat index (no copy for the monolithic range)."""
+    return flat.view(p, -1)[:, a:b].reshape(-1)
+
+
+def _push_fused(csr: CSR, frontier_rows: torch.Tensor, n_dst: int,
+                edge_chunk: int = 0) -> torch.Tensor:
     """Push: gather + scatter-OR of the frontier along every edge ->
-    ``[p, n_dst]`` bool."""
+    ``[p, n_dst]`` bool, over :func:`edge_blocks` of ``edge_chunk``."""
     p = frontier_rows.shape[0]
-    act = _edge_active(csr, frontier_rows)
-    return _scatter_or(p * n_dst, csr.flat_cols,
-                       act.reshape(-1)).reshape(p, n_dst)
+    ext = _extended(frontier_rows)
+    out = torch.zeros(p * n_dst, dtype=torch.int32,
+                      device=frontier_rows.device)
+    for a, b in edge_blocks(csr.e_max, edge_chunk):
+        out.index_add_(0, _block_index(csr.flat_cols, p, a, b),
+                       ext[_block_index(csr.flat_rows, p, a, b)].to(
+                           torch.int32))
+    return (out > 0).reshape(p, n_dst)
 
 
-def _nn_slots_bits(csr: CSR, frontier_rows: torch.Tensor, plan):
+def _nn_slots_bits(csr: CSR, frontier_rows: torch.Tensor, plan,
+                   edge_chunk: int = 0):
     """Sender-side unique-slot occupancy for the static-exchange nn path:
-    ``(sa [p, cap_total] bool, act_sum [p] int32)`` with ``act_sum`` the
-    active nn edge count (``plan.perm`` is a permutation, so the permuted
-    sum is identical)."""
+    ``(sa [p, cap_total] bool, act_sum [p])`` with ``act_sum`` the active
+    nn edge count (``plan.perm`` is a permutation, so the permuted sum is
+    identical), over :func:`edge_blocks` of the permuted edge order."""
     p = frontier_rows.shape[0]
-    act = _edge_active(csr, frontier_rows).gather(1, plan.perm.long())
-    sa = _scatter_or(p * (plan.cap_total + 1), plan.flat_seg, act.reshape(-1))
-    return (sa.reshape(p, -1)[:, : plan.cap_total],
-            act.sum(1, dtype=torch.int32))
+    ext = _extended(frontier_rows)
+    rows = csr.flat_rows.view(p, -1)
+    sa = torch.zeros(p * (plan.cap_total + 1), dtype=torch.int32,
+                     device=ext.device)
+    act_sum = 0
+    for a, b in edge_blocks(csr.e_max, edge_chunk):
+        act = ext[rows.gather(1, plan.perm[:, a:b].long()).reshape(-1)]
+        sa.index_add_(0, _block_index(plan.flat_seg, p, a, b),
+                      act.to(torch.int32))
+        act_sum = act_sum + act.view(p, -1).sum(1, dtype=torch.int32)
+        del act             # before the next block's is made
+    return (sa.view(p, -1)[:, : plan.cap_total] > 0), act_sum
 
 
 def _dense_slots(plan, sa: torch.Tensor, p: int) -> torch.Tensor:
@@ -391,27 +432,29 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
                      (pgv.nd, unvis_n & nd_m & bwd_dn, mask_d)], chunk)
 
     # ---- dd: delegate -> delegate ----------------------------------------
-    push_dd = _push_fused(pgv.dd, frontier_d, d)
+    ec = cfg.edge_chunk
+    push_dd = _push_fused(pgv.dd, frontier_d, d, ec)
     cand_dd = torch.where(bwd_dd, pull_dd, push_dd)
 
     # ---- nd: normal -> delegate -------------------------------------------
-    push_nd = _push_fused(pgv.nd, frontier_n, d)
+    push_nd = _push_fused(pgv.nd, frontier_n, d, ec)
     cand_nd = torch.where(bwd_nd, pull_nd, push_nd)
 
     # ---- dn: delegate -> normal -------------------------------------------
-    push_dn = _push_fused(pgv.dn, frontier_d, nl)
+    push_dn = _push_fused(pgv.dn, frontier_d, nl, ec)
     new_n_local = torch.where(bwd_dn, pull_dn, push_dn)
 
     # ---- nn: normal -> normal, forward only, remote exchange --------------
     if cfg.static_exchange:
         # 1 bit per unique (owner, local) slot of the static plan
-        sa, act_nn_sum = _nn_slots_bits(pgv.nn, frontier_n, plan)
+        sa, act_nn_sum = _nn_slots_bits(pgv.nn, frontier_n, plan, ec)
         recv_mask, nn_bytes, nn_sparse, ovf = comm.nn_exchange_bits(
             cplan, _dense_slots(plan, sa, p), plan.recv_local, nl)
         sent = _count(sa)
     else:
         # legacy runtime-binned path: active destination ids sorted into
-        # per-owner bins of `cap` int32 ids
+        # per-owner bins of `cap` int32 ids (monolithic under edge_chunk,
+        # as in the reference: its [p, E] bool flags are the working set)
         act_nn = _edge_active(pgv.nn, frontier_n)
         act_nn_sum = _count(act_nn)
         if cfg.cap_nn > 0:
@@ -471,6 +514,20 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
         out[at] += val
         return out
 
+    if cfg.telemetry:
+        # the frontier masks and directions are live already: telemetry
+        # adds no collective and no host read, only its own writes
+        tm = dict(
+            tm_frontier_n=add(state.tm_frontier_n, _count(frontier_n)),
+            tm_frontier_d=add(state.tm_frontier_d, _count(frontier_d)),
+            tm_backward=put(state.tm_backward,
+                            bwd_dd[:, 0].to(torch.int32)
+                            + 2 * bwd_dn[:, 0].to(torch.int32)
+                            + 4 * bwd_nd[:, 0].to(torch.int32)))
+    else:
+        tm = dict(tm_frontier_n=state.tm_frontier_n,
+                  tm_frontier_d=state.tm_frontier_d,
+                  tm_backward=state.tm_backward)
     return BFSState(
         level_n=new_level_n,
         level_d=new_level_d,
@@ -485,9 +542,7 @@ def bfs_step(pgv: PartitionedGraph, state: BFSState, cfg: BFSConfig,
         wire_delegate=add(state.wire_delegate, d_bytes),
         wire_nn=add(state.wire_nn, nn_bytes),
         nn_sparse=add(state.nn_sparse, nn_sparse),
-        tm_frontier_n=state.tm_frontier_n,
-        tm_frontier_d=state.tm_frontier_d,
-        tm_backward=state.tm_backward,
+        **tm,
     )
 
 

@@ -12,9 +12,11 @@ Two classes of traffic, exactly as the paper prescribes:
   the static slot plan or in runtime-binned id lists (:mod:`.exchange`).
 
 :mod:`.base` holds the strategy config and the wire-byte formulas,
-:mod:`.wire` the lane-word packing that is the wire format itself.
+:mod:`.wire` the lane-word packing that is the wire format itself,
+:mod:`.codec` the compressed nn format's varint streams and their exact
+byte counts.
 """
-from . import dist
+from . import codec, dist
 from .base import (
     COMBINE_SPECS,
     DELEGATE_STRATEGIES,
@@ -33,7 +35,7 @@ from .wire import n_words, pack_lanes, unpack_lanes
 
 __all__ = [
     "COMBINE_SPECS", "DELEGATE_STRATEGIES", "NN_FORMATS", "CombineSpec",
-    "CommConfig", "CommPlan", "any_reduce", "bin_by_owner",
+    "CommConfig", "CommPlan", "any_reduce", "bin_by_owner", "codec",
     "delegate_allreduce_sum", "delegate_combine", "dist",
     "delegate_min_apply", "delegate_or_apply", "exchange_normal",
     "lane_any_reduce", "lane_fold_reduce", "n_words", "nn_exchange_bits",

@@ -33,8 +33,6 @@ per process and takes the mesh's axes and sizes, so ``hier`` and the
 per-axis rings see the mesh's levels. A plan built directly with several
 axes and no mesh stacks ``p = prod(sizes)`` rows in row-major order over
 them (the emulated two-axis mesh of the combine's parity tests).
-``nn="compressed"`` raises ``NotImplementedError`` naming the ROADMAP item
-that ports it (A10).
 """
 from __future__ import annotations
 
@@ -46,8 +44,6 @@ from typing import Any
 DELEGATE_STRATEGIES = ("auto", "allgather", "ring", "hier")
 #: nn wire formats (CommConfig.nn)
 NN_FORMATS = ("dense", "sparse", "adaptive", "compressed")
-_DEFERRED_NN = {"compressed": "ROADMAP.md queue A, item A10 (the compressed "
-                               "nn codec)"}
 
 
 @dataclass(frozen=True)
@@ -92,7 +88,9 @@ class CommConfig:
     slot ids, ``sparse_cap`` per peer; slots beyond it are dropped and
     counted), ``"adaptive"`` (per sweep sparse when every peer's active
     slots fit the cap, dense otherwise, agreed globally) or
-    ``"compressed"`` (not ported: raises).
+    ``"compressed"`` (the adaptive transport, counted as the exact bytes
+    of the cheaper of two varint streams of the active slot ids,
+    :mod:`.codec`).
     """
 
     delegate: str = "auto"
@@ -106,9 +104,6 @@ class CommConfig:
                 f"delegate={self.delegate!r} not in {DELEGATE_STRATEGIES}")
         if self.nn not in NN_FORMATS:
             raise ValueError(f"nn={self.nn!r} not in {NN_FORMATS}")
-        if self.nn in _DEFERRED_NN:
-            raise NotImplementedError(
-                f"nn={self.nn!r} is not ported yet: {_DEFERRED_NN[self.nn]}")
 
     def as_dict(self) -> dict:
         return {"delegate": self.delegate, "hier_split": self.hier_split,

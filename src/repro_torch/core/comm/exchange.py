@@ -17,7 +17,12 @@ slot layout of the :class:`~repro_torch.core.engine.ExchangePlan`:
   scalar max. Emulated, both receive sets are computed and one is selected
   on the device (nothing crosses a real wire, and no host read breaks a
   captured sweep); distributed, the host reads the agreed scalar and ships
-  only the chosen format, so the counters report exactly the bytes sent.
+  only the chosen format, so the counters report exactly the bytes sent;
+* **compressed** -- the adaptive transport (dense where sparse can never
+  win), counted as the exact bytes of the cheaper of two varint streams of
+  each peer's active slot ids (:mod:`.codec`), plus the slots' lane words
+  or payload values; the sparse flag then reports which stream won (1 =
+  delta ids, 0 = rle bitmap).
 
 The legacy runtime-binned exchange of the single-source path
 (:func:`bin_by_owner` + :func:`exchange_normal`) sorts active destination
@@ -33,6 +38,7 @@ import torch
 
 from . import dist as D
 from .base import COMBINE_SPECS, CommPlan
+from .codec import compressed_wire_bytes
 from .wire import n_words, pack_lanes, unpack_lanes
 
 #: the payload plane's "nothing arrived" value: the min_plus identity
@@ -153,6 +159,21 @@ def _adaptive(plan: CommPlan, act: torch.Tensor, cap_sparse: int, dense,
     return dense(), dense_bytes, 0, 0
 
 
+def _compressed(plan: CommPlan, act: torch.Tensor, nw: int, cap_sparse: int,
+                dense, sparse, sparse_bytes: int, dense_bytes: int):
+    """The compressed format: the adaptive transport (dense where sparse
+    can never win), counted as the codec's exact stream bytes with ``nw *
+    4`` bytes per active slot. Returns ``(recv, wire_bytes [rows],
+    delta_used [rows], 0)``: the adaptive switch never drops a slot."""
+    wire, delta_used = compressed_wire_bytes(plan, act, nw)
+    if sparse_bytes >= dense_bytes:
+        recv = dense()
+    else:
+        recv = _adaptive(plan, act, cap_sparse, dense, sparse, sparse_bytes,
+                         dense_bytes)[0]
+    return recv, wire, delta_used, 0
+
+
 def nn_exchange_bits(plan: CommPlan, active: torch.Tensor,
                      recv_local: torch.Tensor, nl: int):
     """Single-bit nn exchange (the single-source path).
@@ -181,6 +202,9 @@ def nn_exchange_bits(plan: CommPlan, active: torch.Tensor,
                 overflow)
 
     mode = plan.cfg.nn
+    if mode == "compressed":
+        return _compressed(plan, active, 0, cap_sparse, dense, sparse,
+                           sparse_bytes, dense_bytes)
     if mode == "adaptive" and sparse_bytes >= dense_bytes:
         mode = "dense"                      # sparse can never win: skip it
     if mode == "dense":
@@ -224,6 +248,9 @@ def nn_exchange_words(plan: CommPlan, dense: torch.Tensor,
         return _scatter_recv_words(rlanes, loc, nl), overflow
 
     mode = plan.cfg.nn
+    if mode == "compressed":
+        return _compressed(plan, act, nw, cap_sparse, dense_path,
+                           sparse_path, sparse_bytes, dense_bytes)
     if mode == "adaptive" and sparse_bytes >= dense_bytes:
         mode = "dense"                      # sparse can never win: skip it
     if mode == "dense":
@@ -284,6 +311,9 @@ def nn_exchange_payload(plan: CommPlan, dense_pay: torch.Tensor,
         return _scatter_recv_payload(_a2a(plan, sv), loc, nl), overflow
 
     mode = plan.cfg.nn
+    if mode == "compressed":            # the id stream + W int32 a slot
+        return _compressed(plan, act, w, cap_sparse, dense_path,
+                           sparse_path, sparse_bytes, dense_bytes)
     if mode == "adaptive" and sparse_bytes >= dense_bytes:
         mode = "dense"                      # sparse can never win: skip it
     if mode == "dense":

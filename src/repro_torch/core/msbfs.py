@@ -68,8 +68,9 @@ import numpy as np
 import torch
 
 from . import comm
-from .bfs import (_DEFERRED, _bv_estimate, _count, _decide_direction,
-                  _dense_slots, _row_degrees, _scatter_or, resolve_device)
+from .bfs import (_block_index, _bv_estimate, _count, _decide_direction,
+                  _dense_slots, _extended, _row_degrees, edge_blocks,
+                  resolve_device)
 from .comm import n_words, pack_lanes, unpack_lanes
 from .types import CSR, INF_LEVEL, PartitionedGraph, PartitionLayout
 from .weights import SSSP_DELTA, edge_weights
@@ -110,18 +111,19 @@ class MSBFSConfig:
     # component lanes, mixed freely with bit lanes); False keeps its leaves
     # zero-width and every bit-only counter as it was
     payload: bool = False
-    # the reference's out-of-core sweep mode and device telemetry; only the
-    # defaults (0, False) are ported
+    # Out-of-core sweep mode: > 0 runs every push (bit and min-plus) and
+    # the nn slot folds over blocks of this many edge slots of every
+    # partition (a Python loop, one scatter per block into one output), so
+    # the [E, W] per-edge temporaries shrink to [edge_chunk, W]. OR, min
+    # and the counts are order-free, so every leaf equals the monolithic
+    # sweep's. The pulls read the CSR in place and need no block. 0 =
+    # monolithic.
     edge_chunk: int = 0
+    # True carries the per-sweep telemetry leaves tm_* (frontier popcounts
+    # and the packed per-lane directions, [p, max_iters, ...]); False
+    # keeps them zero-width. Answers, schedule and counters are the same
+    # either way.
     telemetry: bool = False
-
-    def __post_init__(self):
-        if self.edge_chunk > 0:
-            raise NotImplementedError(
-                f"edge_chunk > 0 is not ported yet: {_DEFERRED}")
-        if self.telemetry:
-            raise NotImplementedError(
-                f"telemetry=True is not ported yet: {_DEFERRED}")
 
 
 @dataclass
@@ -132,8 +134,8 @@ class MSBFSState:
     Levels are stored *absolute*: a lane seeded at global iteration ``b``
     records its source at ``b`` (``base_it``) and depth-k vertices at
     ``b + k``; :func:`gather_levels_multi` subtracts ``base_it``. The
-    telemetry leaves are zero-width, as the reference keeps them when that
-    mode is off; the payload leaves are too unless ``cfg.payload``
+    telemetry leaves are zero-width unless ``cfg.telemetry``, as the
+    reference keeps them; the payload leaves are too unless ``cfg.payload``
     (``Wp = W`` then, ``0`` otherwise). Payload values are absolute (SSSP
     distances from the seed's 0, component labels = global ids),
     ``PAY_IDENT`` where unreached; ``pay_pending_*`` marks vertices whose
@@ -161,10 +163,14 @@ class MSBFSState:
     wire_delegate: Any   # [p, max_iters] int32 -- delegate-combine bytes
     wire_nn: Any         # [p, max_iters] int32 -- nn-exchange bytes
     nn_sparse: Any       # [p, max_iters] int32 -- sparse nn format used
+                         # (nn="compressed": the delta-id stream won)
     nn_overflow: Any     # [p, max_iters] int32 -- slots dropped by a cap
-    tm_frontier_n: Any   # [p, 0] int32 (telemetry off)
-    tm_frontier_d: Any   # [p, 0] int32
-    tm_backward: Any     # [p, 0, 3, n_words(W)] int32
+    # per-sweep telemetry (Tm = max_iters with cfg.telemetry, else 0):
+    tm_frontier_n: Any   # [p, Tm] int32 -- expand-gated normal frontier
+                         # popcount (accumulated, as the wire counters)
+    tm_frontier_d: Any   # [p, Tm] int32 -- delegate frontier popcount
+    tm_backward: Any     # [p, Tm, 3, n_words(W)] int32 -- per-lane
+                         # (dd, dn, nd) pull decisions, packed
     payload_n: Any       # [p, n_local, Wp] int32
     payload_d: Any       # [p, d, Wp] int32 (replicated content)
     pay_pending_n: Any   # [p, n_local, Wp] bool
@@ -301,6 +307,7 @@ def _empty_state(pg: PartitionedGraph, cfg: MSBFSConfig,
         level_n, level_d = b(p, nl, w), b(p, d, w)      # visited words
         frontier_n, frontier_d = b(p, nl, w), b(p, d, w)
     wp, pmi = (w, mi) if cfg.payload else (0, 0)
+    tmi = mi if cfg.telemetry else 0
     ident = lambda *s: torch.full(s, _PAY, dtype=torch.int32, device=dev)
     return MSBFSState(
         level_n=level_n, level_d=level_d, backward=b(p, 3, w), it=i32(p),
@@ -312,8 +319,8 @@ def _empty_state(pg: PartitionedGraph, cfg: MSBFSConfig,
         work_fwd=i32(p, mi), work_bwd=i32(p, mi), nn_sent=i32(p, mi),
         delegate_round=i32(p, mi), wire_delegate=i32(p, mi),
         wire_nn=i32(p, mi), nn_sparse=i32(p, mi), nn_overflow=i32(p, mi),
-        tm_frontier_n=i32(p, 0), tm_frontier_d=i32(p, 0),
-        tm_backward=i32(p, 0, 3, n_words(w)),
+        tm_frontier_n=i32(p, tmi), tm_frontier_d=i32(p, tmi),
+        tm_backward=i32(p, tmi, 3, n_words(w)),
         payload_n=ident(p, nl, wp), payload_d=ident(p, d, wp),
         pay_pending_n=b(p, nl, wp), pay_pending_d=b(p, d, wp),
         pay_bucket=ident(p, wp), pay_delta=ident(p, wp),
@@ -573,33 +580,45 @@ def reseed_lanes(
 # Lane-word traversal primitives (stacked over the partition axis)
 
 
-def _extended(rows: torch.Tensor) -> torch.Tensor:
-    """``[p, R, W]`` rows plus one all-False row per partition (what padding
-    edges, rowid = R, gather), flattened to ``[p * (R + 1), W]``."""
-    p, _, w = rows.shape
-    return torch.cat([rows, rows.new_zeros((p, 1, w))], 1).reshape(-1, w)
-
-
-def _push_multi(csr: CSR, frontier_rows: torch.Tensor,
-                n_dst: int) -> torch.Tensor:
+def _push_multi(csr: CSR, frontier_rows: torch.Tensor, n_dst: int,
+                edge_chunk: int = 0) -> torch.Tensor:
     """Push: gather each edge's source lane word, scatter-OR it onto the
-    destination domain -> ``[p, n_dst, W]`` bool."""
+    destination domain -> ``[p, n_dst, W]`` bool; the ``[p * E, W]``
+    gather and its int32 copy are made block by block
+    (:func:`~repro_torch.core.bfs.edge_blocks` of ``edge_chunk``) into one
+    int32 count (OR as count > 0, order-free)."""
     p, _, w = frontier_rows.shape
-    act = _extended(frontier_rows)[csr.flat_rows]           # [p*E, W]
-    return _scatter_or(p * n_dst, csr.flat_cols, act).reshape(p, n_dst, w)
+    ext = _extended(frontier_rows)
+    out = torch.zeros((p * n_dst, w), dtype=torch.int32,
+                      device=frontier_rows.device)
+    for a, b in edge_blocks(csr.e_max, edge_chunk):
+        out.index_add_(0, _block_index(csr.flat_cols, p, a, b),
+                       ext[_block_index(csr.flat_rows, p, a, b)].to(
+                           torch.int32))
+    return (out > 0).reshape(p, n_dst, w)
 
 
-def _nn_slots_multi(csr: CSR, frontier_rows: torch.Tensor, plan):
+def _nn_slots_multi(csr: CSR, frontier_rows: torch.Tensor, plan,
+                    edge_chunk: int = 0):
     """Sender-side unique-slot lane words for the nn exchange:
     ``(sa [p, cap_total, W] bool, act_sum [p])`` with ``act_sum`` the total
     active (edge, lane) count (the nn term of ``work_fwd``; ``plan.perm``
-    is a permutation, so summing in permuted order is identical)."""
+    is a permutation, so summing in permuted order is identical), over
+    blocks of the permuted edge order as :func:`_push_multi`."""
     p, _, w = frontier_rows.shape
-    rows = csr.flat_rows.view(p, -1).gather(1, plan.perm.long()).reshape(-1)
-    act = _extended(frontier_rows)[rows]                    # [p*E, W]
-    sa = _scatter_or(p * (plan.cap_total + 1), plan.flat_seg, act)
-    sa = sa.reshape(p, plan.cap_total + 1, w)[:, : plan.cap_total]
-    return sa, act.reshape(p, -1).sum(1)
+    ext = _extended(frontier_rows)
+    rows = csr.flat_rows.view(p, -1)
+    sa = torch.zeros((p * (plan.cap_total + 1), w), dtype=torch.int32,
+                     device=frontier_rows.device)
+    act_sum = 0
+    for a, b in edge_blocks(csr.e_max, edge_chunk):
+        act = ext[rows.gather(1, plan.perm[:, a:b].long()).reshape(-1)]
+        sa.index_add_(0, _block_index(plan.flat_seg, p, a, b),
+                      act.to(torch.int32))
+        act_sum = act_sum + act.view(p, -1).sum(1)
+        del act             # before the next block's is made
+    sa = (sa > 0).reshape(p, plan.cap_total + 1, w)[:, : plan.cap_total]
+    return sa, act_sum
 
 
 def _pull_sweep_multi(pulls, chunk: int):
@@ -688,73 +707,102 @@ def payload_view(pgv: PartitionedGraph, plan, mesh=None) -> PayloadView:
     return view
 
 
-def _relax(vals: torch.Tensor, index: torch.Tensor, wts: torch.Tensor,
+def _extended_pay(front: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``[p, R, W]`` payload rows where ``front`` (the identity elsewhere)
+    plus one identity row per partition (what padding edges, rowid = R,
+    gather), flattened to ``[p * (R + 1), W]``; built in one buffer (no
+    second plane-sized temporary)."""
+    p, r, w = vals.shape
+    ext = vals.new_full((p, r + 1, w), _PAY)
+    ext[:, :r] = vals
+    ext[:, :r].masked_fill_(~front, _PAY)
+    return ext.view(-1, w)
+
+
+def _relax(ext: torch.Tensor, index: torch.Tensor, wts: torch.Tensor,
            wsel: torch.Tensor) -> torch.Tensor:
-    """The min-plus candidates of one edge set, ``[p * E, W]`` int32: each
-    edge's source row of ``vals [p, R, W]`` (the identity where a (row,
-    lane) pair does not relax; ``index`` points into it extended by one
-    identity row per partition) plus the edge's weight ``wts [p, E]`` in
-    the lanes of ``wsel [p, W]``. Identity + weight >= identity, so padding
-    edges and gated lanes are no-ops of the min that follows."""
-    p, _, w = vals.shape
-    ext = torch.cat([vals, vals.new_full((p, 1, w), _PAY)], 1).reshape(-1, w)
+    """The min-plus candidates of one block of edges, ``[p * e, W]`` int32:
+    each edge's source row of ``ext`` (:func:`_extended_pay` of the rows,
+    the identity where a (row, lane) pair does not relax) plus the edge's
+    weight ``wts [p, e]`` in the lanes of ``wsel [p, W]``. Identity +
+    weight >= identity, so padding edges and gated lanes are no-ops of the
+    min that follows."""
+    p, w = wsel.shape
     cand = ext[index].view(p, -1, w)
     cand.addcmul_(wts[:, :, None], wsel[:, None, :].to(torch.int32))
     return cand.view(-1, w)
 
 
-def _scatter_min(n_out: int, index: torch.Tensor,
-                 vals: torch.Tensor) -> torch.Tensor:
-    """Scatter-min of ``vals [E, W]`` int32 onto ``[n_out, W]`` rows that
-    start at the identity (min is order-free: the result is exact)."""
-    w = vals.shape[-1]
-    out = torch.full((n_out, w), _PAY, dtype=torch.int32, device=vals.device)
-    out.scatter_reduce_(0, index[:, None].expand(-1, w), vals, "amin")
+def _scatter_min_blocks(n_out: int, p: int, e_max: int, edge_chunk: int,
+                        ext: torch.Tensor, rows: torch.Tensor,
+                        cols: torch.Tensor, wts: torch.Tensor,
+                        wsel: torch.Tensor) -> torch.Tensor:
+    """Scatter-min of the min-plus candidates of every edge slot (source
+    index ``rows``, destination index ``cols``: flat ``[p * E]``; weights
+    ``wts [p, E]``) onto ``[n_out, W]`` rows that start at the identity,
+    block by block (:func:`~repro_torch.core.bfs.edge_blocks` of
+    ``edge_chunk``; min is order-free: the result is exact)."""
+    w = wsel.shape[-1]
+    out = torch.full((n_out, w), _PAY, dtype=torch.int32, device=ext.device)
+    for a, b in edge_blocks(e_max, edge_chunk):
+        cand = _relax(ext, _block_index(rows, p, a, b), wts[:, a:b], wsel)
+        out.scatter_reduce_(0, _block_index(cols, p, a, b)[:, None].expand(
+            -1, w), cand, "amin")
+        del cand            # before the next block's is made
     return out
 
 
 def _push_payload(csr: CSR, front: torch.Tensor, pay_rows: torch.Tensor,
-                  wts: torch.Tensor, wsel: torch.Tensor,
-                  n_dst: int) -> torch.Tensor:
+                  wts: torch.Tensor, wsel: torch.Tensor, n_dst: int,
+                  edge_chunk: int = 0) -> torch.Tensor:
     """Min-plus push: scatter-min of ``payload[src] + weight`` along every
     edge onto the destination domain -> ``[p, n_dst, W]`` int32. ``front
     [p, R, W]`` gates which (row, lane) pairs relax; ``wsel [p, W]`` picks
     the lanes that add the weight (SSSP) or 0 (component labels). Padding
     edges land on column 0 of their partition with the identity."""
     p, _, w = front.shape
-    cand = _relax(torch.where(front, pay_rows, _PAY), csr.flat_rows, wts,
-                  wsel)
-    return _scatter_min(p * n_dst, csr.flat_cols, cand).view(p, n_dst, w)
+    ext = _extended_pay(front, pay_rows)
+    return _scatter_min_blocks(p * n_dst, p, csr.e_max, edge_chunk, ext,
+                               csr.flat_rows, csr.flat_cols, wts,
+                               wsel).view(p, n_dst, w)
 
 
 def _nn_slots_payload(pv: PayloadView, front_n: torch.Tensor,
-                      pay_n: torch.Tensor, wsel: torch.Tensor,
-                      plan) -> torch.Tensor:
+                      pay_n: torch.Tensor, wsel: torch.Tensor, plan,
+                      edge_chunk: int = 0) -> torch.Tensor:
     """Sender-side per-slot payload minimums of the nn edges, each edge's
     own weight added before the fold (weights differ per source at a
-    shared destination): ``[p, cap_total, W]`` int32. Padding edges land
-    in the trash segment the slice drops."""
+    shared destination): ``[p, cap_total, W]`` int32, blocked as
+    :func:`_push_payload` over the plan's permuted edge order (``w_nn``
+    and ``nn_rows`` are in it already). Padding edges land in the trash
+    segment the slice drops."""
     p, _, w = front_n.shape
-    cand = _relax(torch.where(front_n, pay_n, _PAY), pv.nn_rows, pv.w_nn,
-                  wsel)
-    sa = _scatter_min(p * (plan.cap_total + 1), plan.flat_seg, cand)
+    ext = _extended_pay(front_n, pay_n)
+    sa = _scatter_min_blocks(p * (plan.cap_total + 1), p, pv.w_nn.shape[1],
+                             edge_chunk, ext, pv.nn_rows, plan.flat_seg,
+                             pv.w_nn, wsel)
     return sa.view(p, plan.cap_total + 1, w)[:, : plan.cap_total]
 
 
 def _dense_slots_payload(plan, sa: torch.Tensor, p: int) -> torch.Tensor:
     """Each sender's slot minimums ``sa [rows, cap_total, W]`` binned by
     owner peer: ``[rows, p, cap_peer, W]`` int32, the identity where no
-    slot is (the min sibling of ``bfs._dense_slots``)."""
+    slot is (the min sibling of ``bfs._dense_slots``). ``sa`` is the
+    sweep's own: its invalid slots are set to the identity in place."""
     rows, _, w = sa.shape
     owner = plan.seg_owner.long()
     idx = (torch.arange(rows, device=sa.device)[:, None] * p
            + owner.clamp(max=p - 1)) * plan.cap_peer + plan.seg_pos.long()
-    vals = torch.where((owner < p)[..., None], sa, _PAY)
-    return _scatter_min(rows * p * plan.cap_peer, idx.reshape(-1),
-                        vals.reshape(-1, w)).view(rows, p, plan.cap_peer, w)
+    sa.masked_fill_((owner >= p)[..., None], _PAY)
+    out = torch.full((rows * p * plan.cap_peer, w), _PAY, dtype=torch.int32,
+                     device=sa.device)
+    out.scatter_reduce_(0, idx.reshape(-1)[:, None].expand(-1, w),
+                        sa.reshape(-1, w), "amin")
+    return out.view(rows, p, plan.cap_peer, w)
 
 
-def _payload_sweep(pgv, plan, state: MSBFSState, cplan, mesh) -> dict:
+def _payload_sweep(pgv, plan, state: MSBFSState, cplan, mesh,
+                   edge_chunk: int = 0) -> dict:
     """The payload plane's part of one sweep: relax every pending vertex
     under its lane's bucket along all four subgraphs, combine the
     delegates' candidates with a global min (one ``payload_min_fold_apply``
@@ -770,19 +818,28 @@ def _payload_sweep(pgv, plan, state: MSBFSState, cplan, mesh) -> dict:
     # frontier: worklist vertices under the lane's current bucket
     front_n = state.pay_pending_n & nv & (state.payload_n < bucket)
     front_d = state.pay_pending_d & (state.payload_d < bucket)
-    push_dd = _push_payload(pgv.dd, front_d, state.payload_d, pv.w_dd, wsel, d)
-    push_nd = _push_payload(pgv.nd, front_n, state.payload_n, pv.w_nd, wsel, d)
-    push_dn = _push_payload(pgv.dn, front_d, state.payload_d, pv.w_dn, wsel,
-                            nl)
-    sa = _nn_slots_payload(pv, front_n, state.payload_n, wsel, plan)
-    recv, nn_bytes, _, nn_ovf = comm.nn_exchange_payload(
-        cplan, _dense_slots_payload(plan, sa, p), plan.recv_local, nl)
+    ec = edge_chunk
+    # the nn slots go first, the dn push last and straight into the
+    # received minimums: the fewest plane-sized buffers live at once (the
+    # sweep's peak memory under edge_chunk)
+    new_n, nn_bytes, _, nn_ovf = comm.nn_exchange_payload(
+        cplan, _dense_slots_payload(plan, _nn_slots_payload(
+            pv, front_n, state.payload_n, wsel, plan, ec), p),
+        plan.recv_local, nl)
+    push_dd = _push_payload(pgv.dd, front_d, state.payload_d, pv.w_dd, wsel,
+                            d, ec)
+    push_nd = _push_payload(pgv.nd, front_n, state.payload_n, pv.w_nd, wsel,
+                            d, ec)
     new_d, _, d_bytes = comm.delegate_min_apply(
         cplan, torch.minimum(push_dd, push_nd).reshape(rows, d * w),
         state.payload_d.reshape(rows, d * w))
     new_d = new_d.view(rows, d, w)
-    new_n = torch.where(nv, torch.minimum(state.payload_n,
-                                          torch.minimum(push_dn, recv)), _PAY)
+    del push_dd, push_nd
+    # new_n = min(payload_n, push_dn, received) in the received buffer
+    torch.minimum(new_n, _push_payload(pgv.dn, front_d, state.payload_d,
+                                       pv.w_dn, wsel, nl, ec), out=new_n)
+    torch.minimum(new_n, state.payload_n, out=new_n)
+    new_n.masked_fill_(~nv, _PAY)
     # expanded vertices leave the worklist; improved ones (re)enter it
     pend_n = (state.pay_pending_n & ~front_n) | (new_n < state.payload_n)
     pend_d = (state.pay_pending_d & ~front_d) | (new_d < state.payload_d)
@@ -893,22 +950,29 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
                           cfg.pull_chunk)
 
     # ---- dd: delegate -> delegate ----------------------------------------
-    push_dd = _push_multi(pgv.dd, frontier_d & ~bwd_dd, d)
+    ec = cfg.edge_chunk
+    push_dd = _push_multi(pgv.dd, frontier_d & ~bwd_dd, d, ec)
     cand_dd = push_dd | pull_dd
 
     # ---- nd: normal -> delegate -------------------------------------------
-    push_nd = _push_multi(pgv.nd, frontier_n & ~bwd_nd, d)
+    push_nd = _push_multi(pgv.nd, frontier_n & ~bwd_nd, d, ec)
     cand_nd = push_nd | pull_nd
 
     # ---- dn: delegate -> normal -------------------------------------------
-    push_dn = _push_multi(pgv.dn, frontier_d & ~bwd_dn, nl)
+    push_dn = _push_multi(pgv.dn, frontier_d & ~bwd_dn, nl, ec)
     cand_dn = push_dn | pull_dn
+    # plane-sized temporaries go once folded: the sweep's peak memory
+    # under edge_chunk is its working set of planes
+    del push_dn, pull_dn
 
     # ---- nn: normal -> normal, forward only, static slot exchange ---------
-    sa, act_nn_sum = _nn_slots_multi(pgv.nn, frontier_n, plan)
-    recv, nn_bytes, nn_sparse, nn_ovf = comm.nn_exchange_words(
-        cplan, _dense_slots(plan, sa, p), plan.recv_local, nl)
+    sa, act_nn_sum = _nn_slots_multi(pgv.nn, frontier_n, plan, ec)
     sent = sa.reshape(rows, -1).sum(1)
+    dense = _dense_slots(plan, sa, p)
+    del sa
+    recv, nn_bytes, nn_sparse, nn_ovf = comm.nn_exchange_words(
+        cplan, dense, plan.recv_local, nl)
+    del dense
 
     # ---- delegate global reduction: packed-word bitwise-OR combine, with
     # the delegate level / visited update and lane flags in its launch ----
@@ -918,8 +982,8 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     new_d_any = dl.any_new
 
     # ---- payload plane sweep (cfg.payload only) ---------------------------
-    pay = _payload_sweep(pgv, plan, state, cplan, mesh) if cfg.payload \
-        else None
+    pay = (_payload_sweep(pgv, plan, state, cplan, mesh, ec) if cfg.payload
+           else None)
 
     # ---- level / visited updates ------------------------------------------
     newly_n = (cand_dn | recv) & unvis_n
@@ -996,6 +1060,20 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
     else:
         pay_leaves = {k: getattr(state, k) for k in STATE_LEAVES
                       if k.startswith(("pay", "wire_pay"))}
+    if cfg.telemetry:
+        # the gated frontier masks and directions are live already:
+        # telemetry adds no collective and no host read, only its writes
+        tm = dict(
+            tm_frontier_n=add(state.tm_frontier_n,
+                              frontier_n.reshape(rows, -1).sum(
+                                  1, dtype=torch.int32)),
+            tm_frontier_d=add(state.tm_frontier_d,
+                              frontier_d.reshape(rows, -1).sum(
+                                  1, dtype=torch.int32)),
+            tm_backward=put(state.tm_backward, pack_lanes(backward)))
+    else:
+        tm = {k: getattr(state, k) for k in STATE_LEAVES
+              if k.startswith("tm_")}
 
     return MSBFSState(
         level_n=new_level_n,
@@ -1020,8 +1098,7 @@ def msbfs_step(pgv: PartitionedGraph, plan, state: MSBFSState,
         wire_nn=add(state.wire_nn, nn_bytes),
         nn_sparse=add(state.nn_sparse, nn_sparse),
         nn_overflow=add(state.nn_overflow, nn_ovf),
-        tm_frontier_n=state.tm_frontier_n, tm_frontier_d=state.tm_frontier_d,
-        tm_backward=state.tm_backward,
+        **tm,
         **pay_leaves,
     )
 

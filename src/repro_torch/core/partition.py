@@ -4,13 +4,16 @@ Host-side (numpy) construction of the four-subgraph partitioned
 representation. This runs once per graph, like the paper's distributed graph
 construction phase; :func:`repro_torch.core.bfs.device_view` then places the
 result on a device. Arrays and dtypes equal the reference package's
-partitioner for the same graph.
+partitioner for the same graph. So do the compressed-at-rest streams
+(:func:`compress_partition`) and their decoders, also host numpy.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .types import COOGraph, CSR, PartitionedGraph, PartitionLayout
+from .types import (COOGraph, CompressedCSR, CompressedPartition, CSR,
+                    PartitionedGraph, PartitionLayout)
+from .varint import varint_decode, varint_encode, varint_len
 
 
 def select_delegates(degrees: np.ndarray, th: int) -> np.ndarray:
@@ -155,3 +158,144 @@ def partition_graph(
         normal_valid=normal_valid,
         nd_src_mask=nd_src_mask, dn_src_mask=dn_src_mask, dd_src_mask=dd_src_mask,
     )
+
+
+# -----------------------------------------------------------------------------
+# Compressed-at-rest partition (delta + varint adjacency streams)
+#
+# Per CSR row the adjacency is sorted ascending and delta-encoded (first
+# value raw, then consecutive differences -- all >= 0), then packed with
+# LEB128 varints into one byte stream per partition. Delegate stacks
+# (dn/dd: long rows, small dense deltas) and normal stacks (nn/nd: short
+# rows dominated by the first value) compress separately, as degree
+# separation already split them. The nn stack merges its (owner, local)
+# int32 column pair into one key ``owner * n_local + local`` so a single
+# stream round-trips both halves.
+
+
+def compress_csr(csr: CSR, key_split: int = 0,
+                 values: np.ndarray | None = None) -> CompressedCSR:
+    """Compress one stacked host CSR into per-partition delta/varint
+    streams. ``values`` overrides ``csr.cols`` as the per-edge value (the
+    nn stack's merged owner/local keys); ``key_split`` is recorded so
+    decoders know how to split the key back."""
+    offsets = np.asarray(csr.offsets)
+    rowids_all = np.asarray(csr.rowids)
+    vals_all = np.asarray(values if values is not None
+                          else csr.cols).astype(np.int64)
+    m = np.asarray(csr.m).astype(np.int64)
+    p, n_rows = offsets.shape[0], csr.n_rows
+
+    streams, row_offs = [], []
+    for k in range(p):
+        mk = int(m[k])
+        r = rowids_all[k, :mk].astype(np.int64)
+        v = vals_all[k, :mk]
+        order = np.lexsort((v, r))        # CSR rows are contiguous; sort cols
+        r, v = r[order], v[order]
+        first = np.ones(mk, dtype=bool)
+        first[1:] = r[1:] != r[:-1]
+        delta = np.empty(mk, dtype=np.int64)
+        delta[1:] = v[1:] - v[:-1]
+        delta[first] = v[first]
+        if mk and delta.min() < 0:
+            raise ValueError("negative delta: adjacency values must be >= 0")
+        streams.append(varint_encode(delta))
+        row_bytes = np.bincount(r, weights=varint_len(delta),
+                                minlength=n_rows)[:n_rows].astype(np.int64)
+        ro = np.zeros(n_rows + 1, dtype=np.uint32)
+        ro[1:] = np.cumsum(row_bytes)
+        row_offs.append(ro)
+
+    nbytes = np.array([s.size for s in streams], dtype=np.int64)
+    b_max = max(1, int(nbytes.max()) if p else 1)
+    data = np.zeros((p, b_max), dtype=np.uint8)
+    for k, s in enumerate(streams):
+        data[k, : s.size] = s
+    return CompressedCSR(data=data, row_off=np.stack(row_offs), nbytes=nbytes,
+                         m=m.astype(np.int32), n_rows=n_rows, b_max=b_max,
+                         key_split=int(key_split))
+
+
+def decode_rows(ccsr: CompressedCSR, k: int, row0: int = 0,
+                row1: int | None = None):
+    """Decode rows ``[row0, row1)`` of partition ``k``: ``(rowids,
+    values)`` int64 in (row, value-ascending) order -- values are merged
+    keys when ``key_split > 0``."""
+    ro = np.asarray(ccsr.row_off[k]).astype(np.int64)
+    if row1 is None:
+        row1 = ccsr.n_rows
+    b0, b1 = int(ro[row0]), int(ro[row1])
+    deltas = varint_decode(np.asarray(ccsr.data[k, b0:b1]))
+    if deltas.size == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    # the encoder is canonical, so each decoded value's encoded length is
+    # its varint_len: per-value byte starts, then row ids
+    lens = varint_len(deltas)
+    byte_start = b0 + np.concatenate([[0], np.cumsum(lens)[:-1]])
+    rows = np.searchsorted(ro, byte_start, side="right") - 1
+    # undo the per-row delta chains: a segment cumsum with forward-filled
+    # bases
+    first = np.ones(deltas.size, dtype=bool)
+    first[1:] = rows[1:] != rows[:-1]
+    cs = np.cumsum(deltas)
+    idx = np.arange(deltas.size, dtype=np.int64)
+    seg_first = np.maximum.accumulate(np.where(first, idx, 0))
+    base = (cs - deltas)[seg_first]
+    return rows, cs - base
+
+
+def decode_ell_tile(ccsr: CompressedCSR, k: int, row0: int, n_rows_tile: int,
+                    k_max: int) -> np.ndarray:
+    """An ELL tile ``[n_rows_tile, k_max]`` int32 (-1 padded) of partition
+    ``k``'s rows from ``row0``, decoded on demand: the out-of-core input of
+    ``kernels.ops.ell_pull_multi``. Values are merged keys when
+    ``key_split > 0``; a row of degree above ``k_max`` raises."""
+    row1 = min(row0 + n_rows_tile, ccsr.n_rows)
+    rows, vals = decode_rows(ccsr, k, row0, row1)
+    tile = np.full((n_rows_tile, k_max), -1, dtype=np.int32)
+    if rows.size == 0:
+        return tile
+    r = rows - row0
+    first = np.ones(rows.size, dtype=bool)
+    first[1:] = rows[1:] != rows[:-1]
+    starts = np.maximum.accumulate(np.where(first, np.arange(rows.size), 0))
+    slot = np.arange(rows.size) - starts
+    if slot.max() >= k_max:
+        raise ValueError(
+            f"row degree {int(slot.max()) + 1} exceeds k_max={k_max}")
+    tile[r, slot] = vals.astype(np.int32)
+    return tile
+
+
+def compress_partition(pg: PartitionedGraph) -> CompressedPartition:
+    """Compress all four subgraph stacks of a host partition (nn merges
+    its owner/local keys)."""
+    nl = pg.n_local
+    nn_keys = (np.asarray(pg.nn_owner).astype(np.int64) * nl
+               + np.asarray(pg.nn.cols).astype(np.int64))
+    return CompressedPartition(
+        nn=compress_csr(pg.nn, key_split=nl, values=nn_keys),
+        nd=compress_csr(pg.nd),
+        dn=compress_csr(pg.dn),
+        dd=compress_csr(pg.dd),
+    )
+
+
+def edge_kind_stats(g: COOGraph, th: int) -> dict:
+    """Fractions of nn/nd/dn/dd edges and delegates for a threshold TH
+    (the quantities of paper Fig. 5 / Fig. 12), without building the
+    partitioned structure."""
+    is_del = g.out_degrees() > th
+    u_del = is_del[g.src]
+    v_del = is_del[g.dst]
+    m = g.m
+    return {
+        "th": th,
+        "frac_delegates": float(is_del.sum()) / g.n,
+        "frac_nn": float((~u_del & ~v_del).sum()) / m,
+        "frac_nd": float((~u_del & v_del).sum()) / m,
+        "frac_dn": float((u_del & ~v_del).sum()) / m,
+        "frac_dd": float((u_del & v_del).sum()) / m,
+        "n_delegates": int(is_del.sum()),
+    }

@@ -114,6 +114,57 @@ class CSR:
 
 
 @dataclass
+class CompressedCSR:
+    """Delta-encoded, varint-packed adjacency for one subgraph stack.
+
+    Per partition ``k`` and row ``r``, the byte range
+    ``data[k, row_off[k, r] : row_off[k, r + 1]]`` is the LEB128 varint
+    stream of the row's adjacency *sorted ascending and delta-encoded*:
+    first the smallest neighbor id, then successive differences.
+    ``nbytes[k]`` is the valid stream length (``data`` is padded to the
+    stacked ``b_max``). For ``nn`` the stored value is the merged key
+    ``owner * key_split + local`` (``key_split = n_local``), so one stream
+    round-trips both halves of the pre-split destination pair. Host numpy
+    arrays, equal to the reference's for the same partition.
+    """
+
+    data: Any        # [p, b_max] uint8 -- varint streams, padded
+    row_off: Any     # [p, n_rows+1] uint32 -- byte offset per row
+    nbytes: Any      # [p] int64 -- valid stream bytes per partition
+    m: Any           # [p] int32 -- encoded edge count per partition
+    n_rows: int = 0
+    b_max: int = 0
+    key_split: int = 0   # 0 = plain ids; > 0 = values are owner*split+local
+
+    def memory_bytes(self) -> int:
+        """Measured bytes: the streams plus the 4 B/row byte offsets."""
+        ro = np.asarray(self.row_off)
+        return int(np.sum(np.asarray(self.nbytes))) + int(
+            ro.shape[0] * ro.shape[1] * 4)
+
+
+@dataclass
+class CompressedPartition:
+    """All four subgraph stacks in the compressed-at-rest format (built by
+    :func:`repro_torch.core.partition.compress_partition`; decoded on
+    demand into ELL tiles by
+    :func:`repro_torch.core.partition.decode_ell_tile`)."""
+
+    nn: CompressedCSR
+    nd: CompressedCSR
+    dn: CompressedCSR
+    dd: CompressedCSR
+
+    def subgraph(self, kind: str) -> CompressedCSR:
+        return {"nn": self.nn, "nd": self.nd, "dn": self.dn, "dd": self.dd}[kind]
+
+    def memory_bytes(self) -> dict:
+        per = {k: self.subgraph(k).memory_bytes()
+               for k in ("nn", "nd", "dn", "dd")}
+        return {"per_subgraph": per, "total": sum(per.values())}
+
+
+@dataclass
 class PartitionedGraph:
     """The paper's four-subgraph representation, stacked over partitions."""
 
@@ -144,3 +195,39 @@ class PartitionedGraph:
 
     def subgraph(self, kind: str) -> CSR:
         return {"nn": self.nn, "nd": self.nd, "dn": self.dn, "dd": self.dd}[kind]
+
+    def memory_bytes(self, compressed: CompressedPartition | None = None
+                     ) -> dict:
+        """Table I memory accounting in bytes (paper Section III-C): per
+        subgraph ``(offsets, edges)`` of the unpadded layout, beside the
+        16m edge list and the 8n + 8m CSR. Given a
+        :class:`CompressedPartition`, also its *measured* at-rest sizes
+        (streams + row byte offsets) and their ratio to the raw layout.
+        The dict equals the reference's (host leaves only)."""
+        p, nl, d = self.p, self.n_local, self.d
+        enn, end, edn, edd = (int(np.sum(np.asarray(self.subgraph(k).m)))
+                              for k in ("nn", "nd", "dn", "dd"))
+        usage = {
+            "nn": (p * (nl + 1) * 4, enn * 8),
+            "nd": (p * (nl + 1) * 4, end * 4),
+            "dn": (p * (d + 1) * 4, edn * 4),
+            "dd": (p * (d + 1) * 4, edd * 4),
+        }
+        total = sum(a + b for a, b in usage.values())
+        m = enn + end + edn + edd
+        out = {
+            "per_subgraph": usage,
+            "total": total,
+            "edge_list_16m": 16 * m,
+            "csr_8n_8m": 8 * self.n + 8 * m,
+            "m": m,
+            "e_nn": enn,
+        }
+        if compressed is not None:
+            cmem = compressed.memory_bytes()
+            out["compressed_per_subgraph"] = cmem["per_subgraph"]
+            out["compressed_total"] = cmem["total"]
+            out["bytes_per_edge_raw"] = total / max(m, 1)
+            out["bytes_per_edge_compressed"] = cmem["total"] / max(m, 1)
+            out["compressed_vs_raw"] = cmem["total"] / max(total, 1)
+        return out

@@ -147,20 +147,22 @@ class ServeStats:
     def note_traversal(self, state, mesh=None) -> None:
         """Fold one finished traversal state's comm counters in (a sharded
         state's per-rank sums are all-gathered: cluster totals)."""
+        # overflow is per-device send-side drops: sum every partition; the
+        # format flag is partition 0's row (replicated under adaptive; under
+        # compressed each partition's own stream choice)
         sums = torch.stack([state.wire_delegate.sum(), state.wire_nn.sum(),
                             state.wire_pay_delegate.sum(),
                             state.wire_pay_nn.sum(),
-                            state.nn_overflow.sum()])
+                            state.nn_overflow.sum(), state.nn_sparse[0].sum()])
         if mesh is not None:
-            sums = C.dist.all_gather(mesh, sums).sum(0)
-        wd, wn, wpd, wpn, ovf = (int(v) for v in sums.tolist())
+            ranks = C.dist.all_gather(mesh, sums)    # partition order
+            sums = torch.cat([ranks[:, :5].sum(0), ranks[0, 5:]])
+        wd, wn, wpd, wpn, ovf, sparse = (int(v) for v in sums.tolist())
         self.wire_delegate_bytes += wd
         self.wire_nn_bytes += wn
         self.wire_pay_delegate_bytes += wpd
         self.wire_pay_nn_bytes += wpn
-        # the format flag is a global decision (replicated): row 0 only;
-        # overflow is per-device send-side drops: sum every partition
-        self.nn_sparse_sweeps += int(state.nn_sparse[0].sum())
+        self.nn_sparse_sweeps += sparse
         self.nn_overflow += ovf
 
     def as_dict(self) -> dict:
@@ -227,7 +229,11 @@ class BFSServeEngine:
     ----------
     graph / pg : the raw ``COOGraph`` (partitioned here with ``th`` /
         ``p_rank`` / ``p_gpu``) or an already-partitioned host graph.
-    cfg : msBFS config; ``cfg.n_queries`` is the lane width W.
+    cfg : msBFS config; ``cfg.n_queries`` is the lane width W. A cfg with
+        ``telemetry=True`` carries the ``tm_*`` sweep leaves through every
+        traversal, block and reseed (same answers and counters); the
+        engine does not harvest them yet (``last_telemetry``: ROADMAP
+        item A11).
     comm : communication strategies (sugar for a cfg with ``comm=`` set).
     cache_capacity / cache_ttl : LRU entries (0 disables) and default
         per-entry time-to-live in seconds (None = never expires).
@@ -243,6 +249,12 @@ class BFSServeEngine:
         On a card each block's sweeps are CUDA graph replays over static
         state buffers, captured on first use (``warmup`` does it).
     sweep_block : sweeps fused per block (the convergence-poll cadence).
+    edge_chunk : when > 0, every push and nn slot fold runs over blocks of
+        this many edge slots (sugar for a cfg with ``edge_chunk`` set, as
+        every derived per-batch variant inherits it): the per-edge
+        temporaries shrink from ``[p * E, W]`` to ``[p * edge_chunk, W]``;
+        answers, schedule and every counter stay those of the monolithic
+        sweep. 0 = monolithic.
     specialize_reachability : run homogeneous REACHABILITY batches on the
         levels-free variant.
     reuse_components : memoize reachability answers per connected
@@ -286,6 +298,7 @@ class BFSServeEngine:
         refill: bool = False,
         overlap: bool = False,
         sweep_block: int = 8,
+        edge_chunk: int = 0,
         specialize_reachability: bool = True,
         reuse_components: bool = True,
         device="cuda",
@@ -302,6 +315,8 @@ class BFSServeEngine:
         self.cfg = cfg or M.MSBFSConfig()
         if comm is not None:
             self.cfg = _dc_replace(self.cfg, comm=comm)
+        if int(edge_chunk):
+            self.cfg = _dc_replace(self.cfg, edge_chunk=int(edge_chunk))
         if not self.cfg.track_levels or not self.cfg.enable_targets:
             raise ValueError(
                 "pass a track_levels=True, enable_targets=True cfg; the "

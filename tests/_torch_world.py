@@ -35,7 +35,9 @@ def default_spec(device: str = "cpu") -> dict:
     dense / adaptive, a step and a block; the sharded BFS with the static
     plan under the same six, binned under auto / ring / hier, and the
     uint8 combine; the engine in batch (twice), refill, overlap
-    (``sweep_block`` 1 and 4) and stream modes, on mixed typed queries;
+    (``sweep_block`` 1 and 4) and stream modes, on mixed typed queries,
+    and in batch and refill modes with ``edge_chunk`` under the compressed
+    nn format;
     and the payload kinds on rmat scale 8 (seed 11): a batch of SSSP,
     COMPONENTS and LEVELS queries and all seven kinds through refill,
     overlap and stream sessions."""
@@ -106,6 +108,12 @@ def default_spec(device: str = "cpu") -> dict:
         "overlap-1": dict(mode="overlap", k=1, w=4, comm=dict()),
         "overlap-4": dict(mode="overlap", k=4, w=4, comm=dict()),
         "stream": dict(mode="stream", k=4, w=4, comm=dict()),
+        "batch-chunked-compressed": dict(mode="batch", k=1, w=8,
+                                         comm=dict(nn="compressed"),
+                                         edge_chunk=64),
+        "refill-chunked-compressed": dict(mode="refill", k=1, w=4,
+                                          comm=dict(nn="compressed"),
+                                          edge_chunk=37),
     }
     return dict(scale=10, seed=7, th=32, sizes=SIZES, msbfs=msbfs, bfs=bfs,
                 engine=engine, queries=qs, payload=payload, device=device)
@@ -183,7 +191,8 @@ def make_engine(pg, case: dict, device, **kw) -> BFSServeEngine:
     return BFSServeEngine(
         pg=pg, cfg=M.MSBFSConfig(n_queries=case["w"],
                                  max_iters=case.get("max_iters", 48)),
-        comm=C.CommConfig(**case["comm"]), device=device, **kw)
+        comm=C.CommConfig(**case["comm"]),
+        edge_chunk=case.get("edge_chunk", 0), device=device, **kw)
 
 
 def sharded_world(rank: int, world: int, spec: dict) -> dict:

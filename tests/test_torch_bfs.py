@@ -12,6 +12,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import bfs as RB, comm as RC, engine as RE
 from repro.core.partition import partition_graph
@@ -193,6 +194,10 @@ def test_static_exchange_needs_a_plan_and_unported_modes_raise(graph):
                             TB.init_state(pg, 0, cfg, device="cpu"), cfg)
     with pytest.raises(ValueError):
         TB.init_state(pg, pg.n, cfg, device="cpu")
+    # the memory and telemetry modes are ported: they configure, and the
+    # telemetry leaves get their [p, max_iters] width
     for kw in (dict(edge_chunk=64), dict(telemetry=True)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            TB.BFSConfig(**kw)
+        st = TB.init_state(pg, 0, TB.BFSConfig(max_iters=12, **kw),
+                           device="cpu")
+        width = 12 if kw.get("telemetry") else 0
+        assert tuple(st.tm_backward.shape) == (pg.p, width)

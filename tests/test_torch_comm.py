@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import comm as RC, engine as RE
 from repro.core.partition import partition_graph
@@ -214,13 +214,17 @@ def test_byte_formulas_match_reference(p):
 
 @pytest.mark.parametrize("what", ["compressed", "sum"])
 def test_unported_strategies_raise(what):
-    """The compressed nn codec still names its ROADMAP item (A10); the
-    ``"sum"`` combine, deferred until the payload plane, is served: an
-    int32 sum that wraps as the reference's ``psum`` does, with the
-    reference's bytes (an unknown op is a ValueError)."""
+    """Both strategies that were once deferred are served: the compressed
+    nn codec configures as the reference's does (an unknown format is a
+    ValueError); the ``"sum"`` combine is an int32 sum that wraps as the
+    reference's ``psum`` does, with the reference's bytes (an unknown op
+    is a ValueError)."""
     if what == "compressed":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*A10"):
-            TC.CommConfig(nn="compressed")
+        assert TC.NN_FORMATS == RC.NN_FORMATS
+        assert TC.CommConfig(nn="compressed").nn == \
+            RC.CommConfig(nn="compressed").nn == "compressed"
+        with pytest.raises(ValueError):
+            TC.CommConfig(nn="zstd")
         return
     x = np.array([[2**31 - 1, 5, -3, 7], [1, -9, 2**31 - 1, 0]], np.int32)
     seen = {}

@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import bfs as RB, comm as RC, engine as RE, msbfs as RM
 from repro.core.partition import partition_graph

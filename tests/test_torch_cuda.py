@@ -9,7 +9,7 @@ so it runs on a machine that has PyTorch for CUDA only:
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.configs.xdeepfm import SMOKE
 from repro_torch.core import bfs as TB, comm as TC, convert, engine as TE
@@ -1159,3 +1159,146 @@ def test_sharded_world4_nccl_equals_emulated(card):
                              "payload")
     for r in ranks:
         assert r["rows"] == {(True, 1)} and r["mismatch"] is not None
+
+
+# -------------------------------------------- memory and telemetry modes
+MEMORY_CASES = {
+    # name: (edge_chunk, nn, payload modes or None)
+    "bit-ec64-dense": (64, "dense", None),
+    "bit-ec1000-compressed": (1000, "compressed", None),
+    "payload-ec333-compressed": (333, "compressed",
+                                 ["sssp", None, "components", "sssp"] * 8),
+}
+
+
+@pytest.mark.parametrize("name", list(MEMORY_CASES))
+def test_chunked_msbfs_on_card_equal_cpu(card, name):
+    """A chunked lane batch of 32 on the card: every leaf equal to the CPU
+    run's and to the card's monolithic run after every sweep (telemetry
+    on), and its peak memory below the monolithic run's."""
+    import dataclasses
+    from repro_torch.core import msbfs as TM
+    ec, nn, modes = MEMORY_CASES[name]
+    g = rmat_graph(12, seed=7)
+    pg = partition_graph(g, th=32, p_rank=1, p_gpu=2)
+    plan = TE.build_exchange_plan(pg)
+    cfg = TM.MSBFSConfig(n_queries=32, max_iters=96 if modes else 32,
+                         payload=modes is not None, telemetry=True,
+                         edge_chunk=ec, comm=TC.CommConfig(nn=nn))
+    runs = {"card": (card, cfg), "cpu": ("cpu", cfg),
+            "mono": (card, dataclasses.replace(cfg, edge_chunk=0))}
+    views = {dev: (TB.device_view(pg, dev), TE.device_plan(plan, dev))
+             for dev in (card, "cpu")}
+    srcs = [int(s) for s in pick_sources(g, 32, seed=4)]
+    st = {k: TM.init_multi_state(pg, srcs, c, payload_modes=modes, device=d)
+          for k, (d, c) in runs.items()}
+    peaks = {}
+    sweeps = 0
+    while not bool(st["cpu"].done.all()):
+        for k, (d, c) in runs.items():
+            if d != "cpu":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            st[k] = TM.msbfs_step(*views[d], st[k], c)
+            if d != "cpu":
+                torch.cuda.synchronize()
+                peaks[k] = max(peaks.get(k, 0),
+                               torch.cuda.max_memory_allocated() - base)
+        sweeps += 1
+        want = convert.state_to_numpy(st["cpu"])
+        for k in ("card", "mono"):
+            got = convert.state_to_numpy(st[k])
+            for leaf in TM.STATE_LEAVES:
+                np.testing.assert_array_equal(got[leaf], want[leaf],
+                                              err_msg=f"{k} {leaf} {sweeps}")
+    assert sweeps >= 3 and int(st["cpu"].tm_frontier_n.sum()) > 0
+    assert peaks["card"] < peaks["mono"], peaks
+
+
+@pytest.mark.parametrize("static_exchange", [True, False])
+def test_chunked_bfs_on_card_equal_cpu(card, static_exchange):
+    g = rmat_graph(11, seed=7)
+    pg = partition_graph(g, th=32, p_rank=2, p_gpu=2)
+    plan = TE.build_exchange_plan(pg)
+    cfg = TB.BFSConfig(max_iters=32, edge_chunk=100, telemetry=True,
+                       static_exchange=static_exchange,
+                       comm=TC.CommConfig(nn="compressed"))
+    outs = []
+    for dev in (card, "cpu"):
+        st = TB.run_bfs_emulated(
+            TB.device_view(pg, dev), TB.init_state(pg, 3, cfg, device=dev),
+            cfg, TE.device_plan(plan, dev) if static_exchange else None)
+        outs.append(convert.bfs_state_to_numpy(st))
+    for k in TB.STATE_LEAVES:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
+    assert outs[0]["tm_frontier_n"].sum() > 0
+
+
+def test_telemetry_chunked_graph_block_equals_eager(card):
+    """A captured block of a chunked, compressed, telemetry config (its
+    block loops and codec inside the graph) equals the same sweeps run
+    eagerly, and replays count their launches in ``ops.REPLAYED``."""
+    from repro_torch.core import msbfs as TM
+    pg, _, _ = tailed_setup()
+    eng = serve_engine(pg, card)
+    cfg = TM.MSBFSConfig(n_queries=4, max_iters=96, enable_targets=False,
+                         edge_chunk=50, telemetry=True,
+                         comm=TC.CommConfig(nn="compressed"))
+    st = TM.init_multi_state(pg, [5, 3, 9, 11], cfg, device=card)
+    ops.reset_launches()
+    blk = TM.make_msbfs_block_emulated(cfg, 3)
+    run = blk(eng.pgv, eng.plan, st, np.zeros(4, dtype=bool))
+    run.wait()
+    blk.runner.drain()
+    assert blk.runner.graphs is not None
+    assert ops.REPLAYED["ell_pull_multi"] == 3
+    ref = st
+    for _ in range(3):
+        ref = TM.msbfs_step(eng.pgv, eng.plan, ref, cfg)
+    a, b = convert.state_to_numpy(run.out), convert.state_to_numpy(ref)
+    for k in TM.STATE_LEAVES:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert int(b["tm_frontier_n"].sum()) > 0
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_chunked_compressed_engine_on_card_equals_cpu(card, overlap):
+    """The refill engine (overlapped: captured blocks) with ``edge_chunk``
+    under the compressed nn format and a telemetry cfg: answers and every
+    ServeStats field equal to the CPU engine's."""
+    from repro_torch.core import msbfs as TM
+    pg, _, qs = tailed_setup()
+    runs = []
+    for dev in (card, "cpu"):
+        eng = BFSServeEngine(
+            pg=pg, cfg=TM.MSBFSConfig(n_queries=4, max_iters=96,
+                                      telemetry=True),
+            comm=TC.CommConfig(nn="compressed"), edge_chunk=77,
+            cache_capacity=0, refill=True, overlap=overlap, sweep_block=4,
+            device=dev)
+        if overlap and dev != "cpu":
+            eng.warmup(reachability=True, targets=True)
+        runs.append((eng.submit_many(qs), eng.stats.as_dict()))
+    assert_answers_equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1] and runs[0][1]["wire_nn_bytes"] > 0
+
+
+def test_decoded_tile_feeds_b1_on_card(card):
+    """Partition 0's nd rows decoded from the compressed partition into an
+    ELL tile feed B1 on the card (one counted launch): equal to the plain
+    version on the same tile and words."""
+    from repro_torch.core import partition as P
+    pg = partition_graph(rmat_graph(11, seed=7), th=32, p_rank=1, p_gpu=2)
+    ccsr = P.compress_partition(pg).nd
+    k_max = int(np.diff(np.asarray(pg.nd.offsets)[0]).max()) + 1
+    tile = torch.from_numpy(P.decode_ell_tile(ccsr, 0, 0, pg.n_local, k_max))
+    rng = np.random.default_rng(3)
+    fw, aw = words(rng, (max(pg.d, 1), 1)), words(rng, (pg.n_local, 1))
+    want = ops.ell_pull_multi(tile, fw, aw)
+    ops.reset_launches()
+    got = ops.ell_pull_multi(tile.to(card), fw.to(card), aw.to(card))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_pull_multi"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want != 0).any()

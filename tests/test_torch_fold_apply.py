@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import comm as RC
 from repro.kernels.mask_reduce import mask_reduce as pallas_mask_reduce

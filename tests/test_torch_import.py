@@ -8,7 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 

@@ -16,7 +16,7 @@ against the port's float32 sums rounded once.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import bfs as RB, msbfs as RM
 from repro.core.partition import partition_graph

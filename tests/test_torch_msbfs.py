@@ -7,6 +7,7 @@ the numpy oracle. Exact equality throughout: every leaf is an integer or
 a bool."""
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import bfs as RB, engine as RE, msbfs as RM
 from repro.core.oracle import bfs_levels

@@ -3,7 +3,7 @@ every partition and exchange-plan array (values and dtypes), graph ids,
 the numpy oracle, and the ``convert`` round trip."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import engine as RE, oracle as RO
 from repro.core.partition import partition_graph as ref_partition

@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import bfs as RB, comm as RC, engine as RE, msbfs as RM
 from repro.core.partition import partition_graph
@@ -174,10 +174,14 @@ def test_payload_modes_need_a_payload_cfg(parts):
     with pytest.raises(ValueError, match="payload"):
         TM.init_multi_state(pg, [0], TM.MSBFSConfig(n_queries=W),
                             payload_modes=["sssp"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TM.MSBFSConfig(payload=True, edge_chunk=64)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TM.MSBFSConfig(telemetry=True)
+    # the memory and telemetry modes are ported: they configure with the
+    # payload plane, and the telemetry leaves get their width
+    st = TM.init_multi_state(
+        pg, [0], TM.MSBFSConfig(n_queries=W, max_iters=9, payload=True,
+                                edge_chunk=64, telemetry=True),
+        payload_modes=["sssp"], device="cpu")
+    assert tuple(st.tm_backward.shape) == (pg.p, 9, 3, 1)
+    assert tuple(st.payload_n.shape[-1:]) == (W,)
 
 
 def test_payload_reseed_every_leaf_equal(parts):

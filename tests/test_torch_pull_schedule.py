@@ -12,7 +12,7 @@ kernel's groups is checked on real partitions and on a synthetic CSR.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from _hypo import given, settings, st
 from repro.core import bfs as RB, msbfs as RM

@@ -8,6 +8,7 @@ quantity is an integer or a bool."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import msbfs as RM
 from repro.core.partition import partition_graph

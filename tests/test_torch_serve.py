@@ -5,6 +5,7 @@ misses than lanes -- must give equal answers and an equal
 ``ServeStats.as_dict()`` after every call."""
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import msbfs as RM
 from repro.core.partition import partition_graph

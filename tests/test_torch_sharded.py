@@ -13,6 +13,7 @@ partition only. Engine answers and every ``ServeStats`` field equal the
 emulated engine's. Exact equality throughout."""
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 import _torch_world as TW
 from repro.core import bfs as RB, comm as RC, engine as RE, msbfs as RM
