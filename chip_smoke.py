@@ -171,7 +171,36 @@
    raw and compressed); partition 0's nd rows decoded into an ELL tile
    (``decode_ell_tile``) feed B1 (``ops.ell_pull_multi``, one counted
    launch) on a mid-BFS frontier, equal to its plain version.
-12. Refill path, last (its long profiled runs come after every short
+12. Observability plane (``repro_torch.obs``), on the same partition: (a)
+   right after 7(b), the 64-query serving run of 4 on three fresh engines
+   -- obs off, obs on, ``profile=`` a ``DispatchProfiler`` -- with every
+   ServeStats field (equal to 4's), answer, ``ops.LAUNCHES`` and
+   ``ops.REPLAYED`` count equal across the three; queries/s of each and
+   the profiler's p50 / p99 dispatch latencies printed; on the obs
+   engine, cache and component hits and a per-sweep refill drain with
+   duplicates; one ``trace_session()`` of the profiled engine must write
+   its file (kernel records in it); a lane batch with ``telemetry=True``
+   fills ``last_telemetry``, its ``device.shard.<i>.wire_bytes`` summing
+   to the state's ``wire_delegate + wire_nn``. (b) In 14, the 120-query
+   overlap run once more with the same plane on: counters, answers,
+   launches and replays equal the obs-off run, queries/s of both printed;
+   then a two-query stream; the plane's exported trace must parse as
+   Chrome JSON and hold every name of ``OBS_EVENTS``.
+13. Multi-tenant frontend (``ServeFrontend``): the main partition and a
+   relabelled copy (``v -> (v + p) % n``, partitioned here: about 46 s of
+   host time), W = 32, engines sharing one graph memory pool
+   (``memory_reserved`` printed after each engine's captures); four
+   tenants (a latency- and a throughput-class one on each graph), 16
+   queries each (5 / 5 / 5 / 1 of the bit kinds) in chunks of 4, round
+   robin, ``poll()`` between chunks: both graphs' sessions in flight at
+   once, one B1 and one B2 launch or replay per executed sweep; every
+   answer and TenantStats field (but ``peak_in_flight``) equal to a
+   back-to-back run on the same engines, two answers a kind against the
+   oracle; mux and sequential queries/s, per-tenant p99 (obs clock),
+   sweeps and blocks per engine printed. Then a burst over a tenant's
+   ``max_inflight`` is rejected whole, ``warm(budget=8)`` runs and a
+   replay of the warmed sources is served from the LRU.
+14. Refill path, last (its long profiled runs come after every short
    profiler session above): the graph with 8 tails of 96 (``with_tails``,
    seed 5; ``max_iters=240``, W=32, no cache, no component reuse), 120
    queries (the 8 tips spread through 112 core sources, the four kinds
@@ -185,20 +214,23 @@
    answers of each kind must equal the oracle, the four drivers must
    agree, sync and overlap counters must be equal but ``sweep_blocks``.
    Queries/s, sweeps, refills, lane utilisation, fusion, gated sweeps
-   (and their device ms) are printed, then each run again under
-   ``torch.profiler`` for the device busy share and the host time per
-   sweep; one block of 8 sweeps from one state by graph replay and
+   (and their device ms) are printed; then 12(b); then the sync and
+   overlap runs again under ``torch.profiler`` for the device busy share
+   and the host time per sweep (the batch and stream reruns were cut for
+   the run's time); one block of 8 sweeps from one state by graph replay and
    eagerly (equal leaves, both timed); and the overlap run with two
    sweeps in flight instead of one (counters equal, gated sweeps
    printed).
-13. Prints one JSON line describing every kernel, then, last, the device
+15. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
-Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory``
-(those phases alone, on the same inputs; ``sharded`` is 7 after the main
-serving run and 4 FULL keys it is held against, ``payload`` is 10 and
-7(c), ``memory`` is 11 after the 64-query serving run it holds (c)
-against).
+Option: ``--only
+segment_bag,ell_pull_payload,sharded,payload,memory,obs,frontend`` (those
+phases alone, on the same inputs; ``sharded`` is 7 after the main serving
+run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
+``memory`` is 11 after the 64-query serving run it holds (c) against,
+``obs`` is 12 after that serving run, (b) on the refill path's engine
+after its obs-off overlap run, ``frontend`` is 13).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -225,6 +257,9 @@ N_KEYS, N_VARIANT_KEYS = 16, 4      # Graph500 search keys; keys per variant
 # overlap cell, on the scale-20 graph
 N_TAILS, TAIL_LEN, REFILL_QUERIES, REFILL_MAX_ITERS = 8, 96, 120, 240
 SWEEP_BLOCK, STREAM_CHUNKS = 8, 4
+# the refill runs taken again under torch.profiler (batch and stream were
+# cut, for the run's time, when the obs and frontend phases came)
+PROFILED_REFILL_MODES = ("sync", "overlap")
 # recsys path: RECSYS_SHAPES of the xdeepfm config (serve_p99, serve_bulk,
 # retrieval_cand); the ClickStream's total vocabulary is the cold table size
 P99_BATCH, N_P99_BATCHES = 512, 20
@@ -1294,6 +1329,11 @@ def drive(eng, mode: str, queries) -> dict:
 
     eng.refill, eng.overlap = mode != "batch", mode == "overlap"
     eng.stats = ServeStats()
+    for blk in eng.blocks.values():
+        if blk.runner is not None:
+            # sweeps a warm-up left in flight (with two in flight, its
+            # frozen block's second one) are read now, not in the run
+            blk.runner.drain()
     sweeps0, blocks0 = eng.traversal_sweeps, block_totals(eng)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -1395,7 +1435,9 @@ def lookahead_phase(eng, queries, sync_stats: dict) -> None:
             check(st[key] == sync_stats[key],
                   f"lookahead 2: counters equal sync: {key}")
     check(bl["sweeps"] - bl["gated"] == st["sweeps"],
-          "lookahead 2: every ungated sweep is in the schedule")
+          f"lookahead 2: every ungated sweep is in the schedule "
+          f"({bl['sweeps']} dispatched, {bl['gated']} gated, "
+          f"{st['sweeps']} in the schedule)")
     print(f"refill overlap, lookahead 2: {len(queries)} queries in "
           f"{r['time_s']:.3f} s = {len(queries) / r['time_s']:.2f} queries/s;"
           f" sweeps={st['sweeps']} executed={bl['sweeps']} gated sweeps="
@@ -1403,17 +1445,12 @@ def lookahead_phase(eng, queries, sync_stats: dict) -> None:
           f"sweep_blocks={st['sweep_blocks']}")
 
 
-def refill_path(g) -> None:
-    """The tailed scale-20 graph served four ways (batch, sync refill,
-    overlap, stream), each warmed up; answers held against the oracle and
-    across drivers, sync and overlap counters held equal, one pull and one
-    fold launch per executed sweep (graph replays counted); then the same
-    runs under ``torch.profiler`` for the device busy share, and one block
-    timed both ways."""
-    import numpy as np
+def refill_engine(g):
+    """The refill path's engine on the tailed graph, warmed up with its
+    blocks captured (the stream's too); returns ``(gt, tips, eng,
+    queries)``."""
     import torch
     from repro_torch.core import msbfs as M
-    from repro_torch.core import oracle as O
     from repro_torch.graphs.synthetic import with_tails
     from repro_torch.serve import BFSServeEngine, Query, QueryKind as K
 
@@ -1440,6 +1477,24 @@ def refill_path(g) -> None:
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} B "
           f"memory_reserved={torch.cuda.memory_reserved()} B; "
           f"{len(queries)} queries, sweep_block={SWEEP_BLOCK}")
+    return gt, tips, eng, queries
+
+
+def refill_path(g, obs=None) -> None:
+    """The tailed scale-20 graph served four ways (batch, sync refill,
+    overlap, stream), each warmed up; answers held against the oracle and
+    across drivers, sync and overlap counters held equal, one pull and one
+    fold launch per executed sweep (graph replays counted); with ``obs``,
+    the overlap run once more with the observability plane on
+    (:func:`refill_obs_run`); then ``PROFILED_REFILL_MODES`` under
+    ``torch.profiler`` for the device busy share, and one block timed both
+    ways."""
+    import numpy as np
+    import torch
+    from repro_torch.core import oracle as O
+    from repro_torch.serve import QueryKind as K
+
+    gt, tips, eng, queries = refill_engine(g)
     runs = {}
     for mode in ("batch", "sync", "overlap", "stream"):
         torch.cuda.reset_peak_memory_stats()
@@ -1510,7 +1565,9 @@ def refill_path(g) -> None:
           f"{dict((k.value, v) for k, v in checked.items())} answers exact; "
           "the four drivers agree; sync and overlap counters equal but "
           "sweep_blocks")
-    for mode in ("batch", "sync", "overlap", "stream"):
+    if obs is not None:
+        refill_obs_run(eng, queries, tips, runs["overlap"], obs)
+    for mode in PROFILED_REFILL_MODES:
         r, prof = runs[mode], {}
         per_launch = profile_run(
             lambda m=mode: drive(eng, m, queries),
@@ -1529,6 +1586,496 @@ def refill_path(g) -> None:
               "us per launch")
     block_both_ways(eng, queries, tips)
     lookahead_phase(eng, queries, s_sync)
+
+
+# -----------------------------------------------------------------------------
+# The observability plane and the multi-tenant frontend (A11)
+
+#: the spans and instants the obs phase's exported trace must hold
+OBS_EVENTS = ("serve.batch", "serve.gather", "serve.dedup",
+              "serve.refill_drain", "serve.session.open",
+              "serve.session.close", "serve.reseed", "serve.boundary",
+              "serve.gather.deferred", "serve.sweep", "serve.block.dispatch",
+              "serve.block.wait", "serve.block.speculate",
+              "serve.submit_stream", "serve.cache.hit",
+              "serve.component.hit", "serve.poll")
+#: frontend phase: queries a tenant submits, per round, and the warmer's
+#: budget of sources a graph; the second graph relabels v -> (v + p) % n
+#: (the reference tests' construction: the same degrees, other edges)
+TENANT_QUERIES, TENANT_CHUNK, WARM_BUDGET = 16, 4, 8
+FRONTEND_SHIFT = P_RANK * P_GPU
+
+
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.3f} GiB"
+
+
+def pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the graph memory pool
+    ``pool`` (a ``graph_pool_handle()``): the segments of that pool in a
+    memory snapshot."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def obs_serving(eng, g, hplan, queries, answers, main_stats, obs) -> dict:
+    """The 64-query serving run on fresh engines over the main partition,
+    three ways: obs off, obs on (``obs``, the phase's plane) and
+    ``profile=`` a :class:`DispatchProfiler`; every ServeStats field (equal
+    to the main run's), answer, launch and replay count equal across the
+    three; queries/s of each and the profiler's dispatch latencies
+    printed. Then, on the obs engine: memo hits (cache, component) and a
+    per-sweep refill drain with duplicates; one ``trace_session()`` on the
+    profiled engine writes its file; a lane batch with ``telemetry=True``
+    fills ``last_telemetry``, its ``device.shard.<i>.wire_bytes`` summing
+    to the state's wire counters."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import msbfs as M, oracle as O
+    from repro_torch.graphs.rmat import pick_sources
+    from repro_torch.kernels import ops
+    from repro_torch.obs import DispatchProfiler, Observability
+    from repro_torch.serve import BFSServeEngine, Query, QueryKind as K
+
+    pg = eng.pg
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    prof = DispatchProfiler(trace_dir=tmp)
+    ways = {"off": lambda: {}, "obs": lambda: dict(obs=obs),
+            "profile": lambda: dict(profile=prof)}
+    qps = {name: [] for name in ways}
+    runs, engines = {}, {}
+    # two turns, the second in reverse order, each on fresh engines
+    for name in list(ways) + list(ways)[::-1]:
+        e = BFSServeEngine(pg=pg, plan=hplan, device=DEVICE, **ways[name]())
+        e.warmup(reachability=True, targets=True)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = e.submit_many(queries)
+        torch.cuda.synchronize()
+        qps[name].append(len(queries) / (time.perf_counter() - t0))
+        runs[name] = dict(stats=e.stats.as_dict(),
+                          launches=dict(ops.LAUNCHES),
+                          replayed=dict(ops.REPLAYED),
+                          sweeps=e.traversal_sweeps)
+        check(all(answers_equal(a, b) for a, b in zip(got, answers)),
+              f"obs {name}: answers equal the main run's")
+        engines[name] = e
+    for name, r in runs.items():
+        check(r["stats"] == main_stats,
+              f"obs {name}: every ServeStats field equals the main run's")
+        check(r["launches"] == runs["off"]["launches"]
+              and r["replayed"] == runs["off"]["replayed"],
+              f"obs {name}: launches and replays equal obs off")
+        check(r["launches"]["ell_pull_multi"] == r["sweeps"]
+              == r["launches"]["mask_reduce"],
+              f"obs {name}: one B1 and one B2 launch a sweep")
+    lat = prof.summary()["dispatch_latency_s"]["batch"]
+    check(prof.sampled == prof.dispatches == lat["count"] > 0,
+          "profile: every batch dispatch sampled")
+    print(f"obs ({card_line()}): {len(queries)} queries, sweeps="
+          f"{runs['off']['sweeps']}; queries/s in turns (off, obs, profile, "
+          f"then reversed): off {[round(q, 2) for q in qps['off']]}, obs on "
+          f"{[round(q, 2) for q in qps['obs']]}, profile=True "
+          f"{[round(q, 2) for q in qps['profile']]}; every ServeStats field, "
+          f"answer, launch and replay equal; profiler: {lat['count']} batch "
+          f"dispatches over both turns, p50 {lat['p50'] * 1e3:.2f} ms, p99 "
+          f"{lat['p99'] * 1e3:.2f} ms, max {lat['max'] * 1e3:.2f} ms")
+
+    # memo hits, and a per-sweep refill drain with duplicates (obs engine)
+    e = engines["obs"]
+    hits0, comp0 = e.stats.cache_hits, e.stats.component_hits
+    e.submit_many(queries[:4])
+    check(e.stats.cache_hits == hits0 + len(set(queries[:4])),
+          "obs: cache hits")
+    i = next(i for i, q in enumerate(queries) if q.kind is K.REACHABILITY)
+    asked = {q.source for q in queries}
+    other = next(int(v) for v in np.nonzero(answers[i])[0]
+                 if int(v) not in asked)
+    e.submit_many([Query(other, K.REACHABILITY)])
+    check(e.stats.component_hits == comp0 + 1, "obs: a component hit")
+    e.refill = True
+    drain = [Query(int(s)) for s in pick_sources(g, 8, seed=13)]
+    t0 = time.perf_counter()
+    got = e.run_refill_queries(drain + drain[:2])
+    dt = time.perf_counter() - t0
+    e.refill = False
+    check(set(got) == set(drain), "obs: the refill drain answered")
+    check(np.array_equal(got[drain[0]], O.bfs_levels(g, drain[0].source)),
+          "obs: refill drain oracle")
+    print(f"obs probes: {len(set(queries[:4]))} cache hits, 1 component "
+          f"hit, a per-sweep refill drain of {len(drain)} (+2 duplicates) "
+          f"in {dt:.3f} s")
+
+    # one torch.profiler session of the profiled engine
+    batch = list(dict.fromkeys(queries))[:32]
+    check(prof.start_trace() is True, "trace_session: a capture started")
+    engines["profile"].run_batch_queries(batch)
+    torch.cuda.synchronize()
+    prof.stop_trace()
+    path = prof.trace_path
+    check(path is not None and os.path.exists(path),
+          "trace_session: the trace file was written")
+    doc = json.loads(open(path).read())
+    kernels = [ev for ev in doc["traceEvents"] if ev.get("cat") == "kernel"]
+    print(f"trace_session: {os.path.basename(path)}, "
+          f"{os.path.getsize(path)} B, {len(doc['traceEvents'])} events, "
+          f"{len(kernels)} kernel records")
+    check(kernels, "trace_session: kernel records in the trace")
+    del engines, e
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # telemetry harvested into last_telemetry and the device metrics
+    te = BFSServeEngine(pg=pg, plan=hplan, device=DEVICE,
+                        cfg=M.MSBFSConfig(telemetry=True),
+                        obs=Observability())
+    te.run_batch_queries(batch)
+    tel, st = te.last_telemetry, te.stats
+    gauges = te.obs.metrics.snapshot()["gauges"]
+    shard = [gauges[f"device.shard.{i}.wire_bytes"] for i in range(pg.p)]
+    check(tel is not None and tel.sweeps == te.traversal_sweeps,
+          "telemetry: last_telemetry filled")
+    check(sum(shard) == st.wire_delegate_bytes + st.wire_nn_bytes,
+          "telemetry: shard wire bytes sum to the wire counters")
+    print(f"telemetry: sweeps={tel.sweeps} device.shard.i.wire_bytes="
+          f"{shard} (sum {sum(shard)} = wire_delegate {st.wire_delegate_bytes}"
+          f" + wire_nn {st.wire_nn_bytes}); frontier per shard "
+          f"{tel.shard_frontier().tolist()}, frontier_skew "
+          f"{gauges['device.frontier_skew']:.4f}")
+    del te
+    torch.cuda.empty_cache()
+    return dict(qps=qps, p50_ms=lat["p50"] * 1e3, p99_ms=lat["p99"] * 1e3)
+
+
+def refill_obs_run(eng, queries, tips, base: dict, obs) -> None:
+    """The 120-query overlap run of the refill path once more, on an engine
+    of the same partition with the obs plane ``obs`` on (its blocks
+    captured into the refill engine's pool): every ServeStats field,
+    answer, launch and replay equal the obs-off run ``base``; queries/s of
+    it, of ``base`` and of the obs-off run once more after it printed. Then a short stream on it, and the plane's exported
+    trace must parse as Chrome JSON and hold every name of
+    ``OBS_EVENTS``."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import engine as TE
+    from repro_torch.serve import BFSServeEngine, Query, QueryKind as K
+
+    t0 = time.perf_counter()
+    e = BFSServeEngine(pg=eng.pg, plan=TE.build_exchange_plan(eng.pg),
+                       cfg=eng.cfg, cache_capacity=0, reuse_components=False,
+                       refill=True, overlap=True, sweep_block=SWEEP_BLOCK,
+                       device=DEVICE, obs=obs, runner_cache=eng._runners)
+    e.warmup(reachability=True, targets=True)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    r = drive(e, "overlap", queries)
+    check(r["stats"] == base["stats"],
+          "refill overlap, obs on: every ServeStats field equals obs off")
+    check(r["launches"] == base["launches"]
+          and r["replayed"] == base["replayed"]
+          and r["blocks"]["gated"] == base["blocks"]["gated"],
+          "refill overlap, obs on: launches, replays, gated sweeps equal")
+    check(all(answers_equal(r["results"][q], a)
+              for q, a in base["results"].items()),
+          "refill overlap, obs on: answers equal obs off")
+    again = drive(eng, "overlap", queries)
+    check(again["stats"] == base["stats"], "refill overlap: obs off again")
+    print(f"refill overlap, obs on ({card_line()}): {len(queries)} queries "
+          f"in {r['time_s']:.3f} s = {len(queries) / r['time_s']:.2f} "
+          f"queries/s (obs off, before and after: "
+          f"{len(queries) / base['time_s']:.2f}, "
+          f"{len(queries) / again['time_s']:.2f}); sweeps={r['sweeps']} "
+          f"sweep_blocks={r['stats']['sweep_blocks']}; counters, launches, "
+          f"replays and answers equal; engine set-up and captures "
+          f"{t_setup:.1f} s")
+    core = [q.source for q in queries if q.source not in tips][:2]
+    e.submit_stream([Query(s, K.DISTANCE_LIMITED, max_depth=1)
+                     for s in core])
+    got = e.poll()
+    got.update(e.drain_stream())
+    check(len(got) == len(core), "obs stream: every query delivered")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "serve_trace.json")
+        obs.export(path)
+        doc = json.loads(open(path).read())
+        size = os.path.getsize(path)
+    names = {ev["name"] for ev in doc["traceEvents"]}
+    missing = [n for n in OBS_EVENTS if n not in names]
+    snap = obs.metrics.snapshot()
+    print(f"obs trace: {len(doc['traceEvents'])} events ({size} B, "
+          f"{obs.trace.dropped} dropped), {len(names)} names; metrics: "
+          f"{len(snap['counters'])} counters, {len(snap['gauges'])} gauges, "
+          f"{len(snap['histograms'])} histograms")
+    check(not missing, f"obs trace holds every span name (missing {missing})")
+    check(obs.trace.dropped == 0, "obs trace: nothing dropped")
+    del e
+    torch.cuda.empty_cache()
+
+
+def tenant_traffic(graphs: dict) -> dict:
+    """Four tenants, a latency-class and a throughput-class one on each
+    graph: ``TENANT_QUERIES`` disjoint sources each (``pick_sources(g, 32,
+    seed=31 + graph)``), a MULTI_TARGET query first, then LEVELS,
+    REACHABILITY and DISTANCE_LIMITED (max_depth 3) cycled: 5 / 5 / 5 / 1
+    a tenant, as ``BENCH_serving.json`` ``frontend`` has."""
+    from repro_torch.graphs.rmat import pick_sources
+    from repro_torch.serve import (Query, QueryKind as K, SLO_LATENCY,
+                                   SLO_THROUGHPUT)
+
+    cycle = (K.LEVELS, K.REACHABILITY, K.DISTANCE_LIMITED)
+    tenants = {}
+    for gi, (name, (g, _)) in enumerate(graphs.items()):
+        srcs = [int(s) for s in pick_sources(g, 2 * TENANT_QUERIES,
+                                             seed=31 + gi)]
+        for half, slo in enumerate((SLO_LATENCY, SLO_THROUGHPUT)):
+            mine = srcs[half * TENANT_QUERIES:(half + 1) * TENANT_QUERIES]
+            qs = [Query(mine[0], K.MULTI_TARGET, targets=tuple(srcs[:2]))]
+            qs += [Query(s, cycle[i % 3], max_depth=3 if i % 3 == 2
+                         else None) for i, s in enumerate(mine[1:])]
+            tenants[f"tenant{2 * gi + half}"] = (name, slo, qs)
+    return tenants
+
+
+def frontend_mux(ft, tenants: dict) -> tuple:
+    """Round-robin chunks of ``TENANT_CHUNK`` with a blocking ``poll()``
+    between rounds, then ``drain()``. Returns the answers by tenant and
+    the number of rounds after which both engines had lanes busy."""
+    sessions = {t: ft.open_session(t, g, slo=slo)
+                for t, (g, slo, _) in tenants.items()}
+    answers = {t: {} for t in tenants}
+
+    def take(out):
+        for sid, res in out.items():
+            answers[sid.split(":", 1)[0]].update(res)
+
+    both = 0
+    for r in range(-(-TENANT_QUERIES // TENANT_CHUNK)):
+        for t, (_, _, qs) in tenants.items():
+            ft.submit(sessions[t], qs[r * TENANT_CHUNK:(r + 1) * TENANT_CHUNK])
+        take(ft.poll(wait=True))
+        both += all(e.stream_status()["busy"] > 0
+                    for e in ft.engines.values())
+    take(ft.drain())
+    return answers, both
+
+
+def frontend_seq(ft, tenants: dict, tag: str) -> dict:
+    """Each tenant submitted whole and drained before the next."""
+    answers = {}
+    for t, (g, slo, qs) in tenants.items():
+        sess = ft.open_session(t + tag, g, slo=slo)
+        ft.submit(sess, qs)
+        got = {}
+        for res in ft.drain().values():
+            got.update(res)
+        answers[t] = got
+    return answers
+
+
+def frontend_path(g, pg, csr) -> dict:
+    """The multi-tenant frontend over two scale-20 graphs: the main
+    partition and a relabelled copy (``v -> (v + p) % n``, partitioned
+    here), engines at W = 32 (refill, overlap, ``sweep_block=8``, no
+    component reuse) sharing one runner cache -- one graph memory pool,
+    whose ``memory_reserved`` is printed after each engine's captures.
+    Four tenants (:func:`tenant_traffic`) multiplexed (both graphs'
+    sessions in flight at once), then the same traffic back to back on
+    the same engines (stream sessions closed, cache cleared): equal answers, TenantStats equal
+    but ``peak_in_flight``, two answers a kind against the oracle, one B1
+    and one B2 launch or replay per executed sweep of the mux run. Then a
+    tenant under ``max_inflight`` has a burst rejected atomically,
+    ``warm(budget=WARM_BUDGET)`` pre-computes the hottest uncached
+    sources and their replay is served from the LRU. Prints mux and
+    sequential queries/s, per-tenant p99 on the obs clock, sweeps and
+    blocks per engine."""
+    import gc
+
+    import torch
+    from repro_torch.core import oracle as O
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.core.types import COOGraph
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observability, tenant_metric
+    from repro_torch.serve import (Query, QueryKind as K, QuotaExceeded,
+                                   SLO_THROUGHPUT, ServeFrontend, ServeStats,
+                                   oracle_check)
+
+    t0 = time.perf_counter()
+    g2 = COOGraph(g.n, (g.src + FRONTEND_SHIFT) % g.n,
+                  (g.dst + FRONTEND_SHIFT) % g.n)
+    pg2 = partition_graph(g2, th=TH, p_rank=P_RANK, p_gpu=P_GPU)
+    t_part = time.perf_counter() - t0
+    graphs = {"g1": (g, pg), "g2": (g2, pg2)}
+    obs = Observability()
+    ft = ServeFrontend(obs=obs, device=DEVICE, reuse_components=False,
+                       sweep_block=SWEEP_BLOCK)
+    gc.collect()                  # earlier phases' captured graphs
+    torch.cuda.empty_cache()
+    reserved, pool = [torch.cuda.memory_reserved()], []
+    t0 = time.perf_counter()
+    for name, (_, p) in graphs.items():
+        eng = ft.register_graph(name, pg=p)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        eng.warmup(targets=True)
+        # a throwaway stream query captures the stream session's block
+        eng.submit_stream([Query(0, K.DISTANCE_LIMITED, max_depth=1)])
+        eng.drain_stream()
+        eng.stats = ServeStats()
+        eng.cache.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        pool.append(pool_bytes(ft.runner_cache["graph_pool"]))
+    t_setup = time.perf_counter() - t0
+    check(len({id(b.pool) for e in ft.engines.values()
+               for b in e.blocks.values()}) == 1
+          and all(b.runner.graphs is not None for e in ft.engines.values()
+                  for b in e.blocks.values()),
+          "frontend: every engine's captured blocks in the one shared pool")
+    views = [reserved[1] - reserved[0], reserved[3] - reserved[2]]
+    print(f"frontend setup: relabelled copy partitioned in {t_part:.1f} s; "
+          f"engines, warm-ups and captures {t_setup:.1f} s; "
+          f"memory_reserved: views g1 {gib(views[0])}, g2 {gib(views[1])}, "
+          f"after g1's captures +{gib(reserved[2] - reserved[1])}, after "
+          f"g2's +{gib(reserved[4] - reserved[3])}; the shared graph pool "
+          f"holds {gib(pool[0])} after g1's {len(ft.engines['g1'].blocks)} "
+          f"captured blocks and {gib(pool[1])} after g2's "
+          f"{len(ft.engines['g2'].blocks)} (g2 added "
+          f"{gib(pool[1] - pool[0])}); total reserved {gib(reserved[-1])}")
+
+    tenants = tenant_traffic(graphs)
+    n_total = sum(len(qs) for _, _, qs in tenants.values())
+    blocks0 = {n: block_totals(e) for n, e in ft.engines.items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    mux, both = frontend_mux(ft, tenants)
+    torch.cuda.synchronize()
+    t_mux = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] + ops.REPLAYED[k] for k in ops.LAUNCHES}
+    executed = sum(block_totals(e)["sweeps"] - blocks0[n]["sweeps"]
+                   for n, e in ft.engines.items())
+    mux_engines = {n: e.stats.as_dict() for n, e in ft.engines.items()}
+    mux_tenants = {t: ft.tenant_stats(t).as_dict() for t in tenants}
+    snap = obs.metrics.snapshot()["histograms"]
+    p99 = {t: max(h["p99"] for k, h in snap.items()
+                  if k.startswith(tenant_metric(t, "latency_s")))
+           for t in tenants}
+    check(both > 0, "frontend: both graphs' sessions in flight at once")
+    check(launches["ell_pull_multi"] == executed == launches["mask_reduce"]
+          and launches["ell_pull"] == 0,
+          "frontend mux: one B1 and one B2 launch or replay a sweep")
+    for t, (_, _, qs) in tenants.items():
+        check(set(mux[t]) == set(qs) and mux_tenants[t]["delivered"]
+              == len(qs), f"frontend mux: {t} got every answer")
+
+    for e in ft.engines.values():
+        # close the mux run's stream sessions (their dedup memory) and
+        # forget its answers: the back-to-back run starts as the mux did
+        check(e.drain_stream() == {}, "frontend mux: everything delivered")
+        e.stats = ServeStats()
+        e.cache.clear()
+    t0 = time.perf_counter()
+    seq = frontend_seq(ft, tenants, "-seq")
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    for t, (gname, _, qs) in tenants.items():
+        for q in qs:
+            check(answers_equal(mux[t][q], seq[t][q]),
+                  f"frontend: mux answer equals back to back: {t} {q}")
+        a = {k: v for k, v in mux_tenants[t].items() if k != "peak_in_flight"}
+        b = {k: v for k, v in ft.tenant_stats(t + "-seq").as_dict().items()
+             if k != "peak_in_flight"}
+        check(a == b, f"frontend: {t} TenantStats equal back to back")
+    seq_sweeps = {n: (e.stats.sweeps, e.stats.sweep_blocks)
+                  for n, e in ft.engines.items()}
+    csr2 = O.csr_from_coo(g2)
+    checked = {}
+    for t, (gname, _, qs) in tenants.items():
+        if t not in ("tenant0", "tenant2"):
+            continue
+        for q in qs:
+            if checked.get((gname, q.kind), 0) >= 1:
+                continue
+            oracle_check(graphs[gname][0], q, mux[t][q],
+                         csr if gname == "g1" else csr2)
+            checked[(gname, q.kind)] = 1
+    check(len(checked) == 8, "frontend: two answers a kind against the oracle")
+    for n, st in mux_engines.items():
+        print(f"frontend mux engine {n}: sweeps={st['sweeps']} "
+              f"sweep_blocks={st['sweep_blocks']} lanes_used="
+              f"{st['lanes_used']} kind_counts={st['kind_counts']} "
+              f"lane_utilization="
+              f"{st['lane_sweeps_busy'] / max(st['lane_sweeps_total'], 1):.4f}")
+    print(f"frontend ({card_line()}): {n_total} queries, 4 tenants on 2 "
+          f"graphs; mux {t_mux:.3f} s = {n_total / t_mux:.2f} queries/s "
+          f"(both graphs busy after {both} of "
+          f"{-(-TENANT_QUERIES // TENANT_CHUNK)} polls; {executed} executed "
+          f"sweeps, launches {launches}); back to back {t_seq:.3f} s = "
+          f"{n_total / t_seq:.2f} queries/s (sweeps, blocks by engine "
+          f"{seq_sweeps}); per-tenant p99 (obs clock) "
+          f"{ {t: round(v * 1e3, 1) for t, v in p99.items()} } ms; "
+          f"answers and TenantStats equal, oracle {len(checked)} exact")
+
+    # a tenant under max_inflight: a burst rejected whole
+    e1 = ft.engines["g1"]
+    sess = ft.open_session("quota", "g1", slo=SLO_THROUGHPUT,
+                           max_inflight=TENANT_CHUNK)
+    extra = [Query(int(s)) for s in range(1000, 1000 + 2 * TENANT_CHUNK)]
+    ft.submit(sess, extra[:TENANT_CHUNK])
+    pre = e1.stats.queries
+    try:
+        ft.submit(sess, extra[TENANT_CHUNK:])
+        rejected = False
+    except QuotaExceeded:
+        rejected = True
+    ts = ft.tenant_stats("quota")
+    check(rejected and ts.rejected == TENANT_CHUNK
+          and ts.in_flight == TENANT_CHUNK and e1.stats.queries == pre,
+          "frontend quota: the burst rejected whole, nothing admitted")
+    ft.drain()
+    ft.submit(sess, extra[TENANT_CHUNK:])
+    got = ft.drain()[sess.sid]
+    check(set(got) == set(extra[TENANT_CHUNK:]), "frontend quota: retried")
+
+    # traffic-skew warming, then a replay served by the LRU
+    t0 = time.perf_counter()
+    picked = ft.warm(budget=WARM_BUDGET)
+    t_warm = time.perf_counter() - t0
+    check(all(0 < len(v) <= WARM_BUDGET for v in picked.values()),
+          "frontend warm: sources picked on each graph")
+    replay = {n: ft.open_session(f"replay-{n}", n) for n in picked}
+    pre = {n: ft.tenant_stats(f"replay-{n}").cache_hits for n in picked}
+    for n, srcs in picked.items():
+        ft.submit(replay[n], [Query(s) for s in srcs])
+    ft.drain()
+    hits = {n: ft.tenant_stats(f"replay-{n}").cache_hits - pre[n]
+            for n in picked}
+    check(all(hits[n] == len(picked[n]) for n in picked),
+          "frontend warm: the replay served from the LRU")
+    print(f"frontend quota: a burst of {TENANT_CHUNK} over max_inflight="
+          f"{TENANT_CHUNK} rejected whole, then served; warm(budget="
+          f"{WARM_BUDGET}) {t_warm:.3f} s picked "
+          f"{ {n: len(v) for n, v in picked.items()} } sources, the replay "
+          f"{hits} cache hits")
+    out = dict(qps_mux=n_total / t_mux, qps_seq=n_total / t_seq,
+               pool=pool, p99_ms={t: v * 1e3 for t, v in p99.items()})
+    del ft
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- recsys path
@@ -3637,6 +4184,14 @@ def run() -> None:
     strategy_serving(eng, hplan, queries, answers)
     strategy_bfs(eng, hplan, g, csr, full)
     stamp("strategy phases done")
+    # ---- the observability plane: the serving run three ways (the plane
+    # goes on to the refill path's overlap run) ----------------------------
+    from repro_torch.obs import Observability
+
+    torch.cuda.empty_cache()
+    obs = Observability()
+    obs_serving(eng, g, hplan, queries, answers, main_stats, obs)
+    stamp("obs serving phase done")
     torch.cuda.empty_cache()
     sharded_nccl_phase()
     stamp("sharded world-1 NCCL phase done")
@@ -3660,10 +4215,15 @@ def run() -> None:
     memory_path(eng, g, csr, queries, answers)
     stamp("memory path done")
 
+    # ---- the multi-tenant frontend over two scale-20 graphs -----------------
+    torch.cuda.empty_cache()
+    frontend_path(g, pg, csr)
+    stamp("frontend path done")
+
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
     torch.cuda.empty_cache()
-    refill_path(g)
+    refill_path(g, obs)
     stamp("refill path done")
 
     or_apply = fold["apply"]["levels + targets"]
@@ -3819,9 +4379,43 @@ def run_alone(names) -> None:
         queries = mixed_queries(g, eng.pg)
         memory_path(eng, g, O.csr_from_coo(g), queries,
                     eng.submit_many(queries))
+    if "obs" in names or "frontend" in names:
+        obs_frontend_alone(names)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def obs_frontend_alone(names) -> None:
+    """``--only obs`` / ``frontend``: the scale-20 graph and engine and the
+    64-query serving run (as ``run`` makes them); ``obs`` then runs
+    :func:`obs_serving` and, on the refill path's engine, its overlap run
+    with the plane off and then on (:func:`refill_obs_run`); ``frontend``
+    runs :func:`frontend_path`."""
+    import torch
+    from repro_torch.core import engine as TE, oracle as O
+    from repro_torch.graphs.rmat import rmat_graph
+    from repro_torch.obs import Observability
+    from repro_torch.serve import BFSServeEngine
+
+    torch.cuda.empty_cache()
+    g = rmat_graph(SCALE, seed=0)
+    eng = BFSServeEngine(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU, device=DEVICE)
+    csr = O.csr_from_coo(g)
+    if "obs" in names:
+        eng.warmup(reachability=True, targets=True)
+        queries = mixed_queries(g, eng.pg)
+        answers = eng.submit_many(queries)
+        obs = Observability()
+        obs_serving(eng, g, TE.build_exchange_plan(eng.pg), queries, answers,
+                    eng.stats.as_dict(), obs)
+        torch.cuda.empty_cache()
+        _, tips, reng, rq = refill_engine(g)
+        refill_obs_run(reng, rq, tips, drive(reng, "overlap", rq), obs)
+        del reng
+        torch.cuda.empty_cache()
+    if "frontend" in names:
+        frontend_path(g, eng.pg, csr)
 
 
 def main() -> int:
@@ -3831,7 +4425,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
-              "memory")
+              "memory", "obs", "frontend")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

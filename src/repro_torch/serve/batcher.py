@@ -9,8 +9,7 @@ all-INF level column and never generate work -- so the batcher never waits:
 engine: instead of retiring whole batches it tracks per-lane occupancy and
 a per-lane *generation* counter, so a lane can be retired and reseeded
 mid-flight without ambiguity about which query its unpacked levels belong
-to. Host-side bookkeeping only (numpy); the reference's occupancy metrics
-hook waits for the observability port.
+to. Host-side bookkeeping only (numpy).
 """
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from repro_torch.obs import NULL_OBS
 
 
 def pack_sources(sources, width: int):
@@ -102,17 +103,28 @@ class LaneScheduler:
     engine asks :meth:`fill_idle` for assignments at a sweep boundary,
     performs the reseed on the device, and reports convergence back through
     :meth:`retire`.
+
+    ``obs`` (an :class:`repro_torch.obs.Observability`) mirrors the
+    occupancy into metrics -- ``serve.lanes_busy`` / ``serve.queue_depth``
+    gauges, ``lane.fill`` / ``lane.retire`` trace instants -- and is the
+    free disabled plane by default.
     """
 
-    def __init__(self, width: int, pending=()):
+    def __init__(self, width: int, pending=(), obs=None):
         if width <= 0:
             raise ValueError(f"width must be positive, got {width}")
         self.width = int(width)
+        self.obs = obs if obs is not None else NULL_OBS
         self.pending: deque = deque(pending)
         self.lane_item: list = [None] * self.width
         self.lane_source = np.full(self.width, -1, dtype=np.int64)
         self.lane_generation = np.zeros(self.width, dtype=np.int64)
         self.busy = np.zeros(self.width, dtype=bool)
+
+    def _note_occupancy(self) -> None:
+        m = self.obs.metrics
+        m.gauge("serve.lanes_busy").set(self.n_busy)
+        m.gauge("serve.queue_depth").set(len(self.pending))
 
     def submit(self, item) -> None:
         """Queue a source vertex id or a typed query descriptor."""
@@ -161,6 +173,9 @@ class LaneScheduler:
             self.busy[lane] = True
             out.append(LaneAssignment(lane, source,
                                       int(self.lane_generation[lane]), item))
+        if out and self.obs.enabled:
+            self.obs.trace.instant("lane.fill", lanes=len(out))
+            self._note_occupancy()
         return out
 
     def retire(self, lane: int):
@@ -170,4 +185,9 @@ class LaneScheduler:
         if not self.busy[lane]:
             raise ValueError(f"lane {lane} is not busy")
         self.busy[lane] = False
+        if self.obs.enabled:
+            self.obs.trace.instant(
+                "lane.retire", lane=int(lane),
+                generation=int(self.lane_generation[lane]))
+            self._note_occupancy()
         return self.lane_item[lane], int(self.lane_generation[lane])

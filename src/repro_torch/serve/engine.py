@@ -55,6 +55,9 @@ import torch
 from repro_torch.core import bfs as B, comm as C, engine as E, msbfs as M
 from repro_torch.core.partition import partition_graph
 from repro_torch.core.types import COOGraph, PartitionLayout, PartitionedGraph
+from repro_torch.obs import (BYTES_BUCKETS, NULL_OBS, RATIO_BUCKETS,
+                             Observability, as_profiler,
+                             export_shard_metrics, harvest_telemetry)
 
 from .batcher import LaneScheduler
 from .cache import LRUCache
@@ -199,6 +202,7 @@ class _Session:
                                                   # from) the engine LRU
     cur: Any = None         # pipelined: in-flight block to process next
     head: Any = None        # pipelined: speculative successor block
+    t_submit: dict = field(default_factory=dict)  # obs: query -> submit ts
     has_reach: bool = False  # session saw a REACHABILITY query (gates defer)
     busy_at_dispatch: int = 0
     it_prev: int = 0        # device `it` at the last processed boundary
@@ -232,8 +236,10 @@ class BFSServeEngine:
     cfg : msBFS config; ``cfg.n_queries`` is the lane width W. A cfg with
         ``telemetry=True`` carries the ``tm_*`` sweep leaves through every
         traversal, block and reseed (same answers and counters); the
-        engine does not harvest them yet (``last_telemetry``: ROADMAP
-        item A11).
+        engine harvests them where it already reads a finished state on
+        the host (batch completion, session close) into
+        ``last_telemetry`` and the ``device.shard.<i>.*`` metrics
+        (:mod:`repro_torch.obs.device`).
     comm : communication strategies (sugar for a cfg with ``comm=`` set).
     cache_capacity / cache_ttl : LRU entries (0 disables) and default
         per-entry time-to-live in seconds (None = never expires).
@@ -274,6 +280,28 @@ class BFSServeEngine:
         :func:`~repro_torch.core.bfs.local_partition` alone.
     plan : the host :class:`~repro_torch.core.engine.ExchangePlan` of
         ``pg`` (built here where None; needed for a one-partition ``pg``).
+    obs : an :class:`repro_torch.obs.Observability` plane; every pipeline
+        stage becomes a trace span (batches, sweeps, blocks, boundaries,
+        reseeds, gathers; cache, component and dedup resolutions as
+        instants) and every ``ServeStats`` counter a metric, with per-kind
+        submit->deliver latency histograms. Host-side only: the schedule
+        and every counter are the same with ``obs`` on or off. Default:
+        the shared disabled plane (free).
+    profile : dispatch-latency profiling (:mod:`repro_torch.obs.profile`):
+        a :class:`repro_torch.obs.DispatchProfiler`, ``True`` (every
+        dispatch), or a float sample rate. Sampled dispatches (``batch``,
+        ``sweep``, ``block``; a speculative successor block never) are
+        waited for, and the dispatch->ready time recorded; the schedule and
+        every counter stay the same. Default off (a shared passthrough).
+    runner_cache : a dict shared by several engines (a frontend passes one
+        for its pool of engines). It holds the CUDA graph memory pool
+        (``"graph_pool"``) that every engine of the dict captures its
+        blocks into: the blocks replay one at a time on one stream and no
+        tensor allocated in a capture outlives it, so captures may reuse
+        each other's memory. The captured blocks themselves stay with
+        their engine (``blocks``): a capture binds its engine's tensors
+        and its ring of state buffers, so no two engines can share one.
+        ``None`` (default) keeps a private dict, so a private pool.
 
     State reuse: the reference donates a block's input buffers; here every
     traversal state is a new set of tensors, except inside a fused block
@@ -305,7 +333,14 @@ class BFSServeEngine:
         mesh=None,
         partition_axes=None,
         plan=None,
+        obs: Observability | None = None,
+        profile=None,
+        runner_cache: dict | None = None,
     ):
+        self.obs = obs if obs is not None else NULL_OBS
+        self.profiler = as_profiler(profile, obs=self.obs)
+        #: the latest harvested :class:`repro_torch.obs.SweepTelemetry`
+        self.last_telemetry = None
         self.device = B.resolve_device(device)
         if pg is None:
             if graph is None:
@@ -360,8 +395,18 @@ class BFSServeEngine:
         self.pgv = B.device_view(pg_view, self.device)
         self.plan = E.device_plan(plan, self.device)
         self.graph_id = graph_id if graph_id is not None else default_graph_id(pg)
-        self.cache = LRUCache(cache_capacity, ttl=cache_ttl)
+        self.cache = LRUCache(cache_capacity, ttl=cache_ttl, obs=self.obs)
         self.stats = ServeStats()
+        if self.obs.enabled:
+            # one metadata event anchoring the trace: graph shape and the
+            # comm plan's strategies
+            self.obs.trace.instant(
+                "engine.init", graph_id=self.graph_id, n=int(pg.n),
+                p=int(pg.p), d=int(pg.d), th=int(pg.th),
+                n_queries=int(self.cfg.n_queries),
+                refill=self.refill, overlap=self.overlap,
+                sweep_block=self.sweep_block,
+                comm=self.cfg.comm.as_dict())
         #: sweeps of every batch-mode traversal (batch mode keeps
         #: ``stats.sweeps`` at 0, as the reference does)
         self.traversal_sweeps = 0
@@ -370,7 +415,7 @@ class BFSServeEngine:
         #: fused blocks by (msBFS variant, stream session): a stream
         #: session and a refill drain never share one block's buffers
         self.blocks: dict = {}
-        self._graph_pool = None
+        self._runners: dict = runner_cache if runner_cache is not None else {}
 
     # -- per-batch variants -------------------------------------------------
     def _reach_fast(self, queries) -> bool:
@@ -434,22 +479,66 @@ class BFSServeEngine:
 
     def _block(self, cfg: M.MSBFSConfig, stream: bool) -> M.SweepBlock:
         """The fused ``sweep_block``-sweep block of ``cfg`` (one per
-        variant and session kind; all of an engine's captured sweeps share
-        one graph memory pool, as they replay on one stream)."""
+        variant and session kind). Every captured sweep of the engines
+        sharing ``runner_cache`` lands in one graph memory pool: they all
+        replay on one stream, one at a time."""
         key = (cfg, stream)
         blk = self.blocks.get(key)
         if blk is None:
-            if self.device.type == "cuda" and self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
+            pool = None
+            if self.device.type == "cuda":
+                pool = self._runners.get("graph_pool")
+                if pool is None:
+                    pool = self._runners["graph_pool"] = \
+                        torch.cuda.graph_pool_handle()
             if self.sharded:
                 blk = M.make_sharded_msbfs_block(
-                    self.mesh, None, cfg, self.sweep_block,
-                    pool=self._graph_pool)
+                    self.mesh, None, cfg, self.sweep_block, pool=pool)
             else:
-                blk = M.make_msbfs_block_emulated(
-                    cfg, self.sweep_block, pool=self._graph_pool)
+                blk = M.make_msbfs_block_emulated(cfg, self.sweep_block,
+                                                  pool=pool)
             self.blocks[key] = blk
         return blk
+
+    # -- observability hooks ------------------------------------------------
+    def _record_latency(self, kind: QueryKind, dt: float) -> None:
+        """One submit->deliver latency sample, bucketed per query kind."""
+        self.obs.metrics.histogram(f"serve.latency_s.{kind.value}").record(dt)
+
+    def _note_traversal(self, state, sweeps: int) -> None:
+        """``stats.note_traversal`` plus the metrics mirror: the finished
+        traversal's wire bytes per sweep as a histogram sample. A state
+        carrying telemetry leaves is harvested here too, where the engine
+        reads the finished state anyway (``last_telemetry`` and the
+        ``device.shard.<i>.*`` metrics)."""
+        pre = self.stats.wire_bytes_total
+        self.stats.note_traversal(state, self.mesh)
+        tel = harvest_telemetry(state, self.mesh)
+        if tel is not None:
+            self.last_telemetry = tel
+            export_shard_metrics(self.obs, tel)
+        if self.obs.enabled and sweeps > 0:
+            self.obs.metrics.histogram(
+                "serve.wire_bytes_per_sweep", BYTES_BUCKETS).record(
+                    (self.stats.wire_bytes_total - pre) / sweeps)
+
+    def _export_stats(self) -> None:
+        """Mirror every ``ServeStats`` counter into the metrics registry
+        (``as_dict`` is fields-derived, so a new counter shows up here),
+        plus ``serve.lane_utilization`` and ``serve.fusion_factor``."""
+        if not self.obs.enabled:
+            return
+        m = self.obs.metrics
+        for k, v in self.stats.as_dict().items():
+            if isinstance(v, dict):
+                for kk, vv in v.items():
+                    m.gauge(f"serve.stats.{k}.{kk}").set(vv)
+            else:
+                m.gauge(f"serve.stats.{k}").set(v)
+        m.gauge("serve.lane_utilization").set(self.stats.lane_utilization)
+        if self.stats.sweep_blocks:
+            m.gauge("serve.fusion_factor").set(
+                self.stats.sweeps / self.stats.sweep_blocks)
 
     def _validate_queries(self, queries) -> None:
         """Range-check every source and target before any lane is
@@ -515,21 +604,26 @@ class BFSServeEngine:
         self._validate_queries(queries)
         reach_fast = self._reach_fast(queries)
         cfg = self._session_cfg(queries)
-        st = self._init([q.source for q in queries], cfg,
-                        depth_caps=[q.depth_cap for q in queries],
-                        targets=[q.targets for q in queries],
-                        payload_modes=[q.payload_mode for q in queries])
-        out = self._run(cfg, st)
-        rows = self._gather(cfg, out, np.arange(len(queries)),
-                            queries).rows()
-        self.traversal_sweeps += int(out.it[0])
+        with self.obs.trace.span("serve.batch", n=len(queries),
+                                 reach_fast=reach_fast) as sp:
+            st = self._init([q.source for q in queries], cfg,
+                            depth_caps=[q.depth_cap for q in queries],
+                            targets=[q.targets for q in queries],
+                            payload_modes=[q.payload_mode for q in queries])
+            out = self.profiler.timed("batch", self._run, cfg, st)
+            with self.obs.trace.span("serve.gather", lanes=len(queries)):
+                rows = self._gather(cfg, out, np.arange(len(queries)),
+                                    queries).rows()
+            sweeps = int(out.it[0])
+            sp.set(sweeps=sweeps)
+        self.traversal_sweeps += sweeps
         if reach_fast:
             self.stats.reach_fast_batches += 1
         stops = out.lane_stop[0].cpu().numpy()
         self.stats.batches += 1
         self.stats.lanes_used += len(queries)
         self.stats.lanes_padded += w - len(queries)
-        self.stats.note_traversal(out, self.mesh)
+        self._note_traversal(out, sweeps)
         for i, q in enumerate(queries):
             if stops[i]:
                 self.stats.note_early_stop(q.kind)
@@ -577,16 +671,20 @@ class BFSServeEngine:
         counters, fewer host round trips)."""
         queries, dups = dedupe([as_query(q) for q in queries])
         self.stats.dedup_hits += dups
+        if dups and self.obs.enabled:
+            self.obs.trace.instant("serve.dedup", dropped=dups)
         if not queries:
             return {}
         self._validate_queries(queries)
-        sess = self._open_session(queries)
-        if self.overlap:
-            while sess.sched.n_busy:
-                self._pipeline_advance(sess)
-        else:
-            self._drain_sync(sess)
-        self._close_session(sess)
+        with self.obs.trace.span("serve.refill_drain", n=len(queries),
+                                 overlap=self.overlap):
+            sess = self._open_session(queries)
+            if self.overlap:
+                while sess.sched.n_busy:
+                    self._pipeline_advance(sess)
+            else:
+                self._drain_sync(sess)
+            self._close_session(sess)
         return sess.results
 
     # -- session machinery (shared by sync / pipelined / streaming) ---------
@@ -608,17 +706,21 @@ class BFSServeEngine:
                 cfg = self._payload_cfg(cfg)
         else:
             cfg = self._session_cfg(queries)
-        sess = _Session(
-            cfg=cfg, reach_fast=reach_fast,
-            sched=LaneScheduler(w, pending=() if stream else queries),
-            state=self._init([], cfg),
-            stream=stream, n_queries_seen=0 if stream else len(queries),
-            has_reach=any(q.kind is QueryKind.REACHABILITY for q in queries))
-        if self.overlap or stream:
-            sess.block = self._block(cfg, stream)
-        if reach_fast:
-            self.stats.reach_fast_batches += 1
-        self._fill(sess, initial=True)
+        with self.obs.trace.span("serve.session.open", n=len(queries),
+                                 stream=stream, reach_fast=reach_fast):
+            sess = _Session(
+                cfg=cfg, reach_fast=reach_fast,
+                sched=LaneScheduler(w, pending=() if stream else queries,
+                                    obs=self.obs),
+                state=self._init([], cfg),
+                stream=stream, n_queries_seen=0 if stream else len(queries),
+                has_reach=any(q.kind is QueryKind.REACHABILITY
+                              for q in queries))
+            if self.overlap or stream:
+                sess.block = self._block(cfg, stream)
+            if reach_fast:
+                self.stats.reach_fast_batches += 1
+            self._fill(sess, initial=True)
         self.stats.batches += 1
         if not stream:
             self.stats.lanes_padded += max(0, w - len(queries))
@@ -634,7 +736,9 @@ class BFSServeEngine:
         ones are mid-flight ``refills``."""
         fresh = sess.sched.fill_idle()
         if fresh:
-            sess.state = self._reseed(sess, fresh)
+            with self.obs.trace.span("serve.reseed", lanes=len(fresh),
+                                     initial=initial):
+                sess.state = self._reseed(sess, fresh)
             self.stats.lanes_used += len(fresh)
             sess.lanes_seeded += len(fresh)
             if not initial:
@@ -667,49 +771,63 @@ class BFSServeEngine:
             return False, None
         fin_lanes = np.nonzero(finished)[0]
         fin_items = [sched.lane_item[int(q)] for q in fin_lanes]
-        # the retired lanes' rows (hop distances, reachability masks on a
-        # reach-only state, payload columns of payload lanes), assembled on
-        # the device and on their way
-        gather = self._gather(sess.cfg, sess.state, fin_lanes, fin_items)
-        if stops is None:
-            stops = sess.state.lane_stop[0].cpu().numpy()
-        if not defer:
-            rows = gather.rows()
-        fins = []
-        for i, q in enumerate(fin_lanes):
-            item, gen = sched.retire(int(q))
-            if sess.expected.pop(item) != (int(q), gen):
-                raise RuntimeError("lane generation bookkeeping out of sync")
-            fins.append(item)
-            if not defer:
-                sess.complete(item, unpack_result(
-                    item, rows[i], packed_reach=sess.reach_fast))
-                self._register_component(item, results[item])
-            if stops[q]:
-                self.stats.note_early_stop(item.kind)
-        if self.reuse_components:
-            # a freshly mapped component may cover other reachability
-            # queries: answer pending ones without a lane, and cut active
-            # lanes short -- their result is already known
-            for lane in np.nonzero(sched.busy)[0]:
-                mask = self._component_of(as_query(sched.lane_item[lane]))
-                if mask is not None:
-                    item, _ = sched.retire(int(lane))
-                    sess.expected.pop(item)
-                    sess.complete(item, np.array(mask))
-                    self.stats.component_hits += 1
-            if sched.pending:
-                keep = []
-                for item in sched.pending:
-                    mask = self._component_of(as_query(item))
-                    if mask is None:
-                        keep.append(item)
-                    else:
+        obs = self.obs
+        with obs.trace.span("serve.boundary", retired=len(fin_lanes),
+                            defer=defer):
+            # the retired lanes' rows (hop distances, reachability masks on
+            # a reach-only state, payload columns of payload lanes),
+            # assembled on the device and on their way
+            if defer:
+                gather = self._gather(sess.cfg, sess.state, fin_lanes,
+                                      fin_items)
+            else:
+                with obs.trace.span("serve.gather", lanes=len(fin_lanes)):
+                    gather = self._gather(sess.cfg, sess.state, fin_lanes,
+                                          fin_items)
+                    rows = gather.rows()
+            if stops is None:
+                stops = sess.state.lane_stop[0].cpu().numpy()
+            fins = []
+            for i, q in enumerate(fin_lanes):
+                item, gen = sched.retire(int(q))
+                if sess.expected.pop(item) != (int(q), gen):
+                    raise RuntimeError(
+                        "lane generation bookkeeping out of sync")
+                fins.append(item)
+                if not defer:
+                    sess.complete(item, unpack_result(
+                        item, rows[i], packed_reach=sess.reach_fast))
+                    self._register_component(item, results[item])
+                if stops[q]:
+                    self.stats.note_early_stop(item.kind)
+            if self.reuse_components:
+                # a freshly mapped component may cover other reachability
+                # queries: answer pending ones without a lane, and cut
+                # active lanes short -- their result is already known
+                for lane in np.nonzero(sched.busy)[0]:
+                    mask = self._component_of(
+                        as_query(sched.lane_item[lane]))
+                    if mask is not None:
+                        item, _ = sched.retire(int(lane))
+                        sess.expected.pop(item)
                         sess.complete(item, np.array(mask))
                         self.stats.component_hits += 1
-                sched.pending.clear()
-                sched.pending.extend(keep)
-        self._fill(sess)
+                        if obs.enabled:
+                            obs.trace.instant(
+                                "serve.component.cut",
+                                source=getattr(item, "source", item))
+                if sched.pending:
+                    keep = []
+                    for item in sched.pending:
+                        mask = self._component_of(as_query(item))
+                        if mask is None:
+                            keep.append(item)
+                        else:
+                            sess.complete(item, np.array(mask))
+                            self.stats.component_hits += 1
+                    sched.pending.clear()
+                    sched.pending.extend(keep)
+            self._fill(sess)
         return True, ((gather, fins) if defer else None)
 
     def _finish_boundary(self, sess: _Session, deferred) -> None:
@@ -718,19 +836,27 @@ class BFSServeEngine:
         was dispatched) unpacked per kind -- run while that block's sweeps
         are on the device."""
         gather, fins = deferred
-        rows = gather.rows()
-        for i, item in enumerate(fins):
-            sess.complete(item, unpack_result(
-                item, rows[i], packed_reach=sess.reach_fast))
-            self._register_component(item, sess.results[item])
+        with self.obs.trace.span("serve.gather.deferred", lanes=len(fins)):
+            rows = gather.rows()
+            for i, item in enumerate(fins):
+                sess.complete(item, unpack_result(
+                    item, rows[i], packed_reach=sess.reach_fast))
+                self._register_component(item, sess.results[item])
 
     def _close_session(self, sess: _Session) -> None:
         if sess.block is not None and sess.block.runner is not None:
             sess.block.runner.drain()
-        self.stats.note_traversal(sess.state, self.mesh)
+        self._note_traversal(sess.state, sess.sweeps)
         if sess.stream:
             self.stats.lanes_padded += max(
                 0, self.cfg.n_queries - sess.lanes_seeded)
+        if self.obs.enabled:
+            self.obs.metrics.histogram(
+                "serve.session_sweeps", RATIO_BUCKETS).record(sess.sweeps)
+            self.obs.trace.instant("serve.session.close",
+                                   sweeps=sess.sweeps,
+                                   results=len(sess.results))
+            self._export_stats()
 
     # -- synchronous per-sweep driver ---------------------------------------
     def _drain_sync(self, sess: _Session) -> None:
@@ -739,18 +865,25 @@ class BFSServeEngine:
         driver must reproduce)."""
         sched = sess.sched
         w = self.cfg.n_queries
+        obs = self.obs
         while sched.n_busy:
             busy_now = sched.n_busy
-            sess.state = self._step(sess.cfg, sess.state)
-            sess.sweeps += 1
-            self.stats.sweeps += 1
-            self.stats.lane_sweeps_busy += busy_now
-            self.stats.lane_sweeps_total += w
-            if sess.sweeps > sess.guard:
-                raise RuntimeError(
-                    f"refill pipeline exceeded {sess.guard} sweeps with "
-                    f"{sched.n_busy} lanes still busy")
-            active = sess.state.lane_active[0].cpu().numpy()
+            t0 = obs.clock() if obs.enabled else 0.0
+            with obs.trace.span("serve.sweep", busy=busy_now):
+                sess.state = self.profiler.timed("sweep", self._step,
+                                                 sess.cfg, sess.state)
+                sess.sweeps += 1
+                self.stats.sweeps += 1
+                self.stats.lane_sweeps_busy += busy_now
+                self.stats.lane_sweeps_total += w
+                if sess.sweeps > sess.guard:
+                    raise RuntimeError(
+                        f"refill pipeline exceeded {sess.guard} sweeps with "
+                        f"{sched.n_busy} lanes still busy")
+                active = sess.state.lane_active[0].cpu().numpy()
+            if obs.enabled:
+                obs.metrics.histogram("serve.sweep_duration_s").record(
+                    obs.clock() - t0)
             self._process_boundary(sess, active)
 
     # -- overlapped pipelined driver ----------------------------------------
@@ -776,12 +909,16 @@ class BFSServeEngine:
         """
         sched = sess.sched
         w = self.cfg.n_queries
+        obs = self.obs
         if sess.cur is None:
             if not sched.n_busy:
                 if not sched.pending:
                     return False
                 self._fill(sess, initial=sess.sweeps == 0)
-            sess.cur = self._dispatch(sess, sess.state)
+            if obs.enabled:
+                obs.trace.instant("serve.block.dispatch", busy=sched.n_busy)
+            sess.cur = self.profiler.timed("block", self._dispatch, sess,
+                                           sess.state)
             # no speculation on a fresh dispatch: it follows a scheduler
             # change, where a head is likely to be frozen; the quiet
             # boundaries below speculate
@@ -790,8 +927,15 @@ class BFSServeEngine:
         if not wait and not sess.cur.ready():
             return False
         cur = sess.cur
-        probe = cur.wait()
-        ran = probe.it - sess.it_prev
+        t0 = obs.clock() if obs.enabled else 0.0
+        with obs.trace.span("serve.block.wait",
+                            busy=sess.busy_at_dispatch) as bsp:
+            probe = cur.wait()         # the lagging block only
+            ran = probe.it - sess.it_prev
+            bsp.set(sweeps=ran)
+        if obs.enabled:
+            obs.metrics.histogram("serve.block_wait_s").record(
+                obs.clock() - t0)
         busy_now = sess.busy_at_dispatch
         sess.it_prev = probe.it
         sess.sweeps += ran
@@ -822,7 +966,14 @@ class BFSServeEngine:
                 sess.head.cancel()
             sess.cur = sess.head = None
             if sched.n_busy:
-                sess.cur = self._dispatch(sess, sess.state)
+                if obs.enabled:
+                    obs.trace.instant("serve.block.dispatch",
+                                      busy=sched.n_busy)
+                # speculative successors (below) stay unprofiled: waiting
+                # on a block chained ahead of the lagging one would
+                # serialise the very overlap it measures
+                sess.cur = self.profiler.timed("block", self._dispatch, sess,
+                                               sess.state)
                 sess.busy_at_dispatch = sched.n_busy
             if deferred is not None:
                 self._finish_boundary(sess, deferred)
@@ -836,6 +987,8 @@ class BFSServeEngine:
             nxt = sess.head if sess.head is not None else self._dispatch(
                 sess, cur)
             sess.cur = nxt
+            if obs.enabled:
+                obs.trace.instant("serve.block.speculate", busy=sched.n_busy)
             sess.head = self._dispatch(sess, nxt)
             sess.busy_at_dispatch = sched.n_busy
         return True
@@ -883,6 +1036,14 @@ class BFSServeEngine:
         self.stats.queries += len(qs)
         for q in qs:
             self.stats.note_kind(q.kind)
+        obs = self.obs
+        if obs.enabled:
+            obs.trace.instant("serve.submit_stream", n=len(qs))
+            now = obs.clock()
+            for q in qs:
+                # latest submit wins: a re-submission restarts the
+                # submit->deliver clock of its next delivery
+                sess.t_submit[q] = now
         # traversal misses are enqueued in one scheduler call, so a
         # front=True submission lands as one contiguous run
         to_seed: list = []
@@ -914,11 +1075,17 @@ class BFSServeEngine:
             hit = self.cache.get(q.key(self.graph_id))
             if hit is not None:
                 self.stats.cache_hits += 1
+                if obs.enabled:
+                    obs.trace.instant("serve.cache.hit", source=q.source,
+                                      kind=q.kind.value)
                 sess.complete(q, hit, skip_cache=True)
                 continue
             mask = self._component_of(q)
             if mask is not None:
                 self.stats.component_hits += 1
+                if obs.enabled:
+                    obs.trace.instant("serve.component.hit",
+                                      source=q.source)
                 sess.complete(q, np.array(mask), skip_cache=True)
                 continue
             if q.kind is QueryKind.REACHABILITY:
@@ -950,9 +1117,10 @@ class BFSServeEngine:
         sess = self._stream
         if sess is None:
             return {}
-        if sess.sched.n_busy or sess.sched.pending:
-            self._pipeline_advance(sess, wait=wait)
-        return self._deliver(sess)
+        with self.obs.trace.span("serve.poll", wait=wait):
+            if sess.sched.n_busy or sess.sched.pending:
+                self._pipeline_advance(sess, wait=wait)
+            return self._deliver(sess)
 
     def drain_stream(self) -> dict:
         """Run the stream to completion, close the session, and return
@@ -971,6 +1139,7 @@ class BFSServeEngine:
         written to the LRU exactly once, then released from the session
         (a long-lived stream stays O(in-flight) in host memory)."""
         own = lambda r: dict(r) if isinstance(r, dict) else np.array(r)
+        obs = self.obs
         out = {}
         while sess.undelivered:
             q = sess.undelivered.popleft()
@@ -982,7 +1151,13 @@ class BFSServeEngine:
             if q not in sess.cached:
                 self.cache.put(q.key(self.graph_id), res)
                 sess.cached.add(q)
+            if obs.enabled:
+                ts = sess.t_submit.pop(q, None)
+                if ts is not None:
+                    self._record_latency(q.kind, obs.clock() - ts)
             out[q] = own(res)
+        if out and obs.enabled:
+            self._export_stats()
         return out
 
     # -- public API ---------------------------------------------------------
@@ -994,6 +1169,8 @@ class BFSServeEngine:
         if not qs:
             return []
         self._validate_queries(qs)
+        obs = self.obs
+        t0 = obs.clock() if obs.enabled else 0.0
         self.stats.queries += len(qs)
         for q in qs:
             self.stats.note_kind(q.kind)
@@ -1003,14 +1180,23 @@ class BFSServeEngine:
             hit = self.cache.get(q.key(self.graph_id))
             if hit is not None:
                 self.stats.cache_hits += 1
+                if obs.enabled:
+                    obs.trace.instant("serve.cache.hit", source=q.source,
+                                      kind=q.kind.value)
                 results[q] = hit
                 continue
             memo = self._component_of(q)
             if memo is not None:
                 self.stats.component_hits += 1
+                if obs.enabled:
+                    obs.trace.instant("serve.component.hit",
+                                      source=q.source)
                 results[q] = np.array(memo)
                 continue
             misses.append(q)
+        if obs.enabled:
+            obs.trace.instant("serve.submit_many", n=len(qs),
+                              misses=len(misses))
         if self.refill:
             served = self.run_refill_queries(misses)
         else:
@@ -1040,6 +1226,13 @@ class BFSServeEngine:
         for q, res in served.items():
             results[q] = res
             self.cache.put(q.key(self.graph_id), res)
+        if obs.enabled:
+            # a blocking submit delivers everything at once: one
+            # submit->deliver latency sample per query, bucketed per kind
+            dt = obs.clock() - t0
+            for q in qs:
+                self._record_latency(q.kind, dt)
+            self._export_stats()
         # hand out copies: the cached object is shared by duplicates
         own = lambda r: dict(r) if isinstance(r, dict) else np.array(r)
         return [own(results[q]) for q in qs]
@@ -1091,18 +1284,19 @@ class BFSServeEngine:
                                                       enable_targets=False)))
             if targets:
                 cfgs.append(self._payload_cfg(self.cfg))
-        for cfg in cfgs:
-            st = self._init([0], cfg)
-            if self.refill:
-                self._step(cfg, st)
-                M.reseed_lanes(st, *self._seed_descriptors(
-                    [], payload=cfg.payload), mesh=self.mesh)
-                if self.overlap:
-                    self._block(cfg, False)(
-                        self.pgv, self.plan, st,
-                        np.ones(self.cfg.n_queries, dtype=bool)).wait()
-            else:
-                self._run(cfg, st)
+        with self.obs.trace.span("serve.warmup", variants=len(cfgs)):
+            for cfg in cfgs:
+                st = self._init([0], cfg)
+                if self.refill:
+                    self._step(cfg, st)
+                    M.reseed_lanes(st, *self._seed_descriptors(
+                        [], payload=cfg.payload), mesh=self.mesh)
+                    if self.overlap:
+                        self._block(cfg, False)(
+                            self.pgv, self.plan, st,
+                            np.ones(self.cfg.n_queries, dtype=bool)).wait()
+                else:
+                    self._run(cfg, st)
 
 
 class _KindGather:

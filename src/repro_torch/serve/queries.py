@@ -127,6 +127,55 @@ def dedupe(queries) -> tuple:
     return unique, len(queries) - len(unique)
 
 
+def warm_queries(sources, kinds=(QueryKind.LEVELS,
+                                 QueryKind.REACHABILITY)) -> list:
+    """Landmark-warming descriptors: one query per (source, kind).
+
+    Only the parameter-free kinds are warmable -- a DISTANCE_LIMITED,
+    MULTI_TARGET or KHOP_SAMPLE entry is keyed by its params, so one
+    guess would warm a key real traffic almost never asks for. The
+    frontend's warmer builds its pre-compute batches here, so warm
+    entries are the same descriptors as the live queries that hit them.
+    """
+    kinds = tuple(kinds)
+    for k in kinds:
+        if k in (QueryKind.DISTANCE_LIMITED, QueryKind.MULTI_TARGET,
+                 QueryKind.KHOP_SAMPLE):
+            raise ValueError(
+                f"{k.value} queries are parameterized and cannot be "
+                "pre-warmed; warm LEVELS/REACHABILITY instead")
+    return [Query(int(s), kind=k) for s in sources for k in kinds]
+
+
+def oracle_check(g, q: Query, answer, csr=None) -> None:
+    """Assert ``answer`` matches the numpy oracle
+    (:mod:`repro_torch.core.oracle`) for ``q`` on graph ``g``; ``csr``
+    (``oracle.csr_from_coo(g)``) saves rebuilding it per call."""
+    from repro_torch.core import oracle as O
+
+    if q.kind is QueryKind.LEVELS:
+        np.testing.assert_array_equal(answer, O.bfs_levels(g, q.source, csr))
+    elif q.kind is QueryKind.REACHABILITY:
+        np.testing.assert_array_equal(answer,
+                                      O.reachable_mask(g, q.source, csr))
+    elif q.kind is QueryKind.DISTANCE_LIMITED:
+        np.testing.assert_array_equal(
+            answer, O.bfs_levels_limited(g, q.source, q.max_depth, csr))
+    elif q.kind is QueryKind.MULTI_TARGET:
+        assert answer == O.target_depths(g, q.source, q.targets, csr), (
+            q, answer)
+    elif q.kind is QueryKind.WEIGHTED_SSSP:
+        np.testing.assert_array_equal(answer,
+                                      O.dijkstra_levels(g, q.source, csr))
+    elif q.kind is QueryKind.COMPONENTS:
+        np.testing.assert_array_equal(answer, O.component_labels(g))
+    elif q.kind is QueryKind.KHOP_SAMPLE:
+        np.testing.assert_array_equal(
+            answer, O.khop_nodes(g, q.source, q.max_depth, csr))
+    else:  # pragma: no cover - new kinds must extend this dispatch
+        raise NotImplementedError(q.kind)
+
+
 def unpack_result(q: Query, row: np.ndarray, *, packed_reach: bool = False):
     """Per-kind result from one unpacked lane column ``row`` [n].
 

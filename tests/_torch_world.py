@@ -14,8 +14,11 @@ import numpy as np
 from repro_torch.core import bfs as B, comm as C, convert, engine as E
 from repro_torch.core import msbfs as M
 from repro_torch.core.partition import partition_graph
+from repro_torch.core.types import COOGraph
 from repro_torch.graphs.rmat import pick_sources, rmat_graph
-from repro_torch.serve import BFSServeEngine, Query, QueryKind
+from repro_torch.obs import Observability
+from repro_torch.serve import (BFSServeEngine, Query, QueryKind,
+                               ServeFrontend)
 
 AXES = ("rank", "gpu")
 SIZES = (2, 2)
@@ -40,7 +43,10 @@ def default_spec(device: str = "cpu") -> dict:
     nn format;
     and the payload kinds on rmat scale 8 (seed 11): a batch of SSSP,
     COMPONENTS and LEVELS queries and all seven kinds through refill,
-    overlap and stream sessions."""
+    overlap and stream sessions; and the multi-tenant frontend over two
+    same-shape graphs (rmat scale 7, seed 3, and its ``v -> (v + 4) % n``
+    relabelling), a latency-class tenant on one and a throughput-class
+    tenant on the other, with telemetry and an obs plane on."""
     g, pg = graph(dict(scale=10, seed=7, th=32, sizes=SIZES))
     srcs = [int(s) for s in pick_sources(g, 10, seed=3)]
     dv = [int(v) for v in np.asarray(pg.delegate_vids)[:2]]
@@ -115,7 +121,15 @@ def default_spec(device: str = "cpu") -> dict:
                                           comm=dict(nn="compressed"),
                                           edge_chunk=37),
     }
+    frontend = dict(scale=7, seed=3, shift=4, w=4, max_iters=80, tenants=[
+        ("acme", "g1", "latency",
+         [(1, "levels", None, None), (2, "reachability", None, None),
+          (3, "distance_limited", 2, None)]),
+        ("beta", "g2", "throughput",
+         [(4, "levels", None, None), (5, "multi_target", None, (1, 2)),
+          (6, "levels", None, None)])])
     return dict(scale=10, seed=7, th=32, sizes=SIZES, msbfs=msbfs, bfs=bfs,
+                frontend=frontend,
                 engine=engine, queries=qs, payload=payload, device=device)
 
 
@@ -195,6 +209,52 @@ def make_engine(pg, case: dict, device, **kw) -> BFSServeEngine:
         edge_chunk=case.get("edge_chunk", 0), device=device, **kw)
 
 
+def frontend_graphs(spec: dict) -> dict:
+    """The frontend case's two same-shape graphs, by name."""
+    g1 = rmat_graph(spec["scale"], seed=spec["seed"])
+    g2 = COOGraph(g1.n, (g1.src + spec["shift"]) % g1.n,
+                  (g1.dst + spec["shift"]) % g1.n)
+    return {"g1": g1, "g2": g2}
+
+
+def run_frontend(spec: dict, device, mesh=None) -> dict:
+    """The frontend case: each tenant's queries submitted at once, one
+    drain, then each engine's stream session closed; returns each tenant's answers (in query order) and
+    ``TenantStats``, each engine's ``ServeStats`` and harvested telemetry,
+    and the trace's event names."""
+    obs = Observability()
+    ft = ServeFrontend(obs=obs, device=device, cache_capacity=0,
+                       reuse_components=False)
+    kw = dict(th=32, p_rank=SIZES[0], p_gpu=SIZES[1],
+              cfg=M.MSBFSConfig(n_queries=spec["w"],
+                                max_iters=spec["max_iters"], telemetry=True))
+    if mesh is not None:
+        kw.update(mesh=mesh, partition_axes=AXES)
+    for name, g in frontend_graphs(spec).items():
+        ft.register_graph(name, g, **kw)
+    sessions = {t: (ft.open_session(t, g, slo=slo), queries(qs))
+                for t, g, slo, qs in spec["tenants"]}
+    for sess, qs in sessions.values():
+        ft.submit(sess, qs)
+    got = {}
+    for res in ft.drain().values():
+        got.update(res)
+    for e in ft.engines.values():
+        # a frontend leaves its engines' stream sessions open: closing one
+        # harvests its telemetry
+        assert e.drain_stream() == {}
+    tel = {n: {k: getattr(e.last_telemetry, k) for k in (
+        "sweeps", "frontier_n", "frontier_d", "dir_backward", "wire_nn",
+        "nn_sparse", "nn_overflow")} for n, e in ft.engines.items()}
+    return {"answers": {t: [got[q] for q in qs]
+                        for t, (_, qs) in sessions.items()},
+            "tenants": {t: ft.tenant_stats(t).as_dict() for t in sessions},
+            "stats": {n: e.stats.as_dict() for n, e in ft.engines.items()},
+            "sharded": [e.sharded for e in ft.engines.values()],
+            "telemetry": tel,
+            "events": sorted({e.name for e in obs.trace.events()})}
+
+
 def sharded_world(rank: int, world: int, spec: dict) -> dict:
     """All cases of ``spec``, on this rank's partition (on card ``rank``
     where ``spec["device"]`` is ``"cuda"``)."""
@@ -231,6 +291,7 @@ def sharded_world(rank: int, world: int, spec: dict) -> dict:
         eng = make_engine(pg8, case, dev, mesh=mesh, partition_axes=AXES)
         out["payload"][name] = serve(eng, case["mode"],
                                      queries(case["queries"]))
+    out["frontend"] = run_frontend(spec["frontend"], dev, mesh)
     # a mesh that does not span the graph's partitions is refused
     g2 = partition_graph(g, th=spec["th"], p_rank=1, p_gpu=2)
     try:

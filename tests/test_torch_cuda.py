@@ -1302,3 +1302,148 @@ def test_decoded_tile_feeds_b1_on_card(card):
     assert ops.LAUNCHES["ell_pull_multi"] == 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     assert (want != 0).any()
+
+
+# ------------------------------------------------- observability, frontend
+def test_dispatch_profiler_samples_on_cuda_events(card):
+    """A sampled dispatch waits for the work the call put on the stream
+    (an event recorded after it, synchronized): its time is at least the
+    work's own event time, and an unsampled dispatch returns at once."""
+    from repro_torch.obs import DispatchProfiler
+
+    a = torch.randn(2048, 2048, device=card)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def work():
+        ev[0].record()
+        out = a
+        for _ in range(20):
+            out = out @ a
+        ev[1].record()
+        return (out, out.sum())
+
+    work()
+    torch.cuda.synchronize()
+    prof = DispatchProfiler(sample_rate=0.5)
+    for i in range(4):
+        out = prof.timed("mm", work)
+        if i % 2 == 0:                 # sampled: the work is done
+            assert ev[1].query()
+            work_s = ev[0].elapsed_time(ev[1]) / 1e3
+            h = prof._hists["mm"]
+            assert h.count == i // 2 + 1 and h.max >= work_s > 0
+    torch.cuda.synchronize()
+    assert prof.sampled == 2 and prof.dispatches == 4
+    assert isinstance(out, tuple)
+
+
+def test_trace_session_writes_a_trace(card, tmp_path):
+    """One ``trace_session()`` starts a ``torch.profiler`` capture and
+    writes a Chrome trace into ``trace_dir`` that holds device work."""
+    import json
+    from repro_torch.obs import DispatchProfiler
+
+    prof = DispatchProfiler(trace_dir=str(tmp_path))
+    a = torch.randn(512, 512, device=card)
+    assert prof.start_trace() is True
+    assert prof.start_trace() is False            # already tracing
+    (a @ a).sum().item()
+    prof.stop_trace()
+    with prof.trace_session():
+        (a @ a).sum().item()
+    assert prof.trace_path is not None and prof.trace_path.endswith("_2.json")
+    doc = json.loads(open(prof.trace_path).read())
+    assert any(e.get("cat") == "kernel" for e in doc["traceEvents"])
+    assert len(list(tmp_path.glob("*.json"))) == 2
+
+
+def shifted_tailed_setup():
+    """tailed_setup's graph and its ``v -> (v + 4) % n`` relabelling, both
+    partitioned (2, 2) at th=32, with the four-kind stream."""
+    from repro_torch.core.types import COOGraph
+    from repro_torch.graphs.synthetic import with_tails
+    core = rmat_graph(8, seed=11)
+    g, _ = with_tails(core, n_tails=2, length=24, seed=2)
+    g2 = COOGraph(g.n, (g.src + 4) % g.n, (g.dst + 4) % g.n)
+    pg, tips, qs = tailed_setup()
+    return pg, partition_graph(g2, th=32, p_rank=2, p_gpu=2), qs
+
+
+def stream_runs(engines, qs, interleave: bool) -> list:
+    """Each engine's stream of ``qs`` (chunks of 4, ``poll()`` after each,
+    then ``drain_stream()``): the engines' chunks in turns (their sessions
+    in flight at once), or each engine's whole stream before the next.
+    Returns each engine's deliveries, in order."""
+    out = [[] for _ in engines]
+    chunks = [qs[i:i + 4] for i in range(0, len(qs), 4)]
+    order = ([(i, c) for c in range(len(chunks)) for i in range(len(engines))]
+             if interleave else
+             [(i, c) for i in range(len(engines)) for c in range(len(chunks))])
+    for i, c in order:
+        engines[i].submit_stream(chunks[c])
+        out[i].append(engines[i].poll())
+    for i, eng in enumerate(engines):
+        out[i].append(eng.drain_stream())
+    return out
+
+
+def test_engines_sharing_a_pool_interleave_like_back_to_back(card):
+    """Two engines on different graphs share one runner_cache, so their
+    captured blocks share one graph memory pool; their overlapped stream
+    sessions, in flight at once, deliver the same queries and answers, in
+    the same polls, with the same ServeStats, as the same streams run back
+    to back on engines with private pools, and as on the CPU."""
+    pg1, pg2, qs = shifted_tailed_setup()
+    shared: dict = {}
+    mk = lambda pg, dev, rc: serve_engine(pg, dev, overlap=True,
+                                          sweep_block=4, runner_cache=rc)
+    pooled = [mk(pg, card, shared) for pg in (pg1, pg2)]
+    for eng in pooled:
+        eng.warmup(reachability=True, targets=True)
+    alone = [mk(pg, card, None) for pg in (pg1, pg2)]
+    cpu = [mk(pg, "cpu", None) for pg in (pg1, pg2)]
+    got = stream_runs(pooled, qs, interleave=True)
+    runs = [stream_runs(alone, qs, interleave=False),
+            stream_runs(cpu, qs, interleave=False)]
+    pools = {id(b.pool) for e in pooled for b in e.blocks.values()}
+    assert list(shared) == ["graph_pool"] and len(pools) == 1
+    assert all(b.runner.graphs is not None for e in pooled
+               for b in e.blocks.values())
+    for want, engines in zip(runs, (alone, cpu)):
+        for i in range(2):
+            assert [list(d) for d in got[i]] == [list(d) for d in want[i]]
+            for x, y in zip(got[i], want[i]):
+                assert_answers_equal(list(x.values()), list(y.values()))
+            assert pooled[i].stats.as_dict() == engines[i].stats.as_dict()
+
+
+def test_obs_on_and_off_give_equal_counters_on_card(card):
+    """Two engines with telemetry, one with obs and the profiler on and
+    one bare, on the card, overlapped (captured blocks): equal answers,
+    ServeStats, kernel launches and replays, dispatched and gated sweeps;
+    the harvested per-shard wire bytes sum to the stats' wire counters."""
+    from repro_torch.core import msbfs as TM
+    from repro_torch.obs import Observability
+    pg, _, qs = tailed_setup()
+    runs = []
+    for on in (True, False):
+        kw = dict(obs=Observability(), profile=True) if on else {}
+        eng = BFSServeEngine(pg=pg, cfg=TM.MSBFSConfig(
+            n_queries=4, max_iters=96, telemetry=True), cache_capacity=0,
+            refill=True, overlap=True, sweep_block=4, device=card, **kw)
+        eng.warmup(reachability=True, targets=True)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        answers = eng.submit_many(qs)
+        torch.cuda.synchronize()
+        blocks = {k: (b.runner.sweeps, b.runner.gated)
+                  for k, b in eng.blocks.items()}
+        runs.append((answers, eng.stats.as_dict(), dict(ops.LAUNCHES),
+                     dict(ops.REPLAYED), blocks, eng))
+    (a1, s1, l1, r1, b1, on), (a0, s0, l0, r0, b0, _) = runs
+    assert_answers_equal(a1, a0)
+    assert s1 == s0 and l1 == l0 and r1 == r0 and b1 == b0
+    assert r1["ell_pull_multi"] > 0 and on.profiler.sampled > 0
+    tel = on.last_telemetry
+    assert int(tel.shard_wire_bytes().sum()) == \
+        s1["wire_delegate_bytes"] + s1["wire_nn_bytes"]

@@ -156,6 +156,39 @@ def oracle_check(g, q, a, csr) -> None:
             csr))
 
 
+def test_frontend_multidevice_mixed_tenants(world):
+    """The frontend over sharded engines on the (2, 2) mesh: two tenants,
+    mixed kinds and SLO classes, two same-shape graphs. Every rank's
+    answers, TenantStats and ServeStats equal the emulated frontend's (the
+    allgather delegate bytes are the same formula on both), every answer
+    is oracle-exact, and each engine's harvested telemetry, all-gathered
+    over the ranks, equals the emulated engine's."""
+    spec = SPEC["frontend"]
+    want = TW.run_frontend(spec, "cpu")
+    graphs = TW.frontend_graphs(spec)
+    for t, g, _, qs in spec["tenants"]:
+        for q, a in zip(TW.queries(qs), want["answers"][t]):
+            oracle_check(graphs[g], q, a, O.csr_from_coo(graphs[g]))
+    assert want["sharded"] == [False, False]
+    for r in world:
+        got = r["frontend"]
+        assert got["sharded"] == [True, True]
+        assert got["tenants"] == want["tenants"]
+        assert got["stats"] == want["stats"]
+        assert got["events"] == want["events"]
+        for t in want["answers"]:
+            for a, b in zip(got["answers"][t], want["answers"][t]):
+                if isinstance(b, dict):
+                    assert a == b
+                else:
+                    np.testing.assert_array_equal(a, b)
+        for n, tel in want["telemetry"].items():
+            for k, v in tel.items():
+                np.testing.assert_array_equal(got["telemetry"][n][k], v,
+                                              err_msg=f"{n} {k}")
+    assert all(s["delivered"] == 3 for s in want["tenants"].values())
+
+
 def test_each_rank_holds_its_partition_and_a_bad_mesh_raises(world):
     for r in world:
         assert r["rows"] == {(True, 1)}
