@@ -1,9 +1,11 @@
 """xdeepfm: 39 sparse fields, embed_dim=10, CIN 200-200-200, MLP 400-400.
 [arXiv:1803.05170; paper]
 
-The port's copies of ``repro.configs.xdeepfm`` ``FULL`` / ``SMOKE`` and of
-``repro.configs.base.RECSYS_SHAPES`` (the recsys shape set).
+The port's copies of ``repro.configs.xdeepfm`` ``FULL`` / ``SMOKE`` and its
+registry entry (``RECSYS_SHAPES``, the recsys shape set, is re-exported
+from :mod:`repro_torch.configs.base`).
 """
+from repro_torch.configs.base import ArchSpec, RECSYS_SHAPES, register
 from repro_torch.models.recsys import XDeepFMConfig
 
 FULL = XDeepFMConfig(
@@ -18,9 +20,10 @@ SMOKE = XDeepFMConfig(
     mlp_layers=(16,), n_hot=64, n_cold=512,
 )
 
-RECSYS_SHAPES = {
-    "train_batch": dict(kind="train", batch=65536),
-    "serve_p99": dict(kind="serve", batch=512),
-    "serve_bulk": dict(kind="serve", batch=262144),
-    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1000000),
-}
+CONFIG = register(ArchSpec(
+    name="xdeepfm", family="recsys", model=FULL, smoke=SMOKE,
+    shapes=RECSYS_SHAPES, optimizer="adamw",
+    notes="hot/cold embedding split == the paper's delegate/normal classes",
+))
+
+__all__ = ["CONFIG", "FULL", "RECSYS_SHAPES", "SMOKE"]

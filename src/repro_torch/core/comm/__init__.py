@@ -26,7 +26,8 @@ from .base import (
     CommPlan,
     plan_for,
 )
-from .exchange import (bin_by_owner, exchange_normal, nn_exchange_bits,
+from .exchange import (bin_by_owner, exchange_normal, exchange_payload,
+                       exchange_values, nn_exchange_bits,
                        nn_exchange_payload, nn_exchange_words)
 from .reduce import (any_reduce, delegate_allreduce_sum, delegate_combine,
                      delegate_min_apply, delegate_or_apply, lane_any_reduce,
@@ -38,6 +39,7 @@ __all__ = [
     "CommConfig", "CommPlan", "any_reduce", "bin_by_owner", "codec",
     "delegate_allreduce_sum", "delegate_combine", "dist",
     "delegate_min_apply", "delegate_or_apply", "exchange_normal",
+    "exchange_payload", "exchange_values",
     "lane_any_reduce", "lane_fold_reduce", "n_words", "nn_exchange_bits",
     "nn_exchange_payload", "nn_exchange_words", "pack_lanes", "plan_for",
     "unpack_lanes",

@@ -20,6 +20,9 @@ carries CUDA tensors for the collectives it implements for them).
   the ring's chunk, on ``gloo`` and ``nccl`` alike). There is no OR
   reduction: neither NCCL nor the emulated backend has one, so the OR
   combine stays an all-gather and the ``mask_reduce`` fold everywhere.
+* :class:`AllToAll` is the all-to-all that autograd differentiates (the
+  reverse all-to-all); the delegate sum's counterpart is
+  :func:`repro_torch.core.comm.reduce.delegate_allreduce_sum`.
 * :func:`spawn` starts a world of processes on one host with a ``file://``
   rendezvous under a fresh temporary directory and a hard timeout: a rank
   that hangs or fails fails the call, and every process is stopped.
@@ -212,6 +215,27 @@ def ppermute(mesh: PartitionMesh, x: torch.Tensor, axis: str
     dist.all_to_all_single(out, src, output_split_sizes=osz,
                            input_split_sizes=isz, group=mesh.group(axis))
     return _unwire(out.reshape(x.shape), x.dtype)
+
+
+# -----------------------------------------------------------------------------
+# Differentiable collectives (the transposes JAX gives ``psum`` and
+# ``all_to_all``): the distributed training step's backward runs through
+# them, one rank's ``backward()`` at a time in every rank.
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` whose backward is the reverse all-to-all (row
+    ``j`` of the incoming gradient goes back to member ``j``): the same
+    collective, since the exchange is its own inverse."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes=None):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_to_all(mesh, x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(ctx.mesh, grad.contiguous(), ctx.axes), None, None
 
 
 # -----------------------------------------------------------------------------

@@ -24,6 +24,9 @@ slot layout of the :class:`~repro_torch.core.engine.ExchangePlan`:
   or payload values; the sparse flag then reports which stream won (1 =
   delta ids, 0 = rle bitmap).
 
+The generalized engine's (ids, feature rows) exchange is
+:func:`exchange_payload`.
+
 The legacy runtime-binned exchange of the single-source path
 (:func:`bin_by_owner` + :func:`exchange_normal`) sorts active destination
 ids into per-owner bins of ``cap`` int32 ids.
@@ -110,6 +113,26 @@ def bin_by_owner(owner: torch.Tensor, local: torch.Tensor,
                         torch.where(in_cap, sl, -1).reshape(-1), "amax",
                         include_self=True)
     return buf.reshape(big, p, cap), overflow, sent
+
+
+def exchange_values(buf_vals: torch.Tensor, plan: CommPlan) -> torch.Tensor:
+    """All-to-all of feature rows ``buf_vals [rows, p, cap, F]`` ->
+    received, row ``j`` from partition ``j``, differentiable: emulated
+    through the transpose, over a mesh through
+    :class:`~repro_torch.core.comm.dist.AllToAll` (the reverse
+    all-to-all)."""
+    if plan.mesh is None:
+        return buf_vals.transpose(0, 1)
+    return D.AllToAll.apply(buf_vals[0].contiguous(), plan.mesh)[None]
+
+
+def exchange_payload(buf_ids: torch.Tensor, buf_vals: torch.Tensor,
+                     plan: CommPlan):
+    """All-to-all of (ids, payload) pairs, for the generalized engine
+    (feature vectors instead of 1-bit visited status, paper Section VI-D):
+    ``buf_ids [rows, p, cap]`` int32 and ``buf_vals [rows, p, cap, F]`` ->
+    received (:func:`exchange_normal`, :func:`exchange_values`)."""
+    return exchange_normal(buf_ids, plan), exchange_values(buf_vals, plan)
 
 
 def exchange_normal(buf: torch.Tensor, plan: CommPlan | None = None

@@ -236,11 +236,31 @@ def delegate_or_apply(plan: CommPlan, words: torch.Tensor,
                                  target), nbytes
 
 
+class _DelegateSum(torch.autograd.Function):
+    """The delegate ``"sum"`` combine over a mesh, differentiable: every
+    member's result is the sum of every member's ``x``, so the gradient of
+    a member's ``x`` is the sum of every member's incoming gradient -- the
+    same combine (JAX transposes ``psum`` to ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return delegate_combine(plan, x, "sum")[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return delegate_combine(ctx.plan, grad.contiguous(), "sum")[0], None
+
+
 def delegate_allreduce_sum(vals: torch.Tensor, p, cfg=None) -> torch.Tensor:
     """Global sum of delegate partials ``vals [rows, ...]`` over the
     emulated axis of ``p`` partitions or a mesh (default strategy: the
-    native sum)."""
-    return delegate_combine(plan_for(cfg, p), vals, "sum")[0]
+    native sum). Autograd differentiates it: emulated through the stacked
+    rows' own ops, over a mesh through :class:`_DelegateSum`."""
+    plan = plan_for(cfg, p)
+    if plan.mesh is not None:
+        return _DelegateSum.apply(vals, plan)
+    return delegate_combine(plan, vals, "sum")[0]
 
 
 def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):

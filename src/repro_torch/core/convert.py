@@ -8,7 +8,9 @@ one partition can be fed to both and their states compared leaf by leaf
 (:func:`state_to_numpy` for the msBFS state, :func:`bfs_state_to_numpy`
 for the single-source state). The xDeepFM parameters keep the reference's
 names and layouts, so they carry across by name
-(:func:`xdeepfm_params_from_numpy`).
+(:func:`xdeepfm_params_from_numpy`); so do the GNN parameter trees and
+the optimizer states (:func:`tree_from_numpy`, :func:`tree_to_numpy`:
+MeshGraphNet's stacked ``layers`` included, nothing transposed).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .bfs import STATE_LEAVES as BFS_STATE_LEAVES, BFSState
 from .engine import ExchangePlan
 from .msbfs import STATE_LEAVES, MSBFSState
 from repro_torch.models.recsys import XDeepFM, XDeepFMConfig
+from repro_torch.tree import tree_map
 from .types import CSR, PartitionedGraph
 
 SUBGRAPHS = ("nn", "nd", "dn", "dd")
@@ -92,3 +95,17 @@ def xdeepfm_params_from_numpy(params: dict, cfg: XDeepFMConfig,
     return XDeepFM(cfg, device=device,
                    params={k: torch.from_numpy(np.array(v))
                            for k, v in params.items()})
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """A reference parameter or optimizer-state tree of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``; nested dicts) as the port's:
+    the same names and layouts, tensors of the same dtypes on ``device``
+    (0-d arrays, such as an optimizer's ``step``, stay 0-d)."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def tree_to_numpy(tree):
+    """Inverse of :func:`tree_from_numpy`: every tensor leaf as a host
+    numpy array, names and layouts unchanged."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

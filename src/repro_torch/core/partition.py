@@ -4,7 +4,8 @@ Host-side (numpy) construction of the four-subgraph partitioned
 representation. This runs once per graph, like the paper's distributed graph
 construction phase; :func:`repro_torch.core.bfs.device_view` then places the
 result on a device. Arrays and dtypes equal the reference package's
-partitioner for the same graph. So do the compressed-at-rest streams
+partitioner for the same graph, and so do the per-edge payloads that
+:func:`partition_edge_values` lays out in the subgraphs' edge order. So do the compressed-at-rest streams
 (:func:`compress_partition`) and their decoders, also host numpy.
 """
 from __future__ import annotations
@@ -158,6 +159,18 @@ def partition_graph(
         normal_valid=normal_valid,
         nd_src_mask=nd_src_mask, dn_src_mask=dn_src_mask, dd_src_mask=dd_src_mask,
     )
+
+
+def partition_edge_values(pg: PartitionedGraph, values: np.ndarray) -> dict:
+    """Distribute per-edge payloads [m, Fe] (edge features, weights) into the
+    four subgraphs' padded edge order. Padding slots get zeros."""
+    out = {}
+    for kind in ("nn", "nd", "dn", "dd"):
+        eidx = np.asarray(pg.subgraph(kind).eidx)
+        vals = values[np.maximum(eidx, 0)]
+        vals[eidx < 0] = 0
+        out[kind] = vals.astype(values.dtype)
+    return out
 
 
 # -----------------------------------------------------------------------------

@@ -45,6 +45,13 @@ class COOGraph:
         dst = np.concatenate([self.dst, self.src])
         return COOGraph(self.n, src, dst)
 
+    def deduped(self) -> "COOGraph":
+        """Duplicate (src, dst) pairs dropped, edges in (src, dst) order."""
+        key = (self.src.astype(np.uint64) * np.uint64(self.n)
+               + self.dst.astype(np.uint64))
+        _, idx = np.unique(key, return_index=True)
+        return COOGraph(self.n, self.src[idx], self.dst[idx])
+
     def without_self_loops(self) -> "COOGraph":
         keep = self.src != self.dst
         return COOGraph(self.n, self.src[keep], self.dst[keep])
@@ -81,6 +88,13 @@ class PartitionLayout:
 
     def local_of(self, v: np.ndarray) -> np.ndarray:
         return (v // self.p).astype(np.int64)
+
+    def global_of(self, part: np.ndarray, local: np.ndarray) -> np.ndarray:
+        """Inverse of (:meth:`part_of`, :meth:`local_of`)."""
+        r = part // self.p_gpu
+        g = part % self.p_gpu
+        return (np.asarray(r) + self.p_rank * np.asarray(g)
+                + self.p * np.asarray(local)).astype(np.int64)
 
 
 @dataclass

@@ -1,15 +1,34 @@
-"""Synthetic graphs for the serving paths: skewed-depth graphs with tails.
+"""Synthetic graphs and data: skewed-depth graphs with tails for the
+serving paths, and the GNN architectures' data (cora-like citation graphs,
+triangulated meshes with multimesh hub levels).
 
-The reference module (``src/repro/graphs/synthetic.py``) also builds the
-GNN architectures' data (citation graphs, meshes, molecule batches),
-which wait for the GNN port; this module keeps its own copy of
-:func:`with_tails`, the graph the lane-refill serving path is built for.
+Host numpy generators: the same seed gives the same arrays, bit for bit,
+as the reference package's (``src/repro/graphs/synthetic.py``). The
+molecule batches of the equivariant model wait with that model.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.types import COOGraph
+from repro_torch.models.gnn import GraphBatch
+
+
+def cora_like(n=512, avg_deg=4, d_feat=64, n_classes=7, seed=0):
+    """Power-law-ish citation graph + bag-of-words features + labels."""
+    rng = np.random.default_rng(seed)
+    m = n * avg_deg
+    # preferential-attachment-flavored edge endpoints
+    pop = (rng.pareto(1.5, n) + 1)
+    pop /= pop.sum()
+    src = rng.choice(n, m, p=pop)
+    dst = rng.integers(0, n, m)
+    g = COOGraph(n, src.astype(np.int64),
+                 dst.astype(np.int64)).without_self_loops().symmetrized().deduped()
+    feats = (rng.random((n, d_feat)) < 0.05).astype(np.float32)
+    labels = rng.integers(0, n_classes, n).astype(np.int32)
+    train_mask = rng.random(n) < 0.5
+    return g, feats, labels, train_mask
 
 
 def with_tails(g: COOGraph, n_tails=4, length=64, seed=0):
@@ -20,8 +39,7 @@ def with_tails(g: COOGraph, n_tails=4, length=64, seed=0):
     far end needs ~``length`` extra supersteps, while core sources converge
     in O(log n) -- the skewed depth distribution the lane-refill serving
     path is built for. Returns ``(graph, tips)`` where ``tips`` are the far
-    endpoints of the tails. The same seed gives the same edges, tips and
-    edge order as the reference package's generator.
+    endpoints of the tails.
     """
     rng = np.random.default_rng(seed)
     deg = g.out_degrees()
@@ -40,3 +58,52 @@ def with_tails(g: COOGraph, n_tails=4, length=64, seed=0):
     merged = COOGraph(nv, np.concatenate([g.src, np.asarray(src, np.int64)]),
                       np.concatenate([g.dst, np.asarray(dst, np.int64)]))
     return merged, np.asarray(tips, np.int64)
+
+
+def grid_mesh(rows=16, cols=16, multimesh_levels=0, seed=0):
+    """Triangulated 2D grid mesh; multimesh_levels > 0 adds coarse skip edges
+    (GraphCast-style hierarchy -- the coarse hubs become delegates)."""
+    idx = lambda r, c: r * cols + c
+    edges = []
+    for r in range(rows):
+        for c in range(cols):
+            if c + 1 < cols:
+                edges.append((idx(r, c), idx(r, c + 1)))
+            if r + 1 < rows:
+                edges.append((idx(r, c), idx(r + 1, c)))
+            if r + 1 < rows and c + 1 < cols:
+                edges.append((idx(r, c), idx(r + 1, c + 1)))
+    for lvl in range(1, multimesh_levels + 1):
+        step = 2 ** lvl
+        for r in range(0, rows, step):
+            for c in range(0, cols, step):
+                if c + step < cols:
+                    edges.append((idx(r, c), idx(r, c + step)))
+                if r + step < rows:
+                    edges.append((idx(r, c), idx(r + step, c)))
+    e = np.array(edges, np.int64)
+    g = COOGraph(rows * cols, e[:, 0], e[:, 1]).symmetrized().deduped()
+    rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    pos = np.stack([rr.reshape(-1) / rows, cc.reshape(-1) / cols],
+                   -1).astype(np.float32)
+    return g, pos
+
+
+def mesh_batch(rows, cols, d_node_in, d_edge_in, multimesh_levels=0,
+               seed=0) -> GraphBatch:
+    """A :func:`grid_mesh` as a :class:`GraphBatch` of numpy arrays: random
+    node features, edge features ``[rel_pos (2), |rel_pos|, noise...]``
+    cut to ``d_edge_in``."""
+    g, pos = grid_mesh(rows, cols, multimesh_levels, seed)
+    rng = np.random.default_rng(seed)
+    n, e = g.n, g.m
+    rel = pos[g.dst] - pos[g.src]
+    dist = np.linalg.norm(rel, axis=1, keepdims=True)
+    ef = np.concatenate([rel, dist, rng.normal(size=(e, max(d_edge_in - 3, 0)))],
+                        1)[:, :d_edge_in]
+    return GraphBatch(
+        nodes=rng.normal(size=(n, d_node_in)).astype(np.float32),
+        senders=g.src.astype(np.int32), receivers=g.dst.astype(np.int32),
+        edge_feats=ef.astype(np.float32),
+        node_mask=np.ones(n, bool), edge_mask=np.ones(e, bool),
+    )

@@ -1,0 +1,115 @@
+"""Checkpointing: atomic, manifest-verified, in the reference package's
+on-disk format, so a checkpoint of either package restores in the other.
+
+Layout: ``<dir>/step_<k:08d>/shard_<p>.npz`` (``leaf_<i>`` in flatten
+order: dict keys sorted) + ``manifest.json`` written last (the commit
+point -- a crashed save never becomes "latest"), holding the leaves'
+names (their tree paths), shapes, dtypes and the shard's sha256. Restore
+places each leaf as the corresponding leaf of the restoring job's tree
+(device and dtype of a tensor). Keeps the newest ``keep`` checkpoints.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.tree import flatten_with_path, unflatten_like
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def save(ckpt_dir: str, step: int, tree, process_index: int = 0,
+         keep: int = 3) -> str:
+    """Write one checkpoint; returns its path. Atomic via manifest-last."""
+    flat = flatten_with_path(tree)
+    leaves = [_host(x) for _, x in flat]
+    step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    os.makedirs(step_dir, exist_ok=True)
+    with tempfile.NamedTemporaryFile(dir=step_dir, suffix=".tmp",
+                                     delete=False) as tmp:
+        np.savez(tmp, **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+    shard_path = os.path.join(step_dir, f"shard_{process_index}.npz")
+    os.replace(tmp.name, shard_path)
+    manifest = {
+        "step": step,
+        "names": [name for name, _ in flat],
+        "shapes": [list(x.shape) for x in leaves],
+        "dtypes": [str(x.dtype) for x in leaves],
+        "shards": {str(process_index): {"file": os.path.basename(shard_path),
+                                        "sha256": _sha256(shard_path)}},
+    }
+    mtmp = os.path.join(step_dir, ".manifest.tmp")
+    with open(mtmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(mtmp, os.path.join(step_dir, "manifest.json"))   # commit point
+    _gc(ckpt_dir, keep)
+    return step_dir
+
+
+def _gc(ckpt_dir: str, keep: int):
+    steps = sorted(all_steps(ckpt_dir))
+    for s in steps[:-keep] if keep else []:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
+
+
+def all_steps(ckpt_dir: str) -> list:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and os.path.exists(
+                os.path.join(ckpt_dir, name, "manifest.json")):
+            out.append(int(name.split("_")[1]))
+    return out
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = all_steps(ckpt_dir)
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, tree_like, step: int | None = None,
+            process_index: int = 0):
+    """``(step, tree)``: the checkpoint (the latest committed one when
+    ``step`` is None) in the structure of ``tree_like``, shapes verified
+    against the manifest and the shard against its sha256; a leaf whose
+    ``tree_like`` leaf is a tensor comes back as a tensor of its dtype on
+    its device, others as numpy arrays."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    shard_info = manifest["shards"][str(process_index)]
+    path = os.path.join(step_dir, shard_info["file"])
+    if _sha256(path) != shard_info["sha256"]:
+        raise IOError(f"checkpoint corruption: {path}")
+    like = [x for _, x in flatten_with_path(tree_like)]
+    if len(like) != len(manifest["names"]):
+        raise ValueError("checkpoint/model structure mismatch")
+    out = []
+    with np.load(path) as data:
+        for i, ref in enumerate(like):
+            arr = data[f"leaf_{i}"]
+            want = tuple(ref.shape) if torch.is_tensor(ref) else np.shape(ref)
+            if tuple(arr.shape) != tuple(want):
+                raise ValueError(f"shape mismatch for {manifest['names'][i]}: "
+                                 f"{arr.shape} vs {tuple(want)}")
+            out.append(torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
+                       if torch.is_tensor(ref) else arr)
+    return manifest["step"], unflatten_like(tree_like, out)

@@ -1447,3 +1447,39 @@ def test_obs_on_and_off_give_equal_counters_on_card(card):
     tel = on.last_telemetry
     assert int(tel.shard_wire_bytes().sum()) == \
         s1["wire_delegate_bytes"] + s1["wire_nn_bytes"]
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
+def test_gcn_train_step_on_card_equals_cpu(card, opt_name):
+    """One distributed GCN training step (4 emulated partitions) on the
+    card equals the same step on the CPU: loss within rtol 1e-5, parameters
+    and optimizer moments within rtol 1e-4, atol 1e-6 (float32 scatter-adds
+    summed in another order by the card's atomics)."""
+    from repro_torch.graphs.synthetic import cora_like
+    from repro_torch.models import gnn as G
+    from repro_torch.models.common import materialize
+    from repro_torch.train import gnn_batches as GB, gnn_dist as GD
+    from repro_torch.train.optim import get_optimizer
+    from repro_torch.tree import flatten_with_path
+
+    g, feats, labels, mask = cora_like(n=512, avg_deg=6, d_feat=64, seed=0)
+    pg = partition_graph(g, th=24, p_rank=2, p_gpu=2)
+    hplan = TE.build_exchange_plan(pg)
+    hw = TE.build_edge_weights(pg, g.out_degrees(), "sym")
+    cfg = G.GCNConfig(n_layers=2, d_in=64, d_hidden=32, n_classes=7)
+    opt = get_optimizer(opt_name, lr=5e-2)
+    out = {}
+    for dev in ("cpu", card):
+        pgv, plan = TB.device_view(pg, dev), TE.device_plan(hplan, dev)
+        w = TE.device_weights(hw, dev)
+        batch = GB.batch_to_device(GB.gcn_batch(pg, feats, labels, mask), dev)
+        params = materialize(G.gcn_param_specs(cfg), 0, dev)
+        step = GD.make_dist_train_step(
+            lambda prm, bt: GD.dist_gcn_loss(cfg, prm, pgv, plan, w, bt), opt)
+        p, st, loss = step(params, opt.init(params), batch)
+        out[str(dev)] = (float(loss), convert.tree_to_numpy({"p": p, "st": st}))
+    (l0, t0), (l1, t1) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    want = dict(flatten_with_path(t0))
+    for k, v in flatten_with_path(t1):
+        np.testing.assert_allclose(v, want[k], rtol=1e-4, atol=1e-6, err_msg=k)
