@@ -215,10 +215,12 @@
    agree, sync and overlap counters must be equal but ``sweep_blocks``.
    Queries/s, sweeps, refills, lane utilisation, fusion, gated sweeps
    (and their device ms) are printed; then 12(b); then the sync and
-   overlap runs again under ``torch.profiler`` for the device busy share
-   and the host time per sweep (the batch and stream reruns were cut for
-   the run's time); one block of 8 sweeps from one state by graph replay and
-   eagerly (equal leaves, both timed); and the overlap run with two
+   overlap runs again under ``torch.profiler``, on the first 40 of the
+   queries, for the device busy share and the host time per sweep (the
+   batch and stream reruns were cut for the run's time, and the reruns'
+   queries from 120 to 40 when phases 16-18 came: the profiled sync run of
+   120 took about 110 s); one block of 8 sweeps from one state by graph
+   replay and eagerly (equal leaves, both timed); and the overlap run with two
    sweeps in flight instead of one (counters equal, gated sweeps
    printed).
 15. Distributed GNN training on the degree-separated engine (run before
@@ -233,27 +235,59 @@
    (CUDA events after a warm-up step), peak memory, ``payload_round_bytes``
    of a round, one step under ``torch.profiler``. (b) MeshGraphNet at
    full width (15 layers, 128 hidden) on ``mesh_batch(512, 512, 12, 4)``
-   at p = 2: forward equal to the local ``mgn_forward``, 3 AdamW steps.
-   (c) GraphCast at full width (16 layers, 512 hidden, 227 vars) on
-   ``mesh_batch(128, 128, 227, 4, multimesh_levels=4)``, th = 13 (the
-   hubs of levels 2-4 are delegates; d printed): forward equal to the
-   local model, 1 step. (d) ``examples/torch_gnn_training.py`` twice in a
+   at p = 2: forward equal to the local ``mgn_forward`` at the
+   materialized parameters, at every parameter plus 0.1 N(0, 1) (non-zero
+   biases: the padding edges, which the port masks, would carry
+   ``enc_edge(0)``, ROADMAP C2) and after 3 AdamW steps. (c) GraphCast at
+   full width (16 layers, 512 hidden, 227 vars) on ``mesh_batch(128, 128,
+   227, 4, multimesh_levels=4)``, th = 13 (the hubs of levels 2-4 are
+   delegates; d printed): the same three forward checks around 1 step. (d) ``examples/torch_gnn_training.py`` twice in a
    subprocess on one ``--ckpt``: ``--steps 30``, then ``--steps 60``
    resumes at step 30 and ends lower. (e) A world-1 NCCL run (spawned) of
    the sharded GCN training step on ``cora_like(2708, d_feat=1433)``:
    parameters after 3 AdamW steps equal the emulated run's within rtol
    1e-4, atol 1e-5.
-16. Prints one JSON line describing every kernel, then, last, the device
+16. The entry points (run after 15, before 14), each in a subprocess
+   with its exit code checked and its output parsed:
+   ``examples/torch_quickstart.py`` at scale 16 (every source
+   ``match=OK``, the memory ratios); ``examples/torch_bfs_serving.py
+   --mixed --refill --overlap --trace --profile`` at scale 16, 120
+   requests (answers held against the oracle, the trace and metrics files
+   written, the calibration artifact parses and was taken on the card, no
+   nn slot dropped); ``examples/torch_distributed_bfs.py`` at scale 16,
+   ``--mesh 1,1 --backend nccl`` and ``--mesh 1,2 --backend gloo`` (two
+   ranks sharing the card), every answer the oracle's;
+   ``scripts/torch_profile_sweep.py`` at scale 16 over delegate {auto,
+   ring} x nn {dense} x block {4, 8}, whose exact counters must equal the
+   same matrix run in this process on the CPU.
+17. The CIN backward kernels (``cin_fused_bwd_w``, ``cin_fused_bwd_x``)
+   against ``cin_fused_bwd_plain`` at FULL widths, layer 0 (Fk = 39) and
+   layer 1 (Fk = 200), B = 512 and 1,000: per element within 1e-5
+   max|plain| + 1e-4 |plain|, two launches bit-equal; then each of a train
+   step's three layers at B = 65,536 timed flushed and back to back,
+   beside the plain version, the bound (dW: 3xTF32 on the tensor cores,
+   three TF32 products a float32 one at 495 TFLOP/s; dx: SIMT float32 at
+   67 TFLOP/s, with the 3xTF32 yardstick printed beside it) and, for dW,
+   cuBLAS ``dOut_flat @ Z`` on Z materialised beforehand.
+18. xDeepFM FULL training at ``train_batch`` (B = 65,536), AdamW, TF32
+   off: one step's gradients at B = 4,096 through the kernels against the
+   same step through ``cin_fused_plain`` under autograd (each reached leaf
+   within 1e-3 of its max |gradient|, non-zero); 2 warm-up and 8 timed
+   steps on one ClickStream batch (ms a step, peak memory, the loss
+   falls, 3 launches of ``cin_fused`` and of each backward kernel a step
+   and no other kernel); two steps under ``torch.profiler`` (busy share).
+19. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
-Option: ``--only
-segment_bag,ell_pull_payload,sharded,payload,memory,obs,frontend,gnn``
-(those phases alone, on the same inputs; ``sharded`` is 7 after the main
-serving run and 4 FULL keys it is held against, ``payload`` is 10 and
-7(c), ``memory`` is 11 after the 64-query serving run it holds (c)
-against, ``obs`` is 12 after that serving run, (b) on the refill path's
-engine after its obs-off overlap run, ``frontend`` is 13, ``gnn`` is 15
-on a fresh scale-20 partition).
+Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory,obs,
+frontend,gnn,examples,cin_bwd,recsys_train`` (those phases alone, on the
+same inputs; ``sharded`` is 7 after the main serving run and 4 FULL keys
+it is held against, ``payload`` is 10 and 7(c), ``memory`` is 11 after
+the 64-query serving run it holds (c) against, ``obs`` is 12 after that
+serving run, (b) on the refill path's engine after its obs-off overlap
+run, ``frontend`` is 13, ``gnn`` is 15 on a fresh scale-20 partition,
+``examples``, ``cin_bwd`` and ``recsys_train`` are 16-18; with both of
+the last two, the kernels line of the two backward kernels).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -281,8 +315,11 @@ N_KEYS, N_VARIANT_KEYS = 16, 4      # Graph500 search keys; keys per variant
 N_TAILS, TAIL_LEN, REFILL_QUERIES, REFILL_MAX_ITERS = 8, 96, 120, 240
 SWEEP_BLOCK, STREAM_CHUNKS = 8, 4
 # the refill runs taken again under torch.profiler (batch and stream were
-# cut, for the run's time, when the obs and frontend phases came)
+# cut, for the run's time, when the obs and frontend phases came), on the
+# first PROFILED_REFILL_QUERIES of the queries (all 120 before phases 16-18
+# came: the profiler's sync trace of 120 took about 110 s to take and read)
 PROFILED_REFILL_MODES = ("sync", "overlap")
+PROFILED_REFILL_QUERIES = 40
 # recsys path: RECSYS_SHAPES of the xdeepfm config (serve_p99, serve_bulk,
 # retrieval_cand); the ClickStream's total vocabulary is the cold table size
 P99_BATCH, N_P99_BATCHES = 512, 20
@@ -820,10 +857,13 @@ def report_profile(prof, wall_ms: float, header: str, names):
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    # operator rows (aten::*) carry the device time of the kernels they
-    # launched; the other rows are the kernels and copies themselves
-    ops_rows = [r for r in rows if r[2].startswith("aten::")]
-    dev_rows = [r for r in rows if not r[2].startswith("aten::")]
+    # operator rows (aten::*, and the port's autograd Functions, forward
+    # and backward) carry the device time of the kernels they launched;
+    # the other rows are the kernels and copies themselves
+    is_op = lambda key: key.startswith(("aten::", "autograd::")) or key in (
+        "CinFused", "CinFusedBackward")
+    ops_rows = [r for r in rows if is_op(r[2])]
+    dev_rows = [r for r in rows if not is_op(r[2])]
     busy_ms = sum(r[0] for r in dev_rows)
     print(f"profile: {header}, wall_ms={wall_ms:.1f} (profiler on), device "
           f"time={busy_ms:.1f} ms, device busy share={busy_ms / wall_ms:.3f}")
@@ -926,13 +966,11 @@ def bfs_configs():
     exchange) and FULL under the all-gathered delegate combine."""
     from dataclasses import replace
 
-    from repro_torch.core import bfs as TB
+    from repro_torch.configs.base import get_arch
     from repro_torch.core.comm import CommConfig
 
-    full = TB.BFSConfig(max_iters=64, enable_do=True, uniquify=False,
-                        pull_chunk=64)
-    opt2 = TB.BFSConfig(max_iters=64, enable_do=True, pull_chunk=64,
-                        delegate_u8=True, static_exchange=True)
+    full = get_arch("bfs-rmat").model
+    opt2 = get_arch("bfs-rmat-opt2").model
     return {"FULL": full, "OPT2": opt2,
             "allgather": replace(full, comm=CommConfig(delegate="allgather"))}
 
@@ -1509,9 +1547,9 @@ def refill_path(g, obs=None) -> None:
     across drivers, sync and overlap counters held equal, one pull and one
     fold launch per executed sweep (graph replays counted); with ``obs``,
     the overlap run once more with the observability plane on
-    (:func:`refill_obs_run`); then ``PROFILED_REFILL_MODES`` under
-    ``torch.profiler`` for the device busy share, and one block timed both
-    ways."""
+    (:func:`refill_obs_run`); then ``PROFILED_REFILL_MODES`` on the first
+    ``PROFILED_REFILL_QUERIES`` queries under ``torch.profiler`` for the
+    device busy share, and one block timed both ways."""
     import numpy as np
     import torch
     from repro_torch.core import oracle as O
@@ -1590,11 +1628,12 @@ def refill_path(g, obs=None) -> None:
           "sweep_blocks")
     if obs is not None:
         refill_obs_run(eng, queries, tips, runs["overlap"], obs)
+    sub = queries[:PROFILED_REFILL_QUERIES]
     for mode in PROFILED_REFILL_MODES:
         r, prof = runs[mode], {}
         per_launch = profile_run(
-            lambda m=mode: drive(eng, m, queries),
-            lambda out, m=mode: f"refill {m}, {len(queries)} queries, "
+            lambda m=mode: drive(eng, m, sub),
+            lambda out, m=mode: f"refill {m}, {len(sub)} queries, "
             f"sweeps={out['sweeps']}",
             ("pull_rows_kernel<pull::WordGather", "mask_reduce_apply_kernel"),
             into=prof)
@@ -4033,7 +4072,8 @@ def launch_cost_phase(cases: dict, when: str) -> None:
 
 
 def recsys_path(g, csr) -> dict:
-    """The recsys phases; returns the three new kernels' JSON fields."""
+    """The recsys phases; returns the three kernels' JSON fields and the
+    ClickStream (phase 18 trains on it)."""
     model, cs = recsys_setup()
     probe = cs.batch(0, P99_BATCH)
     cin = kernel_phase_cin(model, probe)
@@ -4046,6 +4086,7 @@ def recsys_path(g, csr) -> dict:
     cin_launches = (served["launches_p99"]["cin_fused"]
                     + served["launches_bulk"]["cin_fused"])
     return {
+        "cs": cs,
         "cin_fused": dict(launches=cin_launches, max_abs_err=cin["err"],
                           ms=cin["ms"], plain_ms=cin["plain_ms"],
                           bound_ms=cin["bound_ms"], bound_by="operations",
@@ -4079,6 +4120,7 @@ GNN_LR, MGN_LR = 1e-2, 1e-4            # AdamW (MGN family: 15-16 residual
 MGN_GRID, MGN_TH = 512, 6              # mesh_batch(512, 512, 12, 4): d = 0
 GC_GRID, GC_LEVELS, GC_TH = 128, 4, 13  # hubs of degree >= 14: delegates
 EXAMPLE_STEPS = (30, 60)
+MGN_PERTURB = 0.1                      # C2: the scale of the perturbation
 GNN_BUDGET_S = 150.0
 GNN_BACKEND = "nccl"                   # (e)'s process group
 
@@ -4237,6 +4279,7 @@ def mgn_runs(name: str, cfg, gb, th: int, steps: int, residual: bool) -> dict:
     from repro_torch.models.common import materialize
     from repro_torch.train import gnn_batches as GB, gnn_dist as GD
     from repro_torch.train.optim import AdamW
+    from repro_torch.tree import tree_map
 
     t0 = time.perf_counter()
     n = gb.nodes.shape[0]
@@ -4251,35 +4294,49 @@ def mgn_runs(name: str, cfg, gb, th: int, steps: int, residual: bool) -> dict:
                                DEVICE)
     params = materialize(G.mgn_param_specs(mcfg), GNN_SEED, DEVICE)
     setup_s = time.perf_counter() - t0
-    with torch.no_grad():
-        on, od = GD.dist_mgn_forward(mcfg, params, pgv, plan, batch)
-        if residual:
-            on, od = on + batch["x_n"], od + batch["x_d"]
-        got = torch.from_numpy(TE.gather_features(pg, on.cpu().numpy(),
-                                                  od[0].cpu().numpy()))
-        fwd = G.graphcast_forward if residual else G.mgn_forward
-        want = fwd(cfg, params, G.batch_to(gb, DEVICE)).cpu()
-    err = float((got - want).abs().max())
-    check(bool(((got - want).abs() <= GNN_ATOL + GNN_RTOL * want.abs()).all()),
-          f"gnn {name}: distributed forward equals the local model within "
-          f"rtol {GNN_RTOL}, atol {GNN_ATOL} (max |diff| {err:.3e}; at the "
-          "materialized parameters, zero biases and LN offsets, only: "
-          "ROADMAP C2)")
-    del on, od, got, want
+    fwd = G.graphcast_forward if residual else G.mgn_forward
+    lgb = G.batch_to(gb, DEVICE)
+
+    def forward_err(prm, what: str) -> float:
+        """The gathered distributed forward against the local model."""
+        with torch.no_grad():
+            on, od = GD.dist_mgn_forward(mcfg, prm, pgv, plan, batch)
+            if residual:
+                on, od = on + batch["x_n"], od + batch["x_d"]
+            got = torch.from_numpy(TE.gather_features(
+                pg, on.cpu().numpy(), od[0].cpu().numpy()))
+            want = fwd(cfg, prm, lgb).cpu()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(want).all()) and bool(
+            ((got - want).abs() <= GNN_ATOL + GNN_RTOL * want.abs()).all()),
+              f"gnn {name}: distributed forward equals the local model "
+              f"{what} within rtol {GNN_RTOL}, atol {GNN_ATOL} (max |diff| "
+              f"{err:.3e})")
+        return err
+
+    err = forward_err(params, "at the materialized parameters")
+    # C2: every leaf + MGN_PERTURB N(0, 1) (biases and LN offsets too, so
+    # enc_edge(0) != 0 reaches the padding edge slots, which the port masks)
+    gen = torch.Generator(device=DEVICE).manual_seed(GNN_SEED + 1)
+    perturbed = tree_map(lambda a: a + MGN_PERTURB * torch.randn(
+        a.shape, generator=gen, device=a.device, dtype=a.dtype), params)
+    err_pert = forward_err(perturbed, f"at parameters + {MGN_PERTURB} N(0, 1)")
+    del perturbed
     opt = AdamW(lr=MGN_LR)
     step = GD.make_dist_train_step(
         lambda prm, bt: GD.dist_mgn_loss(mcfg, prm, pgv, plan, bt,
                                          residual=residual), opt)
-    _, losses, ms, peak = train_steps(step, params, opt, batch, steps)
+    trained, losses, ms, peak = train_steps(step, params, opt, batch, steps)
     check(all(np.isfinite(losses)), f"gnn {name}: finite losses {losses}")
     check(steps == 1 or losses[-1] < losses[0],
           f"gnn {name}: the loss falls ({losses})")
+    err_step = forward_err(trained, f"after {steps} AdamW steps")
     print(f"gnn {name}: {cfg}; graph n={n:,} m={int(graph.m):,}, p = {pg.p}, "
           f"th = {th}, d = {pg.d}; set-up {setup_s:.1f} s; forward max |diff| "
-          f"{err:.3e} against the local model (zero biases and LN offsets "
-          "only; after a step the distributed model differs from the local "
-          f"one, ROADMAP C2); {steps} AdamW steps, losses "
-          f"{[round(x, 5) for x in losses]}; ms per step "
+          f"against the local model: {err:.3e} at the materialized "
+          f"parameters, {err_pert:.3e} at parameters + {MGN_PERTURB} N(0, 1) "
+          f"(non-zero biases: C2), {err_step:.3e} after the steps; {steps} "
+          f"AdamW steps, losses {[round(x, 5) for x in losses]}; ms per step "
           f"{[round(x, 2) for x in ms]} (CUDA events, the first a warm-up; "
           f"per-layer recompute under torch.utils.checkpoint); peak "
           f"{gib(peak)}")
@@ -4414,6 +4471,423 @@ def gnn_path(g, pg, pgv, plan) -> None:
     gnn_nccl()
     phase_s = time.perf_counter() - t_start
     print(f"gnn phase: {phase_s:.1f} s (budget {GNN_BUDGET_S:.0f} s)")
+
+
+# ------------- phases 16-18: the entry points, the CIN backward, recsys training
+#: the CIN backward kernels against their plain versions, per element:
+#: |kernel - plain| <= CIN_BWD_ATOL x max|plain| + CIN_BWD_RTOL x |plain|
+#: (float32 sums in another order; the forward's 1e-4 x max|plain|)
+CIN_BWD_RTOL, CIN_BWD_ATOL = 1e-4, 1e-5
+CIN_BWD_CHECK_BATCHES = (512, 1000)     # 1,000: no tile multiple
+CIN_BWD_TIME_REPS = 3                   # calls of ~0.1-0.3 s each
+#: recsys training: RECSYS_SHAPES["train_batch"], the check batch, steps
+TRAIN_BATCH, TRAIN_CHECK_BATCH = 65536, 4096
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 8, 1e-3
+#: the entry points, each in a subprocess
+EXAMPLE_SCALE, EXAMPLE_REQUESTS, EXAMPLE_TIMEOUT = 16, 120, 600
+SWEEP_ARGS = ("--delegates", "auto", "ring", "--nn-formats", "dense",
+              "--sweep-blocks", "4", "8")
+SWEEP_EXACT = ("sweeps", "sweep_blocks", "wire_delegate_bytes",
+               "wire_nn_bytes", "nn_sparse_sweeps", "nn_overflow",
+               "frontier_skew", "wire_skew")
+
+
+def run_script(args, cwd, what: str) -> str:
+    """A script of the checkout in a subprocess with the port on its path;
+    fails the run on a non-zero exit. Returns its output."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *map(str, args)], cwd=cwd, env=env,
+                         capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT)
+    check(out.returncode == 0, f"{what}: rc {out.returncode}\n"
+          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    print(f"examples: {what} rc 0 in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def match_lines(out: str, n: int, what: str) -> list:
+    lines = [ln.strip() for ln in out.splitlines() if "match=" in ln]
+    check(len(lines) == n and all("match=OK" in ln for ln in lines),
+          f"{what}: {n} sources, every one match=OK ({lines})")
+    for ln in lines:
+        print(f"  {what}: {ln}")
+    return lines
+
+
+def examples_path() -> None:
+    """Phase 16: the three BFS examples and the calibration sweep on the
+    card, each in a subprocess (outputs in a temporary directory)."""
+    import json as _json
+    import tempfile
+
+    from repro_torch.obs.artifact import BENCH_SCHEMA, load_bench
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    t_start = time.perf_counter()
+    ex = ROOT / "examples"
+    out = run_script([ex / "torch_quickstart.py", "--scale", EXAMPLE_SCALE,
+                      "--device", DEVICE], tmp, "torch_quickstart.py")
+    match_lines(out, 3, "quickstart")
+    mem = [ln for ln in out.splitlines() if ln.startswith("memory:")]
+    print(f"  quickstart: {mem[0] if mem else 'no memory line'}")
+    check(bool(mem), "quickstart: memory ratios printed")
+
+    out = run_script([ex / "torch_bfs_serving.py", "--scale", EXAMPLE_SCALE,
+                      "--requests", EXAMPLE_REQUESTS, "--mixed", "--refill",
+                      "--overlap", "--trace", "--profile", "--device",
+                      DEVICE], tmp, "torch_bfs_serving.py --mixed --refill "
+                      "--overlap --trace --profile")
+    for ln in out.splitlines():
+        if ln.startswith(("served", "wire:", "msbfs", "profile:", "telemetry",
+                          "engine ready")):
+            print(f"  serving: {ln}")
+    check("spot-checked per-kind answers against the oracle: OK" in out,
+          "serving: answers held against the oracle")
+    trace = _json.loads((tmp / "serve_trace.json").read_text())
+    _json.loads((tmp / "serve_metrics.json").read_text())
+    doc = load_bench(str(tmp / "CALIB_device.json"))
+    cell = doc["benchmarks"]["device_calibration"]["cells"]["serving"]
+    check(doc["schema"] == BENCH_SCHEMA and doc["meta"]["backend"] == "cuda",
+          "serving: the calibration artifact parses, taken on the card")
+    check(cell["nn_overflow"] == 0 and "nn_overflow=0" in out,
+          "serving: no nn slot dropped")
+    check(len(trace["traceEvents"]) > 0 and cell["profile"]["sampled"] > 0,
+          "serving: trace events and sampled dispatches")
+    print(f"  serving: calibration cell sweeps={cell['sweeps']} "
+          f"blocks={cell['sweep_blocks']} meta={doc['meta']}; trace "
+          f"{len(trace['traceEvents'])} events")
+
+    for mesh, backend in (("1,1", "nccl"), ("1,2", "gloo")):
+        out = run_script([ex / "torch_distributed_bfs.py", "--scale",
+                          EXAMPLE_SCALE, "--mesh", mesh, "--backend", backend,
+                          "--device", DEVICE], tmp,
+                         f"torch_distributed_bfs.py --mesh {mesh} "
+                         f"--backend {backend}")
+        lines = match_lines(out, 3, f"distributed {mesh} {backend}")
+        check(all("overflow=0" in ln for ln in lines),
+              f"distributed {mesh}: no overflow")
+
+    sweep = ROOT / "scripts" / "torch_profile_sweep.py"
+    run_script([sweep, "--scale", EXAMPLE_SCALE, *SWEEP_ARGS, "--device",
+                DEVICE, "--out", tmp / "CALIB_sweep.json"], tmp,
+               "torch_profile_sweep.py (2 x 1 x 2)")
+    card = load_bench(str(tmp / "CALIB_sweep.json"))
+    check(card["meta"]["backend"] == "cuda", "sweep: taken on the card")
+    cells = card["benchmarks"]["device_calibration"]["cells"]
+    # the same matrix in this process on the CPU: the exact counters equal
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_profile_sweep", sweep)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    cpu = mod.run_matrix(scale=EXAMPLE_SCALE, delegates=("auto", "ring"),
+                         nn_formats=("dense",), sweep_blocks=(4, 8),
+                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(sorted(cells) == sorted(cpu["cells"]) and len(cells) == 4,
+          "sweep: the 2 x 1 x 2 cells")
+    for key, c in cells.items():
+        for k in SWEEP_EXACT:
+            check(c[k] == cpu["cells"][key][k],
+                  f"sweep {key}: {k} on the card {c[k]} equals the CPU's "
+                  f"{cpu['cells'][key][k]}")
+        lat = c["profile"]["dispatch_latency_s"].get("block", {})
+        print(f"  sweep {key}: sweeps={c['sweeps']} blocks="
+              f"{c['sweep_blocks']} wire_delegate={c['wire_delegate_bytes']} "
+              f"wire_nn={c['wire_nn_bytes']} qps={c['qps']:.1f} block "
+              f"dispatch p50={lat.get('p50', 0) * 1e3:.3f} ms p99="
+              f"{lat.get('p99', 0) * 1e3:.3f} ms")
+    print(f"examples: the exact counters of the 4 cells equal the same matrix "
+          f"on the CPU ({cpu_s:.1f} s); phase {time.perf_counter() - t_start:.1f}"
+          " s")
+
+
+def cin_bwd_inputs(b: int, fk: int, seed: int) -> tuple:
+    """FULL-width CIN layer inputs on the card: x0, xk ~ N(0, 1) (xk is x0
+    where Fk = F0, the first layer), W ~ N(0, 1) / sqrt(H) (the scaled
+    init), dOut ~ N(0, 1)."""
+    import torch
+    from repro_torch.configs.xdeepfm import FULL
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    f0, d, h = FULL.n_sparse, FULL.embed_dim, FULL.cin_layers[0]
+    x0 = torch.randn(b, f0, d, device=DEVICE, generator=gen)
+    xk = x0 if fk == f0 else torch.randn(b, fk, d, device=DEVICE,
+                                         generator=gen)
+    w = torch.randn(h, f0 * fk, device=DEVICE, generator=gen) / h ** 0.5
+    g = torch.randn(b, h, d, device=DEVICE, generator=gen)
+    return x0, xk, w, g
+
+
+def cin_bwd_close(got, want, what: str) -> float:
+    """Hold a backward kernel's output against its plain version; returns
+    the max |diff|."""
+    import torch
+
+    top = float(want.abs().max())
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()) and bool(
+        (diff <= CIN_BWD_ATOL * top + CIN_BWD_RTOL * want.abs()).all()),
+          f"{what}: kernel within {CIN_BWD_ATOL} max|plain| + "
+          f"{CIN_BWD_RTOL} |plain| of the plain version (max |diff| "
+          f"{float(diff.max()):.3e}, max|plain| {top:.3e})")
+    return float(diff.max())
+
+
+def kernel_phase_cin_bwd() -> dict:
+    """Phase 17: both backward kernels against the plain backward at FULL
+    widths (layer 0, Fk = 39, and layer 1, Fk = 200) for B = 512 and
+    1,000; then, at the train_batch shape, each of a step's three layers
+    timed flushed and back to back beside the plain version, the bound
+    (dW: 3xTF32 on the tensor cores; dx: float32 on the CUDA cores, with
+    the 3xTF32 yardstick printed) and, for dW, cuBLAS ``dOut_flat @ Z`` on
+    Z materialised beforehand (not timed)."""
+    import torch
+    from repro_torch.configs.xdeepfm import FULL
+    from repro_torch.kernels import cin_fused as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"cin_bwd phase ({card_line()}): build log")
+    for src in ("cin_fused_bwd_w", "cin_fused_bwd_x"):
+        for ln in _build_log(src):
+            print(f"  ptxas {src}: {ln}")
+    err = {"w": 0.0, "x": 0.0}
+    for b in CIN_BWD_CHECK_BATCHES:
+        for layer, fk in ((0, FULL.n_sparse), (1, FULL.cin_layers[0])):
+            x0, xk, w, g = cin_bwd_inputs(b, fk, seed=b + fk)
+            dx0p, dxkp, dwp = K.cin_fused_bwd_plain(x0, xk, w, g)
+            dw = K.cin_fused_bwd_w_cuda(x0, xk, g)
+            dx0, dxk = K.cin_fused_bwd_x_cuda(x0, xk, w, g)
+            torch.cuda.synchronize()
+            what = f"cin_bwd B={b} layer {layer} (Fk={fk})"
+            e_w = cin_bwd_close(dw, dwp, f"{what} dW")
+            e_x = max(cin_bwd_close(dx0, dx0p, f"{what} dx0"),
+                      cin_bwd_close(dxk, dxkp, f"{what} dxk"))
+            check(torch.equal(dw, K.cin_fused_bwd_w_cuda(x0, xk, g))
+                  and all(torch.equal(a, c) for a, c in zip(
+                      (dx0, dxk), K.cin_fused_bwd_x_cuda(x0, xk, w, g))),
+                  f"{what}: two launches give bit-equal outputs")
+            err["w"], err["x"] = max(err["w"], e_w), max(err["x"], e_x)
+            print(f"kernel cin_bwd [{what}]: dW max |diff| {e_w:.3e} (max "
+                  f"|plain| {float(dwp.abs().max()):.3e}); dx0/dxk max |diff| "
+                  f"{e_x:.3e} (max |plain| {float(dx0p.abs().max()):.3e} / "
+                  f"{float(dxkp.abs().max()):.3e}); deterministic")
+            del x0, xk, w, g, dx0p, dxkp, dwp, dw, dx0, dxk
+    torch.cuda.empty_cache()
+    tot = {k: dict(ms=0.0, flushed_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+           for k in ("w", "x")}
+    lib_ms = 0.0
+    widths = (FULL.n_sparse,) + tuple(FULL.cin_layers[:-1])
+    for layer, fk in enumerate(widths):
+        x0, xk, w, g = cin_bwd_inputs(TRAIN_BATCH, fk, seed=7 + layer)
+        b, f0, d = x0.shape
+        h = w.shape[0]
+        flops = 2 * h * f0 * fk * b * d
+        n_in = x0.numel() + (0 if xk is x0 else xk.numel()) + g.numel()
+        # (kernel, plain, bytes, float32 operations, TF32 products per
+        # float32 one, the rate they run at)
+        cases = {
+            "w": (lambda: K.cin_fused_bwd_w_cuda(x0, xk, g),
+                  lambda: K.cin_fused_bwd_w_plain(x0, xk, g),
+                  4 * (n_in + w.numel()), flops, 3, TF32_OPS_PER_S),
+            "x": (lambda: K.cin_fused_bwd_x_cuda(x0, xk, w, g),
+                  lambda: K.cin_fused_bwd_x_plain(x0, xk, w, g),
+                  4 * (n_in + w.numel() + x0.numel() + xk.numel()),
+                  flops + 4 * f0 * fk * b * d, 1, SCALAR_OPS_PER_S)}
+        for k, (kern, plain, nbytes, nops, per, rate) in cases.items():
+            t_fl = flushed_ms(kern, reps=CIN_BWD_TIME_REPS)
+            t_b2b = time_ms(kern, reps=CIN_BWD_TIME_REPS, rounds=1)
+            t_plain = time_ms(plain, reps=1, rounds=1)
+            b_ms, b_by = bound(nbytes, per * nops, rate)
+            check(b_by == "operations", f"cin_bwd_{k}: bound by operations")
+            arith = ("3xTF32" if per == 3 else "float32") + \
+                f" at {rate / 1e12:.0f} TFLOP/s"
+            tf32_ms = bound(nbytes, 3 * nops, TF32_OPS_PER_S)[0]
+            print(f"kernel cin_fused_bwd_{k} [layer {layer}, B={b} F0={f0} "
+                  f"Fk={fk} H={h} D={d}]: flushed {t_fl:.3f} ms, back to back "
+                  f"{t_b2b:.3f} ms, plain {t_plain:.3f} ms, bound_ms({arith})"
+                  f"={b_ms:.3f} ({100 * b_ms / t_fl:.1f}% of bound; 3xTF32 "
+                  f"yardstick {tf32_ms:.3f} ms, {100 * tf32_ms / t_fl:.1f}%), "
+                  f"achieved {nops / t_fl / 1e9:.2f} TFLOP/s")
+            for key, v in (("ms", t_b2b), ("flushed_ms", t_fl),
+                           ("plain_ms", t_plain), ("bound_ms", b_ms)):
+                tot[k][key] += v
+            torch.cuda.empty_cache()
+        # library: cuBLAS dW = dOut_flat [H, B*D] @ Z [B*D, K] in float32,
+        # Z materialised beforehand and not timed
+        z = torch.einsum("bid,bjd->bdij", x0, xk).reshape(b * d, f0 * fk)
+        gf = g.permute(1, 0, 2).reshape(h, b * d)
+        lib = gf @ z
+        torch.cuda.synchronize()
+        cin_bwd_close(lib, K.cin_fused_bwd_w_cuda(x0, xk, g),
+                      f"cin_bwd layer {layer}: cuBLAS dW")
+        t_lib = time_ms(lambda: gf @ z, reps=CIN_BWD_TIME_REPS, rounds=1)
+        lib_ms += t_lib
+        print(f"kernel cin_fused_bwd_w [layer {layer}]: library_ms(cuBLAS "
+              f"dOut_flat @ Z, float32, Z not timed)={t_lib:.3f}")
+        del x0, xk, w, g, z, gf, lib
+        torch.cuda.empty_cache()
+    for k in ("w", "x"):
+        t = tot[k]
+        print(f"kernel cin_fused_bwd_{k} [one train step, 3 layers, "
+              f"B={TRAIN_BATCH}]: ms={t['ms']:.3f} flushed={t['flushed_ms']:.3f}"
+              f" plain_ms={t['plain_ms']:.3f} bound_ms={t['bound_ms']:.3f}"
+              + (f" library_ms={lib_ms:.3f}" if k == "w" else ""))
+    return {"w": dict(max_abs_err=err["w"], ms=tot["w"]["ms"],
+                      plain_ms=tot["w"]["plain_ms"],
+                      bound_ms=tot["w"]["bound_ms"], bound_by="operations",
+                      library_ms=lib_ms),
+            "x": dict(max_abs_err=err["x"], ms=tot["x"]["ms"],
+                      plain_ms=tot["x"]["plain_ms"],
+                      bound_ms=tot["x"]["bound_ms"], bound_by="operations",
+                      library_ms=None)}
+
+
+def _build_log(src: str) -> list:
+    from repro_torch.kernels import _build
+
+    lines = [ln.strip() for ln in _build.BUILD_LOG.get(src, "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    return lines or ["no ptxas report (library built by another process)"]
+
+
+def cin_bwd_rows(cin_bwd: dict, train: dict) -> list:
+    """The kernels line's rows of the two backward kernels."""
+    return [{"name": f"cin_fused_bwd_{k}", "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/cin_fused_bwd_{k}.cu",
+             "replaces": "src/repro/kernels/cin_fused.py:57",
+             "launches": train["launches"][f"cin_fused_bwd_{k}"],
+             **cin_bwd[k]} for k in ("w", "x")]
+
+
+def recsys_train_path(cs=None) -> dict:
+    """Phase 18: xDeepFM FULL training at the train_batch shape (B =
+    65,536), AdamW, TF32 off. (1) One step's gradients at B = 4,096 through
+    the kernels against the same step through ``cin_fused_plain`` under
+    autograd: every leaf the loss reaches within 1e-3 x its largest
+    |gradient| (non-zero); the retrieval tower's leaves, which it does not
+    reach, zero in both. (2) TRAIN_WARMUP + TRAIN_TIMED steps on one
+    ClickStream batch: ms a step (median of the timed steps' CUDA events),
+    peak memory, the loss finite and lower after them than at step 0,
+    ``cin_fused`` and both backward kernels launched 3 times a step and
+    nothing else of the port. (3) Two steps under ``torch.profiler``."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.xdeepfm import FULL
+    from repro_torch.data.recsys_data import ClickStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cin_fused import cin_fused_plain
+    from repro_torch.models.recsys import init_params, xdeepfm_loss
+    from repro_torch.train import recsys as RT
+    from repro_torch.train.optim import get_optimizer
+    from repro_torch.train.trainer import value_and_grad
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = get_arch("xdeepfm")
+    check(spec.shapes["train_batch"]["batch"] == TRAIN_BATCH,
+          "the train_batch shape is B = 65,536")
+    if cs is None:
+        cs = ClickStream(n_fields=FULL.n_sparse, total_vocab=FULL.n_cold,
+                         hot_fraction=HOT_FRACTION, seed=0)
+    params = init_params(FULL, seed=0, device=DEVICE)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"recsys_train ({card_line()}): {FULL}; {n_params:,} parameters; "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    # (1) gradients through the kernels against the plain CIN
+    check_batch = RT.batch_to(cs.batch(1, TRAIN_CHECK_BATCH), DEVICE)
+    ops.reset_launches()
+    loss_k, g_k = value_and_grad(
+        lambda p: xdeepfm_loss(FULL, p, check_batch), params)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n_layers = len(FULL.cin_layers)
+    check(launches["cin_fused"] == launches["cin_fused_bwd_w"]
+          == launches["cin_fused_bwd_x"] == n_layers,
+          f"recsys_train: one forward and one of each backward launch a CIN "
+          f"layer ({launches})")
+    loss_p, g_p = value_and_grad(
+        lambda p: xdeepfm_loss(FULL, p, check_batch, cin_fused_plain), params)
+    worst = 0.0
+    for k in sorted(g_p):
+        top = float(g_p[k].abs().max())
+        diff = float((g_k[k] - g_p[k]).abs().max())
+        if k.startswith("q_"):
+            check(top == 0 and diff == 0, f"recsys_train: {k} is not reached")
+            continue
+        check(math.isfinite(top) and top > 0,
+              f"recsys_train: {k} has a non-zero gradient ({top})")
+        check(diff <= 1e-3 * top, f"recsys_train: {k} gradient through the "
+              f"kernels within 1e-3 x {top:.3e} (max |diff| {diff:.3e})")
+        worst = max(worst, diff / top)
+    print(f"recsys_train: B={TRAIN_CHECK_BATCH} loss kernels {float(loss_k):.6f}"
+          f" plain {float(loss_p):.6f}; every reached leaf's gradient within "
+          f"{worst:.3e} x its max |plain gradient| (bound 1e-3)")
+    del g_k, g_p, check_batch
+    torch.cuda.empty_cache()
+    # (2) the train step at B = 65,536
+    t0 = time.perf_counter()
+    batch = RT.batch_to(cs.batch(2, TRAIN_BATCH), DEVICE)
+    data_s = time.perf_counter() - t0
+    opt = get_optimizer(spec.optimizer, lr=TRAIN_LR)
+    step = RT.make_recsys_train_step(FULL, opt)
+    state = opt.init(params)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        if i == TRAIN_WARMUP:
+            ops.reset_launches()
+        (params, state, metrics), t = events_ms(
+            lambda: step(params, state, batch))
+        losses.append(float(metrics["loss"]))
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.LAUNCHES)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"recsys_train: finite losses that fall ({losses})")
+    want = {k: (n_layers * TRAIN_TIMED if k.startswith("cin_fused") else 0)
+            for k in launches}
+    check(launches == want, f"recsys_train: {n_layers} launches of cin_fused "
+          f"and of each backward kernel a step, nothing else ({launches})")
+    med = float(np.median(ms[TRAIN_WARMUP:]))
+    print(f"recsys_train: B={TRAIN_BATCH} AdamW(lr={TRAIN_LR}) on one "
+          f"ClickStream batch ({data_s:.1f} s to make); ms per step "
+          f"{[round(x, 2) for x in ms]} (CUDA events; the first "
+          f"{TRAIN_WARMUP} warm-up), median {med:.2f} ms = "
+          f"{TRAIN_BATCH / med * 1e3:.0f} samples/s; peak {gib(peak)}; "
+          f"losses {[round(x, 5) for x in losses]}; launches over the "
+          f"{TRAIN_TIMED} timed steps {launches}")
+    # (3) two steps profiled: the first kernels of a session can lose
+    # their device records (section 7 of PERF.md; the forward's did once all
+    # phases ran before, on an H100), so only the backward kernels, which
+    # every step launches after it, are required (the top kernels printed
+    # show the rest)
+    prof = {}
+
+    def two_steps():
+        out = step(params, state, batch)
+        return step(out[0], out[1], batch)
+
+    per_launch = profile_run(
+        two_steps, lambda out: f"recsys train, 2 steps, B={TRAIN_BATCH}",
+        ("cin_bwd_w_kernel", "cin_bwd_x_kernel"), into=prof)
+    print(f"recsys_train (2 profiled steps): device busy share "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f}; us per launch "
+          f"{ {k: round(v, 1) for k, v in per_launch.items()} }; phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": med, "peak": peak}
 
 
 def run() -> None:
@@ -4603,6 +5077,16 @@ def run() -> None:
     gnn_path(g, pg, eng.pgv, eng.plan)
     stamp("gnn path done")
 
+    # ---- the entry points, the CIN backward and recsys training (phases
+    # 16-18; before the refill path, as phase 15) ---------------------------
+    torch.cuda.empty_cache()
+    examples_path()
+    stamp("examples done")
+    cin_bwd = kernel_phase_cin_bwd()
+    stamp("cin_bwd done")
+    train = recsys_train_path(recsys.pop("cs"))
+    stamp("recsys_train done")
+
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
     torch.cuda.empty_cache()
@@ -4656,6 +5140,7 @@ def run() -> None:
          "source": "src/repro_torch/kernels/csrc/ell_pull_payload.cu",
          "replaces": "src/repro/kernels/ell_pull_payload.py:64",
          **recsys["ell_pull_payload"]},
+        *cin_bwd_rows(cin_bwd, train),
     ]
     print("ell_pull_multi / ell_pull ms: one launch of a sweep's three "
           "pulls; plain_ms, bound_ms: sum of the three; mask_reduce / "
@@ -4677,7 +5162,14 @@ def run() -> None:
           "segment_bag and ell_pull_payload (path: none in the reference): "
           "ms and library_ms flushed (L2 written over before each call) at "
           "the bulk emb_hot float32 shape and the scale-20 ELL with 70% of "
-          "lanes active, launches over their parity phases")
+          "lanes active, launches over their parity phases. "
+          "cin_fused_bwd_w / cin_fused_bwd_x (path: recsys training): "
+          "ms (back to back), plain_ms, bound_ms summed over the 3 CIN "
+          "layers of one train step at B = 65,536 (bound: dW 3xTF32 at 495 "
+          "TFLOP/s, dx float32 at 67 TFLOP/s, SIMT; library for dW: cuBLAS "
+          "dOut_flat @ Z on Z materialised beforehand, not timed), "
+          "max_abs_err over the B = 512 and 1,000 parity checks, launches "
+          "over the timed train steps")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -4772,6 +5264,18 @@ def run_alone(names) -> None:
         pg = partition_graph(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU)
         gnn_path(g, pg, TB.device_view(pg, DEVICE),
                  TE.device_plan(TE.build_exchange_plan(pg), DEVICE))
+    if "examples" in names:
+        torch.cuda.empty_cache()
+        examples_path()
+    cin_bwd = train = None
+    if "cin_bwd" in names:
+        torch.cuda.empty_cache()
+        cin_bwd = kernel_phase_cin_bwd()
+    if "recsys_train" in names:
+        torch.cuda.empty_cache()
+        train = recsys_train_path()
+    if cin_bwd is not None and train is not None:
+        print(json.dumps({"kernels": cin_bwd_rows(cin_bwd, train)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4816,7 +5320,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
-              "memory", "obs", "frontend", "gnn")
+              "memory", "obs", "frontend", "gnn", "examples", "cin_bwd",
+              "recsys_train")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

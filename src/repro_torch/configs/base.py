@@ -73,5 +73,5 @@ def _load_all():
     """Register every config module (imports are idempotent, so a config
     imported on its own first does not hide the others)."""
     from repro_torch.configs import (  # noqa: F401
-        gcn_cora, graphcast, meshgraphnet, xdeepfm,
+        bfs_rmat, gcn_cora, graphcast, meshgraphnet, xdeepfm,
     )

@@ -32,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ell_pull_multi", "mask_reduce", "ell_pull", "cin_fused",
-           "segment_bag", "ell_pull_payload")
+           "segment_bag", "ell_pull_payload", "cin_fused_bwd_w",
+           "cin_fused_bwd_x")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

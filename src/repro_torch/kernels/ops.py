@@ -14,7 +14,10 @@ from __future__ import annotations
 
 import torch
 
-from .cin_fused import cin_fused_cuda, cin_fused_plain
+from .cin_fused import (CinFused, cin_fused_bwd_w_cuda,
+                        cin_fused_bwd_w_plain, cin_fused_bwd_x_cuda,
+                        cin_fused_bwd_x_plain, cin_fused_cuda,
+                        cin_fused_plain)
 from .ell_pull import (ell_pull_bits_cuda, ell_pull_bits_plain,
                        ell_pull_bits_sweep_cuda)
 from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
@@ -30,7 +33,7 @@ from .segment_bag import segment_bag_cuda, segment_bag_plain
 
 LAUNCHES = {"ell_pull_multi": 0, "mask_reduce": 0, "ell_pull": 0,
             "payload_min_fold": 0, "cin_fused": 0, "segment_bag": 0,
-            "ell_pull_payload": 0}
+            "ell_pull_payload": 0, "cin_fused_bwd_w": 0, "cin_fused_bwd_x": 0}
 #: launches made by replaying CUDA graphs, per kernel: a captured wrapper
 #: call counts here once per replay (its capture counts nowhere)
 REPLAYED = dict.fromkeys(LAUNCHES, 0)
@@ -186,12 +189,42 @@ def payload_min_fold_apply(gathered, prev):
 
 def cin_fused(x0, xk, w):
     """One CIN step: ``x0 [B, F0, D]``, ``xk [B, Fk, D]``, ``w [H, F0*Fk]``
-    float32 -> ``[B, H, D]`` (see :mod:`repro_torch.kernels.cin_fused`)."""
+    float32 -> ``[B, H, D]`` (see :mod:`repro_torch.kernels.cin_fused`).
+    Under autograd it goes through :class:`CinFused`, whose backward is
+    :func:`cin_fused_bwd_w` and :func:`cin_fused_bwd_x`."""
+    if torch.is_grad_enabled() and (x0.requires_grad or xk.requires_grad
+                                    or w.requires_grad):
+        return CinFused.apply(x0, xk, w)
+    return cin_fused_forward(x0, xk, w)
+
+
+def cin_fused_forward(x0, xk, w):
+    """The forward of :func:`cin_fused` alone (no autograd record)."""
     if _on_cuda(x0, xk, w):
         out = cin_fused_cuda(x0, xk, w)
         LAUNCHES["cin_fused"] += 1
         return out
     return cin_fused_plain(x0, xk, w)
+
+
+def cin_fused_bwd_w(x0, xk, g):
+    """Weight gradient of a CIN step for ``g = dOut [B, H, D]`` -> ``dW [H,
+    F0*Fk]``."""
+    if _on_cuda(x0, xk, g):
+        out = cin_fused_bwd_w_cuda(x0, xk, g)
+        LAUNCHES["cin_fused_bwd_w"] += 1
+        return out
+    return cin_fused_bwd_w_plain(x0, xk, g)
+
+
+def cin_fused_bwd_x(x0, xk, w, g):
+    """Input gradients of a CIN step for ``g = dOut [B, H, D]`` -> ``(dx0,
+    dxk)``."""
+    if _on_cuda(x0, xk, w, g):
+        out = cin_fused_bwd_x_cuda(x0, xk, w, g)
+        LAUNCHES["cin_fused_bwd_x"] += 1
+        return out
+    return cin_fused_bwd_x_plain(x0, xk, w, g)
 
 
 def segment_bag(table, indices, weights=None):

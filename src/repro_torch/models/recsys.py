@@ -14,10 +14,12 @@ as ``x @ W``; ``cin_w{i}`` is ``[H, F0 * Fk]``.
 
 Each CIN layer is one launch of the ``cin_fused`` kernel
 (``kernels.ops.cin_fused``); the sum-pool over the embedding dimension
-stays outside the kernel, as in the reference. This is the serving
-slice: the forward, candidate retrieval and the host data utilities. The
-loss and every gradient wait for the training slice, so the parameters
-do not require grad and the CUDA kernel refuses inputs that do.
+stays outside the kernel, as in the reference. Under autograd each layer's
+backward is one launch of each of its two backward kernels
+(``ops.cin_fused_bwd_w``, ``ops.cin_fused_bwd_x``). :class:`XDeepFM` is
+the serving model (its parameters do not require grad);
+:func:`xdeepfm_loss` over a parameter dict is what training differentiates
+(:mod:`repro_torch.train.recsys`).
 """
 from __future__ import annotations
 
@@ -99,11 +101,20 @@ def embed_lookup(params: dict, hot_idx: torch.Tensor, cold_idx: torch.Tensor,
     """Two-class lookup: hot rows from the replica, cold rows from the
     normal table. ``hot_idx`` / ``cold_idx`` are ``[B, F]`` with -1 where
     the other class owns the field value -> ``[B, F, D]``. Every index
-    must be in range (a CUDA gather faults where ``jnp.take`` fills)."""
+    must be in range (a CUDA gather faults where ``jnp.take`` fills).
+    The rows are gathered by ``index_select``, whose backward is one
+    ``index_add`` into the table's gradient (advanced indexing's backward
+    sorts the indices first: 1.0 s of a 1.66 s train step at B = 65,536
+    on an H100)."""
     hot_ok = (hot_idx >= 0)[..., None]
     cold_ok = (cold_idx >= 0)[..., None]
-    h = params[f"{table}_hot"][hot_idx.clamp(min=0).long()]
-    c = params[f"{table}_cold"][cold_idx.clamp(min=0).long()]
+
+    def rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        flat = idx.clamp(min=0).reshape(-1).long()
+        return t.index_select(0, flat).reshape(*idx.shape, t.shape[-1])
+
+    h = rows(params[f"{table}_hot"], hot_idx)
+    c = rows(params[f"{table}_cold"], cold_idx)
     return torch.where(hot_ok, h, 0) + torch.where(cold_ok, c, 0)
 
 
@@ -139,6 +150,18 @@ def xdeepfm_logits(cfg: XDeepFMConfig, params: dict, hot_idx: torch.Tensor,
         if i < n_mlp - 1:
             h = torch.relu(h)
     return logit + h[:, 0]
+
+
+def xdeepfm_loss(cfg: XDeepFMConfig, params: dict, batch: dict,
+                 cin_op: Callable | None = None) -> torch.Tensor:
+    """Mean binary cross-entropy with logits of ``batch`` (``hot_idx``,
+    ``cold_idx`` ``[B, F]``, ``labels`` ``[B]`` 0/1), in the reference's
+    numerically stable form ``max(z, 0) - z y + log1p(exp(-|z|))``."""
+    z = xdeepfm_logits(cfg, params, batch["hot_idx"], batch["cold_idx"],
+                       cin_op).float()
+    y = batch["labels"].float()
+    loss = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    return loss.mean()
 
 
 class XDeepFM(nn.Module):

@@ -1,2 +1,3 @@
 """Training substrate of the port: optimizers, the train step, checkpoints,
-the resilient driver, and distributed full-graph GNN training."""
+the resilient driver, distributed full-graph GNN training and xDeepFM
+training."""

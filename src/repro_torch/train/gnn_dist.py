@@ -105,9 +105,13 @@ def dist_mgn_forward(cfg, params, pgl, plan, batch, mesh=None):
     ml = cfg.mlp_layers
     x_n = mlp(params["enc_node"], batch["x_n"].to(cfg.dtype), ml)
     x_d = mlp(params["enc_node"], batch["x_d"].to(cfg.dtype), ml)
-    e = {k: mlp(params["enc_edge"], batch["ef"][k].to(cfg.dtype), ml)
-         for k in SUBGRAPHS}
     valid = E.edge_valid_masks(pgl)
+    # padding slots carry 0: enc_edge(0) is not 0 once the biases move, and
+    # the aggregation scatters padding into column 0 (the reference keeps
+    # it there, src/repro/train/gnn_dist.py:81; the port masks it, so the
+    # distributed model stays the local one at any parameters)
+    e = {k: mlp(params["enc_edge"], batch["ef"][k].to(cfg.dtype), ml)
+         * valid[k][..., None].to(cfg.dtype) for k in SUBGRAPHS}
     for i in range(cfg.n_layers):
         args = (cfg, pgl, plan, valid, mesh, x_n, x_d, e,
                 layer_params(params["layers"], i))

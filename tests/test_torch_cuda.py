@@ -812,6 +812,78 @@ def test_cin_fused_cuda_is_deterministic(card, b, fk):
     assert torch.equal(first, second)
 
 
+def cin_bwd_close(got, want) -> bool:
+    """|kernel - plain| <= 1e-5 max|plain| + 1e-4 |plain|: float32 sums of
+    the two in another order (the forward's tolerance, per element)."""
+    want = want.to(got.device)
+    return bool(((got - want).abs() <= 1e-5 * want.abs().max()
+                 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.parametrize("b,f0,fk,h,d", [(33, 6, 8, 8, 4), (1000, 39, 39,
+                                                            200, 10),
+                                         (512, 39, 200, 200, 10),
+                                         (70, 5, 70, 3, 3)])
+def test_cin_fused_backward_kernels_match_plain(card, b, f0, fk, h, d):
+    """Both backward kernels against the plain backward on the same card
+    inputs (no tile multiple in B * D, H, F0 * Fk), each one counted
+    launch; two launches give bit-equal outputs."""
+    from repro_torch.kernels.cin_fused import cin_fused_bwd_plain
+
+    rng = np.random.default_rng(b + fk)
+    x0, xk, w, g = on(card, rng.normal(size=(b, f0, d)).astype(np.float32),
+                      rng.normal(size=(b, fk, d)).astype(np.float32),
+                      (rng.normal(size=(h, f0 * fk)) / np.sqrt(h)
+                       ).astype(np.float32),
+                      rng.normal(size=(b, h, d)).astype(np.float32))
+    want = cin_fused_bwd_plain(x0, xk, w, g)
+    before = dict(ops.LAUNCHES)
+    dw = ops.cin_fused_bwd_w(x0, xk, g)
+    dx0, dxk = ops.cin_fused_bwd_x(x0, xk, w, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cin_fused_bwd_w"] == before["cin_fused_bwd_w"] + 1
+    assert ops.LAUNCHES["cin_fused_bwd_x"] == before["cin_fused_bwd_x"] + 1
+    for got, ref in zip((dx0, dxk, dw), want):
+        assert got.shape == ref.shape and cin_bwd_close(got, ref)
+    assert torch.equal(dw, ops.cin_fused_bwd_w(x0, xk, g))
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip((dx0, dxk), ops.cin_fused_bwd_x(x0, xk, w, g)))
+
+
+def test_xdeepfm_gradients_through_kernels_equal_plain(card):
+    """SMOKE at B = 300: every gradient leaf of the loss through the
+    kernels (one forward and one of each backward launch a CIN layer)
+    against the same loss through ``cin_fused_plain`` under autograd,
+    each within 1e-3 of its largest |gradient| (the forward kernel is
+    3xTF32, so the activations the gradients pass through differ in their
+    last bits)."""
+    from repro_torch.models.recsys import xdeepfm_loss
+    from repro_torch.train.trainer import value_and_grad
+
+    params = XDeepFM(SMOKE, device=card, seed=5).params()
+    rng = np.random.default_rng(3)
+    hot = rng.integers(-1, SMOKE.n_hot, (300, SMOKE.n_sparse)).astype(np.int32)
+    cold = np.where(hot < 0, rng.integers(0, SMOKE.n_cold, hot.shape),
+                    -1).astype(np.int32)
+    batch = {"hot_idx": torch.from_numpy(hot).to(card),
+             "cold_idx": torch.from_numpy(cold).to(card),
+             "labels": torch.from_numpy(rng.integers(0, 2, 300)).to(card)}
+    ops.reset_launches()
+    loss, grads = value_and_grad(lambda p: xdeepfm_loss(SMOKE, p, batch),
+                                 params)
+    torch.cuda.synchronize()
+    n = len(SMOKE.cin_layers)
+    assert (ops.LAUNCHES["cin_fused"], ops.LAUNCHES["cin_fused_bwd_w"],
+            ops.LAUNCHES["cin_fused_bwd_x"]) == (n, n, n)
+    want_loss, want = value_and_grad(
+        lambda p: xdeepfm_loss(SMOKE, p, batch, cin_fused_plain), params)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5
+    for k in want:
+        top = float(want[k].abs().max())
+        assert float((grads[k] - want[k]).abs().max()) <= 1e-3 * top, k
+    assert float(grads["cin_w0"].abs().max()) > 0
+
+
 @pytest.mark.parametrize("b,l,v,d", [(5, 3, 50, 8), (130, 7, 200, 130),
                                      (64, 1, 10, 16), (3, 20, 1000, 10),
                                      (9, 40, 300, 32), (4, 0, 5, 3)])
@@ -1031,8 +1103,8 @@ def test_recsys_wrappers_reject_bad_inputs(card):
         ops.cin_fused(x.transpose(0, 1), x, w)
     with pytest.raises(ValueError):
         ops.cin_fused(x, x.cpu(), w)
-    with pytest.raises(RuntimeError, match="backward"):
-        ops.cin_fused(x, x, w.clone().requires_grad_())
+    with pytest.raises(ValueError):
+        ops.cin_fused_bwd_x(x, x, w, torch.zeros((2, 4, 4), device=card))
     with pytest.raises(ValueError):
         ops.cin_fused(torch.zeros((2, 400, 4), device=card),
                       torch.zeros((2, 500, 4), device=card),

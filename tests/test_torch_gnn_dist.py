@@ -45,18 +45,21 @@ TRAJ = dict(rtol=5e-3, atol=5e-4)
 STEPS = 5
 OPTS = {"sgd": dict(lr=0.5, momentum=0.9), "adamw": dict(lr=5e-2)}
 WORLD_TIMEOUT = 300.0
+#: the leaves whose gradients the reference's padding edges reach (C2)
+ENC_EDGE_BIASES = tuple(f"['enc_edge']['{k}']" for k in ("b0", "b1", "ln_b"))
 
 
 def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def assert_trees(got, want, **tol):
+def assert_trees(got, want, skip=(), **tol):
     got = dict(flatten_with_path(convert.tree_to_numpy(got)))
     want = dict(flatten_with_path(want))
     assert sorted(got) == sorted(want)
     for k in want:
-        np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+        if k not in skip:
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
 
 
 def lane0(tree):
@@ -148,6 +151,11 @@ def mgn_family(cfg, rcfg, specs_fn, residual, local_loss_fn, local_fwd_fn):
     rng = np.random.default_rng(5)
     rparams = jax.tree.map(lambda a: (a + 0.1 * rng.normal(size=a.shape)
                                       ).astype(a.dtype), rparams)
+    # the reference's distributed forward leaves its local model once
+    # enc_edge(0) != 0 (its padding edges reach column 0; the port masks
+    # them): it is held against the port where enc_edge's biases are 0
+    zb = {**rparams, "enc_edge": {k: (np.zeros_like(v) if k[0] != "w" else v)
+                                  for k, v in rparams["enc_edge"].items()}}
     rpgv, rplan = RB.device_view(rpg), RE.build_exchange_plan(rpg)
     rbatch = RGB.mgn_batch(rpg, gb.nodes, gb.edge_feats, tgt)
     loss_local = lambda prm, pgl, pl, bt: RGD.dist_mgn_loss(
@@ -160,11 +168,13 @@ def mgn_family(cfg, rcfg, specs_fn, residual, local_loss_fn, local_fwd_fn):
 
     (on, od), (loss, grads) = jax.jit(jax.vmap(
         fwd_grad, axis_name="p", in_axes=(None, 0, 0, 0)))(
-        rparams, rpgv, rplan, jax.tree.map(jnp.asarray, rbatch))
+        zb, rpgv, rplan, jax.tree.map(jnp.asarray, rbatch))
     jgb = jax.tree.map(jnp.asarray, gb)
+    local_loss = lambda prm: local_loss_fn(rcfg, prm, jgb, jnp.asarray(tgt))
     return dict(
         cfg=cfg, gb=gb, g=g, pg=pg, tgt=tgt, rparams=rparams,
         params=convert.tree_from_numpy(rparams, "cpu"),
+        params_zb=convert.tree_from_numpy(zb, "cpu"),
         pgv=TB.device_view(pg, "cpu"),
         plan=TE.device_plan(TE.build_exchange_plan(pg), "cpu"),
         rbatch=rbatch,
@@ -173,8 +183,8 @@ def mgn_family(cfg, rcfg, specs_fn, residual, local_loss_fn, local_fwd_fn):
         ref_out=(np.asarray(on), np.asarray(od)), ref_loss=float(loss[0]),
         ref_grads=lane0(grads),
         ref_local=np.asarray(local_fwd_fn(rcfg, rparams, jgb)),
-        ref_local_loss=float(local_loss_fn(rcfg, rparams, jgb,
-                                           jnp.asarray(tgt))))
+        ref_local_loss=float(local_loss(rparams)),
+        ref_local_grads=np_tree(jax.grad(local_loss)(rparams)))
 
 
 @pytest.fixture(scope="module")
@@ -283,17 +293,22 @@ def test_graphcast_local_forward_and_loss_match_reference(gcast):
 
 @pytest.mark.parametrize("which,residual", [("mgn", False), ("gcast", True)])
 def test_dist_mgn_forward_loss_grads_match_reference(request, which, residual):
+    """Every parameter perturbed but enc_edge's biases, which stay 0: there
+    the reference's distributed forward is still its local one (C2). The
+    gradients of those biases differ: the reference's padding edges carry
+    enc_edge's bias terms into the loss, the port's are masked (the port's
+    are held against the local model below)."""
     s = request.getfixturevalue(which)
     cfg = s["cfg"] if not residual else TG.graphcast_mgn(s["cfg"])
-    on, od = TGD.dist_mgn_forward(cfg, s["params"], s["pgv"], s["plan"],
+    on, od = TGD.dist_mgn_forward(cfg, s["params_zb"], s["pgv"], s["plan"],
                                   s["batch"])
     np.testing.assert_allclose(on.detach().numpy(), s["ref_out"][0], **FWD_MLP)
     np.testing.assert_allclose(od.detach().numpy(), s["ref_out"][1], **FWD_MLP)
     loss, grads = value_and_grad(lambda p: TGD.dist_mgn_loss(
         cfg, p, s["pgv"], s["plan"], s["batch"], residual=residual),
-        s["params"])
+        s["params_zb"])
     np.testing.assert_allclose(float(loss), s["ref_loss"], rtol=1e-5)
-    assert_trees(grads, s["ref_grads"], **GRAD)
+    assert_trees(grads, s["ref_grads"], skip=ENC_EDGE_BIASES, **GRAD)
 
 
 @pytest.mark.parametrize("which,residual", [("mgn", False), ("gcast", True)])
@@ -310,6 +325,40 @@ def test_dist_mgn_matches_local_model(request, which, residual):
     got = TE.gather_features(s["pg"], on.detach().numpy(), od[0].detach().numpy())
     want = TG.mgn_forward(cfg, params, TG.batch_to(s["gb"], "cpu"))
     np.testing.assert_allclose(got, want.detach().numpy(), rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("which,residual", [("mgn", False), ("gcast", True)])
+def test_dist_mgn_matches_local_at_perturbed_params(request, which, residual):
+    """C2: every parameter plus 0.1 N(0, 1) (enc_edge(0) != 0). The
+    gathered distributed forward equals the port's and the reference's
+    local model within 1e-4, and one distributed step's gradients equal the
+    port's and the reference's local model's, enc_edge's biases included
+    (the padding edges' messages are masked)."""
+    s = request.getfixturevalue(which)
+    cfg = s["cfg"] if not residual else TG.graphcast_mgn(s["cfg"])
+    local_fwd = TG.graphcast_forward if residual else TG.mgn_forward
+    local_loss = TG.graphcast_loss if residual else TG.mgn_loss
+    gb = TG.batch_to(s["gb"], "cpu")
+    on, od = TGD.dist_mgn_forward(cfg, s["params"], s["pgv"], s["plan"],
+                                  s["batch"])
+    if residual:
+        on = on + s["batch"]["x_n"]
+        od = od + s["batch"]["x_d"]
+    got = TE.gather_features(s["pg"], on.detach().numpy(),
+                             od[0].detach().numpy())
+    want = local_fwd(s["cfg"], s["params"], gb).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, s["ref_local"], rtol=0, atol=1e-4)
+    loss, grads = value_and_grad(lambda p: TGD.dist_mgn_loss(
+        cfg, p, s["pgv"], s["plan"], s["batch"], residual=residual),
+        s["params"])
+    tgt = torch.from_numpy(s["tgt"])
+    lloss, lgrads = value_and_grad(
+        lambda p: local_loss(s["cfg"], p, gb, tgt), s["params"])
+    np.testing.assert_allclose(float(loss), float(lloss), rtol=1e-5)
+    np.testing.assert_allclose(float(loss), s["ref_local_loss"], rtol=1e-5)
+    assert_trees(grads, convert.tree_to_numpy(lgrads), **GRAD)
+    assert_trees(grads, s["ref_local_grads"], **GRAD)
 
 
 # ---------------------------------------------------------- world-2 mesh

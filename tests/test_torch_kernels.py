@@ -238,12 +238,16 @@ def test_single_source_wrappers_never_count_launches_on_cpu():
     before = dict(ops.LAUNCHES)
     assert set(before) == {"ell_pull_multi", "mask_reduce", "ell_pull",
                            "payload_min_fold", "cin_fused", "segment_bag",
-                           "ell_pull_payload"}
+                           "ell_pull_payload", "cin_fused_bwd_w",
+                           "cin_fused_bwd_x"}
     z = torch.zeros((2, 3), dtype=torch.int32)
     ops.payload_min_fold(z, z[0])
     ops.ell_pull(z, z[0, :1], z[:, 0])
     ops.ell_pull_bits(torch.zeros((1, 3), dtype=torch.int32), z[:1],
                       z[:1, :1], z[:1, :2], 4)
+    x, w, g = torch.ones((2, 3, 4)), torch.ones((5, 9)), torch.ones((2, 5, 4))
+    ops.cin_fused_bwd_w(x, x, g)
+    ops.cin_fused_bwd_x(x, x, w, g)
     assert ops.LAUNCHES == before
 
 
