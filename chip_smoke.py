@@ -265,10 +265,12 @@
    layer 1 (Fk = 200), B = 512 and 1,000: per element within 1e-5
    max|plain| + 1e-4 |plain|, two launches bit-equal; then each of a train
    step's three layers at B = 65,536 timed flushed and back to back,
-   beside the plain version, the bound (dW: 3xTF32 on the tensor cores,
-   three TF32 products a float32 one at 495 TFLOP/s; dx: SIMT float32 at
-   67 TFLOP/s, with the 3xTF32 yardstick printed beside it) and, for dW,
-   cuBLAS ``dOut_flat @ Z`` on Z materialised beforehand.
+   beside the plain version, the bound (both 3xTF32 on the tensor cores,
+   three TF32 products a float32 one at 495 TFLOP/s on the 2*H*F0*Fk*B*D
+   of dW's Z . dOut and dx's G; dx's contractions at 67 TFLOP/s printed
+   beside it) and cuBLAS in float32: dW's ``dOut_flat @ Z`` on Z
+   materialised beforehand, dx's ``dOut_flat^T @ W`` into a G allocated
+   beforehand (its contractions held against the kernel once).
 18. xDeepFM FULL training at ``train_batch`` (B = 65,536), AdamW, TF32
    off: one step's gradients at B = 4,096 through the kernels against the
    same step through ``cin_fused_plain`` under autograd (each reached leaf
@@ -4643,9 +4645,11 @@ def kernel_phase_cin_bwd() -> dict:
     widths (layer 0, Fk = 39, and layer 1, Fk = 200) for B = 512 and
     1,000; then, at the train_batch shape, each of a step's three layers
     timed flushed and back to back beside the plain version, the bound
-    (dW: 3xTF32 on the tensor cores; dx: float32 on the CUDA cores, with
-    the 3xTF32 yardstick printed) and, for dW, cuBLAS ``dOut_flat @ Z`` on
-    Z materialised beforehand (not timed)."""
+    (both: 3xTF32 on the tensor cores, on the product each runs there;
+    dx's contractions on the CUDA cores printed beside it) and the cuBLAS
+    float32 product into a buffer allocated beforehand: dW's ``dOut_flat
+    @ Z`` (Z materialised, not timed), dx's ``dOut_flat^T @ W`` into G
+    (G's contractions held against the kernel once, not timed)."""
     import torch
     from repro_torch.configs.xdeepfm import FULL
     from repro_torch.kernels import cin_fused as K
@@ -4680,39 +4684,41 @@ def kernel_phase_cin_bwd() -> dict:
     torch.cuda.empty_cache()
     tot = {k: dict(ms=0.0, flushed_ms=0.0, plain_ms=0.0, bound_ms=0.0)
            for k in ("w", "x")}
-    lib_ms = 0.0
+    lib_ms = {"w": 0.0, "x": 0.0}
     widths = (FULL.n_sparse,) + tuple(FULL.cin_layers[:-1])
     for layer, fk in enumerate(widths):
         x0, xk, w, g = cin_bwd_inputs(TRAIN_BATCH, fk, seed=7 + layer)
         b, f0, d = x0.shape
         h = w.shape[0]
+        # the product each kernel runs on the tensor cores (dW = Z . dOut,
+        # dx's G = W^T . dOut): the same 2*H*F0*Fk*B*D flops
         flops = 2 * h * f0 * fk * b * d
+        contractions = 4 * f0 * fk * b * d    # dx's, on the CUDA cores
         n_in = x0.numel() + (0 if xk is x0 else xk.numel()) + g.numel()
-        # (kernel, plain, bytes, float32 operations, TF32 products per
-        # float32 one, the rate they run at)
+        # (kernel, plain, bytes each reads and writes once)
         cases = {
             "w": (lambda: K.cin_fused_bwd_w_cuda(x0, xk, g),
                   lambda: K.cin_fused_bwd_w_plain(x0, xk, g),
-                  4 * (n_in + w.numel()), flops, 3, TF32_OPS_PER_S),
+                  4 * (n_in + w.numel())),
             "x": (lambda: K.cin_fused_bwd_x_cuda(x0, xk, w, g),
                   lambda: K.cin_fused_bwd_x_plain(x0, xk, w, g),
-                  4 * (n_in + w.numel() + x0.numel() + xk.numel()),
-                  flops + 4 * f0 * fk * b * d, 1, SCALAR_OPS_PER_S)}
-        for k, (kern, plain, nbytes, nops, per, rate) in cases.items():
+                  4 * (n_in + w.numel() + x0.numel() + xk.numel()))}
+        for k, (kern, plain, nbytes) in cases.items():
             t_fl = flushed_ms(kern, reps=CIN_BWD_TIME_REPS)
             t_b2b = time_ms(kern, reps=CIN_BWD_TIME_REPS, rounds=1)
             t_plain = time_ms(plain, reps=1, rounds=1)
-            b_ms, b_by = bound(nbytes, per * nops, rate)
+            # 3xTF32: three TF32 products a float32 one at 495 TFLOP/s; dx's
+            # contractions run on the CUDA cores beside them (printed)
+            b_ms, b_by = bound(nbytes, 3 * flops, TF32_OPS_PER_S)
             check(b_by == "operations", f"cin_bwd_{k}: bound by operations")
-            arith = ("3xTF32" if per == 3 else "float32") + \
-                f" at {rate / 1e12:.0f} TFLOP/s"
-            tf32_ms = bound(nbytes, 3 * nops, TF32_OPS_PER_S)[0]
+            extra = "" if k == "w" else (
+                f"; the contractions' {contractions / 1e9:.1f} GFLOP at 67 "
+                f"TFLOP/s {contractions / SCALAR_OPS_PER_S * 1e3:.3f} ms")
             print(f"kernel cin_fused_bwd_{k} [layer {layer}, B={b} F0={f0} "
                   f"Fk={fk} H={h} D={d}]: flushed {t_fl:.3f} ms, back to back "
-                  f"{t_b2b:.3f} ms, plain {t_plain:.3f} ms, bound_ms({arith})"
-                  f"={b_ms:.3f} ({100 * b_ms / t_fl:.1f}% of bound; 3xTF32 "
-                  f"yardstick {tf32_ms:.3f} ms, {100 * tf32_ms / t_fl:.1f}%), "
-                  f"achieved {nops / t_fl / 1e9:.2f} TFLOP/s")
+                  f"{t_b2b:.3f} ms, plain {t_plain:.3f} ms, bound_ms(3xTF32 "
+                  f"at 495 TFLOP/s)={b_ms:.3f} ({100 * b_ms / t_fl:.1f}% of "
+                  f"bound), achieved {flops / t_fl / 1e9:.2f} TFLOP/s{extra}")
             for key, v in (("ms", t_b2b), ("flushed_ms", t_fl),
                            ("plain_ms", t_plain), ("bound_ms", b_ms)):
                 tot[k][key] += v
@@ -4726,25 +4732,44 @@ def kernel_phase_cin_bwd() -> dict:
         cin_bwd_close(lib, K.cin_fused_bwd_w_cuda(x0, xk, g),
                       f"cin_bwd layer {layer}: cuBLAS dW")
         t_lib = time_ms(lambda: gf @ z, reps=CIN_BWD_TIME_REPS, rounds=1)
-        lib_ms += t_lib
+        lib_ms["w"] += t_lib
         print(f"kernel cin_fused_bwd_w [layer {layer}]: library_ms(cuBLAS "
               f"dOut_flat @ Z, float32, Z not timed)={t_lib:.3f}")
-        del x0, xk, w, g, z, gf, lib
+        del z, gf, lib
+        torch.cuda.empty_cache()
+        # library: cuBLAS G = dOut_flat^T [B*D, H] @ W [H, F0*Fk] in float32
+        # into a G allocated beforehand (20.4 GB at layers 1-2, as Z); the
+        # contractions are not timed, but are held against the kernel once
+        gt = g.permute(0, 2, 1).reshape(b * d, h)
+        big_g = torch.empty(b * d, f0 * fk, device=DEVICE)
+        torch.mm(gt, w, out=big_g)
+        g3 = big_g.view(b * d, f0, fk)
+        lib_dx0 = torch.bmm(g3, xk.permute(0, 2, 1).reshape(b * d, fk, 1))
+        lib_dxk = torch.bmm(x0.permute(0, 2, 1).reshape(b * d, 1, f0), g3)
+        dx0, dxk = K.cin_fused_bwd_x_cuda(x0, xk, w, g)
+        torch.cuda.synchronize()
+        cin_bwd_close(lib_dx0.view(b, d, f0).permute(0, 2, 1), dx0,
+                      f"cin_bwd layer {layer}: cuBLAS G's dx0")
+        cin_bwd_close(lib_dxk.view(b, d, fk).permute(0, 2, 1), dxk,
+                      f"cin_bwd layer {layer}: cuBLAS G's dxk")
+        t_lib = time_ms(lambda: torch.mm(gt, w, out=big_g),
+                        reps=CIN_BWD_TIME_REPS, rounds=1)
+        lib_ms["x"] += t_lib
+        print(f"kernel cin_fused_bwd_x [layer {layer}]: library_ms(cuBLAS "
+              f"dOut_flat^T @ W into G, float32, contractions not timed)="
+              f"{t_lib:.3f}")
+        del x0, xk, w, g, gt, big_g, g3, lib_dx0, lib_dxk, dx0, dxk
         torch.cuda.empty_cache()
     for k in ("w", "x"):
         t = tot[k]
         print(f"kernel cin_fused_bwd_{k} [one train step, 3 layers, "
               f"B={TRAIN_BATCH}]: ms={t['ms']:.3f} flushed={t['flushed_ms']:.3f}"
               f" plain_ms={t['plain_ms']:.3f} bound_ms={t['bound_ms']:.3f}"
-              + (f" library_ms={lib_ms:.3f}" if k == "w" else ""))
-    return {"w": dict(max_abs_err=err["w"], ms=tot["w"]["ms"],
-                      plain_ms=tot["w"]["plain_ms"],
-                      bound_ms=tot["w"]["bound_ms"], bound_by="operations",
-                      library_ms=lib_ms),
-            "x": dict(max_abs_err=err["x"], ms=tot["x"]["ms"],
-                      plain_ms=tot["x"]["plain_ms"],
-                      bound_ms=tot["x"]["bound_ms"], bound_by="operations",
-                      library_ms=None)}
+              f" library_ms={lib_ms[k]:.3f}")
+    return {k: dict(max_abs_err=err[k], ms=tot[k]["ms"],
+                    plain_ms=tot[k]["plain_ms"], bound_ms=tot[k]["bound_ms"],
+                    bound_by="operations", library_ms=lib_ms[k])
+            for k in ("w", "x")}
 
 
 def _build_log(src: str) -> list:
@@ -5165,9 +5190,11 @@ def run() -> None:
           "lanes active, launches over their parity phases. "
           "cin_fused_bwd_w / cin_fused_bwd_x (path: recsys training): "
           "ms (back to back), plain_ms, bound_ms summed over the 3 CIN "
-          "layers of one train step at B = 65,536 (bound: dW 3xTF32 at 495 "
-          "TFLOP/s, dx float32 at 67 TFLOP/s, SIMT; library for dW: cuBLAS "
-          "dOut_flat @ Z on Z materialised beforehand, not timed), "
+          "layers of one train step at B = 65,536 (bound: 3xTF32 at 495 "
+          "TFLOP/s on the 2*H*F0*Fk*B*D of dW's Z . dOut and dx's G; "
+          "library: cuBLAS float32, dW's dOut_flat @ Z on Z materialised "
+          "beforehand, dx's dOut_flat^T @ W into a G allocated beforehand, "
+          "neither the materialising nor the contractions timed), "
           "max_abs_err over the B = 512 and 1,000 parity checks, launches "
           "over the timed train steps")
     print(json.dumps({"kernels": kernels}))

@@ -32,8 +32,12 @@ version materialises the outer product (20.4 GB a layer at B = 65,536):
   element formed and split in registers), rows split over blocks into a
   work buffer summed in a fixed order (deterministic);
 * :func:`cin_fused_bwd_x_cuda` launches ``csrc/cin_fused_bwd_x.cu``: ``dx0``
-  and ``dxk`` through ``G = W^T . dOut`` per field, G kept in registers
-  (float32 on the CUDA cores; deterministic);
+  and ``dxk`` through ``G^T = dOut^T . W`` on the TF32 tensor cores in
+  3xTF32, as the forward (W split into hi and lo tiles of five fields by
+  40 j by a first kernel, each block's dOut staged in shared memory and
+  split in registers), each G tile contracted with x0 and xk straight
+  from the accumulators, so G never reaches device memory; one writer per
+  output (deterministic);
 * :func:`cin_fused_bwd_plain` (and its two halves) computes the same
   gradients with einsums -- the CPU path and the versions the kernels are
   held against on the card.
@@ -134,7 +138,7 @@ def cin_fused_cuda(x0: torch.Tensor, xk: torch.Tensor,
 # ------------------------------------------------------------------ backward
 _BWD_W_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) \
     + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-_BWD_X_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) \
+_BWD_X_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) \
     + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 
@@ -200,11 +204,23 @@ def bwd_w_work_floats(b: int, f0: int, fk: int, h: int, d: int,
 
 @functools.lru_cache(maxsize=None)
 def bwd_x_smem_bytes(f0: int, h: int) -> int:
-    """Shared memory one block of the dx kernel needs (dOut's [H x 128]
-    column tile, the dx0 sums, two W steps)."""
+    """Shared memory one block of the dx kernel needs (asked of the library
+    once per shape): the ring of W tile pairs, dOut's 128 rows for one
+    chunk of H (the whole H up to 248 channels at F0 = 39) and the [F0 x
+    128] dx0 sums. Above :data:`MAX_SMEM_BYTES` (F0 above 295) no tiling
+    fits."""
     fn = _build.function("cin_fused_bwd_x", "cin_fused_bwd_x_smem_bytes",
                          (ctypes.c_int, ctypes.c_int), ctypes.c_longlong)
     return fn(f0, h)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_x_work_floats(f0: int, fk: int, h: int) -> int:
+    """Scratch floats of one dx launch: W split into TF32 hi and lo tiles
+    in the order the MMAs read them (asked once per shape)."""
+    fn = _build.function("cin_fused_bwd_x", "cin_fused_bwd_x_work_floats",
+                         (ctypes.c_int,) * 3, ctypes.c_longlong)
+    return fn(f0, fk, h)
 
 
 def cin_fused_bwd_w_cuda(x0: torch.Tensor, xk: torch.Tensor,
@@ -233,24 +249,27 @@ def cin_fused_bwd_w_cuda(x0: torch.Tensor, xk: torch.Tensor,
 def cin_fused_bwd_x_cuda(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
                          g: torch.Tensor) -> tuple:
     """Launch ``csrc/cin_fused_bwd_x.cu`` on the current stream -> ``(dx0,
-    dxk)``. Raises if the launch fails."""
+    dxk)``. Raises ValueError on a shape no tiling of the kernel fits, and
+    if the launch fails."""
     _check_bwd(x0, xk, w, g)
     dev = _build.require("cin_fused_bwd_x", torch.float32,
                          ("x0", "xk", "w", "g"), x0, xk, w, g)
     b, f0, d = x0.shape
     fk, h = xk.shape[1], w.shape[0]
     if bwd_x_smem_bytes(f0, h) > MAX_SMEM_BYTES:
-        raise ValueError(f"cin_fused_bwd_x: F0 = {f0} fields and H = {h} "
-                         f"channels need {bwd_x_smem_bytes(f0, h)} bytes of "
-                         f"shared memory per block, more than "
-                         f"{MAX_SMEM_BYTES}")
+        raise ValueError(f"cin_fused_bwd_x: F0 = {f0} fields need "
+                         f"{bwd_x_smem_bytes(f0, h)} bytes of shared "
+                         f"memory per block, more than {MAX_SMEM_BYTES}")
     dx0 = torch.empty_like(x0)
     dxk = torch.empty_like(xk)
+    work = torch.empty(bwd_x_work_floats(f0, fk, h), dtype=torch.float32,
+                       device=x0.device)
     _build.launch("cin_fused_bwd_x",
                   _build.function("cin_fused_bwd_x", "cin_fused_bwd_x",
                                   _BWD_X_ARGTYPES), dev,
                   x0.data_ptr(), xk.data_ptr(), w.data_ptr(), g.data_ptr(),
-                  dx0.data_ptr(), dxk.data_ptr(), b, f0, fk, h, d)
+                  dx0.data_ptr(), dxk.data_ptr(), work.data_ptr(), b, f0, fk,
+                  h, d)
     return dx0, dxk
 
 

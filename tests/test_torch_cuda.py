@@ -823,7 +823,17 @@ def cin_bwd_close(got, want) -> bool:
 @pytest.mark.parametrize("b,f0,fk,h,d", [(33, 6, 8, 8, 4), (1000, 39, 39,
                                                             200, 10),
                                          (512, 39, 200, 200, 10),
-                                         (70, 5, 70, 3, 3)])
+                                         (70, 5, 70, 3, 3),
+                                         # dx's tiling edges (tiles of 5
+                                         # fields x 40 j): Fk = 230, H not
+                                         # a multiple of 8, H = 400 (two
+                                         # chunks of 25 K steps), F0 = 1,
+                                         # F0 = 7 with B * D = 231 rows
+                                         (60, 39, 230, 200, 10),
+                                         (50, 39, 200, 13, 10),
+                                         (40, 39, 200, 400, 10),
+                                         (100, 1, 39, 200, 10),
+                                         (77, 7, 104, 24, 3)])
 def test_cin_fused_backward_kernels_match_plain(card, b, f0, fk, h, d):
     """Both backward kernels against the plain backward on the same card
     inputs (no tile multiple in B * D, H, F0 * Fk), each one counted
@@ -1105,6 +1115,11 @@ def test_recsys_wrappers_reject_bad_inputs(card):
         ops.cin_fused(x, x.cpu(), w)
     with pytest.raises(ValueError):
         ops.cin_fused_bwd_x(x, x, w, torch.zeros((2, 4, 4), device=card))
+    with pytest.raises(ValueError):     # F0 = 400: no dx tiling fits
+        ops.cin_fused_bwd_x(torch.zeros((2, 400, 4), device=card),
+                            torch.zeros((2, 5, 4), device=card),
+                            torch.zeros((3, 2000), device=card),
+                            torch.zeros((2, 3, 4), device=card))
     with pytest.raises(ValueError):
         ops.cin_fused(torch.zeros((2, 400, 4), device=card),
                       torch.zeros((2, 500, 4), device=card),
