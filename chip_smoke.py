@@ -181,8 +181,8 @@
    duplicates; one ``trace_session()`` of the profiled engine must write
    its file (kernel records in it); a lane batch with ``telemetry=True``
    fills ``last_telemetry``, its ``device.shard.<i>.wire_bytes`` summing
-   to the state's ``wire_delegate + wire_nn``. (b) In 14, the 120-query
-   overlap run once more with the same plane on: counters, answers,
+   to the state's ``wire_delegate + wire_nn``. (b) In 14, the refill
+   path's overlap run once more with the same plane on: counters, answers,
    launches and replays equal the obs-off run, queries/s of both printed;
    then a two-query stream; the plane's exported trace must parse as
    Chrome JSON and hold every name of ``OBS_EVENTS``.
@@ -201,9 +201,11 @@
    ``max_inflight`` is rejected whole, ``warm(budget=8)`` runs and a
    replay of the warmed sources is served from the LRU.
 14. Refill path, last (its long profiled runs come after every short
-   profiler session above): the graph with 8 tails of 96 (``with_tails``,
-   seed 5; ``max_iters=240``, W=32, no cache, no component reuse), 120
-   queries (the 8 tips spread through 112 core sources, the four kinds
+   profiler session above): the graph with 8 tails of 32 (cut from 96
+   for time; ``with_tails``,
+   seed 5; ``max_iters=240``, W=32, no cache, no component reuse), 64
+   queries (cut from the benchmark's 120 for time; the 8 tips spread
+   through 56 core sources, the four kinds
    cycled) served four ways after a warm-up that captures the blocks'
    CUDA graphs -- batch, ``refill=True`` (per-sweep driver),
    ``overlap=True, sweep_block=8``, and the stream API (4
@@ -215,11 +217,12 @@
    agree, sync and overlap counters must be equal but ``sweep_blocks``.
    Queries/s, sweeps, refills, lane utilisation, fusion, gated sweeps
    (and their device ms) are printed; then 12(b); then the sync and
-   overlap runs again under ``torch.profiler``, on the first 40 of the
+   overlap runs again under ``torch.profiler``, on the first 16 of the
    queries, for the device busy share and the host time per sweep (the
    batch and stream reruns were cut for the run's time, and the reruns'
-   queries from 120 to 40 when phases 16-18 came: the profiled sync run of
-   120 took about 110 s); one block of 8 sweeps from one state by graph
+   queries from 120 to 40 when phases 16-18 came, to 16 when phases 19-20
+   came: the profiled sync run of 120 took about 110 s); one block of 8
+   sweeps from one state by graph
    replay and eagerly (equal leaves, both timed); and the overlap run with two
    sweeps in flight instead of one (counters equal, gated sweeps
    printed).
@@ -278,18 +281,43 @@
    steps on one ClickStream batch (ms a step, peak memory, the loss
    falls, 3 launches of ``cin_fused`` and of each backward kernel a step
    and no other kernel); two steps under ``torch.profiler`` (busy share).
-19. Prints one JSON line describing every kernel, then, last, the device
+19. xDeepFM FULL with its cold rows sharded mod p over the ranks of a
+   mesh (``train/recsys.py::make_sharded_recsys_train_step``, lookups
+   through variable all-to-alls). (a) World 1 under NCCL, in a spawned
+   process, at B = 65,536, TF32 off: the first gradients (phase 18's
+   bound) and the parameters after 3 AdamW steps (each leaf within 1e-3
+   of its change, L2) equal the one-card step's; 2 warm-up and 5
+   timed steps of each, in turns: ms a step, peak memory, 3 launches of
+   ``cin_fused`` and of each backward kernel a sharded step. (b) World 2
+   under gloo sharing the card, B = 4,096, 2^24 cold rows a rank: the
+   first AdamW step equals the one-card step (parameters, m and v), the
+   second, from the one-card step's state, is read beside it, and the
+   free-running parameters beside the one-card step run twice; wire
+   bytes a step
+   exact against the count made from the batch, table bytes a rank,
+   gloo's seconds a step (printed, not judged).
+20. MACE (``configs/mace.py``'s ``mace``, full width) on the ``molecule``
+   shape, ``molecule_batch(128, 30, 64, 10)``, TF32 off: gradients at 8
+   molecules on the card against the CPU (each leaf within 1e-3 of its
+   max |g|); 2 warm-up and 8 timed AdamW steps (ms a step, peak memory,
+   the loss falls); ``dist_mace_loss`` over 2 emulated partitions equal
+   to the local loss, ``mace-opt``'s positions-only fetch equal to the
+   full fetch, its bfloat16 messages' per-partition energies within
+   2^-13 of float32's, wire bytes per round of both; one step profiled
+   (busy share, largest operators).
+21. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
 Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory,obs,
-frontend,gnn,examples,cin_bwd,recsys_train`` (those phases alone, on the
-same inputs; ``sharded`` is 7 after the main serving run and 4 FULL keys
-it is held against, ``payload`` is 10 and 7(c), ``memory`` is 11 after
-the 64-query serving run it holds (c) against, ``obs`` is 12 after that
-serving run, (b) on the refill path's engine after its obs-off overlap
-run, ``frontend`` is 13, ``gnn`` is 15 on a fresh scale-20 partition,
-``examples``, ``cin_bwd`` and ``recsys_train`` are 16-18; with both of
-the last two, the kernels line of the two backward kernels).
+frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace`` (those
+phases alone, on the same inputs; ``sharded`` is 7 after the main serving
+run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
+``memory`` is 11 after the 64-query serving run it holds (c) against,
+``obs`` is 12 after that serving run, (b) on the refill path's engine
+after its obs-off overlap run, ``frontend`` is 13, ``gnn`` is 15 on a
+fresh scale-20 partition, ``examples``, ``cin_bwd`` and ``recsys_train``
+are 16-18; with both of the last two, the kernels line of the two
+backward kernels; ``recsys_shard`` and ``mace`` are 19-20).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -313,15 +341,19 @@ DEVICE = "cuda"
 N_QUERIES = 64
 N_KEYS, N_VARIANT_KEYS = 16, 4      # Graph500 search keys; keys per variant
 # refill path: the tailed graph and stream of benchmarks/msbfs_throughput.py's
-# overlap cell, on the scale-20 graph
-N_TAILS, TAIL_LEN, REFILL_QUERIES, REFILL_MAX_ITERS = 8, 96, 120, 240
+# overlap cell, on the scale-20 graph, cut from its tails of 96 to 32 and
+# its 120 queries to 64 for the run's time when phases 19-20 came (the
+# whole run took 1236 s of its 1200 on a slower host, every phase about
+# 1.4x its usual time; a refill run's sweeps follow the tails)
+N_TAILS, TAIL_LEN, REFILL_QUERIES, REFILL_MAX_ITERS = 8, 32, 64, 240
 SWEEP_BLOCK, STREAM_CHUNKS = 8, 4
 # the refill runs taken again under torch.profiler (batch and stream were
 # cut, for the run's time, when the obs and frontend phases came), on the
 # first PROFILED_REFILL_QUERIES of the queries (all 120 before phases 16-18
-# came: the profiler's sync trace of 120 took about 110 s to take and read)
+# came: the profiler's sync trace of 120 took about 110 s to take and
+# read; 40 until phases 19-20 came)
 PROFILED_REFILL_MODES = ("sync", "overlap")
-PROFILED_REFILL_QUERIES = 40
+PROFILED_REFILL_QUERIES = 16
 # recsys path: RECSYS_SHAPES of the xdeepfm config (serve_p99, serve_bulk,
 # retrieval_cand); the ClickStream's total vocabulary is the cold table size
 P99_BATCH, N_P99_BATCHES = 512, 20
@@ -1820,7 +1852,7 @@ def obs_serving(eng, g, hplan, queries, answers, main_stats, obs) -> dict:
 
 
 def refill_obs_run(eng, queries, tips, base: dict, obs) -> None:
-    """The 120-query overlap run of the refill path once more, on an engine
+    """The overlap run of the refill path once more, on an engine
     of the same partition with the obs plane ``obs`` on (its blocks
     captured into the refill engine's pool): every ServeStats field,
     answer, launch and replay equal the obs-off run ``base``; queries/s of
@@ -4915,6 +4947,563 @@ def recsys_train_path(cs=None) -> dict:
     return {"launches": launches, "ms": med, "peak": peak}
 
 
+# ------------- phases 19-20: recsys cold rows sharded over ranks, and MACE
+#: recsys_shard: (a)'s check and timed steps; (b)'s batch and steps
+SHARD_CHECK_STEPS, SHARD_WARMUP, SHARD_TIMED = 3, 2, 5
+SHARD_GLOO_BATCH, SHARD_GLOO_STEPS = 4096, 2
+SHARD_BACKEND = "nccl"                 # (a)'s process group
+#: the sharded step's parameters against the one-card step's, per leaf:
+#: ||got - want||_2 <= SHARD_PARAM_REL x ||want - start||_2, the change
+#: the steps made (phase 18's 1e-3, on the change). Not the largest
+#: element: AdamW's m / sqrt(v) amplifies the card's atomics where m
+#: nears 0, and the one-card step differs from itself there (its rerun,
+#: printed beside: a tenth of a leaf's largest change after 3 steps at B
+#: = 65,536 on an NVIDIA H100 80GB HBM3 at 700.00 W)
+SHARD_PARAM_REL = 1e-3
+#: (b), at B = 4,096: the embedding tables are compared row by row (each
+#: moved row within SHARD_PARAM_REL of its change), and up to
+#: SHARD_ASIDE_SAMPLES samples' rows (n_sparse each) may fall outside. A
+#: table row's gradient is one or two samples' share: where a sample's
+#: ReLU pre-activation lies within float32 rounding of 0, summing in
+#: another order (half the batch a rank) flips it and moves that sample's
+#: rows by up to lr, at random from run to run (a per-leaf L2 bound read
+#: 0 to 1.5e-3 of the change on 2^24-row shards)
+SHARD_ASIDE_SAMPLES = 2
+#: the embedding tables' leaves (rows: table ids)
+TABLE_LEAVES = ("emb_hot", "lin_hot", "emb_cold", "lin_cold")
+#: mace: the gradient batch (molecules), steps, learning rate, the
+#: partition threshold of the distributed check, the seed
+MACE_GRAD_MOLS, MACE_WARMUP, MACE_TIMED, MACE_LR = 8, 2, 8, 1e-3
+MACE_TH, MACE_SEED = 6, 0
+#: the distributed loss against the local one (float32 sums in another
+#: order, the card's atomics); bfloat16 messages against float32: the
+#: largest difference of a partition's energy over the largest |energy|.
+#: On an NVIDIA H100 80GB HBM3 at 700.00 W bfloat16 read 2.6e-5 against
+#: float32 and 8.6e-6 between the fetches; planted faults read 8.4e-4
+#: (1% of the messages dropped), 1.28e-3 (one partition's delegate
+#: partials dropped) and 1.44e-3 (no delegate partials)
+MACE_DIST_RTOL, MACE_BF16_REL = 1e-4, 2.0**-13
+
+
+def params_close(got: dict, want: dict, start: dict, what: str,
+                 judged: bool = True) -> tuple:
+    """Each leaf of ``got`` within SHARD_PARAM_REL of the change ``want``
+    made from ``start``, in the L2 norm (exactly equal where ``want`` did
+    not move); ``judged=False`` reads the same without judging. Returns
+    the worst share and the worst largest-element share (printed), and
+    the leaf of the worst share. The leaves stay where they are."""
+    ok = check if judged else (lambda cond, what: None)
+    worst, worst_max, worst_leaf = 0.0, 0.0, None
+    for k in sorted(want):
+        moved = float((want[k] - start[k]).float().norm())
+        diff = float((got[k] - want[k]).float().norm())
+        if moved == 0:
+            ok(diff == 0, f"{what}: {k} unmoved in both (|diff| {diff})")
+            continue
+        ok(diff <= SHARD_PARAM_REL * moved, f"{what}: {k} ||diff|| "
+           f"{diff:.3e} within {SHARD_PARAM_REL} x its change {moved:.3e}")
+        if diff / moved >= worst:
+            worst, worst_leaf = diff / moved, k
+        worst_max = max(worst_max, float((got[k] - want[k]).abs().max())
+                        / float((want[k] - start[k]).abs().max()))
+    return worst, worst_max, worst_leaf
+
+
+def step_close(got: dict, want: dict, start: dict, aside: int,
+               what: str, judged: bool = True) -> tuple:
+    """:func:`params_close` on the leaves other than TABLE_LEAVES; on
+    those, each moved row of ``got`` within SHARD_PARAM_REL of its change
+    ``want - start`` in the L2 norm, but for at most ``aside`` rows of a
+    leaf (finite), and the rows that did not move equal; ``judged=False``
+    reads the same without judging. Returns the dense leaves' worst
+    share and the largest count of rows outside."""
+    ok = check if judged else (lambda cond, what: None)
+    dense = params_close({k: v for k, v in got.items()
+                          if k not in TABLE_LEAVES},
+                         {k: v for k, v in want.items()
+                          if k not in TABLE_LEAVES}, start, what, judged)
+    outside = 0
+    for k in TABLE_LEAVES:
+        moved = (want[k] - start[k]).float().norm(dim=1)
+        diff = (got[k] - want[k]).float().norm(dim=1)
+        ok(bool(got[k].isfinite().all()) and
+           float(diff[moved == 0].sum()) == 0,
+           f"{what}: {k} finite, its unmoved rows equal")
+        n = int((diff > SHARD_PARAM_REL * moved).sum())
+        ok(n <= aside, f"{what}: {k} has {n} rows beyond "
+           f"{SHARD_PARAM_REL} x their change (at most {aside})")
+        outside = max(outside, n)
+    return dense[0], outside
+
+
+def param_diff(got: dict, want: dict, start: dict) -> tuple:
+    """The largest ||got - want||_2 / ||want - start||_2 over the leaves
+    that moved, and its leaf (read, not judged)."""
+    worst, leaf = 0.0, None
+    for k in sorted(want):
+        moved = float((want[k] - start[k]).float().norm())
+        share = float((got[k] - want[k]).float().norm()) / moved if moved else 0
+        if moved and share >= worst:
+            worst, leaf = share, k
+    return worst, leaf
+
+
+def first_grads_close(got: dict, want: dict, what: str) -> float:
+    """Phase 18's bound: each leaf the loss reaches within 1e-3 of its
+    largest |gradient| (finite, non-zero); the retrieval tower's leaves,
+    which it does not reach, zero in both. Returns the worst share."""
+    import math
+
+    worst = 0.0
+    for k in sorted(want):
+        top = float(want[k].abs().max())
+        diff = float((got[k] - want[k]).abs().max())
+        if k.startswith("q_"):
+            check(top == 0 and diff == 0, f"{what}: {k} is not reached")
+            continue
+        check(math.isfinite(top) and top > 0 and diff <= 1e-3 * top,
+              f"{what}: {k} gradient within 1e-3 x {top:.3e} (max |diff| "
+              f"{diff:.3e})")
+        worst = max(worst, diff / top)
+    return worst
+
+
+def shard_nccl_rank(rank: int, world: int, spec: dict) -> dict:
+    """recsys_shard (a): the one rank of a world-1 NCCL mesh. FULL xDeepFM
+    from seeded parameters on the card, TF32 off: the sharded step's first
+    gradients and its parameters after SHARD_CHECK_STEPS AdamW steps
+    against the one-card step's (and the one-card step rerun against
+    itself, the card's atomics' yardstick); then SHARD_WARMUP +
+    SHARD_TIMED steps of each, in turns (sharded, one-card), each timed by
+    CUDA events, the
+    kernel launches of each sharded timed step counted. Returns numbers
+    (the tables stay in this process)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import comm as C, convert
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import init_params, xdeepfm_loss
+    from repro_torch.train import recsys as RT
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.trainer import value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = spec["cfg"]
+    mesh = C.dist.PartitionMesh(("data", "model"), (1, 1))
+    batch = RT.batch_to(spec["batch"], spec["device"])
+    start = init_params(cfg, seed=0, device=spec["device"])
+    out = {}
+    _, g_s, _, route = RT.sharded_value_and_grad(
+        cfg, convert.xdeepfm_shard_params(start, 0, 1), batch, mesh)
+    _, g_1 = value_and_grad(lambda p: xdeepfm_loss(cfg, p, batch), start)
+    out["grad_worst"] = first_grads_close(
+        g_s, g_1, "recsys_shard (a): first step's gradients")
+    del g_s, g_1
+    opt = AdamW(lr=spec["lr"])
+    runs = {"sharded": RT.make_sharded_recsys_train_step(cfg, opt, mesh),
+            "one_card": RT.make_recsys_train_step(cfg, opt)}
+    ends = {}
+    for name, step in (*runs.items(), ("rerun", runs["one_card"])):
+        p, st, out[f"losses_{name}"] = start, opt.init(start), []
+        for _ in range(SHARD_CHECK_STEPS):
+            p, st, m = step(p, st, batch)
+            out[f"losses_{name}"].append(float(m["loss"]))
+            if "grad_norm" in m:
+                out.setdefault("norms", []).append(float(m["grad_norm"]))
+        ends[name] = p
+    out["param_worst"] = params_close(
+        ends["sharded"], ends["one_card"], start,
+        f"recsys_shard (a): parameters after {SHARD_CHECK_STEPS} steps")
+    # the yardstick: the one-card step against itself (the card's atomics)
+    out["rerun_worst"] = params_close(
+        ends["rerun"], ends["one_card"], start,
+        f"recsys_shard (a): the one-card step rerun")
+    del ends
+    torch.cuda.empty_cache()
+    states = {name: (start, opt.init(start)) for name in runs}
+    ms = {name: [] for name in runs}
+    peak = {name: 0 for name in runs}
+    launches, wire = {}, []
+    for i in range(SHARD_WARMUP + SHARD_TIMED):
+        for name, step in runs.items():
+            p, st = states[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(ops.LAUNCHES)
+            (p, st, m), t = events_ms(lambda: step(p, st, batch))
+            states[name] = (p, st)
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+            if i < SHARD_WARMUP:
+                continue
+            ms[name].append(t)
+            if name == "sharded":
+                for k, v in ops.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v - before.get(k, 0)
+                wire.append(dict(m["wire"]))
+    out.update(ms={k: float(np.median(v)) for k, v in ms.items()},
+               ms_all=ms, peak=peak, launches=launches, wire=wire,
+               wire_first=dict(route.sent))
+    return out
+
+
+def shard_gloo_rank(rank: int, world: int, spec: dict) -> dict:
+    """recsys_shard (b): one rank of a world of two gloo ranks sharing the
+    card. FULL xDeepFM: this rank keeps its 2^24 cold rows of the seeded
+    parameters and its half of the batch; SHARD_GLOO_STEPS sharded AdamW
+    steps (host clock around each, synchronised). Each step is also taken
+    from the one-card step's state (its parameters and AdamW state, this
+    rank's cold rows ``rank::2`` and the replicated leaves) and held
+    against the one-card step on the whole batch from that state, in the
+    parameters and in AdamW's m and v (compared where they live): judged
+    on the first step, read on the second. From the second step on, a
+    sample whose ReLU pre-activation lies within float32 rounding of 0
+    flips under another summation order (half the batch a rank), and
+    AdamW, no longer sign-like, moves the elements that sample feeds by
+    a share of lr: a leaf then reads up to 1.65e-3 of its change. Also
+    read, not judged: the free-running parameters after the steps
+    against the one-card step's, beside the one-card step run twice.
+    Returns numbers."""
+    import torch
+    from repro_torch.core import comm as C, convert
+    from repro_torch.models.recsys import COLD_LEAVES, init_params
+    from repro_torch.train import recsys as RT
+    from repro_torch.train.optim import AdamW
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, cfg = spec["device"], spec["cfg"]
+    mesh = C.dist.PartitionMesh(("data", "model"), (world, 1))
+    full = RT.batch_to(spec["batch"], dev)
+    mine = RT.batch_to(RT.shard_batch(spec["batch"], rank, world), dev)
+    start = init_params(cfg, seed=0, device=dev)
+    opt = AdamW(lr=spec["lr"])
+    step = RT.make_sharded_recsys_train_step(cfg, opt, mesh)
+    one = RT.make_recsys_train_step(cfg, opt)
+    mine_of = lambda d: {k: (v[rank::world] if k in COLD_LEAVES else v)
+                         for k, v in d.items()}
+    shard_of = lambda d: convert.xdeepfm_shard_params(d, rank, world)
+    shard = shard_of(start)
+    st, step_s, wire, counts, losses = opt.init(shard), [], [], [], []
+    for _ in range(SHARD_GLOO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard, st, m = step(shard, st, mine)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        wire.append(dict(m["wire"]))
+        counts.append(m["route"].counts.tolist())
+        losses.append(float(m["loss"]))
+    del st
+    ends = []
+    for _ in range(2):               # the one-card step, and its rerun
+        p, ost = start, opt.init(start)
+        for _ in range(SHARD_GLOO_STEPS):
+            p, ost, _ = one(p, ost, full)
+        ends.append(mine_of(p))
+        del p, ost
+    out = {"free": param_diff(shard, ends[0], mine_of(start)),
+           "rerun": param_diff(ends[1], ends[0], mine_of(start)),
+           "cold_rows": int(shard["emb_cold"].shape[0])}
+    del ends, shard
+    p, ost = start, opt.init(start)
+    for i in range(SHARD_GLOO_STEPS):
+        what = f"recsys_shard (b) rank {rank}, step {i + 1} from one state"
+        got, gst, m = step(shard_of(p), {"step": ost["step"],
+                                         "m": shard_of(ost["m"]),
+                                         "v": shard_of(ost["v"])}, mine)
+        p2, ost2, m1 = one(p, ost, full)
+        check(abs(float(m["loss"]) - float(m1["loss"]))
+              <= 1e-6 * abs(float(m1["loss"])),
+              f"{what}: loss {float(m['loss'])} equals the one-card "
+              f"{float(m1['loss'])}")
+        aside, judged = SHARD_ASIDE_SAMPLES * cfg.n_sparse, i == 0
+        out[f"step{i + 1}"] = [step_close(
+            got, mine_of(p2), mine_of(p), aside, f"{what}: parameters",
+            judged)] + [
+            step_close(gst[k], mine_of(ost2[k]), mine_of(ost[k]), aside,
+                       f"{what}: AdamW's {k}", judged) for k in ("m", "v")]
+        del got, gst
+        p, ost = p2, ost2
+    return dict(out, step_s=step_s, wire=wire, counts=counts, losses=losses,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def recsys_shard_path(cs=None, one_card_ms: float | None = None) -> dict:
+    """Phase 19: xDeepFM FULL with its cold rows sharded over the ranks of
+    a mesh. (a) World 1 under NCCL, in a spawned process, at B = 65,536:
+    the sharded step through the all-to-all lookup equals the one-card
+    step (first gradients, parameters after SHARD_CHECK_STEPS steps),
+    ms a step beside the one-card step's in turns, peak memory, 3 launches
+    of ``cin_fused`` and of each backward kernel a step. (b) World 2 under
+    gloo on this card at B = 4,096: the first step equals the one-card
+    step, the second from its state is read (:func:`shard_gloo_rank`),
+    wire bytes a step
+    exact against the count made here from the batch, table bytes a rank,
+    gloo's time (printed, not judged)."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.xdeepfm import FULL
+    from repro_torch.core import comm as C
+    from repro_torch.data.recsys_data import ClickStream
+    from repro_torch.models.recsys import xdeepfm_table_bytes
+    from repro_torch.train import recsys as RT
+    from repro_torch.train.optim import AdamW
+
+    t_start = time.perf_counter()
+    rule = get_arch("xdeepfm").rules_override
+    if cs is None:
+        cs = ClickStream(n_fields=FULL.n_sparse, total_vocab=FULL.n_cold,
+                         hot_fraction=HOT_FRACTION, seed=0)
+    batch = cs.batch(2, TRAIN_BATCH)
+    (a,) = C.dist.spawn(shard_nccl_rank, 1, (dict(
+        device=DEVICE, cfg=FULL, batch=batch, lr=TRAIN_LR),),
+        backend=SHARD_BACKEND, timeout=WORLD_TIMEOUT)
+    n_layers = len(FULL.cin_layers)
+    want = {k: (n_layers * SHARD_TIMED if k.startswith("cin_fused") else 0)
+            for k in a["launches"]}
+    check(a["launches"] == want, f"recsys_shard (a): {n_layers} launches of "
+          f"cin_fused and of each backward kernel a sharded step, nothing "
+          f"else ({a['launches']})")
+    check(all(w["ids"] == w["rows"] == w["grads"] == 0 for w in a["wire"]),
+          "recsys_shard (a): a world of one puts no row on the wire")
+    losses = a["losses_sharded"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"recsys_shard (a): finite losses that fall ({losses})")
+    gap = (a["ms"]["sharded"] - a["ms"]["one_card"]) / a["ms"]["one_card"]
+    print(f"recsys_shard (a) ({card_line()}): world 1 under {SHARD_BACKEND}, FULL at "
+          f"B={TRAIN_BATCH}, AdamW(lr={TRAIN_LR}), TF32 off: first step's "
+          f"gradients within {a['grad_worst']:.3e} x max |g| of the one-card "
+          f"step's (bound 1e-3); parameters after {SHARD_CHECK_STEPS} steps "
+          f"within {a['param_worst'][0]:.3e} x each leaf's change in the L2 "
+          f"norm (bound {SHARD_PARAM_REL}; largest element "
+          f"{a['param_worst'][1]:.3e} of the largest change; the one-card "
+          f"step rerun against itself {a['rerun_worst'][0]:.3e} / "
+          f"{a['rerun_worst'][1]:.3e}; worst leaves {a['param_worst'][2]}, "
+          f"the rerun's {a['rerun_worst'][2]}); the world's gradient norms "
+          f"{[round(x, 5) for x in a['norms']]} (AdamW's clip "
+          f"{AdamW(lr=TRAIN_LR).clip_norm} scales above it); losses {losses} (one card "
+          f"{a['losses_one_card']}); ms a step, median of {SHARD_TIMED} "
+          f"after {SHARD_WARMUP} warm-up, in turns (CUDA events): sharded "
+          f"{a['ms']['sharded']:.2f} {[round(x, 2) for x in a['ms_all']['sharded']]}"
+          f", one card {a['ms']['one_card']:.2f} "
+          f"{[round(x, 2) for x in a['ms_all']['one_card']]} ({gap:+.1%}); "
+          f"phase 18's one-card step {one_card_ms}; peak sharded "
+          f"{gib(a['peak']['sharded'])}, one card {gib(a['peak']['one_card'])}"
+          f"; launches over the sharded timed steps {a['launches']}; wire "
+          f"bytes a step {a['wire'][0]}")
+    # (b) world 2 under gloo on this card
+    small = cs.batch(3, SHARD_GLOO_BATCH)
+    ranks = C.dist.spawn(shard_gloo_rank, 2, (dict(
+        device=DEVICE, cfg=FULL, batch=small, lr=TRAIN_LR),),
+        backend="gloo", timeout=WORLD_TIMEOUT)
+    counts = np.zeros((2, 2), np.int64)
+    for i in range(2):
+        ids = RT.shard_batch(small, i, 2)["cold_idx"].reshape(-1)
+        counts[i] = np.bincount(ids[ids >= 0] % 2, minlength=2)
+    row = 4 * (FULL.embed_dim + 1)
+    for r, res in enumerate(ranks):
+        o = 1 - r
+        want = {"ids": 4 * int(counts[r, o]), "rows": row * int(counts[o, r]),
+                "grads": row * int(counts[r, o]), "counts": 8 * 3}
+        for s, w in enumerate(res["wire"]):
+            check(np.array_equal(np.asarray(res["counts"][s])[:, :-1], counts)
+                  and {k: w[k] for k in want} == want,
+                  f"recsys_shard (b) rank {r} step {s}: wire bytes {w} "
+                  f"equal the count from the batch {want}")
+        check(res["cold_rows"] == FULL.n_cold // 2,
+              f"recsys_shard (b) rank {r} holds {FULL.n_cold // 2} cold rows")
+        check(res["losses"] == ranks[0]["losses"],
+              f"recsys_shard (b): rank {r}'s losses are rank 0's")
+    tb = [xdeepfm_table_bytes(FULL, r, 2) for r in range(2)]
+    one = xdeepfm_table_bytes(FULL)
+    cap = int(counts.max())
+    print(f"recsys_shard (b) ({card_line()}): world 2 under gloo sharing the "
+          f"card, FULL at B={SHARD_GLOO_BATCH} ({SHARD_GLOO_BATCH // 2} a "
+          f"rank), cold rows sharded by the xdeepfm spec's rule {rule}: "
+          f"each of {SHARD_GLOO_STEPS} steps from the one-card step's state "
+          f"against the one-card step (the first judged), by step for "
+          f"(parameters, AdamW's m, v): the dense leaves' largest share of a "
+          f"leaf's change in the "
+          f"L2 norm (bound {SHARD_PARAM_REL}) and the tables' largest count "
+          f"of rows beyond {SHARD_PARAM_REL} x their change (at most "
+          f"{SHARD_ASIDE_SAMPLES * FULL.n_sparse}): "
+          f"{[[(max(r[f'step{i + 1}'][j][0] for r in ranks), max(r[f'step{i + 1}'][j][1] for r in ranks)) for j in range(3)] for i in range(SHARD_GLOO_STEPS)]}"
+          f"; free-running after {SHARD_GLOO_STEPS} steps (not judged) "
+          f"{[r['free'] for r in ranks]} by rank, the one-card step run "
+          f"twice {[r['rerun'] for r in ranks]}; losses "
+          f"{ranks[0]['losses']}; cold lookups per (rank, owner) "
+          f"{counts.tolist()}; wire bytes a step, rank 0 {ranks[0]['wire'][0]}"
+          f", rank 1 {ranks[1]['wire'][0]} (exact against the count from the "
+          f"batch; padded to the largest count {cap}: ids {4 * cap}, rows and "
+          f"grads {row * cap} each a rank); table bytes a rank {tb} (one "
+          f"card {one}); gloo's s a step (host clock, not judged) "
+          f"{[[round(x, 3) for x in r['step_s']] for r in ranks]}; peak a "
+          f"rank {[gib(r['peak']) for r in ranks]}; phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return {"ms": a["ms"], "launches": a["launches"], "peak": a["peak"]}
+
+
+def mace_path() -> dict:
+    """Phase 20: MACE at full width (``configs/mace.py``'s ``mace``: 2
+    layers, d_hidden 128, l_max 2, correlation 3, 8 RBFs, 10 species) on
+    the config's ``molecule`` shape, ``molecule_batch(128, 30, 64, 10)``,
+    TF32 off. (1) Gradients at MACE_GRAD_MOLS molecules on the card
+    against the same step on the CPU (each leaf within 1e-3 of its max
+    |g|; the leaves the loss does not reach zero on both). (2)
+    MACE_WARMUP + MACE_TIMED AdamW steps: ms a step, peak memory, the loss
+    falls. (3) ``dist_mace_loss`` on the molecule batch partitioned into
+    two emulated partitions equals the local loss; ``mace-opt``'s
+    positions-only fetch equals the full fetch (both bfloat16 messages),
+    and its loss the float32 one within a bfloat16 bound; wire bytes per
+    round of both configs. (4) One step profiled."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import GNN_SHAPES, get_arch
+    from repro_torch.core import bfs as TB, engine as TE
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.core.types import COOGraph
+    from repro_torch.graphs.synthetic import molecule_batch
+    from repro_torch.models import equivariant as EQ, gnn as G
+    from repro_torch.models.common import materialize
+    from repro_torch.train import gnn_batches as GB, gnn_dist as GD
+    from repro_torch.train.optim import get_optimizer
+    from repro_torch.train.trainer import make_train_step, value_and_grad
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = GNN_SHAPES["molecule"]
+    arch, opt_arch = get_arch("mace"), get_arch("mace-opt")
+    cfg, cfg_opt = arch.model(shape), opt_arch.model(shape)
+    n_mol, n_atoms, n_edges = shape["batch"], shape["n_nodes"], shape["n_edges"]
+    params = materialize(EQ.mace_param_specs(cfg), MACE_SEED, DEVICE)
+    n_params = sum(t.numel() for _, t in flatten_with_path(params))
+    print(f"mace ({card_line()}): {cfg}; {n_params:,} parameters; "
+          f"molecule_batch({n_mol}, {n_atoms}, {n_edges}, {cfg.n_species})")
+    # (1) gradients on the card against the CPU
+    gb, energies = molecule_batch(MACE_GRAD_MOLS, n_atoms, n_edges,
+                                  cfg.n_species, seed=MACE_SEED)
+    grads = {}
+    for dev in (DEVICE, "cpu"):
+        prm = tree_map(lambda t: t.to(dev), params)
+        b = G.batch_to(gb, dev)
+        e = torch.from_numpy(energies).to(dev)
+        loss, g = value_and_grad(lambda p: EQ.mace_loss(cfg, p, b, e), prm)
+        grads[dev] = (float(loss), dict(flatten_with_path(
+            tree_map(lambda t: t.cpu(), g))))
+    (l_card, g_card), (l_cpu, g_cpu) = grads[DEVICE], grads["cpu"]
+    worst, zero = 0.0, []
+    for k, want in g_cpu.items():
+        top = float(want.abs().max())
+        diff = float((g_card[k] - want).abs().max())
+        if top == 0:
+            check(diff == 0, f"mace: {k} unreached on both")
+            zero.append(k)
+            continue
+        check(math.isfinite(top) and diff <= 1e-3 * top,
+              f"mace: {k} gradient on the card within 1e-3 x {top:.3e} of "
+              f"the CPU's (max |diff| {diff:.3e})")
+        worst = max(worst, diff / top)
+    check(len(zero) < len(g_cpu) // 2, f"mace: most leaves reached ({zero})")
+    # (2) the train step at the molecule shape
+    gb, energies = molecule_batch(n_mol, n_atoms, n_edges, cfg.n_species,
+                                  seed=MACE_SEED)
+    batch = G.batch_to(gb, DEVICE)
+    target = torch.from_numpy(energies).to(DEVICE)
+    opt = get_optimizer(arch.optimizer, lr=MACE_LR)
+    step = make_train_step(
+        lambda p, bt: (EQ.mace_loss(cfg, p, bt, target), {}), opt)
+    trained, losses, ms, peak = train_steps(
+        lambda p, st, bt: (lambda o: (o[0], o[1], o[2]["loss"]))(
+            step(p, st, bt)), params, opt, batch, MACE_WARMUP + MACE_TIMED)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"mace: finite losses that fall ({losses})")
+    med = float(np.median(ms[MACE_WARMUP:]))
+    # (3) the distributed loss on two emulated partitions
+    valid = gb.senders < gb.nodes.shape[0]
+    graph = COOGraph(gb.nodes.shape[0], gb.senders[valid].astype(np.int64),
+                     gb.receivers[valid].astype(np.int64))
+    pg = partition_graph(graph, th=MACE_TH, p_rank=1, p_gpu=2)
+    pgv = TB.device_view(pg, DEVICE)
+    hplan = TE.build_exchange_plan(pg)
+    plan = TE.device_plan(hplan, DEVICE)
+    total = float(energies.sum())
+    dbatch = GB.batch_to_device(GB.mace_batch(pg, gb.positions, gb.species,
+                                              total), DEVICE)
+    variant = lambda c, **kw: EQ.MACEConfig(**{**vars(c), **kw})
+    variants = (("mace", cfg),
+                ("float32, positions only",
+                 variant(cfg, dist_fetch_pos_only=True)),
+                ("mace-opt", cfg_opt),
+                ("bfloat16, full fetch",
+                 variant(cfg_opt, dist_fetch_pos_only=False)))
+    with torch.no_grad():
+        local = float(EQ.mace_forward(cfg, params, batch.positions,
+                                      batch.species, batch.senders,
+                                      batch.receivers).sum())
+        loss = float(GD.dist_mace_loss(cfg, params, pgv, plan, dbatch))
+        # each partition's energy, which the loss sums
+        e_part = {name: GD.dist_mace_energies(c, params, pgv, plan, dbatch)
+                  .double().cpu() for name, c in variants}
+    want = (local - total) ** 2
+    # the largest difference of a partition's energy, over the largest
+    # |energy| of a partition
+    rel = lambda a, b: float((e_part[a] - e_part[b]).abs().max()
+                             / e_part[b].abs().max())
+    diffs = {"float32: positions only - full": rel("float32, positions only",
+                                                   "mace"),
+             "bfloat16: positions only - full": rel("mace-opt",
+                                                    "bfloat16, full fetch"),
+             "mace-opt - mace": rel("mace-opt", "mace")}
+    print(f"mace: per-partition energies {({k: v.tolist() for k, v in e_part.items()})}"
+          f"; largest difference over the largest |energy| {diffs}")
+    check(abs(loss - want) <= MACE_DIST_RTOL * want,
+          f"mace: distributed loss {loss} equals the local {want} within "
+          f"rtol {MACE_DIST_RTOL}")
+    check(abs(float(e_part["mace"].sum()) - local)
+          <= MACE_DIST_RTOL * float(e_part["mace"].abs().max()),
+          f"mace: the partitions' energies sum to the local energy {local}")
+    # the positions-only fetch sends the same messages: equal up to the
+    # card's atomics in float32 (bfloat16 partials round each sum)
+    bounds = (MACE_DIST_RTOL, MACE_BF16_REL, MACE_BF16_REL)
+    check(all(v <= b for v, b in zip(diffs.values(), bounds)),
+          f"mace-opt: per-partition energies, the positions-only fetch equal "
+          f"to the full fetch (float32 within {MACE_DIST_RTOL}, bfloat16 "
+          f"within {MACE_BF16_REL}), bfloat16 messages within "
+          f"{MACE_BF16_REL} of float32 ({diffs})")
+    dist = {name: float((e.sum() - total) ** 2) for name, e in e_part.items()}
+    rb = {c.name: GD.mace_round_bytes(c, hplan, axis_sizes=(pg.p,), d=pg.d)
+          for c in (cfg, cfg_opt)}
+    # (4) one step profiled
+    st0 = opt.init(trained)
+    prof = {}
+    profile_run(lambda: step(trained, st0, batch)[2]["loss"],
+                lambda out: f"mace, one train step, {n_mol} molecules "
+                            f"(loss {float(out):.4f})", (), into=prof)
+    top3 = sorted(prof["ops"].items(), key=lambda kv: -kv[1])[:3]
+    print(f"mace: gradients at {MACE_GRAD_MOLS} molecules, card against "
+          f"CPU: loss {l_card:.6f} / {l_cpu:.6f}, every reached leaf within "
+          f"{worst:.3e} x its max |g| (bound 1e-3); {len(zero)} leaves "
+          f"unreached on both ({zero}); {MACE_WARMUP + MACE_TIMED} AdamW("
+          f"lr={MACE_LR}) steps at {n_mol} molecules ({gb.nodes.shape[0]:,} "
+          f"atoms, {int(valid.sum()):,} of {valid.size:,} edge slots): ms "
+          f"{[round(x, 2) for x in ms]} (CUDA events, the first "
+          f"{MACE_WARMUP} warm-up), median {med:.2f} ms; peak {gib(peak)}; "
+          f"losses {[round(x, 5) for x in losses]}")
+    print(f"mace: distributed over p = {pg.p} emulated partitions (th = "
+          f"{MACE_TH}, d = {pg.d}): losses {dist}, local {want}; wire bytes "
+          f"per round (payload_round_bytes) {rb}; profiled step: device "
+          f"busy share {prof['busy_ms'] / prof['wall_ms']:.3f}, largest "
+          f"device operators {[(k, round(v, 3)) for k, v in top3]} ms; phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return {"ms": med, "peak": peak, "busy": prof["busy_ms"] / prof["wall_ms"]}
+
+
 def run() -> None:
     import numpy as np
     import torch
@@ -5109,14 +5698,24 @@ def run() -> None:
     stamp("examples done")
     cin_bwd = kernel_phase_cin_bwd()
     stamp("cin_bwd done")
-    train = recsys_train_path(recsys.pop("cs"))
+    cs = recsys.pop("cs")
+    train = recsys_train_path(cs)
     stamp("recsys_train done")
+    # ---- the recsys cold rows sharded over ranks, and MACE (phases 19-20;
+    # before the refill path, as phase 15) ---------------------------------
+    torch.cuda.empty_cache()
+    recsys_shard_path(cs, train["ms"])
+    del cs
+    stamp("recsys_shard done")
+    torch.cuda.empty_cache()
+    mace_path()
+    stamp("mace done")
 
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
     torch.cuda.empty_cache()
     refill_path(g, obs)
-    stamp("refill path done")
+    stamp("refill path done; the run's total time")
 
     or_apply = fold["apply"]["levels + targets"]
     print(f"single-source payload_min_fold_apply (n = d): ms="
@@ -5301,6 +5900,12 @@ def run_alone(names) -> None:
     if "recsys_train" in names:
         torch.cuda.empty_cache()
         train = recsys_train_path()
+    if "recsys_shard" in names:
+        torch.cuda.empty_cache()
+        recsys_shard_path(None, None if train is None else train["ms"])
+    if "mace" in names:
+        torch.cuda.empty_cache()
+        mace_path()
     if cin_bwd is not None and train is not None:
         print(json.dumps({"kernels": cin_bwd_rows(cin_bwd, train)}))
     print(json.dumps({"ok": True, "device": {
@@ -5348,7 +5953,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
               "memory", "obs", "frontend", "gnn", "examples", "cin_bwd",
-              "recsys_train")
+              "recsys_train", "recsys_shard", "mace")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

@@ -1,11 +1,14 @@
 """Architecture registry: every ported architecture is an ``ArchSpec``
 with a full-scale model config (or a factory of one per shape), a reduced
-smoke config, its shape set and its optimizer -- the port's copy of
-``repro.configs.base`` (the sharding rules of the reference's specs are
-JAX-only and not carried)."""
+smoke config, its shape set, its sharding-rule overrides and its
+optimizer -- the port's copy of ``repro.configs.base``. A rule override
+names the mesh axes a logical axis is sharded over, as the reference's
+does (``xdeepfm``: ``{"table_rows": ("data", "model")}``); the port
+shards the recsys cold rows over every rank of its mesh
+(:mod:`repro_torch.train.recsys`)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -47,6 +50,7 @@ class ArchSpec:
     model: Any                      # full-scale model config (or factory)
     smoke: Any                      # reduced config for CPU smoke tests
     shapes: dict
+    rules_override: dict = field(default_factory=dict)
     optimizer: str = "adamw"
     notes: str = ""
 
@@ -73,5 +77,5 @@ def _load_all():
     """Register every config module (imports are idempotent, so a config
     imported on its own first does not hide the others)."""
     from repro_torch.configs import (  # noqa: F401
-        bfs_rmat, gcn_cora, graphcast, meshgraphnet, xdeepfm,
+        bfs_rmat, gcn_cora, graphcast, mace, meshgraphnet, xdeepfm,
     )

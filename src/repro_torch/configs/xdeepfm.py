@@ -2,8 +2,9 @@
 [arXiv:1803.05170; paper]
 
 The port's copies of ``repro.configs.xdeepfm`` ``FULL`` / ``SMOKE`` and its
-registry entry (``RECSYS_SHAPES``, the recsys shape set, is re-exported
-from :mod:`repro_torch.configs.base`).
+registry entry, with the reference's rule that shards the cold rows
+(``table_rows``) over the mesh (``RECSYS_SHAPES``, the recsys shape set,
+is re-exported from :mod:`repro_torch.configs.base`).
 """
 from repro_torch.configs.base import ArchSpec, RECSYS_SHAPES, register
 from repro_torch.models.recsys import XDeepFMConfig
@@ -12,7 +13,7 @@ FULL = XDeepFMConfig(
     name="xdeepfm", n_sparse=39, embed_dim=10, cin_layers=(200, 200, 200),
     mlp_layers=(400, 400),
     n_hot=1 << 18,    # frequency delegates: replicated
-    n_cold=1 << 25,   # ~33.5M Criteo-scale rows
+    n_cold=1 << 25,   # ~33.5M Criteo-scale rows: mod-p sharded
 )
 
 SMOKE = XDeepFMConfig(
@@ -23,6 +24,7 @@ SMOKE = XDeepFMConfig(
 CONFIG = register(ArchSpec(
     name="xdeepfm", family="recsys", model=FULL, smoke=SMOKE,
     shapes=RECSYS_SHAPES, optimizer="adamw",
+    rules_override={"table_rows": ("data", "model")},
     notes="hot/cold embedding split == the paper's delegate/normal classes",
 ))
 

@@ -26,21 +26,27 @@ from .base import (
     CommPlan,
     plan_for,
 )
+from .codec import (compressed_wire_bytes, delta_decode_ids,
+                    delta_encode_ids, delta_stream_bytes, rle_decode,
+                    rle_encode, rle_stream_bytes)
 from .exchange import (bin_by_owner, exchange_normal, exchange_payload,
-                       exchange_values, nn_exchange_bits,
+                       exchange_values, exchange_words, nn_exchange_bits,
                        nn_exchange_payload, nn_exchange_words)
-from .reduce import (any_reduce, delegate_allreduce_sum, delegate_combine,
-                     delegate_min_apply, delegate_or_apply, lane_any_reduce,
-                     lane_fold_reduce)
+from .reduce import (any_reduce, delegate_allreduce_min,
+                     delegate_allreduce_or, delegate_allreduce_sum,
+                     delegate_combine, delegate_min_apply, delegate_or_apply,
+                     lane_any_reduce, lane_fold_reduce)
 from .wire import n_words, pack_lanes, unpack_lanes
 
 __all__ = [
     "COMBINE_SPECS", "DELEGATE_STRATEGIES", "NN_FORMATS", "CombineSpec",
     "CommConfig", "CommPlan", "any_reduce", "bin_by_owner", "codec",
-    "delegate_allreduce_sum", "delegate_combine", "dist",
-    "delegate_min_apply", "delegate_or_apply", "exchange_normal",
-    "exchange_payload", "exchange_values",
+    "compressed_wire_bytes", "delegate_allreduce_min",
+    "delegate_allreduce_or", "delegate_allreduce_sum", "delegate_combine",
+    "delegate_min_apply", "delegate_or_apply", "delta_decode_ids",
+    "delta_encode_ids", "delta_stream_bytes", "dist", "exchange_normal",
+    "exchange_payload", "exchange_values", "exchange_words",
     "lane_any_reduce", "lane_fold_reduce", "n_words", "nn_exchange_bits",
     "nn_exchange_payload", "nn_exchange_words", "pack_lanes", "plan_for",
-    "unpack_lanes",
+    "rle_decode", "rle_encode", "rle_stream_bytes", "unpack_lanes",
 ]

@@ -210,9 +210,14 @@ class CommPlan:
 def plan_for(cfg: CommConfig | None, p) -> CommPlan:
     """Bind ``cfg`` to the partition axes: ``p`` an int binds the emulated
     backend's one axis ``"p"`` of that size (the stacked leading
-    dimension); ``p`` a :class:`~repro_torch.core.comm.dist.PartitionMesh`
-    binds its axes and sizes, one partition per process."""
+    dimension); a ``{name: size}`` dict binds those emulated axes, rows
+    stacked row-major over them (the reference's tuple of axis names);
+    ``p`` a :class:`~repro_torch.core.comm.dist.PartitionMesh` binds its
+    axes and sizes, one partition per process."""
     cfg = cfg or CommConfig()
     if isinstance(p, int):
         return CommPlan(cfg=cfg, axes=("p",), sizes=(int(p),))
+    if isinstance(p, dict):
+        return CommPlan(cfg=cfg, axes=tuple(p),
+                        sizes=tuple(int(s) for s in p.values()))
     return CommPlan(cfg=cfg, axes=p.axes, sizes=p.sizes, mesh=p)

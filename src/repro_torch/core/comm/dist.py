@@ -13,16 +13,17 @@ carries CUDA tensors for the collectives it implements for them).
   one process subgroup per group of axes (every rank creates them in the
   same order), so a strategy can reduce over one axis (ring) or a group of
   axes (hierarchical) as well as over the world.
-* The collectives the port uses: :func:`all_gather`, :func:`all_to_all`,
+* The collectives the port uses: :func:`all_gather`, :func:`all_to_all`
+  (and its variable-split form :func:`all_to_all_v`),
   :func:`all_reduce` (``"max"`` / ``"min"`` / ``"sum"``) and
   :func:`ppermute` (the ring's hop: an ``all_to_all_single`` whose split
   sizes are non-zero only for the neighbours, so the wire carries exactly
   the ring's chunk, on ``gloo`` and ``nccl`` alike). There is no OR
   reduction: neither NCCL nor the emulated backend has one, so the OR
   combine stays an all-gather and the ``mask_reduce`` fold everywhere.
-* :class:`AllToAll` is the all-to-all that autograd differentiates (the
-  reverse all-to-all); the delegate sum's counterpart is
-  :func:`repro_torch.core.comm.reduce.delegate_allreduce_sum`.
+* :class:`AllToAll` / :class:`AllToAllV` are the all-to-alls that
+  autograd differentiates (the reverse all-to-all); the delegate sum's
+  counterpart is :func:`repro_torch.core.comm.reduce.delegate_allreduce_sum`.
 * :func:`spawn` starts a world of processes on one host with a ``file://``
   rendezvous under a fresh temporary directory and a hard timeout: a rank
   that hangs or fails fails the call, and every process is stopped.
@@ -113,6 +114,11 @@ class PartitionMesh:
 
     def size(self, axes=None) -> int:
         return len(self._groups[self._key(axes)][1])
+
+    def members(self, axes=None) -> list:
+        """The world ranks of this rank's group over ``axes``, in group
+        order."""
+        return list(self._groups[self._key(axes)][1])
 
     def index(self, axes=None) -> int:
         """This rank's position in its group over ``axes`` (the row-major
@@ -217,6 +223,31 @@ def ppermute(mesh: PartitionMesh, x: torch.Tensor, axis: str
     return _unwire(out.reshape(x.shape), x.dtype)
 
 
+def all_to_all_v(mesh: PartitionMesh, x: torch.Tensor, send: Sequence[int],
+                 recv: Sequence[int], tally: dict | None = None,
+                 key: str = "", axes=None) -> torch.Tensor:
+    """Variable-split all-to-all over the group of ``axes`` (None: the
+    world), along the leading dimension: the first ``send[0]`` rows of
+    ``x`` go to member 0, the next ``send[1]`` to member 1, ...; returns
+    ``[sum(recv), ...]``, member ``j``'s rows in block ``j`` (``recv[j]``
+    of them). The splits are host integers (a variable exchange needs its
+    counts on the host before it starts). With ``tally``, ``tally[key]``
+    grows by the bytes of ``x`` that leave this rank (the rows for the
+    other members)."""
+    src = _wire(x)
+    send, recv = [int(c) for c in send], [int(c) for c in recv]
+    if src.shape[0] != sum(send):
+        raise ValueError(f"{src.shape[0]} rows to send, splits {send}")
+    out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    dist.all_to_all_single(out, src, output_split_sizes=recv,
+                           input_split_sizes=send, group=mesh.group(axes))
+    if tally is not None:
+        row = math.prod(src.shape[1:]) * src.element_size()
+        tally[key] = tally.get(key, 0) + (
+            src.shape[0] - send[mesh.index(axes)]) * row
+    return _unwire(out, x.dtype)
+
+
 # -----------------------------------------------------------------------------
 # Differentiable collectives (the transposes JAX gives ``psum`` and
 # ``all_to_all``): the distributed training step's backward runs through
@@ -236,6 +267,27 @@ class AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_to_all(ctx.mesh, grad.contiguous(), ctx.axes), None, None
+
+
+class AllToAllV(torch.autograd.Function):
+    """:func:`all_to_all_v` whose backward is the reverse exchange: the
+    gradient of each received row goes back to the rank that sent it
+    (the splits swapped). ``tally`` counts the bytes each direction puts
+    on the wire under ``keys`` (forward, backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, send, recv, tally=None, keys=("fwd", "bwd"),
+                axes=None):
+        ctx.mesh, ctx.send, ctx.recv, ctx.axes = mesh, send, recv, axes
+        ctx.tally, ctx.key = tally, keys[1]
+        return all_to_all_v(mesh, x, send, recv, tally=tally, key=keys[0],
+                            axes=axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_to_all_v(ctx.mesh, grad.contiguous(), ctx.recv, ctx.send,
+                             tally=ctx.tally, key=ctx.key, axes=ctx.axes),
+                None, None, None, None, None, None)
 
 
 # -----------------------------------------------------------------------------

@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import dist as D
-from .base import COMBINE_SPECS, CommPlan
+from .base import COMBINE_SPECS, CommPlan, plan_for
 from .codec import compressed_wire_bytes
 from .wire import n_words, pack_lanes, unpack_lanes
 
@@ -133,6 +133,19 @@ def exchange_payload(buf_ids: torch.Tensor, buf_vals: torch.Tensor,
     ``buf_ids [rows, p, cap]`` int32 and ``buf_vals [rows, p, cap, F]`` ->
     received (:func:`exchange_normal`, :func:`exchange_values`)."""
     return exchange_normal(buf_ids, plan), exchange_values(buf_vals, plan)
+
+
+def exchange_words(words: torch.Tensor, p) -> torch.Tensor:
+    """All-to-all of packed lane words ``[rows, p * cap, nw]`` over the
+    emulated axes ``p`` (an int or ``{name: size}``) or a mesh: block ``j``
+    of ``cap`` slots goes to partition ``j``; returns ``[rows, p * cap,
+    nw]`` whose block ``j`` came from partition ``j``. The static-slot
+    analog of :func:`exchange_normal` for batched queries: ``cap_total *
+    nw * 4`` bytes a partition, whatever the number of active queries."""
+    plan = plan_for(None, p)
+    rows, slots, nw = words.shape
+    blocks = words.reshape(rows, plan.p, slots // plan.p, nw)
+    return _a2a(plan, blocks).reshape(rows, slots, nw)
 
 
 def exchange_normal(buf: torch.Tensor, plan: CommPlan | None = None

@@ -263,6 +263,22 @@ def delegate_allreduce_sum(vals: torch.Tensor, p, cfg=None) -> torch.Tensor:
     return delegate_combine(plan, vals, "sum")[0]
 
 
+def delegate_allreduce_or(words: torch.Tensor, p, cfg=None) -> torch.Tensor:
+    """Global bitwise-OR of packed lane words ``[rows, ...]`` int32 over
+    the emulated axes ``p`` (an int or ``{name: size}``) or a mesh -- the
+    paper's visited-bitmask AllReduce with BOR: one :func:`delegate_combine`
+    (no OR reduction exists, so every strategy but ``ring`` gathers and
+    folds with ``mask_reduce``)."""
+    return delegate_combine(plan_for(cfg, p), words, "or")[0]
+
+
+def delegate_allreduce_min(cand: torch.Tensor, p, cfg=None) -> torch.Tensor:
+    """Global min of delegate level candidates ``[rows, ...]`` (the
+    bitmask OR's analog on the single-source path; default strategy: the
+    native min): one :func:`delegate_combine`."""
+    return delegate_combine(plan_for(cfg, p), cand, "min")[0]
+
+
 def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):
     """A step's delegate ``"min"`` combine of int32 candidates ``x [rows,
     n]`` folded into ``prev [rows, n]`` (the single-source levels, ``n =

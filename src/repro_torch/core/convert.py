@@ -8,7 +8,9 @@ one partition can be fed to both and their states compared leaf by leaf
 (:func:`state_to_numpy` for the msBFS state, :func:`bfs_state_to_numpy`
 for the single-source state). The xDeepFM parameters keep the reference's
 names and layouts, so they carry across by name
-(:func:`xdeepfm_params_from_numpy`); so do the GNN parameter trees and
+(:func:`xdeepfm_params_from_numpy`), to one card or sharded over the
+ranks of a mesh (:func:`xdeepfm_shard_params`, and back:
+:func:`xdeepfm_gather_params`); so do the GNN parameter trees and
 the optimizer states (:func:`tree_from_numpy`, :func:`tree_to_numpy`:
 MeshGraphNet's stacked ``layers`` included, nothing transposed).
 """
@@ -20,7 +22,7 @@ import torch
 from .bfs import STATE_LEAVES as BFS_STATE_LEAVES, BFSState
 from .engine import ExchangePlan
 from .msbfs import STATE_LEAVES, MSBFSState
-from repro_torch.models.recsys import XDeepFM, XDeepFMConfig
+from repro_torch.models.recsys import COLD_LEAVES, XDeepFM, XDeepFMConfig
 from repro_torch.tree import tree_map
 from .types import CSR, PartitionedGraph
 
@@ -95,6 +97,40 @@ def xdeepfm_params_from_numpy(params: dict, cfg: XDeepFMConfig,
     return XDeepFM(cfg, device=device,
                    params={k: torch.from_numpy(np.array(v))
                            for k, v in params.items()})
+
+
+def xdeepfm_shard_params(params: dict, rank: int, p: int) -> dict:
+    """Shard ``rank`` of ``p`` of an xDeepFM parameter dict (numpy arrays
+    or tensors, e.g. the reference's): cold row ``i`` of ``emb_cold`` /
+    ``lin_cold`` goes to shard ``i % p`` at local row ``i // p`` (ragged
+    shards where ``p`` does not divide ``n_cold``); every other leaf is
+    replicated (returned as given). On a mesh, ``rank`` and ``p`` are a
+    rank's position and count over the axes its ``table_rows`` rule
+    names (:func:`repro_torch.models.recsys.table_axes`). Works on any
+    dict with the parameter names, such as AdamW's ``m`` and ``v``."""
+    def cut(v):
+        v = v[rank::p]
+        return v.contiguous() if torch.is_tensor(v) else np.ascontiguousarray(v)
+    return {k: cut(v) if k in COLD_LEAVES else v for k, v in params.items()}
+
+
+def xdeepfm_gather_params(shards: list) -> dict:
+    """Inverse of :func:`xdeepfm_shard_params`: the shards' dicts, in
+    shard order, as one dict (the cold rows interleaved back, the replicated
+    leaves taken from rank 0)."""
+    p = len(shards)
+    out = dict(shards[0])
+    for k in COLD_LEAVES:
+        parts = [s[k] for s in shards]
+        n = sum(x.shape[0] for x in parts)
+        if torch.is_tensor(parts[0]):
+            full = parts[0].new_empty((n,) + tuple(parts[0].shape[1:]))
+        else:
+            full = np.empty((n,) + parts[0].shape[1:], parts[0].dtype)
+        for r, x in enumerate(parts):
+            full[r::p] = x
+        out[k] = full
+    return out
 
 
 def tree_from_numpy(tree, device="cuda"):

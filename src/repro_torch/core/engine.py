@@ -433,15 +433,19 @@ def _gather_cols(csr: CSR, x_dst: torch.Tensor) -> torch.Tensor:
 
 
 def edge_endpoints(pgv: PartitionedGraph, plan: ExchangePlan,
-                   x_n: torch.Tensor, x_d: torch.Tensor, mesh=None) -> dict:
+                   x_n: torch.Tensor, x_d: torch.Tensor, mesh=None,
+                   dst: tuple | None = None) -> dict:
     """Per-subgraph (src_feats, dst_feats) pairs, each ``[rows, E_max,
     F]``. Only the nn destination requires communication
-    (:func:`fetch_nn_dst`)."""
+    (:func:`fetch_nn_dst`). ``dst = (dst_n, dst_d)`` gathers the
+    destinations' features from those instead of ``x_n`` / ``x_d`` (a
+    model whose messages read less of the destination fetches less)."""
+    dst_n, dst_d = (x_n, x_d) if dst is None else dst
     return {
-        "nn": (_gather_rows(pgv.nn, x_n), fetch_nn_dst(pgv, plan, x_n, mesh)),
-        "nd": (_gather_rows(pgv.nd, x_n), _gather_cols(pgv.nd, x_d)),
-        "dn": (_gather_rows(pgv.dn, x_d), _gather_cols(pgv.dn, x_n)),
-        "dd": (_gather_rows(pgv.dd, x_d), _gather_cols(pgv.dd, x_d)),
+        "nn": (_gather_rows(pgv.nn, x_n), fetch_nn_dst(pgv, plan, dst_n, mesh)),
+        "nd": (_gather_rows(pgv.nd, x_n), _gather_cols(pgv.nd, dst_d)),
+        "dn": (_gather_rows(pgv.dn, x_d), _gather_cols(pgv.dn, dst_n)),
+        "dd": (_gather_rows(pgv.dd, x_d), _gather_cols(pgv.dd, dst_d)),
     }
 
 

@@ -3,8 +3,8 @@ serving paths, and the GNN architectures' data (cora-like citation graphs,
 triangulated meshes with multimesh hub levels).
 
 Host numpy generators: the same seed gives the same arrays, bit for bit,
-as the reference package's (``src/repro/graphs/synthetic.py``). The
-molecule batches of the equivariant model wait with that model.
+as the reference package's (``src/repro/graphs/synthetic.py``), the
+equivariant model's molecule batches included.
 """
 from __future__ import annotations
 
@@ -107,3 +107,43 @@ def mesh_batch(rows, cols, d_node_in, d_edge_in, multimesh_levels=0,
         edge_feats=ef.astype(np.float32),
         node_mask=np.ones(n, bool), edge_mask=np.ones(e, bool),
     )
+
+
+def molecule_batch(n_mol=8, n_atoms=30, n_edges_per=64, n_species=10,
+                   seed=0) -> tuple:
+    """Batched random-geometric molecules: ``(GraphBatch, energies
+    [n_mol])``. Atoms closer than 3.0 are bonded both ways, at most
+    ``n_edges_per`` bonds a molecule (drawn); edges are padded to
+    ``n_mol * n_edges_per`` with sender and receiver ``N``."""
+    rng = np.random.default_rng(seed)
+    N = n_mol * n_atoms
+    pos = np.zeros((N, 3), np.float32)
+    senders, receivers, gids = [], [], []
+    for g_i in range(n_mol):
+        base = g_i * n_atoms
+        p = rng.normal(size=(n_atoms, 3)).astype(np.float32) * 2.0
+        pos[base: base + n_atoms] = p
+        d = np.linalg.norm(p[:, None] - p[None, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        cand = np.argwhere(d < 3.0)
+        if cand.shape[0] > n_edges_per:
+            cand = cand[rng.choice(cand.shape[0], n_edges_per, replace=False)]
+        senders.append(cand[:, 0] + base)
+        receivers.append(cand[:, 1] + base)
+        gids.extend([g_i] * n_atoms)
+    s = np.concatenate(senders).astype(np.int32)
+    r = np.concatenate(receivers).astype(np.int32)
+    e_max = n_mol * n_edges_per
+    pad = e_max - s.shape[0]
+    s = np.concatenate([s, np.full(pad, N, np.int32)])
+    r = np.concatenate([r, np.full(pad, N, np.int32)])
+    species = rng.integers(0, n_species, N).astype(np.int32)
+    batch = GraphBatch(
+        nodes=np.zeros((N, 1), np.float32),
+        senders=s, receivers=r,
+        node_mask=np.ones(N, bool), edge_mask=s < N,
+        graph_ids=np.array(gids, np.int32), n_graphs=n_mol,
+        positions=pos, species=species,
+    )
+    energies = rng.normal(size=(n_mol,)).astype(np.float32)
+    return batch, energies

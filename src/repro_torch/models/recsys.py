@@ -20,10 +20,18 @@ backward is one launch of each of its two backward kernels
 the serving model (its parameters do not require grad);
 :func:`xdeepfm_loss` over a parameter dict is what training differentiates
 (:mod:`repro_torch.train.recsys`).
+
+Over a mesh the normal rows are row-sharded ``mod q`` over the ``q``
+ranks of the axes the ``table_rows`` rule names (:func:`table_axes`;
+:data:`COLD_LEAVES`: cold row ``i`` on shard ``i % q`` at local row ``i
+// q``; :func:`repro_torch.core.convert.xdeepfm_shard_params`) and looked
+up point-to-point (:func:`route_cold`, :func:`cold_rows`), while the hot
+rows and the dense leaves stay replicated -- the paper's communication
+model, as the reference lays it out by GSPMD (its ``table_rows`` axis).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -31,6 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.bfs import resolve_device
+from repro_torch.core.comm import dist as D
 from repro_torch.kernels import ops
 
 
@@ -42,7 +51,7 @@ class XDeepFMConfig:
     cin_layers: tuple = (200, 200, 200)
     mlp_layers: tuple = (400, 400)
     n_hot: int = 1 << 14        # delegate rows (replicated)
-    n_cold: int = 1 << 22       # normal rows (sharded in the reference)
+    n_cold: int = 1 << 22       # normal rows (mod-p sharded over ranks)
     d_query: int = 64           # retrieval-tower output dim
     dtype: torch.dtype = torch.float32
 
@@ -72,6 +81,33 @@ def xdeepfm_param_specs(cfg: XDeepFMConfig) -> dict:
     specs["q_b0"] = ((256,), "zeros")
     specs["q_w1"] = ((256, cfg.d_query), "scaled")
     return specs
+
+
+#: the normal (cold) rows' leaves: row-sharded ``mod p`` over the ranks of
+#: a mesh (the reference's ``table_rows`` axis); every other leaf is
+#: replicated
+COLD_LEAVES = ("emb_cold", "lin_cold")
+
+
+def cold_shard_rows(n_cold: int, rank: int, p: int) -> int:
+    """Rows of rank ``rank``'s cold shard: cold row ``i`` lives on rank ``i
+    % p`` at local row ``i // p`` (ragged where ``p`` does not divide
+    ``n_cold``)."""
+    return (n_cold - rank + p - 1) // p
+
+
+def xdeepfm_table_bytes(cfg: XDeepFMConfig, rank: int = 0, p: int = 1
+                        ) -> dict:
+    """Parameter bytes rank ``rank`` of ``p`` holds: its cold shard
+    (``emb_cold`` and ``lin_cold`` rows), the replicated hot tables and
+    the replicated dense leaves."""
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    d = cfg.embed_dim
+    dense = sum(int(np.prod(shape)) for name, (shape, _) in
+                xdeepfm_param_specs(cfg).items()
+                if name not in COLD_LEAVES + ("emb_hot", "lin_hot"))
+    return {"cold": cold_shard_rows(cfg.n_cold, rank, p) * (d + 1) * item,
+            "hot": cfg.n_hot * (d + 1) * item, "dense": dense * item}
 
 
 def init_params(cfg: XDeepFMConfig, seed: int, device) -> dict:
@@ -106,16 +142,163 @@ def embed_lookup(params: dict, hot_idx: torch.Tensor, cold_idx: torch.Tensor,
     ``index_add`` into the table's gradient (advanced indexing's backward
     sorts the indices first: 1.0 s of a 1.66 s train step at B = 65,536
     on an H100)."""
-    hot_ok = (hot_idx >= 0)[..., None]
-    cold_ok = (cold_idx >= 0)[..., None]
+    return _two_class(hot_idx, cold_idx,
+                      _rows(params[f"{table}_hot"], hot_idx),
+                      _rows(params[f"{table}_cold"], cold_idx))
 
-    def rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        flat = idx.clamp(min=0).reshape(-1).long()
-        return t.index_select(0, flat).reshape(*idx.shape, t.shape[-1])
 
-    h = rows(params[f"{table}_hot"], hot_idx)
-    c = rows(params[f"{table}_cold"], cold_idx)
-    return torch.where(hot_ok, h, 0) + torch.where(cold_ok, c, 0)
+def _two_class(hot_idx: torch.Tensor, cold_idx: torch.Tensor,
+               hot: torch.Tensor, cold: torch.Tensor) -> torch.Tensor:
+    """The hot rows where ``hot_idx`` is set plus the cold rows where
+    ``cold_idx`` is (-1: the other class owns the field)."""
+    return (torch.where((hot_idx >= 0)[..., None], hot, 0)
+            + torch.where((cold_idx >= 0)[..., None], cold, 0))
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t``'s rows at ``idx [B, F]`` (-1 clamped to row 0)."""
+    flat = idx.clamp(min=0).reshape(-1).long()
+    return t.index_select(0, flat).reshape(*idx.shape, t.shape[-1])
+
+
+def table_axes(mesh, rules: dict | None = None) -> tuple:
+    """The axes of ``mesh`` the cold rows are sharded over: the rule
+    override's ``"table_rows"`` (an :class:`~repro_torch.configs.base.
+    ArchSpec`'s ``rules_override``; ``"data"`` stands for ``("pod",
+    "data")`` on a mesh with a ``"pod"`` axis, as in the reference), by
+    default every axis of the mesh (the reference's default rule). Given
+    in the mesh's order; a rule naming an axis the mesh lacks is
+    refused. The ranks that differ only on the other axes hold the same
+    shard (replicas of it)."""
+    want = (rules or {}).get("table_rows", mesh.axes)
+    want = (want,) if isinstance(want, str) else tuple(want or ())
+    if "pod" in mesh.axes:
+        want = sum((("pod", "data") if a == "data" else (a,) for a in want),
+                   ())
+    missing = [a for a in want if a not in mesh.axes]
+    if not want or missing:
+        raise ValueError(f"table_rows rule {want} must name axes of the "
+                         f"mesh {mesh.axes} (lacks {missing})")
+    return tuple(a for a in mesh.axes if a in want)
+
+
+@dataclass
+class ColdRoute:
+    """One batch's cold lookups routed to their owners over ``mesh``
+    (:func:`route_cold`): this rank's valid lookups in owner order, the
+    world's per-owner counts, and the local row ids the ranks of this
+    rank's shard group (the ranks over the table axes ``axes``) asked
+    this rank for. :func:`cold_rows` moves the rows and, under autograd,
+    their gradients along it."""
+
+    mesh: object
+    #: the mesh axes the cold rows are sharded over (:func:`table_axes`)
+    axes: tuple
+    #: [n_sent] int64: positions, in this rank's flat ``[B_r * F]``
+    #: lookups, of its valid cold ids sorted by owner (stable)
+    order: torch.Tensor
+    #: [p, q + 1] int64 (host): row ``i`` holds world rank ``i``'s lookup
+    #: counts per owner (its shard group's member ``0 .. q - 1``), then
+    #: its batch rows
+    counts: np.ndarray
+    #: [sum(recv)] int64: the local rows the group's ranks ask of this
+    #: rank's shard, member ``j``'s block ``j``
+    recv_ids: torch.Tensor
+    n_lookups: int
+    #: bytes the exchanges put on the wire (this rank's sends):
+    #: ``"ids"``, ``"rows"``, ``"grads"`` (the backward), ``"counts"``
+    sent: dict = field(default_factory=dict)
+
+    @property
+    def q(self) -> int:
+        """Shards of the cold tables (ranks of a shard group)."""
+        return self.mesh.size(self.axes)
+
+    @property
+    def shard(self) -> int:
+        """This rank's shard: its position in its shard group."""
+        return self.mesh.index(self.axes)
+
+    @property
+    def send(self) -> list:
+        return [int(c) for c in self.counts[self.mesh.rank, :-1]]
+
+    @property
+    def recv(self) -> list:
+        return [int(c) for c in
+                self.counts[self.mesh.members(self.axes), self.shard]]
+
+    @property
+    def global_batch(self) -> int:
+        return int(self.counts[:, -1].sum())
+
+    def wire_bytes(self, row_bytes: int) -> dict:
+        """The exact bytes this rank puts on the wire for the batch, from
+        the counts: the ids it asks of the other members of its shard
+        group (int32), the rows it returns them and the row gradients it
+        returns in the backward (``row_bytes`` each: ``(D + 1) * 4`` in
+        float32), the counts it shares with the world; ``"*_padded"``:
+        the same exchanges in equal splits padded to the world's largest
+        count (what a fixed-shape all-to-all would carry)."""
+        p, q, s = self.mesh.p, self.q, self.shard
+        out_ids = sum(self.send) - self.send[s]
+        in_ids = sum(self.recv) - self.recv[s]
+        cap = int(self.counts[:, :-1].max()) if q > 1 else 0
+        return {"ids": 4 * out_ids, "rows": row_bytes * in_ids,
+                "grads": row_bytes * out_ids,
+                "counts": 8 * (q + 1) * (p - 1),
+                "ids_padded": 4 * cap * (q - 1),
+                "rows_padded": row_bytes * cap * (q - 1),
+                "grads_padded": row_bytes * cap * (q - 1)}
+
+
+def route_cold(mesh, cold_idx: torch.Tensor, axes: tuple | None = None
+               ) -> ColdRoute:
+    """Route this rank's cold lookups ``cold_idx [B_r, F]`` (global cold
+    row ids, -1 where the hot table owns the field) to their owners over
+    ``mesh`` (a :class:`~repro_torch.core.comm.dist.PartitionMesh`) whose
+    cold tables are sharded over ``axes`` (:func:`table_axes`; None:
+    every axis) in ``q`` shards: bin the valid ids by owner ``id % q``,
+    the member of this rank's shard group that holds shard ``id % q``;
+    share the per-owner counts (and the rank's batch rows) with one
+    all-gather of ``q + 1`` int64 a rank over the world, read on the host
+    (the step's one host read); send each owner the local row ids ``id //
+    q`` it must gather (a variable all-to-all over the group, exact: no
+    lookup is dropped or padded)."""
+    axes = mesh.axes if axes is None else tuple(axes)
+    q = mesh.size(axes)
+    flat = cold_idx.reshape(-1)
+    owner = torch.where(flat >= 0, torch.remainder(flat, q), q).long()
+    mine = torch.cat([torch.bincount(owner, minlength=q + 1)[:q],
+                      owner.new_tensor([cold_idx.shape[0]])])
+    counts = D.all_gather(mesh, mine).cpu().numpy()
+    route = ColdRoute(mesh, axes, None, counts, None, flat.numel(),
+                      {"counts": 8 * (q + 1) * (mesh.p - 1)})
+    route.order = torch.argsort(owner, stable=True)[:sum(route.send)]
+    ids = torch.div(flat.index_select(0, route.order), q,
+                    rounding_mode="floor").to(torch.int32)
+    route.recv_ids = D.all_to_all_v(mesh, ids, route.send, route.recv,
+                                    tally=route.sent, key="ids",
+                                    axes=axes).long()
+    return route
+
+
+def cold_rows(params: dict, route: ColdRoute) -> torch.Tensor:
+    """The rows of this rank's cold lookups, ``[B_r * F, D + 1]`` (``emb``
+    then ``lin``; zeros where the lookup is -1), from the owners' shards
+    (``params`` holds this rank's ``emb_cold`` / ``lin_cold`` shard): each
+    owner gathers the asked rows of both tables as one block with
+    ``index_select`` and returns them by the reverse variable all-to-all.
+    Differentiable: the row gradients go back to their owners by the same
+    exchange reversed and are summed into the shard's gradient by the
+    gather's backward (one ``index_add``)."""
+    emb, lin = params["emb_cold"], params["lin_cold"]
+    block = torch.cat([emb.index_select(0, route.recv_ids),
+                       lin.index_select(0, route.recv_ids)], -1)
+    back = D.AllToAllV.apply(block, route.mesh, route.recv, route.send,
+                             route.sent, ("rows", "grads"), route.axes)
+    return back.new_zeros((route.n_lookups, block.shape[-1])).index_copy(
+        0, route.order, back)
 
 
 def cin_apply(cfg: XDeepFMConfig, params: dict, x0: torch.Tensor,
@@ -133,14 +316,25 @@ def cin_apply(cfg: XDeepFMConfig, params: dict, x0: torch.Tensor,
 
 
 def xdeepfm_logits(cfg: XDeepFMConfig, params: dict, hot_idx: torch.Tensor,
-                   cold_idx: torch.Tensor,
-                   cin_op: Callable | None = None) -> torch.Tensor:
+                   cold_idx: torch.Tensor, cin_op: Callable | None = None,
+                   route: ColdRoute | None = None) -> torch.Tensor:
     """``hot_idx`` / ``cold_idx`` ``[B, F]`` -> logits ``[B]``; ``cin_op``
-    as in :func:`cin_apply`. The reference's ``shard`` argument (a sharding
-    constraint on ``x0``) has no meaning on one card and is dropped."""
-    x0 = embed_lookup(params, hot_idx, cold_idx, "emb")            # [B, F, D]
+    as in :func:`cin_apply`. With ``route`` (:func:`route_cold` of
+    ``cold_idx``) the model is sharded: ``params`` holds this rank's cold
+    shards and the cold rows come from their owners (:func:`cold_rows`);
+    everything after the lookup is the rank's own batch rows. The
+    reference's ``shard`` argument (a sharding constraint on ``x0``,
+    GSPMD's) is what ``route`` spells out."""
+    d = cfg.embed_dim
+    if route is None:
+        cold = [_rows(params[f"{t}_cold"], cold_idx) for t in ("emb", "lin")]
+    else:
+        c = cold_rows(params, route).reshape(*cold_idx.shape, d + 1)
+        cold = [c[..., :d], c[..., d:]]
+    x0, lin = (_two_class(hot_idx, cold_idx, _rows(params[f"{t}_hot"],
+                                                   hot_idx), rows)
+               for t, rows in zip(("emb", "lin"), cold))
     b = x0.shape[0]
-    lin = embed_lookup(params, hot_idx, cold_idx, "lin")
     logit = lin.sum(dim=(1, 2)) + params["bias"][0]
     logit = logit + cin_apply(cfg, params, x0, cin_op)[:, 0]
     h = x0.reshape(b, -1)
@@ -153,15 +347,21 @@ def xdeepfm_logits(cfg: XDeepFMConfig, params: dict, hot_idx: torch.Tensor,
 
 
 def xdeepfm_loss(cfg: XDeepFMConfig, params: dict, batch: dict,
-                 cin_op: Callable | None = None) -> torch.Tensor:
+                 cin_op: Callable | None = None,
+                 route: ColdRoute | None = None) -> torch.Tensor:
     """Mean binary cross-entropy with logits of ``batch`` (``hot_idx``,
     ``cold_idx`` ``[B, F]``, ``labels`` ``[B]`` 0/1), in the reference's
-    numerically stable form ``max(z, 0) - z y + log1p(exp(-|z|))``."""
+    numerically stable form ``max(z, 0) - z y + log1p(exp(-|z|))``. With
+    ``route`` (sharded, ``batch`` this rank's rows): the rank's share of
+    the global mean, its rows' sum over the world's batch size (the ranks'
+    shares sum to the mean)."""
     z = xdeepfm_logits(cfg, params, batch["hot_idx"], batch["cold_idx"],
-                       cin_op).float()
+                       cin_op, route).float()
     y = batch["labels"].float()
     loss = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
-    return loss.mean()
+    if route is None:
+        return loss.mean()
+    return loss.sum() / route.global_batch
 
 
 class XDeepFM(nn.Module):

@@ -63,6 +63,23 @@ def mgn_batch(pg: PartitionedGraph, node_feats, edge_feats, targets,
     }
 
 
+def mace_batch(pg: PartitionedGraph, positions, species,
+               target_energy: float) -> dict:
+    """Atoms over the partition: positions ``pos_n [p, nl, 3]`` / ``pos_d``
+    tiled to ``[p, d, 3]``, species likewise, the node masks, and the
+    total energy target ``[p]`` (the same on every partition)."""
+    pos_n, pos_d = E.scatter_features(pg, positions)
+    spec_n, spec_d = E.scatter_features(pg, species[:, None].astype(np.int32))
+    mask_n, mask_d = _masks(pg, None)
+    p = pg.p
+    return {
+        "pos_n": pos_n, "pos_d": _tiled(pos_d, p),
+        "spec_n": spec_n[..., 0], "spec_d": _tiled(spec_d[..., 0], p),
+        "mask_n": mask_n, "mask_d": mask_d,
+        "target_energy": np.full((p,), target_energy, np.float32),
+    }
+
+
 def batch_to_device(batch: dict, device, part: int | None = None) -> dict:
     """Every array of a batch as a tensor on ``device``; ``part`` keeps
     only that partition's row (what one rank of a mesh holds)."""

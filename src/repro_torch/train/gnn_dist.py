@@ -1,4 +1,5 @@
-"""Distributed full-graph GNN training on the degree-separated engine.
+"""Distributed full-graph GNN training on the degree-separated engine
+(GCN, the MeshGraphNet family and MACE).
 
 The paper's computation/communication model carried to GNN training:
 node states live partitioned (normals) + replicated (delegates); every
@@ -28,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import comm, engine as E
+from repro_torch.models import equivariant as EQ
 from repro_torch.models.gnn import layer_params, mlp
 from repro_torch.train.trainer import value_and_grad
 from repro_torch.tree import tree_map
@@ -139,6 +141,89 @@ def dist_mgn_loss(cfg, params, pgl, plan, batch, mesh=None, residual=False):
     total = _global_sum(se, pgl, mesh)
     count = _global_sum(cnt, pgl, mesh) * out_n.shape[-1]
     return total / torch.clamp(count, min=1.0)
+
+
+# -------------------------------------------------------- MACE distributed
+def dist_mace_loss(cfg, params, pgl, plan, batch, mesh=None):
+    """The squared error of the total energy: the partitions' energies
+    (:func:`dist_mace_energies`) summed over the partitions, against
+    ``batch["target_energy"]``."""
+    e_part = dist_mace_energies(cfg, params, pgl, plan, batch, mesh)
+    return (_global_sum(e_part, pgl, mesh) - batch["target_energy"][0]) ** 2
+
+
+def dist_mace_energies(cfg, params, pgl, plan, batch, mesh=None):
+    """Equivariant message passing over the partitioned graph: each
+    partition's energy, ``[rows]`` (its normal atoms' energies plus the
+    replicated delegates' divided by ``p``, so the partitions' sum is the
+    total energy). Node payload
+    for the endpoint fetch = ``[positions (3) | flattened irreps]``;
+    ``cfg.dist_fetch_pos_only`` fetches the destinations' positions only
+    (messages read nothing else of them), ``cfg.dist_msg_dtype`` carries
+    the messages and their partials (bfloat16 halves the all_to_all and
+    the delegate sum)."""
+    c = cfg.d_hidden
+    dims = EQ.IRREP_DIMS
+
+    def flatten_h(h):
+        return torch.cat([h[l].reshape(*h[l].shape[:-2], -1)
+                          for l in sorted(dims)], -1)
+
+    def unflatten_h(x):
+        out, o = {}, 0
+        for l in sorted(dims):
+            sz = c * dims[l]
+            out[l] = x[..., o:o + sz].reshape(*x.shape[:-1], c, dims[l])
+            o += sz
+        return out
+
+    pos_n, pos_d = batch["pos_n"], batch["pos_d"]
+    h_n = EQ.species_features(cfg, params, batch["spec_n"])
+    h_d = EQ.species_features(cfg, params, batch["spec_d"])
+    valid = E.edge_valid_masks(pgl)
+    energy_n = pos_n.new_zeros(pos_n.shape[:2], dtype=torch.float32)
+    energy_d = pos_d.new_zeros(pos_d.shape[:2], dtype=torch.float32)
+    for i in range(cfg.n_layers):
+        lp = params["layers"][f"layer{i}"]
+        pay_n = torch.cat([pos_n, flatten_h(h_n)], -1)
+        pay_d = torch.cat([pos_d, flatten_h(h_d)], -1)
+        ep = E.edge_endpoints(
+            pgl, plan, pay_n, pay_d, mesh,
+            dst=(pos_n, pos_d) if cfg.dist_fetch_pos_only else None)
+        msgs = {}
+        for k in SUBGRAPHS:
+            src, dst = ep[k]
+            ys, rbf = EQ.edge_geometry(cfg, src[..., :3] - dst[..., :3],
+                                       valid[k])
+            m = EQ.edge_messages(cfg, lp, i, unflatten_h(src[..., 3:]), ys,
+                                 rbf)
+            mk = flatten_h(m) * valid[k][..., None].to(cfg.dtype)
+            msgs[k] = mk.to(cfg.dist_msg_dtype)
+        agg_n, agg_d = E.aggregate_messages(pgl, plan, msgs, mesh=mesh)
+        h_n, en = EQ.node_update(lp, h_n, unflatten_h(agg_n.to(cfg.dtype)))
+        h_d, ed = EQ.node_update(lp, h_d, unflatten_h(agg_d.to(cfg.dtype)))
+        energy_n = energy_n + en
+        energy_d = energy_d + ed
+    return ((energy_n * batch["mask_n"].float()).sum(-1)
+            + (energy_d * batch["mask_d"].float()).sum(-1) / pgl.p)
+
+
+def mace_round_bytes(cfg, plan, *, axis_sizes, d: int) -> dict:
+    """Static per-device wire bytes of one :func:`dist_mace_loss` layer
+    (:func:`repro_torch.core.engine.payload_round_bytes`' model):
+    ``"fetch"``, the nn destinations' payload (positions and irreps, or
+    positions only under ``dist_fetch_pos_only``, float32); ``"delegate"``
+    and ``"nn"``, the aggregation of the ``9 C``-wide messages in
+    ``dist_msg_dtype``."""
+    width = sum(cfg.d_hidden * m for m in EQ.IRREP_DIMS.values())
+    fetch = E.payload_round_bytes(
+        plan, axis_sizes=axis_sizes, d=d,
+        feat=3 if cfg.dist_fetch_pos_only else 3 + width)
+    agg = E.payload_round_bytes(
+        plan, axis_sizes=axis_sizes, d=d, feat=width,
+        itemsize=torch.empty((), dtype=cfg.dist_msg_dtype).element_size())
+    return {"fetch": fetch["nn_payload_bytes"],
+            "delegate": agg["delegate_bytes"], "nn": agg["nn_payload_bytes"]}
 
 
 # ------------------------------------------------------------ step builders

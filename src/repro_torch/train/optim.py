@@ -24,8 +24,11 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """``tree`` scaled by ``min(1, max_norm / norm)``, and ``norm``: its
+    own :func:`global_norm` unless given (a sharded tree's norm is the
+    world's)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 

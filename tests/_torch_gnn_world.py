@@ -1,18 +1,19 @@
-"""World function of the sharded GNN training test, and the runs it is
-held against.
+"""World functions of the sharded GNN training tests, and the runs they
+are held against.
 
 Every rank of a spawned world (``repro_torch.core.comm.dist.spawn``)
 builds the same graph and batch, keeps its own partition's rows, and runs
-the distributed GCN and MeshGraphNet training steps over its mesh (the
-differentiable collectives carry the backward); the parent runs the same
-steps emulated (:func:`run_cases` with ``mesh=None``). Port imports only:
-a spawned rank imports no JAX."""
+the distributed GCN and MeshGraphNet training steps (:func:`gnn_world`)
+or the distributed MACE loss and a train step (:func:`mace_world`) over
+its mesh (the differentiable collectives carry the backward); the parent
+runs the same steps emulated (:func:`run_cases` / :func:`mace_cases` with
+``mesh=None``). Port imports only: a spawned rank imports no JAX."""
 import numpy as np
 
 from repro_torch.core import bfs as B, comm as C, convert, engine as E
 from repro_torch.core.partition import partition_graph
 from repro_torch.graphs.synthetic import cora_like
-from repro_torch.models import gnn as G
+from repro_torch.models import equivariant as EQ, gnn as G
 from repro_torch.models.common import materialize
 from repro_torch.train import gnn_batches as GB, gnn_dist as GD
 from repro_torch.train.optim import SGD, AdamW
@@ -83,3 +84,40 @@ def gnn_world(rank: int, world: int, spec: dict) -> dict:
     """Both training runs on this rank's partition, over a gloo mesh."""
     mesh = C.dist.PartitionMesh(AXES, spec["sizes"])
     return run_cases(spec, "cpu", mesh)
+
+
+#: MACE over the same graph: atoms at seeded positions and species, the
+#: reference test's small config, both fetch variants in float32
+MACE = dict(d_hidden=4, n_rbf=4, n_species=5, target=0.5, lr=1e-2)
+
+
+def mace_cases(spec: dict, device="cpu", mesh=None) -> dict:
+    """The distributed MACE loss and one AdamW step from seeded
+    parameters, with the full fetch and the positions-only fetch; returns
+    each variant's loss before the step and parameters after it, numpy."""
+    g, _, _, _, pg, pgv, plan, _, part = views(spec, device, mesh)
+    rng = np.random.default_rng(1)
+    pos = rng.normal(size=(g.n, 3)).astype(np.float32) * 2
+    species = rng.integers(0, MACE["n_species"], g.n).astype(np.int32)
+    batch = GB.batch_to_device(GB.mace_batch(pg, pos, species,
+                                             MACE["target"]), device, part)
+    out = {}
+    for pos_only in (False, True):
+        cfg = EQ.MACEConfig(n_layers=2, d_hidden=MACE["d_hidden"],
+                            n_rbf=MACE["n_rbf"], n_species=MACE["n_species"],
+                            dist_fetch_pos_only=pos_only)
+        params = materialize(EQ.mace_param_specs(cfg), 2, device)
+        loss_fn = lambda prm, bt: GD.dist_mace_loss(cfg, prm, pgv, plan, bt,
+                                                    mesh)
+        opt = AdamW(lr=MACE["lr"])
+        step = GD.make_dist_train_step(loss_fn, opt, mesh)
+        params, _, loss = step(params, opt.init(params), batch)
+        out["pos_only" if pos_only else "full"] = {
+            "loss": float(loss), "params": convert.tree_to_numpy(params)}
+    return out
+
+
+def mace_world(rank: int, world: int, spec: dict) -> dict:
+    """:func:`mace_cases` on this rank's partition, over a gloo mesh."""
+    mesh = C.dist.PartitionMesh(AXES, spec["sizes"])
+    return mace_cases(spec, "cpu", mesh)

@@ -249,3 +249,152 @@ def test_unknown_strategy_is_a_value_error():
         TC.CommConfig(delegate="bogus")
     with pytest.raises(ValueError):
         TC.CommConfig(nn="bogus")
+
+
+# ------------------------------------------- the seed-era entry points (A14)
+#: one emulated axis "p", and two: the reference's nested vmap over
+#: ("outer", "inner"), the port's rows stacked row-major over both
+AXES = {"one axis": {"p": 4}, "two axes": {"outer": 2, "inner": 2}}
+
+
+def ref_vmap(fn, x, axes: dict):
+    """``fn`` of each partition's slice of ``x [p, ...]`` under the
+    reference's vmap over ``axes`` (nested for two axes)."""
+    names = tuple(axes)
+    if len(names) == 1:
+        return np.asarray(jax.vmap(lambda v: fn(v, names[0]),
+                                   axis_name=names[0])(jnp.asarray(x)))
+    sizes = tuple(axes.values())
+    inner = jax.vmap(lambda v: fn(v, names), axis_name=names[1])
+    out = jax.vmap(inner, axis_name=names[0])(
+        jnp.asarray(x).reshape(sizes + x.shape[1:]))
+    return np.asarray(out).reshape((-1,) + np.asarray(out).shape[2:])
+
+
+@pytest.mark.parametrize("axes", list(AXES), ids=list(AXES))
+def test_delegate_allreduce_or_is_bitwise_or(axes):
+    """Twin of ``tests/test_msbfs.py::test_delegate_allreduce_or_is_bitwise_or``."""
+    axes = AXES[axes]
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 2**32, (4, 9, 2), dtype=np.uint32)
+    want = np.bitwise_or.reduce(words, axis=0)
+    ref = ref_vmap(lambda v, a: RC.delegate_allreduce_or(v, a), words, axes)
+    got = u32(TC.delegate_allreduce_or(torch.from_numpy(words.view(np.int32)),
+                                       axes))
+    for k in range(4):          # replicated result on every partition
+        np.testing.assert_array_equal(got[k], want)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("axes", list(AXES), ids=list(AXES))
+def test_exchange_words_transposes_peer_blocks(axes):
+    """Twin of ``tests/test_msbfs.py::test_exchange_words_transposes_peer_blocks``."""
+    axes = AXES[axes]
+    p, cap, nw = 4, 2, 1
+    words = np.arange(p * p * cap * nw, dtype=np.uint32).reshape(p, p * cap, nw)
+    want = words.reshape(p, p, cap, nw).transpose(1, 0, 2, 3).reshape(
+        p, p * cap, nw)
+    ref = ref_vmap(lambda v, a: RC.exchange_words(v, a), words, axes)
+    got = u32(TC.exchange_words(torch.from_numpy(words.view(np.int32)), axes))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ref)
+
+
+DELEGATE_CFGS = [dict(delegate="allgather"), dict(delegate="ring"),
+                 dict(delegate="hier"), dict(delegate="auto")]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("axes", list(AXES), ids=list(AXES))
+def test_delegate_or_strategies_bit_exact(axes, seed):
+    """Twin of ``tests/test_comm_strategies.py``'s
+    ``test_delegate_or_strategies_bit_exact_vmap`` (one axis) and
+    ``..._two_axis_emulated`` (two): every strategy's seed-era OR
+    all-reduce equals numpy's OR and the reference's, every partition."""
+    axes = AXES[axes]
+    rng = np.random.default_rng(seed)
+    rows, nw = int(rng.integers(1, 10)), int(rng.integers(1, 4))
+    words = rng.integers(0, 2**32, (4, rows, nw), dtype=np.uint32)
+    want = np.bitwise_or.reduce(words, axis=0)
+    for cfg in DELEGATE_CFGS:
+        ref = ref_vmap(lambda v, a: RC.delegate_allreduce_or(
+            v, a, RC.CommConfig(**cfg)), words, axes)
+        got = u32(TC.delegate_allreduce_or(
+            torch.from_numpy(words.view(np.int32)), axes, TC.CommConfig(**cfg)))
+        for k in range(4):
+            np.testing.assert_array_equal(got[k], want, err_msg=str(cfg))
+        np.testing.assert_array_equal(got, ref, err_msg=str(cfg))
+
+
+@pytest.mark.parametrize("axes", list(AXES), ids=list(AXES))
+def test_delegate_allreduce_min_matches_reference(axes):
+    """The level-candidate min under every strategy (the default: the
+    native min), int32 with the 2**30 identity, against numpy's min and
+    the reference's ``delegate_allreduce_min``."""
+    axes = AXES[axes]
+    rng = np.random.default_rng(3)
+    cand = np.where(rng.random((4, 33)) < 0.4, rng.integers(1, 9, (4, 33)),
+                    2**30).astype(np.int32)
+    for cfg in [None] + DELEGATE_CFGS:
+        rcfg = None if cfg is None else RC.CommConfig(**cfg)
+        tcfg = None if cfg is None else TC.CommConfig(**cfg)
+        ref = ref_vmap(lambda v, a: RC.delegate_allreduce_min(v, a, rcfg),
+                       cand, axes)
+        got = TC.delegate_allreduce_min(torch.from_numpy(cand), axes,
+                                        tcfg).numpy()
+        np.testing.assert_array_equal(got, np.broadcast_to(cand.min(0),
+                                                           cand.shape))
+        np.testing.assert_array_equal(got, ref, err_msg=str(cfg))
+
+
+@pytest.mark.parametrize("axes", list(AXES), ids=list(AXES))
+def test_codec_names_at_package_level_match_reference(axes):
+    """The codec's names re-exported by ``comm`` (as the reference's
+    ``core/comm/__init__.py`` does): host encoders byte for byte, the
+    stream byte counts, and the compressed wire bytes on one and two
+    emulated axes."""
+    axes = AXES[axes]
+    rng = np.random.default_rng(7)
+    mask = rng.random(300) < 0.1
+    ids = np.flatnonzero(mask)
+    for name in ("rle_encode", "delta_encode_ids"):
+        arg = mask if name == "rle_encode" else ids
+        np.testing.assert_array_equal(getattr(TC, name)(arg),
+                                      np.asarray(getattr(RC, name)(arg)))
+    np.testing.assert_array_equal(
+        TC.rle_decode(TC.rle_encode(mask), mask.size), mask)
+    np.testing.assert_array_equal(
+        TC.delta_decode_ids(TC.delta_encode_ids(ids)), ids)
+    act = rng.random((4, 4, 97)) < rng.random((4, 4, 1)) * 0.6
+    for name in ("rle_stream_bytes", "delta_stream_bytes"):
+        np.testing.assert_array_equal(
+            getattr(TC, name)(torch.from_numpy(act[0])).numpy(),
+            np.asarray(getattr(RC, name)(jnp.asarray(act[0]))))
+    ref = [ref_vmap(lambda a, names: RC.compressed_wire_bytes(
+        RC.plan_for(RC.CommConfig(nn="compressed"), names), a, 1)[k],
+        act, axes) for k in (0, 1)]
+    got = TC.compressed_wire_bytes(
+        TC.plan_for(TC.CommConfig(nn="compressed"), axes),
+        torch.from_numpy(act), 1)
+    for g, w in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_comm_exports_cover_the_reference():
+    """The port's ``comm.__all__`` covers the reference's, less the
+    JAX-only axis helpers; each name resolves."""
+    jax_only = {"AxisNames", "as_axes", "axis_size"}
+    missing = set(RC.__all__) - jax_only - set(TC.__all__)
+    assert not missing, missing
+    for name in TC.__all__:
+        assert getattr(TC, name) is not None, name
+
+
+def test_plan_for_binds_emulated_axes():
+    plan = TC.plan_for(TC.CommConfig(delegate="hier"), {"outer": 2, "inner": 3})
+    assert (plan.axes, plan.sizes, plan.p, plan.mesh) == (
+        ("outer", "inner"), (2, 3), 6, None)
+    ref = RC.CommPlan(RC.CommConfig(delegate="hier"), ("outer", "inner"),
+                      (2, 3))
+    for op in ("or", "min", "sum"):
+        assert plan.delegate_bytes(50, 4, op) == ref.delegate_bytes(50, 4, op)

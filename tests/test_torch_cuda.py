@@ -1570,3 +1570,72 @@ def test_gcn_train_step_on_card_equals_cpu(card, opt_name):
     want = dict(flatten_with_path(t0))
     for k, v in flatten_with_path(t1):
         np.testing.assert_allclose(v, want[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_sharded_recsys_step_world1_nccl_equals_one_card(card):
+    """The sharded xDeepFM step (cold rows through the variable
+    all-to-alls, the replicated leaves' all-reduce, the global clip) on a
+    world of one rank under NCCL, in a spawned process, equals the
+    one-card step after 3 AdamW steps, on SMOKE, on the ragged copy and
+    with a clip below the gradient norm: losses rtol 1e-5, parameters
+    rtol 1e-4, atol 1e-6 (float32 scatter-adds summed in another order by
+    the card's atomics)."""
+    import _torch_recsys_world as RW
+    names = ("smoke", "ragged", "clip")
+    (res,) = TC.dist.spawn(RW.one_rank_world, 1, (names,),
+                           backend="nccl", timeout=240)
+    for name in names:
+        got, want = res[(name, "sharded")], res[(name, "one_card")]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+        for k, v in want["params"].items():
+            np.testing.assert_allclose(got["params"][k], v, rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("d_hidden", [8, 32])
+def test_mace_on_card_equals_cpu(card, d_hidden):
+    """MACE's loss and every gradient leaf on the card equal the CPU's
+    (molecule_batch(3, 30, 64, 10)): the loss within rtol 1e-5, each leaf
+    within 1e-4 of its largest |g| (float32 sums in another order; TF32
+    off), unreached leaves 0 on both; and the distributed loss over 2
+    emulated partitions on the card equals the CPU's, with the full and
+    the positions-only fetch, within rtol 1e-5."""
+    from repro_torch.core.types import COOGraph
+    from repro_torch.graphs.synthetic import molecule_batch
+    from repro_torch.models import equivariant as EQ, gnn as G
+    from repro_torch.models.common import materialize
+    from repro_torch.train import gnn_batches as GB, gnn_dist as GD
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = EQ.MACEConfig(n_layers=2, d_hidden=d_hidden, n_rbf=8, n_species=10)
+    gb, energies = molecule_batch(3, 30, 64, 10, seed=2)
+    valid = gb.senders < gb.nodes.shape[0]
+    pg = partition_graph(COOGraph(gb.nodes.shape[0],
+                                  gb.senders[valid].astype(np.int64),
+                                  gb.receivers[valid].astype(np.int64)),
+                         th=5, p_rank=1, p_gpu=2)
+    hplan = TE.build_exchange_plan(pg)
+    out = {}
+    for dev in ("cpu", card):
+        params = materialize(EQ.mace_param_specs(cfg), 0, dev)
+        b = G.batch_to(gb, dev)
+        e = torch.from_numpy(energies).to(dev)
+        loss, grads = value_and_grad(lambda p: EQ.mace_loss(cfg, p, b, e),
+                                     params)
+        pgv, plan = TB.device_view(pg, dev), TE.device_plan(hplan, dev)
+        batch = GB.batch_to_device(GB.mace_batch(pg, gb.positions, gb.species,
+                                                 1.0), dev)
+        with torch.no_grad():
+            dist = [float(GD.dist_mace_loss(
+                EQ.MACEConfig(**{**vars(cfg), "dist_fetch_pos_only": po}),
+                params, pgv, plan, batch)) for po in (False, True)]
+        out[str(dev)] = (float(loss), dict(flatten_with_path(
+            convert.tree_to_numpy(grads))), dist)
+    (l0, g0, d0), (l1, g1, d1) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    np.testing.assert_allclose(d1, d0, rtol=1e-5)
+    for k, want in g0.items():
+        top = float(np.abs(want).max())
+        assert float(np.abs(g1[k] - want).max()) <= 1e-4 * top, k

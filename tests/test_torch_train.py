@@ -372,5 +372,5 @@ def test_gnn_configs_match_reference():
             same(mod.model_for_shape(shape), rmod.model_for_shape(shape))
         assert TCB.get_arch(mod.CONFIG.name) is mod.CONFIG
         assert mod.CONFIG.optimizer == RCB.get_arch(mod.CONFIG.name).optimizer
-    assert {"gcn-cora", "graphcast", "meshgraphnet", "xdeepfm"} <= set(
-        TCB.all_archs())
+    assert {"gcn-cora", "graphcast", "meshgraphnet", "xdeepfm", "mace",
+            "mace-opt"} <= set(TCB.all_archs())
