@@ -187,8 +187,10 @@
    then a two-query stream; the plane's exported trace must parse as
    Chrome JSON and hold every name of ``OBS_EVENTS``.
 13. Multi-tenant frontend (``ServeFrontend``): the main partition and a
-   relabelled copy (``v -> (v + p) % n``, partitioned here: about 46 s of
-   host time), W = 32, engines sharing one graph memory pool
+   relabelled copy (``v -> (v + p) % n``; its partition, about 30 s of
+   host time, is built by a spawned process beside 11, as the tailed
+   graph's of 14 is beside 16), W = 32, engines sharing one graph memory
+   pool
    (``memory_reserved`` printed after each engine's captures); four
    tenants (a latency- and a throughput-class one on each graph), 16
    queries each (5 / 5 / 5 / 1 of the bit kinds) in chunks of 4, round
@@ -252,15 +254,15 @@
    1e-4, atol 1e-5.
 16. The entry points (run after 15, before 14), each in a subprocess
    with its exit code checked and its output parsed:
-   ``examples/torch_quickstart.py`` at scale 16 (every source
+   ``examples/torch_quickstart.py`` at scale 14 (every source
    ``match=OK``, the memory ratios); ``examples/torch_bfs_serving.py
-   --mixed --refill --overlap --trace --profile`` at scale 16, 120
+   --mixed --refill --overlap --trace --profile`` at scale 14, 120
    requests (answers held against the oracle, the trace and metrics files
    written, the calibration artifact parses and was taken on the card, no
-   nn slot dropped); ``examples/torch_distributed_bfs.py`` at scale 16,
+   nn slot dropped); ``examples/torch_distributed_bfs.py`` at scale 14,
    ``--mesh 1,1 --backend nccl`` and ``--mesh 1,2 --backend gloo`` (two
    ranks sharing the card), every answer the oracle's;
-   ``scripts/torch_profile_sweep.py`` at scale 16 over delegate {auto,
+   ``scripts/torch_profile_sweep.py`` at scale 14 over delegate {auto,
    ring} x nn {dense} x block {4, 8}, whose exact counters must equal the
    same matrix run in this process on the CPU.
 17. The CIN backward kernels (``cin_fused_bwd_w``, ``cin_fused_bwd_x``)
@@ -305,11 +307,34 @@
    full fetch, its bfloat16 messages' per-partition energies within
    2^-13 of float32's, wire bytes per round of both; one step profiled
    (busy share, largest operators).
-21. Prints one JSON line describing every kernel, then, last, the device
+21. The LM stack (run after 20, before 14; TF32 off; no kernel of the
+   port is on its path: the launch counts over the phase must all be 0).
+   (a) The five smoke LM configs in float32, on the card against the
+   same weights on the CPU: logits within 1e-5 + 1e-4 |logit|,
+   ``loss_fn``'s gradients each leaf within 1e-3 of its max |g|, and
+   ``prefill(last_only=True)`` of a 12-token prompt plus 8 greedy decode
+   steps give equal tokens. (b) ``gemma3-1b`` FULL (26 layers, bfloat16,
+   weights drawn on the card): prefill of 4 prompts of 4,096
+   (``last_only``; banded on the 22 window layers, chunked on the 4 global
+   ones), 64 greedy decode steps (``max_seq`` 4,160, 1,024-slot rings):
+   prefill ms and tokens/s, decode ms a step (median, CUDA events) and
+   tokens/s, peak memory, one decode step and one prefill profiled (busy
+   share, largest operators); then in float32 at B = 1, ``prefill`` of 4,100 tokens (last
+   position) against the 4th decode step after a prefill of 4,096, within
+   1e-3 of the largest |logit|. (c) ``qwen2-moe-a2.7b`` at FULL widths,
+   depth cut from 24 layers to 4 (set-up time): prefill of 4 x 2,048
+   (capacity 688 a layer; the share of (token, slot) pairs dropped), 32
+   greedy decode steps: tokens/s, peak memory. (d) ``gemma3-1b`` FULL on
+   ``train_4k`` through the launcher's step builder (AdamW; S = 4,096, B
+   cut from 256 to 1, one batch repeated, the optimizer from step 100): 2
+   warm-up and 3 timed steps, ms a step, tokens/s, peak memory, the loss
+   falls, one step profiled; then ``python -m repro_torch.launch.train --arch
+   qwen2-moe-a2.7b --smoke --steps 6`` in a subprocess, rc 0.
+22. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
 Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory,obs,
-frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace`` (those
+frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace,lm`` (those
 phases alone, on the same inputs; ``sharded`` is 7 after the main serving
 run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
 ``memory`` is 11 after the 64-query serving run it holds (c) against,
@@ -317,7 +342,7 @@ run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
 after its obs-off overlap run, ``frontend`` is 13, ``gnn`` is 15 on a
 fresh scale-20 partition, ``examples``, ``cin_bwd`` and ``recsys_train``
 are 16-18; with both of the last two, the kernels line of the two
-backward kernels; ``recsys_shard`` and ``mace`` are 19-20).
+backward kernels; ``recsys_shard``, ``mace`` and ``lm`` are 19-21).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -1540,20 +1565,28 @@ def lookahead_phase(eng, queries, sync_stats: dict) -> None:
           f"sweep_blocks={st['sweep_blocks']}")
 
 
-def refill_engine(g):
-    """The refill path's engine on the tailed graph, warmed up with its
-    blocks captured (the stream's too); returns ``(gt, tips, eng,
-    queries)``."""
+def tailed_graph(g):
+    """The refill path's graph: ``g`` with N_TAILS tails of TAIL_LEN
+    (``with_tails``, seed 5); returns ``(graph, tips)``."""
+    from repro_torch.graphs.synthetic import with_tails
+
+    return with_tails(g, n_tails=N_TAILS, length=TAIL_LEN, seed=5)
+
+
+def refill_engine(g, pg=None):
+    """The refill path's engine on the tailed graph (its partition ``pg``
+    where given, as :class:`HostPartitions` builds it; else partitioned
+    here), warmed up with its blocks captured (the stream's too); returns
+    ``(gt, tips, eng, queries)``."""
     import torch
     from repro_torch.core import msbfs as M
-    from repro_torch.graphs.synthetic import with_tails
     from repro_torch.serve import BFSServeEngine, Query, QueryKind as K
 
     t0 = time.perf_counter()
-    gt, tips = with_tails(g, n_tails=N_TAILS, length=TAIL_LEN, seed=5)
+    gt, tips = tailed_graph(g)
     tips = [int(t) for t in tips]
     cfg = M.MSBFSConfig(n_queries=32, max_iters=REFILL_MAX_ITERS)
-    eng = BFSServeEngine(gt, th=TH, p_rank=P_RANK, p_gpu=P_GPU, cfg=cfg,
+    eng = BFSServeEngine(gt, pg=pg, th=TH, p_rank=P_RANK, p_gpu=P_GPU, cfg=cfg,
                          cache_capacity=0, reuse_components=False,
                          refill=True, overlap=True, sweep_block=SWEEP_BLOCK,
                          device=DEVICE)
@@ -1567,7 +1600,8 @@ def refill_engine(g):
     eng.drain_stream()                       # captures the stream's block
     torch.cuda.synchronize()
     print(f"refill setup: with_tails({N_TAILS}, {TAIL_LEN}) n={gt.n} "
-          f"m={gt.m}, partition+plan+upload {t_setup:.1f} s; warm-up with "
+          f"m={gt.m}, {'plan+upload (partitioned in the background)' if pg is not None else 'partition+plan+upload'} "
+          f"{t_setup:.1f} s; warm-up with "
           f"captures {time.perf_counter() - t0:.1f} s; "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} B "
           f"memory_reserved={torch.cuda.memory_reserved()} B; "
@@ -1575,8 +1609,9 @@ def refill_engine(g):
     return gt, tips, eng, queries
 
 
-def refill_path(g, obs=None) -> None:
-    """The tailed scale-20 graph served four ways (batch, sync refill,
+def refill_path(g, obs=None, pg=None) -> None:
+    """The tailed scale-20 graph (partitioned as ``pg`` where given)
+    served four ways (batch, sync refill,
     overlap, stream), each warmed up; answers held against the oracle and
     across drivers, sync and overlap counters held equal, one pull and one
     fold launch per executed sweep (graph replays counted); with ``obs``,
@@ -1589,7 +1624,7 @@ def refill_path(g, obs=None) -> None:
     from repro_torch.core import oracle as O
     from repro_torch.serve import QueryKind as K
 
-    gt, tips, eng, queries = refill_engine(g)
+    gt, tips, eng, queries = refill_engine(g, pg)
     runs = {}
     for mode in ("batch", "sync", "overlap", "stream"):
         torch.cuda.reset_peak_memory_stats()
@@ -1979,10 +2014,20 @@ def frontend_seq(ft, tenants: dict, tag: str) -> dict:
     return answers
 
 
-def frontend_path(g, pg, csr) -> dict:
+def frontend_graph(g):
+    """The frontend's second graph: ``g`` relabelled ``v -> (v + p) %
+    n``."""
+    from repro_torch.core.types import COOGraph
+
+    return COOGraph(g.n, (g.src + FRONTEND_SHIFT) % g.n,
+                    (g.dst + FRONTEND_SHIFT) % g.n)
+
+
+def frontend_path(g, pg, csr, pg2=None) -> dict:
     """The multi-tenant frontend over two scale-20 graphs: the main
-    partition and a relabelled copy (``v -> (v + p) % n``, partitioned
-    here), engines at W = 32 (refill, overlap, ``sweep_block=8``, no
+    partition and a relabelled copy (``v -> (v + p) % n``; its partition
+    ``pg2`` where given, as :class:`HostPartitions` builds it, else
+    partitioned here), engines at W = 32 (refill, overlap, ``sweep_block=8``, no
     component reuse) sharing one runner cache -- one graph memory pool,
     whose ``memory_reserved`` is printed after each engine's captures.
     Four tenants (:func:`tenant_traffic`) multiplexed (both graphs'
@@ -2000,7 +2045,6 @@ def frontend_path(g, pg, csr) -> dict:
     import torch
     from repro_torch.core import oracle as O
     from repro_torch.core.partition import partition_graph
-    from repro_torch.core.types import COOGraph
     from repro_torch.kernels import ops
     from repro_torch.obs import Observability, tenant_metric
     from repro_torch.serve import (Query, QueryKind as K, QuotaExceeded,
@@ -2008,9 +2052,10 @@ def frontend_path(g, pg, csr) -> dict:
                                    oracle_check)
 
     t0 = time.perf_counter()
-    g2 = COOGraph(g.n, (g.src + FRONTEND_SHIFT) % g.n,
-                  (g.dst + FRONTEND_SHIFT) % g.n)
-    pg2 = partition_graph(g2, th=TH, p_rank=P_RANK, p_gpu=P_GPU)
+    g2 = frontend_graph(g)
+    prebuilt = pg2 is not None
+    if pg2 is None:
+        pg2 = partition_graph(g2, th=TH, p_rank=P_RANK, p_gpu=P_GPU)
     t_part = time.perf_counter() - t0
     graphs = {"g1": (g, pg), "g2": (g2, pg2)}
     obs = Observability()
@@ -2042,7 +2087,9 @@ def frontend_path(g, pg, csr) -> dict:
                   for b in e.blocks.values()),
           "frontend: every engine's captured blocks in the one shared pool")
     views = [reserved[1] - reserved[0], reserved[3] - reserved[2]]
-    print(f"frontend setup: relabelled copy partitioned in {t_part:.1f} s; "
+    print(f"frontend setup: relabelled copy "
+          f"{'loaded (partitioned in the background)' if prebuilt else 'partitioned'}"
+          f" in {t_part:.1f} s; "
           f"engines, warm-ups and captures {t_setup:.1f} s; "
           f"memory_reserved: views g1 {gib(views[0])}, g2 {gib(views[1])}, "
           f"after g1's captures +{gib(reserved[2] - reserved[1])}, after "
@@ -4517,8 +4564,10 @@ CIN_BWD_TIME_REPS = 3                   # calls of ~0.1-0.3 s each
 #: recsys training: RECSYS_SHAPES["train_batch"], the check batch, steps
 TRAIN_BATCH, TRAIN_CHECK_BATCH = 65536, 4096
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 8, 1e-3
-#: the entry points, each in a subprocess
-EXAMPLE_SCALE, EXAMPLE_REQUESTS, EXAMPLE_TIMEOUT = 16, 120, 600
+#: the entry points, each in a subprocess; scale cut from 16 to 14 for the
+#: run's time when phase 21 (the LM stack) came (phase 16 took 109.5 s of
+#: the 820 s run at 16, 15.3 s of it the sweep matrix on the CPU)
+EXAMPLE_SCALE, EXAMPLE_REQUESTS, EXAMPLE_TIMEOUT = 14, 120, 600
 SWEEP_ARGS = ("--delegates", "auto", "ring", "--nn-formats", "dense",
               "--sweep-blocks", "4", "8")
 SWEEP_EXACT = ("sweeps", "sweep_blocks", "wire_delegate_bytes",
@@ -5504,7 +5553,447 @@ def mace_path() -> dict:
     return {"ms": med, "peak": peak, "busy": prof["busy_ms"] / prof["wall_ms"]}
 
 
+#: seconds a phase waits for its HostPartitions process (about 30 s of
+#: work, started a phase or more before)
+HOST_PARTITION_TIMEOUT = 600.0
+#: phase 21, the LM stack (all of it the port; no kernel of the port is on
+#: its path). (a) the five smoke configs, card against CPU, float32
+LM_ARCHS = ("gemma3-1b", "granite-34b", "kimi-k2-1t-a32b", "qwen2.5-14b",
+            "qwen2-moe-a2.7b")
+LM_SEED, LM_PARITY_PROMPT, LM_PARITY_STEPS = 0, 12, 8
+#: (b) gemma3-1b FULL serving (all 26 layers, bfloat16): B prompts of S,
+#: prefill timed LM_PREFILL_REPS times after a warm-up, then greedy decode;
+#: the float32 check at B = 1 decodes LM_CHECK_STEPS past a prefill of S
+LM_SERVE_BATCH, LM_SERVE_SEQ, LM_DECODE_STEPS = 4, 4096, 64
+LM_PREFILL_REPS, LM_CHECK_STEPS, LM_CHECK_REL = 2, 4, 1e-3
+#: (c) qwen2-moe-a2.7b FULL widths, depth cut from 24 layers to 4 for the
+#: phase's set-up time (the whole model is ~14.0 B parameters)
+MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_DECODE_STEPS = 4, 4, 2048, 32
+#: (d) gemma3-1b FULL on train_4k (S = 4,096), batch cut from 256 to 1,
+#: one TokenStream batch repeated; the optimizer state starts at the end of
+#: the schedule's 100 warm-up steps: within them AdamW's steps (3e-6 to
+#: 1.5e-5) are below half a bfloat16 unit of the weights (and 1 + w of the
+#: norms rounds to 1), so neither the weights nor the loss would move
+LM_TRAIN_BATCH, LM_TRAIN_WARMUP, LM_TRAIN_TIMED, LM_TRAIN_FROM = 1, 2, 3, 100
+
+
+def card_params(specs, seed: int):
+    """``materialize``'s initial values (zeros, ones, normal / sqrt(fan_in),
+    ``scale`` * normal) drawn on the card from a CUDA generator seeded
+    with ``seed``: a full config's weights without a host draw of each of
+    its parameters."""
+    import math
+
+    import torch
+    from repro_torch.models.common import is_spec
+    from repro_torch.tree import leaves, unflatten_like
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = []
+    for spec in leaves(specs, is_spec):
+        if spec.init in ("zeros", "ones"):
+            fill = torch.zeros if spec.init == "zeros" else torch.ones
+            out.append(fill(spec.shape, dtype=spec.dtype, device=DEVICE))
+            continue
+        t = torch.randn(spec.shape, generator=gen, device=DEVICE)
+        if spec.init == "scaled":
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+            t /= math.sqrt(fan_in)
+        else:
+            t *= spec.scale
+        out.append(t.to(spec.dtype))
+    return unflatten_like(specs, out, is_spec)
+
+
+def n_params(params) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() for t in leaves(params))
+
+
+def greedy(cfg, params, prompts, steps: int, max_seq: int) -> tuple:
+    """``prefill(last_only=True)`` then ``steps`` greedy decode steps, each
+    timed by CUDA events. Returns (tokens [B, steps + 1], the cache, ms a
+    step, the last step's input token)."""
+    import torch
+    from repro_torch.models import lm as TL
+
+    logits, cache = TL.prefill(cfg, params, prompts, max_seq, last_only=True)
+    tok, gen, ms = logits[:, -1].argmax(-1), [], []
+    s = prompts.shape[1]
+    for i in range(steps):
+        gen.append(tok)
+        (out, cache), t = events_ms(
+            lambda: TL.decode_step(cfg, params, cache, tok, s + i))
+        ms.append(t)
+        tok = out.argmax(-1)
+    return torch.stack(gen + [tok], 1), cache, ms, gen[-1]
+
+
+def lm_parity() -> None:
+    """21 (a): every smoke LM config in float32 on the card against the
+    same weights on the CPU (TF32 off): logits within LOGIT_ATOL +
+    LOGIT_RTOL |logit|, ``loss_fn``'s gradients each leaf within GRAD_REL
+    of its largest |g|, and prefill (``last_only``) plus LM_PARITY_STEPS
+    greedy decode steps giving equal tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm as TL
+    from repro_torch.models.common import materialize
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_map
+
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch).smoke
+        rng = np.random.default_rng(LM_SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 17)).astype(np.int32))
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, LM_PARITY_PROMPT)).astype(np.int32))
+        params = materialize(TL.lm_param_specs(cfg), LM_SEED, "cpu")
+        res = {}
+        for dev in ("cpu", DEVICE):
+            p = tree_map(lambda t: t.to(dev), params)
+            batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+            with torch.no_grad():
+                logits = TL.forward(cfg, p, batch["tokens"])[0].cpu()
+            (loss, _), grads = value_and_grad(
+                lambda q: TL.loss_fn(cfg, q, batch), p, has_aux=True)
+            logits_p, cache = TL.prefill(cfg, p, prompts.to(dev),
+                                         LM_PARITY_PROMPT + LM_PARITY_STEPS,
+                                         last_only=True)
+            tok, gen = logits_p[:, -1].argmax(-1), []
+            for i in range(LM_PARITY_STEPS):
+                gen.append(tok.cpu())
+                out, cache = TL.decode_step(cfg, p, cache, tok, LM_PARITY_PROMPT + i)
+                tok = out.argmax(-1)
+            res[dev] = (logits, float(loss), grads, torch.stack(gen + [tok.cpu()], 1))
+        (l0, s0, g0, t0), (l1, s1, g1, t1) = res["cpu"], res[DEVICE]
+        err = float(((l1 - l0).abs() / (LOGIT_ATOL + LOGIT_RTOL * l0.abs())).max())
+        check(err <= 1.0, f"lm (a) {arch}: logits on the card within "
+              f"{LOGIT_ATOL} + {LOGIT_RTOL} |logit| of the CPU's ({err:.3f} of it)")
+        diffs = grads_close(g1, g0, f"lm (a) {arch}")
+        check(torch.equal(t1, t0), f"lm (a) {arch}: greedy tokens equal "
+              f"({t1.tolist()} against {t0.tolist()})")
+        worst = max(e / s for s, e in diffs.values())
+        print(f"lm (a) {arch} smoke ({n_params(params):,} parameters): logits "
+              f"{err:.3f} of the bound; loss {s1:.6f} (CPU {s0:.6f}); worst "
+              f"gradient leaf {worst:.2e} of its max |g|; prefill + "
+              f"{LM_PARITY_STEPS} decode steps: tokens equal")
+
+
+def lm_serving_full() -> dict:
+    """21 (b): gemma3-1b FULL (26 layers, bfloat16): prefill of
+    LM_SERVE_BATCH prompts of LM_SERVE_SEQ (``last_only``; the banded path
+    on the 22 window layers, the chunked one on the 4 global layers),
+    LM_DECODE_STEPS greedy decode steps (1,024-slot rings); ms, tokens/s,
+    peak memory, one decode step and one prefill profiled; then, in
+    float32 at B = 1,
+    ``prefill`` of S + LM_CHECK_STEPS tokens (last position) against the
+    LM_CHECK_STEPS-th decode step after a prefill of S."""
+    import dataclasses
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm as TL
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch("gemma3-1b").model
+    b, s, steps = LM_SERVE_BATCH, LM_SERVE_SEQ, LM_DECODE_STEPS
+    params = card_params(TL.lm_param_specs(cfg), LM_SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    max_seq = s + steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    for _ in range(1 + LM_PREFILL_REPS):
+        (logits, cache), t = events_ms(
+            lambda: TL.prefill(cfg, params, prompts, max_seq, last_only=True))
+        prefill_ms.append(t)
+    check(tuple(logits.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "lm (b): prefill logits finite")
+    lens = [c["k"].shape[1] for c in cache]
+    rings = sum(not cfg.layer_is_global(i) for i in range(cfg.n_layers))
+    check(lens == [TL.cache_len(cfg, i, max_seq) for i in range(cfg.n_layers)]
+          and lens.count(cfg.window) == rings, f"lm (b): {rings} rings of "
+          f"{cfg.window}, the other caches {max_seq} long ({lens})")
+    toks, cache, step_ms, last_in = greedy(cfg, params, prompts, steps, max_seq)
+    peak = torch.cuda.max_memory_allocated()
+    pre = statistics.median(prefill_ms[1:])
+    dec = statistics.median(step_ms)
+    into: dict = {}
+    profile_run(lambda: TL.decode_step(cfg, params, cache, last_in, max_seq - 1),
+                lambda _: "lm (b) gemma3-1b decode step", (), into)
+    into.pop("out")
+    top = sorted(into["ops"].items(), key=lambda kv: -kv[1])[:4]
+    pre_prof: dict = {}
+    profile_run(lambda: TL.prefill(cfg, params, prompts, max_seq, last_only=True),
+                lambda _: "lm (b) gemma3-1b prefill", (), pre_prof)
+    pre_prof.pop("out")
+    print(f"lm (b) gemma3-1b FULL ({card_line()}; {n_params(params):,} "
+          f"parameters, bfloat16): prefill B={b} S={s} last_only "
+          f"{[round(t, 2) for t in prefill_ms]} ms (first: warm-up), "
+          f"{b * s / pre * 1e3:.0f} tokens/s; decode {steps} steps, "
+          f"median {dec:.3f} ms a step (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), {b / dec * 1e3:.1f} tokens/s; peak "
+          f"{gib(peak)}; profiled decode step: busy share "
+          f"{into['busy_ms'] / into['wall_ms']:.3f}, largest operators "
+          f"{[(k, round(v, 3)) for k, v in top]} ms; profiled prefill: busy "
+          f"share {pre_prof['busy_ms'] / pre_prof['wall_ms']:.3f}; tokens of "
+          f"prompt 0 {toks[0, :8].tolist()}")
+    # float32 at B = 1: the decode path against a longer prefill
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params, cache
+    extra = torch.randint(0, cfg.vocab, (1, LM_CHECK_STEPS), generator=gen,
+                          device=DEVICE)
+    seq = torch.cat([prompts[:1], extra], 1)
+    n = s + LM_CHECK_STEPS
+    want, _ = TL.prefill(cfg32, p32, seq, n, last_only=True)
+    _, c = TL.prefill(cfg32, p32, seq[:, :s], n, last_only=True)
+    for j in range(LM_CHECK_STEPS):
+        got, c = TL.decode_step(cfg32, p32, c, seq[:, s + j], s + j)
+    scale = float(want.abs().max())
+    err = float((got - want[:, 0]).abs().max())
+    check(math.isfinite(scale) and err <= LM_CHECK_REL * scale,
+          f"lm (b): float32 decode step {LM_CHECK_STEPS} within "
+          f"{LM_CHECK_REL} x {scale:.3f} of the prefill of {n} ({err:.3e})")
+    print(f"lm (b) float32 check, B=1: prefill of {n} tokens (last position) "
+          f"against decode step {LM_CHECK_STEPS} after a prefill of {s}: max "
+          f"|diff| {err:.3e} of max |logit| {scale:.3f} ({err / scale:.2e}, "
+          f"bound {LM_CHECK_REL})")
+    return {"prefill_ms": pre, "decode_ms": dec, "peak": peak,
+            "busy": into["busy_ms"] / into["wall_ms"]}
+
+
+def lm_moe_full() -> dict:
+    """21 (c): qwen2-moe-a2.7b at FULL widths, MOE_LAYERS of its 24 layers
+    (bfloat16): prefill of MOE_BATCH x MOE_SEQ (``last_only``; the warm-up
+    counts the (token, slot) pairs dropped at capacity), then
+    MOE_DECODE_STEPS greedy decode steps: tokens/s, peak memory."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm as TL, moe as M
+
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").model,
+                              n_layers=MOE_LAYERS)
+    b, s = MOE_BATCH, MOE_SEQ
+    params = card_params(TL.lm_param_specs(cfg), LM_SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    max_seq = s + MOE_DECODE_STEPS
+    routed = []
+    dispatch = M.dispatch
+
+    def counting(top_i, top_w, cap, e_pad):
+        tok, w = dispatch(top_i, top_w, cap, e_pad)
+        routed.append(((tok >= 0).sum(), top_i.numel(), cap))
+        return tok, w
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    M.dispatch = counting
+    try:
+        (logits, _), warm = events_ms(
+            lambda: TL.prefill(cfg, params, prompts, max_seq, last_only=True))
+    finally:
+        M.dispatch = dispatch
+    check(len(routed) == MOE_LAYERS and bool(torch.isfinite(logits).all()),
+          "lm (c): one routing a layer, finite logits")
+    kept = sum(int(k) for k, _, _ in routed)
+    pairs = sum(n for _, n, _ in routed)
+    caps = sorted({c for _, _, c in routed})
+    prefill_ms = [events_ms(lambda: TL.prefill(cfg, params, prompts, max_seq,
+                                               last_only=True))[1]
+                  for _ in range(LM_PREFILL_REPS)]
+    toks, _, step_ms, _ = greedy(cfg, params, prompts, MOE_DECODE_STEPS, max_seq)
+    peak = torch.cuda.max_memory_allocated()
+    pre, dec = statistics.median(prefill_ms), statistics.median(step_ms)
+    print(f"lm (c) qwen2-moe-a2.7b FULL widths, {MOE_LAYERS} of 24 layers "
+          f"({card_line()}; {n_params(params):,} parameters, bfloat16): "
+          f"prefill B={b} S={s} last_only {[round(t, 2) for t in prefill_ms]} "
+          f"ms (warm-up {warm:.2f}), {b * s / pre * 1e3:.0f} tokens/s; "
+          f"capacity {caps} of {b * s} tokens a layer, {pairs - kept} of "
+          f"{pairs} (token, slot) pairs dropped ({(pairs - kept) / pairs:.4f});"
+          f" decode {MOE_DECODE_STEPS} steps median {dec:.3f} ms a step, "
+          f"{b / dec * 1e3:.1f} tokens/s; peak {gib(peak)}; tokens of prompt "
+          f"0 {toks[0, :8].tolist()}")
+    return {"prefill_ms": pre, "decode_ms": dec, "peak": peak,
+            "dropped": (pairs - kept) / pairs}
+
+
+def lm_train_full() -> dict:
+    """21 (d): gemma3-1b FULL on ``train_4k`` through the launcher's step
+    builder (AdamW, ``cosine_schedule(3e-4, 100, 10000)``, remat), batch
+    cut to LM_TRAIN_BATCH, one TokenStream batch repeated:
+    LM_TRAIN_WARMUP + LM_TRAIN_TIMED steps (CUDA events), the loss falls,
+    one more step profiled; then the launcher itself on the ``qwen2-moe-a2.7b`` smoke config in a
+    subprocess (6 steps, a checkpoint at the end)."""
+    import math
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import build_lm_step
+    from repro_torch.models import lm as TL
+
+    step, cfg, (gb, s), opt = build_lm_step(get_arch("gemma3-1b"), "train_4k")
+    check((gb, s) == (256, 4096), f"lm (d): train_4k is 256 x 4096 ({gb}, {s})")
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in TokenStream(
+        cfg.vocab, s, LM_TRAIN_BATCH, seed=LM_SEED).batch(0).items()}
+    params = card_params(TL.lm_param_specs(cfg), LM_SEED)
+    state = opt.init(params)
+    state["step"].fill_(LM_TRAIN_FROM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(LM_TRAIN_WARMUP + LM_TRAIN_TIMED):
+        (params, state, metrics), t = events_ms(lambda: step(params, state, batch))
+        losses.append(float(metrics["loss"]))
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"lm (d): the loss falls ({losses})")
+    med = statistics.median(ms[LM_TRAIN_WARMUP:])
+    prof: dict = {}
+    profile_run(lambda: step(params, state, batch),
+                lambda _: "lm (d) gemma3-1b train step", (), prof)
+    prof.pop("out")
+    print(f"lm (d) gemma3-1b FULL train_4k ({card_line()}): B={LM_TRAIN_BATCH} "
+          f"(cut from {gb}) S={s}, AdamW from step {LM_TRAIN_FROM}: ms a step {[round(t, 2) for t in ms]}"
+          f" (first {LM_TRAIN_WARMUP}: warm-up), median {med:.2f} ms, "
+          f"{LM_TRAIN_BATCH * s / med * 1e3:.0f} tokens/s; peak {gib(peak)}; "
+          f"losses {[round(x, 5) for x in losses]}; profiled step: busy share "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f}")
+    del params, state
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    run_script(["-m", "repro_torch.launch.train", "--arch", "qwen2-moe-a2.7b",
+                "--smoke", "--steps", "6", "--ckpt-every", "3", "--ckpt-dir",
+                tmp / "ck"], tmp, "repro_torch.launch.train --arch "
+                "qwen2-moe-a2.7b --smoke --steps 6")
+    check((tmp / "ck" / "step_00000006" / "manifest.json").exists(),
+          "lm (d): the launcher committed its step-6 checkpoint")
+    return {"ms": med, "peak": peak, "losses": losses}
+
+
+def lm_path() -> dict:
+    """Phase 21: the LM stack, (a)-(d), TF32 off; the port's kernel
+    launches over the phase are printed (the LM path launches none)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    lm_parity()
+    torch.cuda.empty_cache()
+    serve = lm_serving_full()
+    torch.cuda.empty_cache()
+    moe = lm_moe_full()
+    torch.cuda.empty_cache()
+    train = lm_train_full()
+    torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()), f"lm: no port kernel launched ({launches})")
+    print(f"lm: port kernel launches over the phase {launches} (the LM path "
+          f"runs no kernel of the port); phase {time.perf_counter() - t_start:.1f} s")
+    return {"serve": serve, "moe": moe, "train": train}
+
+
+class HostPartitions:
+    """Partitions of graphs built on the host by spawned processes (about
+    30 s each at scale 20), each started (:meth:`start`) where the main
+    process leaves the host's cores idle -- waiting on the card, or on the
+    examples' subprocesses -- and loaded when its phase comes
+    (:meth:`get`); :meth:`close` ends the processes and removes their
+    files."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_parts_")
+        self.procs: dict = {}
+
+    def start(self, name: str, graph) -> None:
+        import multiprocessing as mp
+
+        import numpy as np
+
+        np.save(Path(self.dir, f"{name}_src.npy"), graph.src)
+        np.save(Path(self.dir, f"{name}_dst.npy"), graph.dst)
+        proc = mp.get_context("spawn").Process(
+            target=write_partition, args=(self.dir, name, int(graph.n)))
+        proc.start()
+        self.procs[name] = proc
+
+    def get(self, name: str):
+        """The partition ``name`` started, waiting for its process at most
+        ``HOST_PARTITION_TIMEOUT`` seconds."""
+        import numpy as np
+        from repro_torch.core import convert
+
+        t0 = time.perf_counter()
+        proc = self.procs[name]
+        proc.join(HOST_PARTITION_TIMEOUT)
+        check(proc.exitcode == 0, f"host partition {name}: the process "
+              f"ended with {proc.exitcode}")
+        meta = json.loads(Path(self.dir, f"{name}.json").read_text())
+        with np.load(Path(self.dir, f"{name}.npz")) as f:
+            arrays = {k: f[k] for k in f.files}
+        print(f"host partition {name}: waited and loaded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return convert.partition_from_arrays(arrays, meta)
+
+    def close(self) -> None:
+        import shutil
+
+        for proc in self.procs.values():
+            if proc.is_alive():
+                proc.kill()
+            proc.join(60)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def write_partition(out_dir: str, name: str, n: int) -> None:
+    """(In a spawned process.) The graph ``<name>_src.npy`` /
+    ``_dst.npy`` of ``n`` vertices partitioned as the main graph is,
+    written to ``out_dir`` as ``<name>.npz`` (the partition's arrays) and
+    then ``<name>.json`` (its integer fields)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch.core import convert
+    from repro_torch.core.partition import partition_graph
+    from repro_torch.core.types import COOGraph
+
+    g = COOGraph(n, np.load(Path(out_dir, f"{name}_src.npy")),
+                 np.load(Path(out_dir, f"{name}_dst.npy")))
+    arrays, meta = convert.partition_to_arrays(
+        partition_graph(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU))
+    np.savez(Path(out_dir, f"{name}.npz"), **arrays)
+    Path(out_dir, f"{name}.json").write_text(json.dumps(meta))
+
+
 def run() -> None:
+    """Every phase, then the kernels line and the device line; the
+    frontend's and the refill path's partitions are built on the host
+    beside the memory path and the examples (:class:`HostPartitions`)."""
+    parts = HostPartitions()
+    try:
+        run_phases(parts)
+    finally:
+        parts.close()
+
+
+def run_phases(parts) -> None:
     import numpy as np
     import torch
     from repro_torch.core import oracle as O
@@ -5675,14 +6164,16 @@ def run() -> None:
     stamp("payload path done")
 
     # ---- memory and telemetry modes: edge_chunk, telemetry, the
-    # compressed nn format and partition ----------------------------------
+    # compressed nn format and partition (the frontend's second graph is
+    # partitioned beside it: the path's sweeps keep the card busy) --------
     torch.cuda.empty_cache()
+    parts.start("frontend", frontend_graph(g))
     memory_path(eng, g, csr, queries, answers)
     stamp("memory path done")
 
     # ---- the multi-tenant frontend over two scale-20 graphs -----------------
     torch.cuda.empty_cache()
-    frontend_path(g, pg, csr)
+    frontend_path(g, pg, csr, parts.get("frontend"))
     stamp("frontend path done")
 
     # ---- distributed GNN training (phase 15; before the refill path, whose
@@ -5694,6 +6185,7 @@ def run() -> None:
     # ---- the entry points, the CIN backward and recsys training (phases
     # 16-18; before the refill path, as phase 15) ---------------------------
     torch.cuda.empty_cache()
+    parts.start("refill", tailed_graph(g)[0])      # beside the subprocesses
     examples_path()
     stamp("examples done")
     cin_bwd = kernel_phase_cin_bwd()
@@ -5710,11 +6202,15 @@ def run() -> None:
     torch.cuda.empty_cache()
     mace_path()
     stamp("mace done")
+    # ---- the LM stack (phase 21; before the refill path, as phase 15) -----
+    torch.cuda.empty_cache()
+    lm_path()
+    stamp("lm done")
 
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
     torch.cuda.empty_cache()
-    refill_path(g, obs)
+    refill_path(g, obs, parts.get("refill"))
     stamp("refill path done; the run's total time")
 
     or_apply = fold["apply"]["levels + targets"]
@@ -5906,6 +6402,9 @@ def run_alone(names) -> None:
     if "mace" in names:
         torch.cuda.empty_cache()
         mace_path()
+    if "lm" in names:
+        torch.cuda.empty_cache()
+        lm_path()
     if cin_bwd is not None and train is not None:
         print(json.dumps({"kernels": cin_bwd_rows(cin_bwd, train)}))
     print(json.dumps({"ok": True, "device": {
@@ -5953,7 +6452,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
               "memory", "obs", "frontend", "gnn", "examples", "cin_bwd",
-              "recsys_train", "recsys_shard", "mace")
+              "recsys_train", "recsys_shard", "mace", "lm")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

@@ -50,8 +50,10 @@ class ArchSpec:
     model: Any                      # full-scale model config (or factory)
     smoke: Any                      # reduced config for CPU smoke tests
     shapes: dict
+    skip: dict = field(default_factory=dict)   # shape -> reason
     rules_override: dict = field(default_factory=dict)
     optimizer: str = "adamw"
+    grad_accum: dict = field(default_factory=dict)  # shape -> accum factor
     notes: str = ""
 
 
@@ -77,5 +79,6 @@ def _load_all():
     """Register every config module (imports are idempotent, so a config
     imported on its own first does not hide the others)."""
     from repro_torch.configs import (  # noqa: F401
-        bfs_rmat, gcn_cora, graphcast, mace, meshgraphnet, xdeepfm,
+        bfs_rmat, gcn_cora, gemma3_1b, granite_34b, graphcast, kimi_k2_1t_a32b,
+        mace, meshgraphnet, qwen2_5_14b, qwen2_moe_a2_7b, xdeepfm,
     )

@@ -133,15 +133,39 @@ def xdeepfm_gather_params(shards: list) -> dict:
     return out
 
 
+def array_to_tensor(a) -> torch.Tensor:
+    """A host array as a tensor of its dtype; a bfloat16 array
+    (``ml_dtypes.bfloat16``, what ``np.asarray`` makes of a JAX bfloat16
+    array, or its raw 2-byte ``V2`` form) is carried bit for bit through
+    its int16 view, since ``torch.from_numpy`` takes no such dtype."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`array_to_tensor`: a bfloat16 tensor comes back as
+    an ``ml_dtypes.bfloat16`` array (``ml_dtypes`` is imported only for
+    such a tensor)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def tree_from_numpy(tree, device="cuda"):
     """A reference parameter or optimizer-state tree of numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``; nested dicts) as the port's:
     the same names and layouts, tensors of the same dtypes on ``device``
-    (0-d arrays, such as an optimizer's ``step``, stay 0-d)."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    (0-d arrays, such as an optimizer's ``step``, stay 0-d; bfloat16 leaves
+    bit for bit, :func:`array_to_tensor`)."""
+    return tree_map(lambda a: array_to_tensor(a).to(device), tree)
 
 
 def tree_to_numpy(tree):
     """Inverse of :func:`tree_from_numpy`: every tensor leaf as a host
-    numpy array, names and layouts unchanged."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    numpy array, names and layouts unchanged (:func:`tensor_to_array`)."""
+    return tree_map(tensor_to_array, tree)

@@ -69,6 +69,15 @@ def materialize(specs, seed: int = 0, device="cuda"):
 
 
 # ----------------------------------------------------------------- layers
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with gemma's ``1 + w`` scale: normalised in float32, cast
+    to ``x``'s dtype, then scaled in that dtype (the reference's casts, in
+    its order: in bfloat16 the order is the result)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * (1 + w.to(x.dtype))
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
@@ -81,6 +90,11 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh approximation (``jax.nn.gelu``'s default)."""
     return F.gelu(x, approximate="tanh")
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """SiLU of ``gate`` in float32, cast to ``gate``'s dtype, times ``up``."""
+    return F.silu(gate.float()).to(gate.dtype) * up
 
 
 def gelu_mlp_specs(d_in: int, d_hidden: int, layers: int,

@@ -1,0 +1,316 @@
+"""Transformer language model: GQA/MQA, optional QKV bias, sliding-window /
+global attention patterns (gemma3 5:1), dense or MoE FFN, per-layer
+activation checkpointing, prefill + KV-cache decode (ring buffers for
+window layers) -- the port of ``repro.models.lm``.
+
+Parameters keep the reference's names, shapes and stacked ``[L, ...]``
+layout (``lm_param_specs``), so carrying weights across is a copy
+(:func:`repro_torch.core.convert.tree_from_numpy`). The attention path of
+a layer is the reference's: banded when ``window and window < S``, full
+when ``S <= max(q_chunk, 2048)``, chunked otherwise.
+
+One departure, on purpose: :func:`prefill` builds a window layer's cache
+as the ``min(window, max_seq)`` ring of :func:`init_cache` for every
+prompt length. The reference pads it to ``max_seq`` when the prompt is no
+longer than the window, and its decode then attends past the window.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.bfs import resolve_device
+
+from . import attention as A
+from .common import ParamSpec, cross_entropy_loss, gelu, rms_norm, swiglu
+from .moe import moe_apply, moe_param_specs
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    window: int = 0            # sliding-window size for local layers (0 = all full)
+    global_period: int = 0     # every k-th layer is global (gemma3: 6)
+    rope_theta: float = 10000.0
+    # MoE (n_experts == 0 -> dense FFN)
+    n_experts: int = 0
+    n_experts_pad: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+    scan_layers: bool = True   # the reference's lax.scan; the same loop here
+    tie_embeddings: bool = True
+    mlp: str = "swiglu"        # swiglu (3 mats) | gelu (2 mats, gpt-bigcode style)
+    moe_groups: int = 0        # >0: grouped routing (-1: the data-axis size,
+                               # resolved by the launcher)
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def layer_is_global(self, i: int) -> bool:
+        if self.window == 0:
+            return True
+        if self.global_period == 0:
+            return False
+        return (i % self.global_period) == self.global_period - 1
+
+    def num_params(self) -> int:
+        d, dh = self.d_model, self.d_head
+        attn = d * (self.n_heads + 2 * self.n_kv) * dh + self.n_heads * dh * d
+        if self.is_moe:
+            ffn = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+            ffn += self.n_shared_experts * 3 * d * self.d_ff_expert
+        else:
+            ffn = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ffn) + emb
+
+    def num_active_params(self) -> int:
+        if not self.is_moe:
+            return self.num_params()
+        d = self.d_model
+        attn = (d * (self.n_heads + 2 * self.n_kv) * self.d_head
+                + self.n_heads * self.d_head * d)
+        ffn = ((self.top_k + self.n_shared_experts) * 3 * d * self.d_ff_expert
+               + d * self.n_experts)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ffn) + emb
+
+
+# --------------------------------------------------------------------- specs
+def lm_param_specs(cfg: LMConfig) -> dict:
+    l, d, dt = cfg.n_layers, cfg.d_model, cfg.dtype
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    f32 = torch.float32
+    layers = {
+        "ln_attn": ParamSpec((l, d), f32, ("layers", "embed"), "zeros"),
+        "ln_mlp": ParamSpec((l, d), f32, ("layers", "embed"), "zeros"),
+        "wq": ParamSpec((l, d, hq * dh), dt, ("layers", "embed", "heads"), "scaled"),
+        "wk": ParamSpec((l, d, hkv * dh), dt, ("layers", "embed", "kv_heads"), "scaled"),
+        "wv": ParamSpec((l, d, hkv * dh), dt, ("layers", "embed", "kv_heads"), "scaled"),
+        "wo": ParamSpec((l, hq * dh, d), dt, ("layers", "heads", "embed"), "scaled"),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = ParamSpec((l, hq * dh), dt, ("layers", "heads"), "zeros")
+        layers["bk"] = ParamSpec((l, hkv * dh), dt, ("layers", "kv_heads"), "zeros")
+        layers["bv"] = ParamSpec((l, hkv * dh), dt, ("layers", "kv_heads"), "zeros")
+    if cfg.is_moe:
+        layers.update(moe_param_specs(l, d, cfg))
+    elif cfg.mlp == "swiglu":
+        layers["wi_gate"] = ParamSpec((l, d, cfg.d_ff), dt, ("layers", "embed", "ff"), "scaled")
+        layers["wi_up"] = ParamSpec((l, d, cfg.d_ff), dt, ("layers", "embed", "ff"), "scaled")
+        layers["wo_mlp"] = ParamSpec((l, cfg.d_ff, d), dt, ("layers", "ff", "embed"), "scaled")
+    else:
+        layers["wi_up"] = ParamSpec((l, d, cfg.d_ff), dt, ("layers", "embed", "ff"), "scaled")
+        layers["wo_mlp"] = ParamSpec((l, cfg.d_ff, d), dt, ("layers", "ff", "embed"), "scaled")
+    specs = {
+        "embed": ParamSpec((cfg.vocab, d), dt, ("vocab", "embed"), "normal"),
+        "final_norm": ParamSpec((d,), f32, ("embed",), "zeros"),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = ParamSpec((d, cfg.vocab), dt, ("embed", "vocab"), "scaled")
+    return specs
+
+
+# ------------------------------------------------------------------- forward
+def _layer_params(params: dict) -> list:
+    """Each layer's weights ``{name: [...]}`` as views of the stacked
+    ``[L, ...]`` leaves (``unbind``: one stack in the backward)."""
+    cols = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows of the embedding (ids clipped into the vocabulary, as
+    ``jnp.take(mode="clip")``), in ``cfg.dtype``."""
+    ids = tokens.long().clamp(0, cfg.vocab - 1)
+    x = params["embed"].index_select(0, ids.reshape(-1))
+    return x.reshape(*tokens.shape, cfg.d_model).to(cfg.dtype)
+
+
+def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = h.shape
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = A.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.d_head), positions,
+                     cfg.rope_theta)
+    k = A.apply_rope(k.reshape(b, s, cfg.n_kv, cfg.d_head), positions,
+                     cfg.rope_theta)
+    return q, k, v.reshape(b, s, cfg.n_kv, cfg.d_head)
+
+
+def _attend(cfg: LMConfig, q, k, v, window: int) -> torch.Tensor:
+    s = q.shape[1]
+    if window and window < s:
+        return A.banded_window_attention(q, k, v, window=window)
+    if s <= max(cfg.q_chunk, 2048):
+        return A.full_causal_attention(q, k, v)
+    return A.chunked_causal_attention(q, k, v, q_chunk=cfg.q_chunk,
+                                      kv_chunk=cfg.kv_chunk)
+
+
+def _dense_ffn(cfg: LMConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        return swiglu(h @ lp["wi_gate"], h @ lp["wi_up"]) @ lp["wo_mlp"]
+    return gelu((h @ lp["wi_up"]).float()).to(h.dtype) @ lp["wo_mlp"]
+
+
+def _ffn_block(cfg: LMConfig, lp: dict, x: torch.Tensor) -> tuple:
+    b, s, d = x.shape
+    h = rms_norm(x, lp["ln_mlp"])
+    if cfg.is_moe:
+        out, aux = moe_apply(lp, h.reshape(b * s, d), cfg)
+        return x + out.reshape(b, s, d), aux
+    return x + _dense_ffn(cfg, lp, h), x.new_zeros((), dtype=torch.float32)
+
+
+def _layer(cfg: LMConfig, window: int, lp: dict, x: torch.Tensor,
+           positions: torch.Tensor) -> tuple:
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), positions)
+    o = _attend(cfg, q, k, v, window)
+    x = x + o.reshape(b, s, cfg.n_heads * cfg.d_head) @ lp["wo"]
+    return _ffn_block(cfg, lp, x)
+
+
+def _head(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return (x @ head.to(x.dtype)).float()
+
+
+def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
+    """tokens [B, S] -> (logits [B, S, V] f32, aux_loss). With gradients
+    on and ``cfg.remat``, each layer's activations are recomputed in the
+    backward (``torch.utils.checkpoint``)."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i, lp in enumerate(_layer_params(params)):
+        window = 0 if cfg.layer_is_global(i) else cfg.window
+        if remat:
+            x, a = checkpoint(_layer, cfg, window, lp, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _layer(cfg, window, lp, x, positions)
+        aux = aux + a
+    return _head(cfg, params, x), aux
+
+
+def loss_fn(cfg: LMConfig, params: dict, batch: dict) -> tuple:
+    logits, aux = forward(cfg, params, batch["tokens"])
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
+
+
+# -------------------------------------------------------------------- decode
+def cache_len(cfg: LMConfig, i: int, max_seq: int) -> int:
+    """Slots of layer ``i``'s KV cache: ``max_seq`` on a global layer, the
+    ``min(window, max_seq)`` ring on a window layer."""
+    return max_seq if cfg.layer_is_global(i) else min(cfg.window, max_seq)
+
+
+def init_cache_specs(cfg: LMConfig, batch: int, max_seq: int) -> list:
+    """Per-layer KV cache shapes ``[{"k": (shape, dtype), "v": ...}]``
+    (ring buffer for window layers)."""
+    return [{name: ((batch, cache_len(cfg, i, max_seq), cfg.n_kv, cfg.d_head),
+                    cfg.dtype) for name in ("k", "v")}
+            for i in range(cfg.n_layers)]
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               device="cuda") -> list:
+    dev = resolve_device(device)
+    return [{name: torch.zeros(shape, dtype=dt, device=dev)
+             for name, (shape, dt) in layer.items()}
+            for layer in init_cache_specs(cfg, batch, max_seq)]
+
+
+@torch.no_grad()
+def decode_step(cfg: LMConfig, params: dict, cache: list,
+                token: torch.Tensor, pos) -> tuple:
+    """One-token serve step. token [B] int, pos the current position (an
+    int or a 0-d tensor). Writes this token's keys and values into
+    ``cache`` in place (slot ``pos``, or ``pos % T`` on a ring) and returns
+    (logits [B, V] f32, cache)."""
+    pos = int(pos)
+    b = token.shape[0]
+    x = _embed(cfg, params, token[:, None])                        # [B,1,D]
+    posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    for i, lp in enumerate(_layer_params(params)):
+        c = cache[i]
+        t = c["k"].shape[1]
+        is_global = cfg.layer_is_global(i)
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), posv)
+        # lax.dynamic_update_slice clamps the start into the cache
+        slot = min(pos, t - 1) if is_global else pos % t
+        c["k"][:, slot] = k[:, 0]
+        c["v"][:, slot] = v[:, 0]
+        idx = torch.arange(t, device=x.device)
+        valid = (idx <= pos) if is_global else ((idx <= pos) | (pos >= t))
+        o = A.decode_attention(q, c["k"], c["v"], valid[None].expand(b, t))
+        x = x + o.reshape(b, 1, cfg.n_heads * cfg.d_head) @ lp["wo"]
+        hh = rms_norm(x, lp["ln_mlp"])
+        if cfg.is_moe:
+            out, _ = moe_apply(lp, hh.reshape(b, cfg.d_model), cfg)
+            x = x + out.reshape(b, 1, cfg.d_model)
+        else:
+            x = x + _dense_ffn(cfg, lp, hh)
+    return _head(cfg, params, x)[:, 0], cache
+
+
+@torch.no_grad()
+def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, max_seq: int,
+            last_only: bool = False) -> tuple:
+    """Forward over a prompt, producing logits and a filled KV cache of
+    :func:`init_cache`'s shapes: a global layer's keys padded to
+    ``max_seq``, a window layer's in its ring (position p at slot p % T).
+
+    ``last_only=True`` computes logits for the final position only (what
+    a server needs; no ``[B, S, vocab]`` tensor)."""
+    b, s = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(s, device=x.device)
+    cache = []
+    for i, lp in enumerate(_layer_params(params)):
+        window = 0 if cfg.layer_is_global(i) else cfg.window
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), positions)
+        o = _attend(cfg, q, k, v, window)
+        t = cache_len(cfg, i, max_seq)
+        if window and window < s:
+            # ring-buffer layout: position p lives at slot p % t, so slot j
+            # holds position s - t + ((j - s % t) % t)
+            sel = s - t + (torch.arange(t, device=x.device) - s % t) % t
+            ck, cv = k[:, sel], v[:, sel]
+        else:
+            # every position fits: slot p holds position p, the rest zeros
+            pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, t - s))
+            ck, cv = pad(k), pad(v)
+        x = x + o.reshape(b, s, cfg.n_heads * cfg.d_head) @ lp["wo"]
+        x, _ = _ffn_block(cfg, lp, x)
+        cache.append({"k": ck, "v": cv})
+    if last_only:
+        x = x[:, -1:, :]
+    return _head(cfg, params, x), cache

@@ -19,11 +19,24 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch.core.convert import array_to_tensor
 from repro_torch.tree import flatten_with_path, unflatten_like
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    """A leaf as a host array; a bfloat16 tensor as its raw 2-byte ``V2``
+    form, which is what the reference's ``np.savez`` writes of a bfloat16
+    array (``ml_dtypes``), so the file holds the same bytes."""
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view("V2")
+    return x.numpy()
+
+
+def _dtype_name(x: np.ndarray) -> str:
+    return "bfloat16" if x.dtype == np.dtype("V2") else str(x.dtype)
 
 
 def _sha256(path: str) -> str:
@@ -47,7 +60,7 @@ def save(ckpt_dir: str, step: int, tree, process_index: int = 0,
         "step": step,
         "names": [name for name, _ in flat],
         "shapes": [list(x.shape) for x in leaves],
-        "dtypes": [str(x.dtype) for x in leaves],
+        "dtypes": [_dtype_name(x) for x in leaves],
         "shards": {str(process_index): {"file": os.path.basename(shard_path),
                                         "sha256": _sha256(shard_path)}},
     }
@@ -110,6 +123,6 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None,
             if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"shape mismatch for {manifest['names'][i]}: "
                                  f"{arr.shape} vs {tuple(want)}")
-            out.append(torch.from_numpy(arr).to(device=ref.device, dtype=ref.dtype)
+            out.append(array_to_tensor(arr).to(device=ref.device, dtype=ref.dtype)
                        if torch.is_tensor(ref) else arr)
     return manifest["step"], unflatten_like(tree_like, out)

@@ -1639,3 +1639,48 @@ def test_mace_on_card_equals_cpu(card, d_hidden):
     for k, want in g0.items():
         top = float(np.abs(want).max())
         assert float(np.abs(g1[k] - want).max()) <= 1e-4 * top, k
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-34b", "kimi-k2-1t-a32b",
+                                  "qwen2.5-14b", "qwen2-moe-a2.7b"])
+def test_smoke_lm_on_card_equals_cpu(card, arch):
+    """A smoke LM config (float32, TF32 off) on the card against the CPU,
+    the same weights: logits within 1e-5 + 1e-4 |logit|, the loss within
+    rtol 1e-5, each gradient leaf within 1e-3 of its largest |g|; prefill
+    (``last_only``) of a 12-token prompt (past gemma's window of 8) and 8
+    greedy decode steps give the same tokens."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm as TL
+    from repro_torch.models.common import materialize
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 17)).astype(np.int32))
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32))
+    params = materialize(TL.lm_param_specs(cfg), 0, "cpu")
+    out = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev), params)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        with torch.no_grad():
+            logits, _ = TL.forward(cfg, p, batch["tokens"])
+        (loss, _), grads = value_and_grad(lambda q: TL.loss_fn(cfg, q, batch), p,
+                                          has_aux=True)
+        last, cache = TL.prefill(cfg, p, prompts.to(dev), max_seq=20, last_only=True)
+        tok, gen = last[:, -1].argmax(-1), []
+        for i in range(8):
+            gen.append(tok.cpu())
+            step, cache = TL.decode_step(cfg, p, cache, tok, 12 + i)
+            tok = step.argmax(-1)
+        out[str(dev)] = (logits.cpu(), float(loss),
+                         {k: g.cpu() for k, g in flatten_with_path(grads)},
+                         torch.stack(gen + [tok.cpu()]))
+    (l0, s0, g0, t0), (l1, s1, g1, t1) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(l1.numpy(), l0.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(s1, s0, rtol=1e-5)
+    for k, want in g0.items():
+        assert float((g1[k] - want).abs().max()) <= 1e-3 * float(want.abs().max()), k
+    assert torch.equal(t1, t0)

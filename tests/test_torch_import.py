@@ -25,7 +25,12 @@ recsys = ["repro_torch.configs.xdeepfm", "repro_torch.models.recsys",
           "repro_torch.data.recsys_data", "repro_torch.kernels.cin_fused",
           "repro_torch.kernels.segment_bag",
           "repro_torch.kernels.ell_pull_payload"]
-missing = [m for m in recsys if m not in sys.modules]
+lm = ["repro_torch.models.lm", "repro_torch.models.attention",
+      "repro_torch.models.moe", "repro_torch.data.tokens",
+      "repro_torch.launch.train", "repro_torch.configs.gemma3_1b",
+      "repro_torch.configs.granite_34b", "repro_torch.configs.kimi_k2_1t_a32b",
+      "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.qwen2_moe_a2_7b"]
+missing = [m for m in recsys + lm if m not in sys.modules]
 assert not missing, missing
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -68,3 +73,22 @@ def test_recsys_entry_point_raises_without_a_card(monkeypatch):
     logits = XDeepFM(SMOKE, device="cpu")(
         torch.from_numpy(hot), torch.from_numpy(hot - 1))
     assert logits.shape == (2,)
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    from repro_torch.configs.gemma3_1b import SMOKE
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import lm as TL
+    from repro_torch.models.common import materialize
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TL.init_cache(SMOKE, 1, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        materialize(TL.lm_param_specs(SMOKE))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.run(["--arch", "gemma3-1b", "--smoke", "--steps", "1",
+                      "--ckpt-dir", str(tmp_path)])
+    params = materialize(TL.lm_param_specs(SMOKE), 0, "cpu")
+    logits, cache = TL.prefill(SMOKE, params, torch.zeros((1, 4), dtype=torch.int64), 8)
+    assert logits.shape == (1, 4, SMOKE.vocab) and cache[0]["k"].device.type == "cpu"
