@@ -328,21 +328,41 @@
    ``train_4k`` through the launcher's step builder (AdamW; S = 4,096, B
    cut from 256 to 1, one batch repeated, the optimizer from step 100): 2
    warm-up and 3 timed steps, ms a step, tokens/s, peak memory, the loss
-   falls, one step profiled; then ``python -m repro_torch.launch.train --arch
-   qwen2-moe-a2.7b --smoke --steps 6`` in a subprocess, rc 0.
-22. Prints one JSON line describing every kernel, then, last, the device
+   falls, one step profiled (the launcher's subprocess run, here until
+   phase 22 came, is 22 (d)'s one-rank run).
+22. The LM on a mesh (run after 21, before 14; TF32 off; the launch
+   counts of the parent and of every rank must all be 0). (a) A world-1
+   NCCL mesh (1, 1) in a spawned process: ``qwen2-moe-a2.7b`` at FULL
+   widths, 2 of 24 layers, B = 1, S = 4,096, AdamW from step 100, the
+   cell's step (``launch.cells.build_lm_cell``) against the one-card step
+   from one start (the loss within 1e-4 of it, relative; each leaf's
+   change within 0.35 of the one-card step's in L2, the one-card step's
+   rerun printed beside), then ms a step in turns.
+   (b) A gloo world of 2 ranks sharing the card, mesh (1, 2):
+   ``qwen2.5-14b`` at FULL widths, 2 of 48 layers, B = 1, against a
+   one-card step run first (its parameters kept on the host): each rank's
+   loss within 1e-4, each leaf's change within 0.35, seconds a step, peak
+   memory a rank, wire bytes a step as counted equal to
+   ``cells.lm_wire_bytes``. (c) The same world, mesh (2, 1):
+   ``qwen2-moe-a2.7b-opt`` (G = 2), 1 layer, B = 2, as (b). (d) ``python
+   -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke --steps 4
+   --distributed --backend gloo`` on 2 processes (env://) beside the same
+   run on one, all three started before (a): rc 0, losses equal within
+   rtol 1e-5, every checkpoint committed.
+23. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
 Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory,obs,
-frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace,lm`` (those
-phases alone, on the same inputs; ``sharded`` is 7 after the main serving
-run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
+frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace,lm,lm_mesh``
+(those phases alone, on the same inputs; ``sharded`` is 7 after the main
+serving run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
 ``memory`` is 11 after the 64-query serving run it holds (c) against,
 ``obs`` is 12 after that serving run, (b) on the refill path's engine
 after its obs-off overlap run, ``frontend`` is 13, ``gnn`` is 15 on a
 fresh scale-20 partition, ``examples``, ``cin_bwd`` and ``recsys_train``
 are 16-18; with both of the last two, the kernels line of the two
-backward kernels; ``recsys_shard``, ``mace`` and ``lm`` are 19-21).
+backward kernels; ``recsys_shard``, ``mace``, ``lm`` and ``lm_mesh`` are
+19-22).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -4578,17 +4598,35 @@ SWEEP_EXACT = ("sweeps", "sweep_blocks", "wire_delegate_bytes",
 def run_script(args, cwd, what: str) -> str:
     """A script of the checkout in a subprocess with the port on its path;
     fails the run on a non-zero exit. Returns its output."""
+    return finish_script(start_script(args, cwd), what)
+
+
+def start_script(args, cwd) -> tuple:
+    """:func:`run_script`'s subprocess, started; :func:`finish_script`
+    waits for it."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, *map(str, args)], cwd=cwd, env=env,
-                         capture_output=True, text=True,
-                         timeout=EXAMPLE_TIMEOUT)
-    check(out.returncode == 0, f"{what}: rc {out.returncode}\n"
-          f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return (time.perf_counter(), subprocess.Popen(
+        [sys.executable, *map(str, args)], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+
+def finish_script(started: tuple, what: str) -> str:
+    """Waits for a :func:`start_script` subprocess (stopped past
+    EXAMPLE_TIMEOUT); fails the run on a non-zero exit. Returns its
+    output."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"{what}: rc {proc.returncode}\n"
+          f"{out[-3000:]}\n{err[-3000:]}")
     print(f"examples: {what} rc 0 in {time.perf_counter() - t0:.1f} s")
-    return out.stdout
+    return out
 
 
 def match_lines(out: str, n: int, what: str) -> list:
@@ -4643,24 +4681,25 @@ def examples_path() -> None:
           f"blocks={cell['sweep_blocks']} meta={doc['meta']}; trace "
           f"{len(trace['traceEvents'])} events")
 
-    for mesh, backend in (("1,1", "nccl"), ("1,2", "gloo")):
-        out = run_script([ex / "torch_distributed_bfs.py", "--scale",
-                          EXAMPLE_SCALE, "--mesh", mesh, "--backend", backend,
-                          "--device", DEVICE], tmp,
-                         f"torch_distributed_bfs.py --mesh {mesh} "
-                         f"--backend {backend}")
+    # the two distributed runs side by side (their worlds' own processes;
+    # they print MTEPS, not judged), for the run's time since phase 22
+    runs = {(mesh, backend): start_script(
+        [ex / "torch_distributed_bfs.py", "--scale", EXAMPLE_SCALE, "--mesh",
+         mesh, "--backend", backend, "--device", DEVICE], tmp)
+        for mesh, backend in (("1,1", "nccl"), ("1,2", "gloo"))}
+    for (mesh, backend), started in runs.items():
+        out = finish_script(started, f"torch_distributed_bfs.py --mesh {mesh} "
+                            f"--backend {backend}")
         lines = match_lines(out, 3, f"distributed {mesh} {backend}")
         check(all("overflow=0" in ln for ln in lines),
               f"distributed {mesh}: no overflow")
 
+    # the sweep on the card beside the same matrix in this process on the
+    # CPU (since phase 22): the exact counters equal
     sweep = ROOT / "scripts" / "torch_profile_sweep.py"
-    run_script([sweep, "--scale", EXAMPLE_SCALE, *SWEEP_ARGS, "--device",
-                DEVICE, "--out", tmp / "CALIB_sweep.json"], tmp,
-               "torch_profile_sweep.py (2 x 1 x 2)")
-    card = load_bench(str(tmp / "CALIB_sweep.json"))
-    check(card["meta"]["backend"] == "cuda", "sweep: taken on the card")
-    cells = card["benchmarks"]["device_calibration"]["cells"]
-    # the same matrix in this process on the CPU: the exact counters equal
+    started = start_script([sweep, "--scale", EXAMPLE_SCALE, *SWEEP_ARGS,
+                            "--device", DEVICE, "--out",
+                            tmp / "CALIB_sweep.json"], tmp)
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("torch_profile_sweep", sweep)
@@ -4671,6 +4710,10 @@ def examples_path() -> None:
                          nn_formats=("dense",), sweep_blocks=(4, 8),
                          device="cpu")
     cpu_s = time.perf_counter() - t0
+    finish_script(started, "torch_profile_sweep.py (2 x 1 x 2)")
+    card = load_bench(str(tmp / "CALIB_sweep.json"))
+    check(card["meta"]["backend"] == "cuda", "sweep: taken on the card")
+    cells = card["benchmarks"]["device_calibration"]["cells"]
     check(sorted(cells) == sorted(cpu["cells"]) and len(cells) == 4,
           "sweep: the 2 x 1 x 2 cells")
     for key, c in cells.items():
@@ -5833,11 +5876,11 @@ def lm_train_full() -> dict:
     builder (AdamW, ``cosine_schedule(3e-4, 100, 10000)``, remat), batch
     cut to LM_TRAIN_BATCH, one TokenStream batch repeated:
     LM_TRAIN_WARMUP + LM_TRAIN_TIMED steps (CUDA events), the loss falls,
-    one more step profiled; then the launcher itself on the ``qwen2-moe-a2.7b`` smoke config in a
-    subprocess (6 steps, a checkpoint at the end)."""
+    one more step profiled. (The launcher itself on the
+    ``qwen2-moe-a2.7b`` smoke config in a subprocess, with its checkpoint,
+    runs in phase 22 (d), beside its two ranks.)"""
     import math
     import statistics
-    import tempfile
 
     import torch
     from repro_torch.configs.base import get_arch
@@ -5874,13 +5917,6 @@ def lm_train_full() -> dict:
           f"losses {[round(x, 5) for x in losses]}; profiled step: busy share "
           f"{prof['busy_ms'] / prof['wall_ms']:.3f}")
     del params, state
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
-    run_script(["-m", "repro_torch.launch.train", "--arch", "qwen2-moe-a2.7b",
-                "--smoke", "--steps", "6", "--ckpt-every", "3", "--ckpt-dir",
-                tmp / "ck"], tmp, "repro_torch.launch.train --arch "
-                "qwen2-moe-a2.7b --smoke --steps 6")
-    check((tmp / "ck" / "step_00000006" / "manifest.json").exists(),
-          "lm (d): the launcher committed its step-6 checkpoint")
     return {"ms": med, "peak": peak, "losses": losses}
 
 
@@ -5907,6 +5943,472 @@ def lm_path() -> dict:
     print(f"lm: port kernel launches over the phase {launches} (the LM path "
           f"runs no kernel of the port); phase {time.perf_counter() - t_start:.1f} s")
     return {"serve": serve, "moe": moe, "train": train}
+
+
+# ------------------------------------- phase 22: the LM on a mesh (A13.5)
+#: (a) a world-1 NCCL mesh (1, 1): qwen2-moe-a2.7b at FULL widths, depth
+#: cut from 24 layers to MESH_LAYERS (one card holds the mesh step's and
+#: the one-card step's parameters and AdamW state at once), B cut from 256
+#: to MESH_A_BATCH, S = 4,096, AdamW from step LM_TRAIN_FROM (as 21 (d)):
+#: the first step from one start (and the one-card step rerun, the card's
+#: atomics' yardstick), then MESH_WARMUP + MESH_TIMED steps of each from
+#: that start, in turns (one start and its state on the card: the full
+#: run's earlier phases leave ~7 GiB with the main process)
+MESH_LAYERS, MESH_A_BATCH, MESH_WARMUP, MESH_TIMED = 2, 1, 1, 3
+#: the sequence of every case (train_4k's)
+MESH_SEQ = 4096
+#: (b) a gloo world of 2 ranks sharing the card, mesh (1, 2): qwen2.5-14b
+#: at FULL widths, MESH_LAYERS of its 48 layers, B = 1, S = 4,096
+MESH_B_BATCH = 1
+#: (c) the same world, mesh (2, 1): qwen2-moe-a2.7b-opt (G = 2), depth cut
+#: to MESH_C_LAYERS (each rank holds every parameter, and a step the old
+#: and the new parameters and AdamW state: two ranks on one card), B = 2
+MESH_C_LAYERS, MESH_C_BATCH = 1, 2
+#: (b), (c): steps timed after the compared one (host clock, synchronised:
+#: gloo stages the card's tensors through the host)
+MESH_GLOO_TIMED = 2
+#: a bfloat16 mesh step at FULL widths against the one-card step: the loss
+#: within MESH_LOSS_REL of it (relative) and each leaf's change within
+#: MESH_SHARE_MAX of the one-card step's in L2. (b), (c) split the
+#: products' sums over ranks, each part rounded before the all-reduce; (a)
+#: computes the same products on one rank, but the MoE combine's bfloat16
+#: index_add rounds in the order of the card's atomics, so a rerun of the
+#: one-card step differs too (printed beside). Read on NVIDIA H100 80GB
+#: HBM3, 700.00 W: losses 2e-7 to 5.1e-5 apart, leaf changes 0.03 to 0.17,
+#: mesh and rerun alike. (d), float32 smoke: within MESH_LOSS_RTOL
+MESH_LOSS_REL, MESH_SHARE_MAX, MESH_LOSS_RTOL = 1e-4, 0.35, 1e-5
+
+
+def mesh_whole(arch: str, layers: int, axes, sizes, seed: int) -> tuple:
+    """``(cfg, whole parameters on the card, rules)`` of ``arch``'s train
+    cell at ``layers`` layers on a mesh of ``axes`` / ``sizes``, the whole
+    tree drawn block by block as the mesh's ranks draw theirs
+    (``sharding.draw_tree``)."""
+    import dataclasses
+    import math
+    import types
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.sharding import draw_tree, rules_for
+    from repro_torch.models import lm as TL
+
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.model, n_layers=layers, scan_layers=False)
+    if cfg.moe_groups == -1:
+        cfg = dataclasses.replace(cfg, moe_groups=math.prod(
+            s for a, s in zip(axes, sizes) if a != "model"))
+    rules = rules_for(types.SimpleNamespace(axes=tuple(axes)),
+                      spec.rules_override)
+    return cfg, draw_tree(TL.lm_param_specs(cfg), seed, rules, axes, sizes,
+                          None, DEVICE, TL.lm_units(cfg)), rules
+
+
+def mesh_batch(vocab: int, b: int) -> dict:
+    """TokenStream's first batch of ``b`` rows of MESH_SEQ on the card."""
+    import torch
+    from repro_torch.data.tokens import TokenStream
+
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in TokenStream(
+        vocab, MESH_SEQ, b, seed=LM_SEED).batch(0).items()}
+
+
+def mesh_state(opt, params):
+    state = opt.init(params)
+    state["step"].fill_(LM_TRAIN_FROM)
+    return state
+
+
+def leaf_sq(got, want, start) -> dict:
+    """``{leaf: (||got - want||^2, ||want - start||^2)}`` (float64)."""
+    from repro_torch.tree import flatten_with_path
+
+    w, s = dict(flatten_with_path(want)), dict(flatten_with_path(start))
+    return {k: (float((g.double() - w[k].double()).square().sum()),
+                float((w[k].double() - s[k].double()).square().sum()))
+            for k, g in flatten_with_path(got)}
+
+
+def change_shares(sq: dict) -> dict:
+    """``{leaf: ||diff|| / ||change||}`` (0 where neither moved; inf where
+    only the compared side moved)."""
+    import math
+
+    return {k: (math.sqrt(d / m) if m else (0.0 if d == 0 else math.inf))
+            for k, (d, m) in sq.items()}
+
+
+def mesh_nccl_rank(rank: int, world: int, spec: dict) -> dict:
+    """22 (a): the one rank of a world-1 NCCL mesh (1, 1). The cell's step
+    and the one-card step (``trainer.make_train_step`` over the same
+    ``loss_fn``) from one start: the loss and each leaf's change, the
+    one-card step rerun beside; then both in turns, each step from the
+    start (CUDA events). Returns numbers and the launch counts."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_lm_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm as TL
+    from repro_torch.train.trainer import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    mesh = make_test_mesh((1, 1))
+    cell = build_lm_cell(get_arch(spec["arch"]), "train_4k", mesh,
+                         layers_override=spec["layers"])
+    cfg, opt = cell.cfg, cell.optimizer
+    start = cell.draw_params(LM_SEED, DEVICE)
+    batch = cell.rows(mesh_batch(cfg.vocab, spec["batch"]))
+    runs = {"mesh": cell.step,
+            "one_card": make_train_step(lambda p, b: TL.loss_fn(cfg, p, b),
+                                        opt)}
+    state = mesh_state(opt, start)
+    losses, out = {}, {}
+    p, _, m = runs["one_card"](start, state, batch)
+    want, losses["one_card"] = p, float(m["loss"])
+    for name, step in (("mesh", runs["mesh"]), ("rerun", runs["one_card"])):
+        p, _, m = step(start, state, batch)
+        losses[name] = float(m["loss"])
+        out[name] = change_shares(leaf_sq(p, want, start))
+        del p, m
+    out["losses"] = losses
+    del want
+    torch.cuda.empty_cache()
+    # in turns, each step from the start (one start and one state held)
+    ms = {name: [] for name in runs}
+    peak = {name: 0 for name in runs}
+    for i in range(MESH_WARMUP + MESH_TIMED):
+        for name, step in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, t = events_ms(lambda: step(start, state, batch))
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+            if i >= MESH_WARMUP:
+                ms[name].append(t)
+    out.update(ms=ms, peak=peak, launches=dict(ops.LAUNCHES),
+               n_params=n_params(start), layers=cfg.n_layers)
+    return out
+
+
+def mesh_gloo_rank(rank: int, world: int, spec: dict) -> dict:
+    """22 (b), (c): one rank of a world of two gloo ranks sharing the card.
+    Per case, the cell on its mesh (``build_lm_cell``, ``layers_override``)
+    from this rank's blocks drawn on the card: the first step from the
+    start against the one-card step's parameters (``spec[case]["want"]``,
+    a file this rank reads its blocks of), then MESH_GLOO_TIMED steps
+    (host clock, synchronised); the step's wire bytes as the collectives
+    counted them beside ``cells.lm_wire_bytes``; peak memory."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_lm_cell, lm_wire_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    out = {}
+    for case in ("b", "c"):
+        c = spec[case]
+        mesh = make_test_mesh(c["sizes"])
+        cell = build_lm_cell(get_arch(c["arch"]), "train_4k", mesh,
+                             layers_override=c["layers"])
+        start = cell.draw_params(LM_SEED, DEVICE)
+        rows = cell.rows(mesh_batch(cell.cfg.vocab, c["batch"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, st, m = cell.step(start, mesh_state(cell.optimizer, start), rows)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        loss, wire = float(m["loss"]), dict(m["wire"])
+        want = torch.load(c["want"], mmap=True, weights_only=True)
+        want = tree_map(lambda t: t.to(DEVICE), cell.shard_params(want))
+        sq = leaf_sq(p, want, start)
+        sharded = {k: cell.par.size(sh.sharded) > 1
+                   for k, sh in flatten_with_path(cell.shardings)}
+        del want, start
+        step_s = []
+        for _ in range(MESH_GLOO_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, m = cell.step(p, st, rows)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        out[case] = dict(loss=loss, wire=wire, sq=sq, sharded=sharded,
+                         reckoned=lm_wire_bytes(cell, rows["tokens"].shape[0],
+                                                MESH_SEQ),
+                         first_s=first_s, step_s=step_s,
+                         peak=torch.cuda.max_memory_allocated(),
+                         rank_params=n_params(p), layers=cell.cfg.n_layers)
+        del p, st, m, rows, cell
+        torch.cuda.empty_cache()
+    out["launches"] = dict(ops.LAUNCHES)
+    return out
+
+
+def mesh_one_card(case: dict, path: Path) -> dict:
+    """The one-card step of a gloo case on the whole tree its mesh's ranks
+    draw (:func:`mesh_whole`): the first step from the start, its
+    parameters written to ``path`` (host), then MESH_GLOO_TIMED steps
+    (CUDA events). Frees the card."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.cells import lm_optimizer
+    from repro_torch.models import lm as TL
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg, start, _ = mesh_whole(case["arch"], case["layers"],
+                               ("data", "model"), case["sizes"], LM_SEED)
+    opt = lm_optimizer(get_arch(case["arch"]))
+    step = make_train_step(lambda p, b: TL.loss_fn(cfg, p, b), opt)
+    batch = mesh_batch(cfg.vocab, case["batch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (p, st, m), first = events_ms(lambda: step(start, mesh_state(opt, start),
+                                               batch))
+    torch.save(tree_map(lambda t: t.cpu(), p), path)
+    loss = float(m["loss"])
+    del start
+    ms = []
+    for _ in range(MESH_GLOO_TIMED):
+        (p, st, m), t = events_ms(lambda: step(p, st, batch))
+        ms.append(t)
+    out = {"loss": loss, "first_ms": first, "ms": ms, "n_params": n_params(p),
+           "peak": torch.cuda.max_memory_allocated()}
+    del p, st, m, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_launchers(tmp: Path) -> dict:
+    """22 (d), started: ``python -m repro_torch.launch.train --arch
+    qwen2-moe-a2.7b --smoke --steps 4 --distributed --backend gloo`` on 2
+    processes with the env:// variables (sharing the card), and the same
+    run without ``--distributed`` on one; each writes its log to ``tmp``.
+    Returns the processes."""
+    import os
+    import socket
+
+    base = ["--arch", "qwen2-moe-a2.7b", "--smoke", "--steps", "4",
+            "--log-every", "1"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(name, args, **kw):
+        with open(tmp / f"{name.replace(' ', '_')}.log", "w") as log:
+            return subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train",
+                 *map(str, args)], cwd=tmp, stdout=log,
+                stderr=subprocess.STDOUT, env=dict(env, **kw))
+
+    procs = {f"rank {r}": start(f"rank {r}", base + [
+        "--ckpt-dir", tmp / "ck2", "--distributed", "--backend", "gloo"],
+        RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+        MASTER_ADDR="localhost", MASTER_PORT=str(port),
+        GLOO_SOCKET_IFNAME="lo") for r in range(2)}
+    procs["one rank"] = start("one rank", base + ["--ckpt-dir", tmp / "ck1"])
+    return {"t0": time.perf_counter(), "procs": procs}
+
+
+def finish_launchers(launcher: dict, tmp: Path) -> dict:
+    """Waits for :func:`start_launchers`' processes (every one stopped on
+    the way out); returns ``{name: (rc, log)}``."""
+    out = {}
+    try:
+        for name, pr in launcher["procs"].items():
+            pr.wait(timeout=EXAMPLE_TIMEOUT)
+            log = tmp / f"{name.replace(' ', '_')}.log"
+            out[name] = (pr.returncode, log.read_text())
+    finally:
+        for pr in launcher["procs"].values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    took = time.perf_counter() - launcher["t0"]
+    print(f"lm_mesh (d): the launchers collected {took:.1f} s after their "
+          f"start")
+    return out
+
+
+def check_launchers(logs: dict, tmp: Path) -> None:
+    """22 (d): every process rc 0, rank 0's losses equal the one-rank
+    run's within MESH_LOSS_RTOL, both ranks' step-4 checkpoints and the
+    one-rank run's committed."""
+    for name, (rc, log) in logs.items():
+        check(rc == 0, f"lm_mesh (d): {name} rc {rc}\n{log[-3000:]}")
+    two = logged_losses(logs["rank 0"][1])
+    one_rank = logged_losses(logs["one rank"][1])
+    check(len(two) == 4 and len(one_rank) == 4 and all(
+        abs(x - y) <= MESH_LOSS_RTOL * abs(y) for x, y in zip(two, one_rank)),
+        f"lm_mesh (d): 2 ranks' losses {two} equal one rank's {one_rank} "
+        f"within rtol {MESH_LOSS_RTOL}")
+    step = tmp / "ck2" / "step_00000004"
+    check((step / "manifest_0.json").exists() and
+          (step / "manifest_1.json").exists() and
+          (tmp / "ck1" / "step_00000004" / "manifest.json").exists(),
+          "lm_mesh (d): both ranks' step-4 checkpoints and the one-rank "
+          "run's committed")
+    print(f"lm_mesh (d) launcher --distributed on 2 gloo ranks (mesh "
+          f"(1, 2)), qwen2-moe smoke, rc 0: losses {two}; one rank "
+          f"{one_rank}")
+
+
+def logged_losses(log: str) -> list:
+    import re
+
+    return [float(m.group(1)) for m in
+            re.finditer(r"step \d+ loss (\S+)$", log, re.M)]
+
+
+def mesh_one_rank_and_one_card(tmp: Path) -> tuple:
+    """22 (a), then (b)'s and (c)'s one-card steps (their parameters
+    written under ``tmp``). Returns (a)'s numbers, the one-card steps'
+    and the cases."""
+    import math
+    import statistics
+
+    import torch
+    from repro_torch.core import comm as C
+
+    (a,) = C.dist.spawn(mesh_nccl_rank, 1, ({
+        "arch": "qwen2-moe-a2.7b", "layers": MESH_LAYERS,
+        "batch": MESH_A_BATCH},), backend="nccl", timeout=600)
+    la = a["losses"]
+    check(all(map(math.isfinite, la.values())) and
+          abs(la["mesh"] - la["one_card"])
+          <= MESH_LOSS_REL * abs(la["one_card"]),
+          f"lm_mesh (a): the mesh step's loss {la['mesh']!r} within "
+          f"{MESH_LOSS_REL} of the one-card step's {la['one_card']!r}")
+    worst = max(a["mesh"].items(), key=lambda kv: kv[1])
+    check(worst[1] <= MESH_SHARE_MAX, f"lm_mesh (a): each leaf's change "
+          f"within {MESH_SHARE_MAX} of the one-card step's (L2); worst "
+          f"{worst[1]:.3e} ({worst[0]})")
+    rerun = max(a["rerun"].values())
+    rel = lambda x, y: abs(x - y) / abs(y)
+    med = {k: statistics.median(v) for k, v in a["ms"].items()}
+    print(f"lm_mesh (a) qwen2-moe-a2.7b FULL widths, {a['layers']} of 24 "
+          f"layers ({card_line()}; {a['n_params']:,} parameters, bfloat16), "
+          f"world-1 NCCL mesh (1, 1), B={MESH_A_BATCH} S={MESH_SEQ}, AdamW "
+          f"from step {LM_TRAIN_FROM}: losses mesh {la['mesh']!r}, one-card "
+          f"{la['one_card']!r}, rerun {la['rerun']!r} (relative "
+          f"{rel(la['mesh'], la['one_card']):.2e}, the rerun's "
+          f"{rel(la['rerun'], la['one_card']):.2e}); each leaf's change "
+          f"against the one-card step's (L2): worst {worst[1]:.3e} "
+          f"({worst[0]}), the one-card rerun's worst {rerun:.3e}; ms a step "
+          f"in turns (CUDA events, after {MESH_WARMUP} warm-up): mesh "
+          f"{[round(x, 2) for x in a['ms']['mesh']]}, one-card "
+          f"{[round(x, 2) for x in a['ms']['one_card']]}; medians "
+          f"{med['mesh']:.2f} / {med['one_card']:.2f} ms; peak mesh "
+          f"{gib(a['peak']['mesh'])}, one-card {gib(a['peak']['one_card'])}")
+    torch.cuda.empty_cache()
+    # (b), (c): the one-card steps first, their parameters to the host
+    cases = {"b": {"arch": "qwen2.5-14b", "layers": MESH_LAYERS,
+                   "sizes": (1, 2), "batch": MESH_B_BATCH},
+             "c": {"arch": "qwen2-moe-a2.7b-opt", "layers": MESH_C_LAYERS,
+                   "sizes": (2, 1), "batch": MESH_C_BATCH}}
+    one = {}
+    for name, case in cases.items():
+        case["want"] = str(tmp / f"{name}.pt")
+        one[name] = mesh_one_card(case, Path(case["want"]))
+    return a, one, cases
+
+
+def lm_mesh_path() -> dict:
+    """Phase 22: the LM train step on a mesh (A13.5), TF32 off, (a)-(d);
+    the port's kernel launches over the phase (the parent's and every
+    rank's) must all be 0."""
+    import math
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.core import comm as C
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    # (d) the launcher on 2 gloo ranks beside a one-rank run, at --smoke,
+    # started first: their start-up runs beside (a)'s, their small steps
+    # beside (a)'s and (b), (c)'s one-card steps (beside the gloo world's
+    # ranks they slowed its steps by a third); collected before the world
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_"))
+    launcher = start_launchers(tmp)
+    try:
+        a, one, cases = mesh_one_rank_and_one_card(tmp)
+    finally:
+        logs = finish_launchers(launcher, tmp)
+    check_launchers(logs, tmp)
+    launches = [a["launches"]]
+    t_world = time.perf_counter()
+    ranks = C.dist.spawn(mesh_gloo_rank, 2, (cases,), backend="gloo",
+                         timeout=900)
+    t_world = time.perf_counter() - t_world
+    for r in ranks:
+        launches.append(r["launches"])
+    for name, case in cases.items():
+        got = [r[name] for r in ranks]
+        want = one[name]
+        for i, g in enumerate(got):
+            check(math.isfinite(g["loss"]) and abs(g["loss"] - want["loss"])
+                  <= MESH_LOSS_REL * abs(want["loss"]),
+                  f"lm_mesh ({name}) rank {i}: loss {g['loss']!r} within "
+                  f"{MESH_LOSS_REL} of the one-card step's {want['loss']!r}")
+            check(g["wire"] == g["reckoned"], f"lm_mesh ({name}) rank {i}: "
+                  f"wire bytes {g['wire']} equal the count from shapes "
+                  f"{g['reckoned']}")
+        sq = {}
+        for k, (d, m) in got[0]["sq"].items():
+            if got[0]["sharded"][k]:
+                d, m = d + got[1]["sq"][k][0], m + got[1]["sq"][k][1]
+            sq[k] = (d, m)
+        shares = change_shares(sq)
+        check(all(math.isfinite(v) for v in shares.values()),
+              f"lm_mesh ({name}): every leaf the one-card step moved, the "
+              f"mesh step moved ({shares})")
+        worst = max(shares.items(), key=lambda kv: kv[1])
+        check(worst[1] <= MESH_SHARE_MAX, f"lm_mesh ({name}): each leaf's "
+              f"change within {MESH_SHARE_MAX} of the one-card step's (L2); "
+              f"worst {worst[1]:.3e} ({worst[0]})")
+        mid = statistics.median(shares.values())
+        wire = got[0]["wire"]
+        print(f"lm_mesh ({name}) {case['arch']} FULL widths, "
+              f"{got[0]['layers']} layers, mesh {dict(zip(('data', 'model'), case['sizes']))} "
+              f"on 2 gloo ranks sharing the card ({card_line()}; "
+              f"{want['n_params']:,} parameters, a rank holds "
+              f"{got[0]['rank_params']:,} / {got[1]['rank_params']:,}), "
+              f"B={case['batch']} S={MESH_SEQ}: loss {[g['loss'] for g in got]} "
+              f"against one card's {want['loss']!r}; each leaf's change "
+              f"against the one-card step's (L2): median {mid:.3e}, worst "
+              f"{worst[1]:.3e} ({worst[0]}); s a step (host clock) "
+              f"{[[round(x, 3) for x in g['step_s']] for g in got]} (first, "
+              f"warm: {[round(g['first_s'], 3) for g in got]}); one card "
+              f"{[round(x, 2) for x in want['ms']]} ms (first "
+              f"{want['first_ms']:.2f}); peak a rank "
+              f"{[gib(g['peak']) for g in got]}, one card "
+              f"{gib(want['peak'])}; wire bytes a step (rank 0, as counted "
+              f"= from shapes) {wire}, total {sum(wire.values()):,}")
+        os.remove(case["want"])
+    print(f"lm_mesh: the gloo world (spawn, both cases) {t_world:.1f} s")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches.append(dict(ops.LAUNCHES))
+    check(not any(v for d in launches for v in d.values()),
+          f"lm_mesh: no port kernel launched ({launches})")
+    print(f"lm_mesh: port kernel launches over the phase (parent, (a)'s "
+          f"rank, (b)-(c)'s ranks) {launches}; phase "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return {"a": a, "one": one}
 
 
 class HostPartitions:
@@ -6206,6 +6708,10 @@ def run_phases(parts) -> None:
     torch.cuda.empty_cache()
     lm_path()
     stamp("lm done")
+    # ---- the LM on a mesh (phase 22; before the refill path, as phase 15) -
+    torch.cuda.empty_cache()
+    lm_mesh_path()
+    stamp("lm_mesh done")
 
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
@@ -6405,6 +6911,9 @@ def run_alone(names) -> None:
     if "lm" in names:
         torch.cuda.empty_cache()
         lm_path()
+    if "lm_mesh" in names:
+        torch.cuda.empty_cache()
+        lm_mesh_path()
     if cin_bwd is not None and train is not None:
         print(json.dumps({"kernels": cin_bwd_rows(cin_bwd, train)}))
     print(json.dumps({"ok": True, "device": {
@@ -6452,7 +6961,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
               "memory", "obs", "frontend", "gnn", "examples", "cin_bwd",
-              "recsys_train", "recsys_shard", "mace", "lm")
+              "recsys_train", "recsys_shard", "mace", "lm", "lm_mesh")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

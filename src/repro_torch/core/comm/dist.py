@@ -24,6 +24,11 @@ carries CUDA tensors for the collectives it implements for them).
 * :class:`AllToAll` / :class:`AllToAllV` are the all-to-alls that
   autograd differentiates (the reverse all-to-all); the delegate sum's
   counterpart is :func:`repro_torch.core.comm.reduce.delegate_allreduce_sum`.
+* Tensor parallelism's operators over a group of axes:
+  :class:`CopyToGroup` (identity forward, all-reduce backward),
+  :class:`ReduceFromGroup` (all-reduce forward, identity backward) and
+  :class:`GatherFromGroup` (FSDP: all-gather forward, reduce-scatter
+  backward), each adding the bytes it sends to a tally.
 * :func:`spawn` starts a world of processes on one host with a ``file://``
   rendezvous under a fresh temporary directory and a hard timeout: a rank
   that hangs or fails fails the call, and every process is stopped.
@@ -287,6 +292,144 @@ class AllToAllV(torch.autograd.Function):
     def backward(ctx, grad):
         return (all_to_all_v(ctx.mesh, grad.contiguous(), ctx.recv, ctx.send,
                              tally=ctx.tally, key=ctx.key, axes=ctx.axes),
+                None, None, None, None, None, None)
+
+
+# -----------------------------------------------------------------------------
+# Tensor-parallel operators (Megatron's f and g, and FSDP's gather): each
+# adds the bytes this rank sends to ``tally[key]`` under the ring model
+# (:func:`ring_allreduce_bytes`, :func:`ring_gather_bytes`); a checkpointed
+# layer's recompute runs its forward collectives again and counts them
+# again.
+
+
+def ring_allreduce_bytes(numel: int, itemsize: int, k: int) -> int:
+    """Bytes one rank sends in a ring all-reduce of ``numel`` elements over
+    ``k`` ranks: ``2 (k - 1)`` chunks of ``ceil(numel / k)`` (the model of
+    :meth:`repro_torch.core.comm.base.CommPlan.delegate_bytes`)."""
+    return 2 * (k - 1) * -(-numel // k) * itemsize if k > 1 else 0
+
+
+def ring_gather_bytes(chunk_numel: int, itemsize: int, k: int) -> int:
+    """Bytes one rank sends in a ring all-gather (or reduce-scatter) whose
+    chunks hold ``chunk_numel`` elements: ``k - 1`` chunks."""
+    return (k - 1) * chunk_numel * itemsize
+
+
+def tally_bytes(tally: dict | None, key: str, nbytes: int) -> None:
+    """``tally[key] += nbytes`` (nothing without a tally)."""
+    if tally is not None:
+        tally[key] = tally.get(key, 0) + nbytes
+
+
+def _allreduce_sum(mesh, x, axes, tally, key):
+    k = mesh.size(axes)
+    tally_bytes(tally, key, ring_allreduce_bytes(x.numel(), x.element_size(),
+                                                 k))
+    return all_reduce(mesh, x, "sum", axes)
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) backward over the group of
+    ``axes``: where a tensor that every member holds whole feeds a
+    computation split over the group, each member's gradient is a part,
+    and their sum is the tensor's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, tally=None, key="copy"):
+        ctx.mesh, ctx.axes, ctx.tally, ctx.key = mesh, axes, tally, key
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_allreduce_sum(ctx.mesh, grad.contiguous(), ctx.axes,
+                               ctx.tally, ctx.key), None, None, None, None)
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward over the group of
+    ``axes``: the members' partial results summed into the whole, which
+    every member then holds, so the gradient of each part is the whole's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, tally=None, key="reduce"):
+        return _allreduce_sum(mesh, x, axes, tally, key)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None, None
+
+
+def _split_sizes(n: int, k: int) -> list:
+    """``torch.tensor_split``'s sizes of ``n`` over ``k``."""
+    q, r = divmod(n, k)
+    return [q + (i < r) for i in range(k)]
+
+
+def gather_dim(mesh, x, dim: int, n: int, axes, tally=None,
+               key: str = "gather") -> torch.Tensor:
+    """The whole tensor of which each member of the group of ``axes`` holds
+    its ``torch.tensor_split`` block of ``n`` along ``dim`` (ragged blocks
+    travel padded to the largest)."""
+    k = mesh.size(axes)
+    sizes = _split_sizes(n, k)
+    dim = dim % x.dim()
+    m = sizes[0]
+    if x.shape[dim] != sizes[mesh.index(axes)]:
+        raise ValueError(f"block of {x.shape[dim]} along dim {dim}, split "
+                         f"{sizes}")
+    src = torch.nn.functional.pad(
+        x.movedim(dim, 0), (0, 0) * (x.dim() - 1) + (0, m - x.shape[dim]))
+    tally_bytes(tally, key, ring_gather_bytes(src.numel(), src.element_size(),
+                                              k))
+    out = all_gather(mesh, src.contiguous(), axes)          # [k, m, ...]
+    parts = [out[j, :sizes[j]] for j in range(k)]
+    return torch.cat(parts, 0).movedim(0, dim)
+
+
+def reduce_scatter_dim(mesh, x, dim: int, axes, tally=None,
+                       key: str = "scatter") -> torch.Tensor:
+    """The sum over the group of ``axes`` of every member's whole ``x``,
+    of which this member keeps its ``torch.tensor_split`` block along
+    ``dim``. NCCL reduce-scatters (ragged blocks padded to the largest);
+    gloo all-reduces and slices."""
+    k, i = mesh.size(axes), mesh.index(axes)
+    dim = dim % x.dim()
+    sizes = _split_sizes(x.shape[dim], k)
+    lo = sum(sizes[:i])
+    if mesh.backend != "nccl":
+        whole = _allreduce_sum(mesh, x.contiguous(), axes, tally, key)
+        return whole.narrow(dim, lo, sizes[i]).contiguous()
+    m = sizes[0]
+    src = x.movedim(dim, 0)
+    blocks = torch.stack([torch.nn.functional.pad(
+        b, (0, 0) * (x.dim() - 1) + (0, m - b.shape[0]))
+        for b in src.split(sizes)])                          # [k, m, ...]
+    out = torch.empty_like(blocks[0])
+    tally_bytes(tally, key, ring_gather_bytes(out.numel(), out.element_size(),
+                                              k))
+    dist.reduce_scatter_tensor(out, blocks.contiguous(), group=mesh.group(axes))
+    return out[:sizes[i]].movedim(0, dim).contiguous()
+
+
+class GatherFromGroup(torch.autograd.Function):
+    """:func:`gather_dim` forward, :func:`reduce_scatter_dim` backward: a
+    leaf sharded along ``dim`` (FSDP) gathered whole for a computation
+    that every member runs on its own rows; each member's gradient of the
+    whole is its rows' part, and the sum over the group of the block it
+    holds is its block's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, n, axes, tally=None,
+                keys=("gather", "scatter")):
+        ctx.mesh, ctx.dim, ctx.axes, ctx.tally = mesh, dim, axes, tally
+        ctx.key = keys[1]
+        return gather_dim(mesh, x, dim, n, axes, tally, keys[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (reduce_scatter_dim(ctx.mesh, grad, ctx.dim, ctx.axes,
+                                   ctx.tally, ctx.key),
                 None, None, None, None, None, None)
 
 

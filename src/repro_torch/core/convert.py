@@ -12,7 +12,9 @@ names and layouts, so they carry across by name
 ranks of a mesh (:func:`xdeepfm_shard_params`, and back:
 :func:`xdeepfm_gather_params`); so do the GNN parameter trees and
 the optimizer states (:func:`tree_from_numpy`, :func:`tree_to_numpy`:
-MeshGraphNet's stacked ``layers`` included, nothing transposed).
+MeshGraphNet's stacked ``layers`` included, nothing transposed). An LM
+tree is cut into a mesh rank's shards and put back together by
+:func:`lm_shard_params` and :func:`lm_gather_params`.
 """
 from __future__ import annotations
 
@@ -169,3 +171,30 @@ def tree_to_numpy(tree):
     """Inverse of :func:`tree_from_numpy`: every tensor leaf as a host
     numpy array, names and layouts unchanged (:func:`tensor_to_array`)."""
     return tree_map(tensor_to_array, tree)
+
+
+def lm_shard_params(tree, cfg, rules: dict, layout):
+    """A rank's shards of a whole LM parameter tree (the reference's numpy
+    parameters, or the port's tensors): each leaf cut by its
+    ``ParamSpec.axes`` under ``rules`` (``repro_torch.launch.sharding``)
+    into the block the rank at ``layout`` (a ``MeshLayout``, or a
+    ``PartitionMesh``) holds -- the slice of the one-device tree. Works on
+    any tree of the parameters' structure (AdamW's ``m`` and ``v``)."""
+    from repro_torch.launch.sharding import (MeshLayout, layout_of,
+                                             param_shardings, shard_tree)
+    from repro_torch.models.lm import lm_param_specs, lm_units
+
+    if not isinstance(layout, MeshLayout):
+        layout = layout_of(layout)
+    return shard_tree(tree, param_shardings(lm_param_specs(cfg), rules,
+                                            lm_units(cfg)), layout)
+
+
+def lm_gather_params(shards: list, cfg, rules: dict, axes, sizes):
+    """Inverse of :func:`lm_shard_params`: every rank's shards, in rank
+    order, on a mesh of ``axes`` / ``sizes``, as the whole tree."""
+    from repro_torch.launch.sharding import gather_tree, param_shardings
+    from repro_torch.models.lm import lm_param_specs, lm_units
+
+    return gather_tree(shards, param_shardings(lm_param_specs(cfg), rules,
+                                               lm_units(cfg)), axes, sizes)

@@ -25,7 +25,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.bfs import resolve_device
 
 from . import attention as A
-from .common import ParamSpec, cross_entropy_loss, gelu, rms_norm, swiglu
+from .common import (ParamSpec, Parallel, cross_entropy_loss, gelu,
+                     rms_norm, swiglu)
 from .moe import moe_apply, moe_param_specs
 
 
@@ -131,7 +132,18 @@ def lm_param_specs(cfg: LMConfig) -> dict:
     return specs
 
 
+def lm_units(cfg: LMConfig) -> dict:
+    """The split unit of each logical axis whose dimension is flattened:
+    ``heads`` and ``kv_heads`` split whole heads (``d_head`` columns)."""
+    return {"heads": cfg.d_head, "kv_heads": cfg.d_head}
+
+
 # ------------------------------------------------------------------- forward
+def _axes(par: Parallel | None, logical: str) -> tuple:
+    """The mesh axes ``logical`` is split over (``()`` on one device)."""
+    return () if par is None else par.axes(logical)
+
+
 def _layer_params(params: dict) -> list:
     """Each layer's weights ``{name: [...]}`` as views of the stacked
     ``[L, ...]`` leaves (``unbind``: one stack in the backward)."""
@@ -140,24 +152,65 @@ def _layer_params(params: dict) -> list:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
-def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+           par: Parallel | None = None) -> torch.Tensor:
     """Token rows of the embedding (ids clipped into the vocabulary, as
-    ``jnp.take(mode="clip")``), in ``cfg.dtype``."""
+    ``jnp.take(mode="clip")``), in ``cfg.dtype``. With the vocabulary split
+    (``par``): each rank looks up the ids of its block, zero rows for the
+    others, and the rows are summed over the vocabulary's axes."""
     ids = tokens.long().clamp(0, cfg.vocab - 1)
-    x = params["embed"].index_select(0, ids.reshape(-1))
+    vocab = _axes(par, "vocab")
+    if not vocab:
+        x = params["embed"].index_select(0, ids.reshape(-1))
+        return x.reshape(*tokens.shape, cfg.d_model).to(cfg.dtype)
+    lo, hi = par.span("vocab", cfg.vocab)
+    local = ids - lo
+    inside = ((local >= 0) & (local < hi - lo)).reshape(-1, 1)
+    x = params["embed"].index_select(0, local.clamp(0, hi - lo - 1).reshape(-1))
+    x = par.reduce(torch.where(inside, x, torch.zeros_like(x)), vocab)
     return x.reshape(*tokens.shape, cfg.d_model).to(cfg.dtype)
 
 
-def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor):
+def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
+         par: Parallel | None = None):
+    """q, k, v of this rank's heads. With ``heads`` split (``par``): q (and
+    k, v where ``kv_heads`` is split alike) column-parallel; replicated kv
+    heads are computed whole, their gradient summed over the heads' axes,
+    and each local q head ``j`` reads kv head ``global_j // (n_heads /
+    n_kv)``."""
     b, s, _ = h.shape
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    heads = _axes(par, "heads")
+    kv_axes = _axes(par, "kv_heads")
+    if kv_axes and kv_axes != heads:
+        raise ValueError(f"kv heads split over {kv_axes}, q heads over "
+                         f"{heads}: each rank needs its q heads' kv heads")
+    h0, h1 = par.span("heads", cfg.n_heads) if heads else (0, cfg.n_heads)
+    hq, grp = h1 - h0, cfg.n_heads // cfg.n_kv
+    ht = par.copy(h, heads) if heads else h
+    q = ht @ lp["wq"]
     if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = A.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.d_head), positions,
-                     cfg.rope_theta)
-    k = A.apply_rope(k.reshape(b, s, cfg.n_kv, cfg.d_head), positions,
-                     cfg.rope_theta)
-    return q, k, v.reshape(b, s, cfg.n_kv, cfg.d_head)
+        q = q + lp["bq"]
+    q = A.apply_rope(q.reshape(b, s, hq, cfg.d_head), positions, cfg.rope_theta)
+    if kv_axes:
+        k0, k1 = par.span("kv_heads", cfg.n_kv)
+        if (h0, h1) != (k0 * grp, k1 * grp):
+            raise ValueError(f"q heads [{h0}, {h1}) do not read kv heads "
+                             f"[{k0}, {k1})")
+    src = ht if kv_axes else h
+    k, v = src @ lp["wk"], src @ lp["wv"]
+    if cfg.qkv_bias:
+        k, v = k + lp["bk"], v + lp["bv"]
+    hk = k.shape[-1] // cfg.d_head
+    k = A.apply_rope(k.reshape(b, s, hk, cfg.d_head), positions, cfg.rope_theta)
+    v = v.reshape(b, s, hk, cfg.d_head)
+    if heads and not kv_axes:
+        k, v = par.copy(k, heads), par.copy(v, heads)
+        if h0 % grp == 0 and h1 % grp == 0:
+            k, v = k[:, :, h0 // grp:h1 // grp], v[:, :, h0 // grp:h1 // grp]
+        else:
+            idx = torch.arange(h0, h1, device=k.device) // grp
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v
 
 
 def _attend(cfg: LMConfig, q, k, v, window: int) -> torch.Tensor:
@@ -170,58 +223,86 @@ def _attend(cfg: LMConfig, q, k, v, window: int) -> torch.Tensor:
                                       kv_chunk=cfg.kv_chunk)
 
 
-def _dense_ffn(cfg: LMConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+def _dense_ffn(cfg: LMConfig, lp: dict, h: torch.Tensor,
+               par: Parallel | None = None) -> torch.Tensor:
+    """The dense FFN; with ``ff`` split (``par``), column- then
+    row-parallel."""
+    ff = _axes(par, "ff")
+    if ff:
+        h = par.copy(h, ff)
     if cfg.mlp == "swiglu":
-        return swiglu(h @ lp["wi_gate"], h @ lp["wi_up"]) @ lp["wo_mlp"]
-    return gelu((h @ lp["wi_up"]).float()).to(h.dtype) @ lp["wo_mlp"]
+        out = swiglu(h @ lp["wi_gate"], h @ lp["wi_up"]) @ lp["wo_mlp"]
+    else:
+        out = gelu((h @ lp["wi_up"]).float()).to(h.dtype) @ lp["wo_mlp"]
+    return par.reduce(out, ff) if ff else out
 
 
-def _ffn_block(cfg: LMConfig, lp: dict, x: torch.Tensor) -> tuple:
+def _ffn_block(cfg: LMConfig, lp: dict, x: torch.Tensor,
+               par: Parallel | None = None) -> tuple:
     b, s, d = x.shape
     h = rms_norm(x, lp["ln_mlp"])
     if cfg.is_moe:
-        out, aux = moe_apply(lp, h.reshape(b * s, d), cfg)
+        out, aux = moe_apply(lp, h.reshape(b * s, d), cfg, par)
         return x + out.reshape(b, s, d), aux
-    return x + _dense_ffn(cfg, lp, h), x.new_zeros((), dtype=torch.float32)
+    return x + _dense_ffn(cfg, lp, h, par), x.new_zeros((), dtype=torch.float32)
 
 
 def _layer(cfg: LMConfig, window: int, lp: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> tuple:
+           positions: torch.Tensor, par: Parallel | None = None) -> tuple:
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), positions)
+    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), positions, par)
     o = _attend(cfg, q, k, v, window)
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.d_head) @ lp["wo"]
-    return _ffn_block(cfg, lp, x)
+    o = o.reshape(b, s, q.shape[2] * cfg.d_head) @ lp["wo"]
+    heads = _axes(par, "heads")
+    x = x + (par.reduce(o, heads) if heads else o)
+    return _ffn_block(cfg, lp, x, par)
 
 
-def _head(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: LMConfig, params: dict, x: torch.Tensor,
+          par: Parallel | None = None) -> torch.Tensor:
+    """Logits in float32; with the vocabulary split (``par``), this rank's
+    block of them (the untied head's columns, or the tied ``embed.T``'s)."""
     x = rms_norm(x, params["final_norm"])
+    vocab = _axes(par, "vocab")
+    if vocab:
+        x = par.copy(x, vocab)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return (x @ head.to(x.dtype)).float()
 
 
-def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
+def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+            par: Parallel | None = None) -> tuple:
     """tokens [B, S] -> (logits [B, S, V] f32, aux_loss). With gradients
     on and ``cfg.remat``, each layer's activations are recomputed in the
-    backward (``torch.utils.checkpoint``)."""
-    x = _embed(cfg, params, tokens)
+    backward (``torch.utils.checkpoint``; on a mesh the recompute repeats
+    the layer's forward collectives).
+
+    ``par`` (:class:`~repro_torch.models.common.Parallel`): this rank's
+    shards of the parameters (``repro_torch.launch.sharding``) and its
+    rows of the batch; the logits are its block of the vocabulary, the
+    aux loss the global one."""
+    x = _embed(cfg, params, tokens, par)
     positions = torch.arange(tokens.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = x.new_zeros((), dtype=torch.float32)
     for i, lp in enumerate(_layer_params(params)):
         window = 0 if cfg.layer_is_global(i) else cfg.window
         if remat:
-            x, a = checkpoint(_layer, cfg, window, lp, x, positions,
+            x, a = checkpoint(_layer, cfg, window, lp, x, positions, par,
                               use_reentrant=False)
         else:
-            x, a = _layer(cfg, window, lp, x, positions)
+            x, a = _layer(cfg, window, lp, x, positions, par)
         aux = aux + a
-    return _head(cfg, params, x), aux
+    return _head(cfg, params, x, par), aux
 
 
-def loss_fn(cfg: LMConfig, params: dict, batch: dict) -> tuple:
-    logits, aux = forward(cfg, params, batch["tokens"])
-    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+def loss_fn(cfg: LMConfig, params: dict, batch: dict,
+            par: Parallel | None = None) -> tuple:
+    """``(loss, {"ce", "aux"})``; on a mesh (``par``) the global ones, the
+    same on every rank, from this rank's shards and rows."""
+    logits, aux = forward(cfg, params, batch["tokens"], par)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"), par,
+                            cfg.vocab)
     return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
 

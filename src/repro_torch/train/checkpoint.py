@@ -7,6 +7,10 @@ point -- a crashed save never becomes "latest"), holding the leaves'
 names (their tree paths), shapes, dtypes and the shard's sha256. Restore
 places each leaf as the corresponding leaf of the restoring job's tree
 (device and dtype of a tensor). Keeps the newest ``keep`` checkpoints.
+
+A job of ``process_count > 1`` processes (the ranks of a mesh, each with
+its own shards) writes ``shard_<p>.npz`` and ``manifest_<p>.json`` per
+process; a step is committed when every process's manifest is there.
 """
 from __future__ import annotations
 
@@ -44,9 +48,15 @@ def _sha256(path: str) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
+def _manifest(process_index: int, process_count: int) -> str:
+    return ("manifest.json" if process_count == 1
+            else f"manifest_{process_index}.json")
+
+
 def save(ckpt_dir: str, step: int, tree, process_index: int = 0,
-         keep: int = 3) -> str:
-    """Write one checkpoint; returns its path. Atomic via manifest-last."""
+         keep: int = 3, process_count: int = 1) -> str:
+    """Write one checkpoint (this process's shard of it); returns its
+    path. Atomic via manifest-last."""
     flat = flatten_with_path(tree)
     leaves = [_host(x) for _, x in flat]
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -64,49 +74,54 @@ def save(ckpt_dir: str, step: int, tree, process_index: int = 0,
         "shards": {str(process_index): {"file": os.path.basename(shard_path),
                                         "sha256": _sha256(shard_path)}},
     }
-    mtmp = os.path.join(step_dir, ".manifest.tmp")
+    mtmp = os.path.join(step_dir, f".manifest_{process_index}.tmp")
     with open(mtmp, "w") as f:
         json.dump(manifest, f)
-    os.replace(mtmp, os.path.join(step_dir, "manifest.json"))   # commit point
-    _gc(ckpt_dir, keep)
+    os.replace(mtmp, os.path.join(                               # commit point
+        step_dir, _manifest(process_index, process_count)))
+    _gc(ckpt_dir, keep, process_count)
     return step_dir
 
 
-def _gc(ckpt_dir: str, keep: int):
-    steps = sorted(all_steps(ckpt_dir))
+def _gc(ckpt_dir: str, keep: int, process_count: int = 1):
+    steps = sorted(all_steps(ckpt_dir, process_count))
     for s in steps[:-keep] if keep else []:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
 
 
-def all_steps(ckpt_dir: str) -> list:
+def all_steps(ckpt_dir: str, process_count: int = 1) -> list:
+    """The committed steps: those whose every process's manifest is
+    written."""
     if not os.path.isdir(ckpt_dir):
         return []
     out = []
     for name in os.listdir(ckpt_dir):
-        if name.startswith("step_") and os.path.exists(
-                os.path.join(ckpt_dir, name, "manifest.json")):
+        if name.startswith("step_") and all(os.path.exists(
+                os.path.join(ckpt_dir, name, _manifest(p, process_count)))
+                for p in range(process_count)):
             out.append(int(name.split("_")[1]))
     return out
 
 
-def latest_step(ckpt_dir: str) -> int | None:
-    steps = all_steps(ckpt_dir)
+def latest_step(ckpt_dir: str, process_count: int = 1) -> int | None:
+    steps = all_steps(ckpt_dir, process_count)
     return max(steps) if steps else None
 
 
 def restore(ckpt_dir: str, tree_like, step: int | None = None,
-            process_index: int = 0):
+            process_index: int = 0, process_count: int = 1):
     """``(step, tree)``: the checkpoint (the latest committed one when
     ``step`` is None) in the structure of ``tree_like``, shapes verified
     against the manifest and the shard against its sha256; a leaf whose
     ``tree_like`` leaf is a tensor comes back as a tensor of its dtype on
     its device, others as numpy arrays."""
     if step is None:
-        step = latest_step(ckpt_dir)
+        step = latest_step(ckpt_dir, process_count)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with open(os.path.join(step_dir, "manifest.json")) as f:
+    with open(os.path.join(step_dir, _manifest(process_index,
+                                                process_count))) as f:
         manifest = json.load(f)
     shard_info = manifest["shards"][str(process_index)]
     path = os.path.join(step_dir, shard_info["file"])

@@ -56,19 +56,36 @@ def run_resilient(
     straggler: StragglerMonitor | None = None,
     straggler_policy: str = "warn",
     fault_hook: Callable[[int], None] | None = None,   # test injection point
+    process_index: int = 0,
+    process_count: int = 1,
+    barrier: Callable[[], None] | None = None,
 ) -> RunReport:
     """Run ``step_fn`` from the latest committed checkpoint (or
     ``init_state()``) to ``total_steps``, checkpointing every
     ``ckpt_every`` steps and at the end; on an exception, restart from the
-    latest checkpoint, at most ``max_restarts`` times."""
+    latest checkpoint, at most ``max_restarts`` times.
+
+    A job of ``process_count`` processes (a mesh's ranks, each holding its
+    own shards) saves and restores this process's shard
+    (``process_index``); ``barrier`` (every process's, e.g.
+    ``torch.distributed.barrier``) runs after each save, so a step is
+    committed by all before any reads it. A straggler's checkpoint, which
+    one process decides alone, is taken only in a job of one process."""
+    io = dict(process_index=process_index, process_count=process_count)
+
+    def save(step, state):
+        ckpt.save(ckpt_dir, step, state, **io)
+        if barrier is not None:
+            barrier()
+
     report = RunReport()
     straggler = straggler or StragglerMonitor()
     restarts = 0
     while True:
         # ---- (re)start: restore latest committed state if present --------
         step0, state = init_state()
-        if ckpt.latest_step(ckpt_dir) is not None:
-            step0, state = ckpt.restore(ckpt_dir, state)
+        if ckpt.latest_step(ckpt_dir, process_count) is not None:
+            step0, state = ckpt.restore(ckpt_dir, state, **io)
             log.info("restored checkpoint at step %d", step0)
         step = step0
         try:
@@ -84,10 +101,10 @@ def run_resilient(
                 if straggler.observe(dt):
                     report.straggler_events += 1
                     log.warning("straggler step %d: %.3fs", step, dt)
-                    if straggler_policy == "checkpoint":
-                        ckpt.save(ckpt_dir, step, state)
+                    if straggler_policy == "checkpoint" and process_count == 1:
+                        save(step, state)
                 if step % ckpt_every == 0 or step == total_steps:
-                    ckpt.save(ckpt_dir, step, state)
+                    save(step, state)
             report.final_step = step
             report.restarts = restarts
             return report

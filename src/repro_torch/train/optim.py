@@ -55,6 +55,34 @@ def _step0(params) -> torch.Tensor:
 
 
 @dataclass(frozen=True)
+class ShardedLeaf:
+    """A rank's block of a parameter split over mesh axes, for the
+    optimizers' whole-leaf statistics: ``dims[i]`` the mesh axes dimension
+    ``i`` is split over (``()``: whole), ``shape`` the whole leaf's shape,
+    ``psum(x, axes)`` the sum of ``x`` over the ranks along ``axes``."""
+    dims: tuple
+    shape: tuple
+    psum: Callable
+
+    def mean(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The mean over dimension ``dim`` of the whole leaf of which ``x``
+        is this rank's block (``x``'s dimension ``dim`` lines up with the
+        leaf's from the right)."""
+        s = x.sum(dim)
+        axes = self.dims[dim]
+        if axes:
+            s = self.psum(s, axes)
+        return s / self.shape[dim]
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.sum()
+        axes = tuple(a for d in self.dims for a in d)
+        if axes:
+            s = self.psum(s, axes)
+        return s / math.prod(self.shape)
+
+
+@dataclass(frozen=True)
 class AdamW:
     lr: Callable | float = 1e-3
     b1: float = 0.9
@@ -68,10 +96,12 @@ class AdamW:
                 "v": tree_map(_zeros_f32, params)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm=None):
+        """``norm``: the gradient's global norm where ``grads`` is a shard
+        of it (the world's, each leaf counted once); the clip reads it."""
         step = state["step"] + 1
         if self.clip_norm:
-            grads, _ = clip_by_global_norm(grads, self.clip_norm)
+            grads, _ = clip_by_global_norm(grads, self.clip_norm, norm)
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
         m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["m"], grads)
@@ -113,19 +143,28 @@ class Adafactor:
         return {"step": _step0(params), "stats": tree_map(one, params)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shards=None):
+        """``shards``: where the leaves are blocks of sharded parameters, a
+        :class:`ShardedLeaf` per leaf; the factored means, the
+        denominator's mean and the update's RMS then run over the whole
+        leaf (summed over the axes its reduced dimensions are split
+        over)."""
         step = state["step"] + 1
         t = step.float()
         beta = 1.0 - t ** (-self.decay)
         lr = self.lr(step) if callable(self.lr) else self.lr
 
-        def one(p, g, s):
+        def one(p, g, s, sh):
             g = g.float()
             g2 = torch.square(g) + self.eps
+            mean = torch.mean if sh is None else sh.mean
             if self._factored(p.shape):
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
-                denom = torch.clamp(vr.mean(-1, keepdim=True), min=self.eps)
+                vr = beta * s["vr"] + (1 - beta) * mean(g2, -1)
+                vc = beta * s["vc"] + (1 - beta) * mean(g2, -2)
+                # vr's last dimension is the leaf's second to last
+                denom = torch.clamp(
+                    vr.mean(-1, keepdim=True) if sh is None
+                    else sh.mean(vr[..., None], -2), min=self.eps)
                 u = g / torch.sqrt(vr[..., None] / denom[..., None]
                                    * vc[..., None, :] + self.eps)
                 new_s = {"vr": vr, "vc": vc}
@@ -134,12 +173,17 @@ class Adafactor:
                 u = g / torch.sqrt(v + self.eps)
                 new_s = {"v": v}
             # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            ms = torch.mean(torch.square(u)) if sh is None else \
+                sh.mean_all(torch.square(u))
+            rms = torch.sqrt(ms + 1e-30)
             u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
             return (p.float() - lr * u).to(p.dtype), new_s
 
-        out = [one(p, g, s) for p, g, s in zip(
-            leaves(params), leaves(grads), leaves_up_to(params, state["stats"]))]
+        shards = [None] * len(leaves(params)) if shards is None \
+            else leaves(shards)
+        out = [one(p, g, s, sh) for p, g, s, sh in zip(
+            leaves(params), leaves(grads), leaves_up_to(params, state["stats"]),
+            shards)]
         return (unflatten_like(params, [o[0] for o in out]),
                 {"step": step,
                  "stats": unflatten_like(params, [o[1] for o in out])})

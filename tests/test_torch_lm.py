@@ -328,9 +328,11 @@ def test_launcher_restart_gives_the_same_losses(tmp_path):
     assert straight[-1] < straight[0]
 
 
-def test_launcher_builds_the_reference_cell():
+def test_launcher_builds_the_reference_cell(tmp_path, monkeypatch):
     """``build_lm_step``: grouped routing resolved to one group, the smoke
-    caps, the spec's accumulation and optimizer."""
+    caps, the spec's accumulation and optimizer; ``--distributed`` trains
+    (here a world of one gloo rank joined by the env:// variables; the
+    mesh tests are in ``test_torch_lm_mesh.py``)."""
     spec = TCB.get_arch("kimi-k2-1t-a32b-opt")
     _, cfg, shape, opt = launcher.build_lm_step(spec, "train_4k")
     assert cfg.moe_groups == 1 and shape == (256, 4096)
@@ -339,8 +341,21 @@ def test_launcher_builds_the_reference_cell():
     assert cfg == spec.smoke and shape == (4, 64)
     with pytest.raises(ValueError, match="not a train shape"):
         launcher.build_lm_step(spec, "decode_32k")
-    with pytest.raises(SystemExit, match="not ported"):
-        launcher.run(["--arch", "gemma3-1b", "--distributed"])
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, LOCAL_WORLD_SIZE=1,
+                     MASTER_ADDR="localhost", MASTER_PORT=port).items():
+        monkeypatch.setenv(k, str(v))
+    args = ["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--ckpt-dir"]
+    report, losses = launcher.run(args + [str(tmp_path / "mesh"),
+                                          "--distributed"])
+    assert report.final_step == 2 and len(losses) == 2
+    _, one = launcher.run(args + [str(tmp_path / "one")])
+    np.testing.assert_allclose(losses, one, **PRIM)
 
 
 def test_lm_serving_example_runs_on_the_cpu():
