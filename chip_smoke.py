@@ -253,7 +253,8 @@
    parameters after 3 AdamW steps equal the emulated run's within rtol
    1e-4, atol 1e-5.
 16. The entry points (run after 15, before 14), each in a subprocess
-   with its exit code checked and its output parsed:
+   (all five started at once, side by side, the sweep's CPU matrix run
+   beside them) with its exit code checked and its output parsed:
    ``examples/torch_quickstart.py`` at scale 14 (every source
    ``match=OK``, the memory ratios); ``examples/torch_bfs_serving.py
    --mixed --refill --overlap --trace --profile`` at scale 14, 120
@@ -349,11 +350,36 @@
    --distributed --backend gloo`` on 2 processes (env://) beside the same
    run on one, all three started before (a): rc 0, losses equal within
    rtol 1e-5, every checkpoint committed.
-23. Prints one JSON line describing every kernel, then, last, the device
+23. The cells and the H100 roofline (``launch/{cells,dryrun,roofline}``),
+   TF32 off. (a) Measured peaks: a bfloat16 ``torch.matmul`` of 8,192^3
+   and a 4 GiB device copy, beside the datasheet's. (b) LM serving on a
+   mesh against the one-card path, a gloo world of 2 ranks sharing the
+   card, mesh (1, 2): ``gemma3-1b`` FULL (its global layers' slots split
+   over ``model``) and ``qwen2.5-14b`` FULL widths, 2 of 48 layers (kv
+   heads split): 8 decode steps from a cache drawn from a seed (B = 4,
+   max_seq 8,192), then a prefill of 2,048 tokens; each rank's logits,
+   the cache slots the steps wrote in its block and its block of the
+   prefill's cache within twice the one-card bfloat16 path's own distance
+   to float32 (the same run in float32) of the one-card path's, every
+   other slot its drawn value, the wire bytes as counted equal to
+   ``cells.lm_wire_bytes``; then the same mesh run in float32 on the same
+   values upcast, within 1e-4 of the one-card float32 run's largest
+   |value|. (c) ``python -m repro_torch.launch.dryrun`` in four
+   subprocesses (CPU only; started with the build and waited for at the
+   end of the set-up, or beside (a) and (b) under ``--only cells``):
+   ``gemma3-1b`` prefill_32k / decode_32k / long_500k,
+   ``qwen2.5-14b`` train_4k, ``xdeepfm`` serve_bulk and ``bfs-rmat``
+   rmat_weak (scale 33) on (32, 8), their roofline table; then, with
+   the host to themselves, ``gemma3-1b`` decode_32k at B = 128 (a 20.1
+   GB cache drawn on the card) and ``xdeepfm`` serve_bulk measured at
+   world 1 (NCCL) against the bound of their world-1 dry run, which no
+   step may beat by more than 5%.
+24. Prints one JSON line describing every kernel, then, last, the device
     line ``{"ok": true, "device": {...}}``.
 
 Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory,obs,
-frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace,lm,lm_mesh``
+frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace,lm,lm_mesh,
+cells``
 (those phases alone, on the same inputs; ``sharded`` is 7 after the main
 serving run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
 ``memory`` is 11 after the 64-query serving run it holds (c) against,
@@ -361,8 +387,8 @@ serving run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
 after its obs-off overlap run, ``frontend`` is 13, ``gnn`` is 15 on a
 fresh scale-20 partition, ``examples``, ``cin_bwd`` and ``recsys_train``
 are 16-18; with both of the last two, the kernels line of the two
-backward kernels; ``recsys_shard``, ``mace``, ``lm`` and ``lm_mesh`` are
-19-22).
+backward kernels; ``recsys_shard``, ``mace``, ``lm``, ``lm_mesh`` and
+``cells`` are 19-23).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -444,6 +470,24 @@ PAIRS = (("ell_pull_multi [sweep, idle]", "ell_pull_multi [3 calls, idle]"),
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+class Splits:
+    """The wall time (host clock) of a phase's parts, each from the end
+    of the one before, printed on one line: where the phase's time
+    goes."""
+
+    def __init__(self, phase: str):
+        self.phase, self.t, self.parts = phase, time.perf_counter(), []
+
+    def __call__(self, part: str) -> None:
+        now = time.perf_counter()
+        self.parts.append((part, now - self.t))
+        self.t = now
+
+    def show(self) -> None:
+        print(f"{self.phase} parts (host clock): " + ", ".join(
+            f"{part} {secs:.1f} s" for part, secs in self.parts))
 
 
 def time_ms(fn, reps: int, rounds: int = 3) -> float:
@@ -1245,6 +1289,8 @@ def run_bfs_keys(eng, g, cfg, keys, csr, want_levels=None):
     from repro_torch.kernels import ops
 
     plan = eng.plan if cfg.static_exchange else None
+    if want_levels is None:
+        want_levels = oracle_map(lambda s: O.bfs_levels(g, s, csr), keys)
     recs = []
     for i, src in enumerate(keys):
         torch.cuda.synchronize()
@@ -1257,9 +1303,7 @@ def run_bfs_keys(eng, g, cfg, keys, csr, want_levels=None):
         dt = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
         levels = TB.gather_levels(eng.pg, out)
-        want = (O.bfs_levels(g, src, csr) if want_levels is None
-                else want_levels[i])
-        check(np.array_equal(levels, want), f"levels of key {src}")
+        check(np.array_equal(levels, want_levels[i]), f"levels of key {src}")
         sweeps = int(out.it[0])
         check(int(out.nn_overflow.sum()) == 0, "no nn id dropped")
         recs.append(dict(
@@ -1644,7 +1688,9 @@ def refill_path(g, obs=None, pg=None) -> None:
     from repro_torch.core import oracle as O
     from repro_torch.serve import QueryKind as K
 
+    split = Splits("refill path")
     gt, tips, eng, queries = refill_engine(g, pg)
+    split("engine")
     runs = {}
     for mode in ("batch", "sync", "overlap", "stream"):
         torch.cuda.reset_peak_memory_stats()
@@ -1681,6 +1727,7 @@ def refill_path(g, obs=None, pg=None) -> None:
                   f"sync and overlap counters equal: {key}")
     check(s_over["sweep_blocks"] > 0 and s_sync["nn_overflow"] == 0,
           "overlap ran blocks; no nn slot dropped")
+    split("four drivers")
     base = runs["batch"]["results"]
     for mode in ("sync", "overlap", "stream"):
         got = runs[mode]["results"]
@@ -1690,23 +1737,16 @@ def refill_path(g, obs=None, pg=None) -> None:
             check(a == b if isinstance(a, dict) else np.array_equal(a, b),
                   f"{mode} answer equals batch: {q}")
     csr = O.csr_from_coo(gt)
-    checked, tips_ok = {}, 0
+    checked, tips_ok, picked = {}, 0, []
     for q, a in base.items():
         tip = q.source in tips
         if not tip and checked.get(q.kind, 0) >= 2:
             continue
-        if q.kind is K.LEVELS:
-            ok = np.array_equal(a, O.bfs_levels(gt, q.source, csr))
-        elif q.kind is K.REACHABILITY:
-            ok = np.array_equal(a, O.reachable_mask(gt, q.source, csr))
-        elif q.kind is K.DISTANCE_LIMITED:
-            ok = np.array_equal(a, O.bfs_levels_limited(gt, q.source,
-                                                        q.max_depth, csr))
-        else:
-            ok = a == O.target_depths(gt, q.source, q.targets, csr)
-        check(ok, f"refill oracle: {q}")
+        picked.append((q, a))
         tips_ok += tip
         checked[q.kind] = checked.get(q.kind, 0) + 1
+    for (q, _), ok in zip(picked, oracle_checks(gt, csr, picked)):
+        check(ok, f"refill oracle: {q}")
     check(tips_ok == len(tips) and all(
         checked.get(k, 0) >= 2 for k in (K.LEVELS, K.REACHABILITY,
                                          K.DISTANCE_LIMITED, K.MULTI_TARGET)),
@@ -1715,8 +1755,10 @@ def refill_path(g, obs=None, pg=None) -> None:
           f"{dict((k.value, v) for k, v in checked.items())} answers exact; "
           "the four drivers agree; sync and overlap counters equal but "
           "sweep_blocks")
+    split("oracle")
     if obs is not None:
         refill_obs_run(eng, queries, tips, runs["overlap"], obs)
+    split("obs run")
     sub = queries[:PROFILED_REFILL_QUERIES]
     for mode in PROFILED_REFILL_MODES:
         r, prof = runs[mode], {}
@@ -1735,8 +1777,12 @@ def refill_path(g, obs=None, pg=None) -> None:
               f"{r['time_s'] * 1e6 / max(r['executed'], 1):.0f} us; "
               f"{ {k[:30]: round(v, 1) for k, v in per_launch.items()} } "
               "us per launch")
+    split("profiled runs")
     block_both_ways(eng, queries, tips)
+    split("block both ways")
     lookahead_phase(eng, queries, s_sync)
+    split("lookahead")
+    split.show()
 
 
 # -----------------------------------------------------------------------------
@@ -2758,6 +2804,27 @@ def payload_oracle(g, csr, q, a, sssp, labels) -> bool:
     return a == O.target_depths(g, q.source, q.targets, csr)
 
 
+#: threads the host's oracle checks run on: numpy lets go of the GIL in
+#: their gathers and sorts, so the checks take a fraction of their serial
+#: time (the card machine has 8 cores)
+ORACLE_THREADS = 8
+
+
+def oracle_map(fn, items) -> list:
+    """``[fn(x) for x in items]`` on ORACLE_THREADS threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        return list(pool.map(fn, items))
+
+
+def oracle_checks(g, csr, picked, sssp=None, labels=None) -> list:
+    """:func:`payload_oracle` of each ``(query, answer)`` of ``picked``,
+    in order."""
+    return oracle_map(lambda qa: payload_oracle(g, csr, *qa, sssp, labels),
+                      picked)
+
+
 def payload_batches(pg, batches) -> tuple:
     """(a) The three lane batches, each one ``submit_many`` of
     PAYLOAD_BATCH queries on a warmed-up engine: sweeps, ms a sweep,
@@ -2973,12 +3040,14 @@ def payload_mixed(pg, mixed, csr, g, sssp, labels) -> dict:
     ra, rb = runs["sync"]["results"], runs["overlap"]["results"]
     check(all(payload_answer_equal(ra[q], rb[q]) for q in mixed),
           "payload mixed: sync and overlap answers equal")
-    checked: dict = {}
+    checked, picked = {}, []
     for q in mixed:
         if checked.get(q.kind, 0) < 4:
-            check(payload_oracle(g, csr, q, ra[q], sssp, labels),
-                  f"payload mixed oracle: {q}")
+            picked.append((q, ra[q]))
             checked[q.kind] = checked.get(q.kind, 0) + 1
+    for (q, _), ok in zip(picked, oracle_checks(g, csr, picked, sssp,
+                                                labels)):
+        check(ok, f"payload mixed oracle: {q}")
     print(f"payload mixed oracle: {dict((k.value, v) for k, v in checked.items())}"
           " answers exact")
     check(len(checked) == 7 and min(checked.values()) == 4,
@@ -2998,30 +3067,40 @@ def payload_path(g, pg, csr) -> dict:
     import torch
 
     t_start = time.perf_counter()
+    split = Splits("payload path")
     batches, mixed = payload_queries(g)
+    split("queries")
     t0 = time.perf_counter()
     sssp_srcs = [q.source for q in batches["weighted_sssp"][:4]]
     sssp, labels = scipy_oracles(g, sssp_srcs)
     print(f"payload oracles (scipy dijkstra x{len(sssp_srcs)}, "
           f"connected_components): {time.perf_counter() - t0:.1f} s, "
           f"{len(set(labels.tolist()))} components")
+    split("scipy oracles")
     eng, answers, rows = payload_batches(pg, batches)
-    for name, qs in batches.items():
-        for q, a in list(zip(qs, answers[name]))[:4]:
-            check(payload_oracle(g, csr, q, a, sssp, labels),
-                  f"payload batch oracle: {q}")
+    split("three batches")
+    picked = [qa for name, qs in batches.items()
+              for qa in list(zip(qs, answers[name]))[:4]]
+    for (q, _), ok in zip(picked, oracle_checks(g, csr, picked, sssp,
+                                                labels)):
+        check(ok, f"payload batch oracle: {q}")
     check(all(payload_answer_equal(a, labels)
               for a in answers["components"]),
           "payload batch: every COMPONENTS answer is the label map")
     print("payload batch oracle: 4 answers of each kind exact")
+    split("batch oracle")
     del eng
     torch.cuda.empty_cache()
     ag = payload_allgather(pg, batches["weighted_sssp"],
                            answers["weighted_sssp"])
+    split("allgather")
     parts = payload_breakdown(ag["eng"], batches["weighted_sssp"])
+    split("sweep parts, kernel, profile")
     del ag["eng"]
     torch.cuda.empty_cache()
     mixed_runs = payload_mixed(pg, mixed, csr, g, sssp, labels)
+    split("mixed")
+    split.show()
     print(f"payload path: {time.perf_counter() - t_start:.1f} s")
     return dict(rows=rows, allgather=ag, parts=parts,
                 mixed={m: r["stats"] for m, r in mixed_runs.items()})
@@ -4649,18 +4728,46 @@ def examples_path() -> None:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
     t_start = time.perf_counter()
     ex = ROOT / "examples"
-    out = run_script([ex / "torch_quickstart.py", "--scale", EXAMPLE_SCALE,
-                      "--device", DEVICE], tmp, "torch_quickstart.py")
+    # every script started at once, side by side (their own processes),
+    # and the sweep's CPU matrix run here beside them, for the run's time
+    # since phase 23 (they ran one after another before, the distributed
+    # pair and the sweep side by side since phase 22): their timings, the
+    # serving script's profile and the sweep's calibration latencies are
+    # taken under that contention
+    sweep = ROOT / "scripts" / "torch_profile_sweep.py"
+    started = {
+        "quickstart": start_script([ex / "torch_quickstart.py", "--scale",
+                                    EXAMPLE_SCALE, "--device", DEVICE], tmp),
+        "serving": start_script(
+            [ex / "torch_bfs_serving.py", "--scale", EXAMPLE_SCALE,
+             "--requests", EXAMPLE_REQUESTS, "--mixed", "--refill",
+             "--overlap", "--trace", "--profile", "--device", DEVICE], tmp),
+        **{(mesh, backend): start_script(
+            [ex / "torch_distributed_bfs.py", "--scale", EXAMPLE_SCALE,
+             "--mesh", mesh, "--backend", backend, "--device", DEVICE], tmp)
+           for mesh, backend in (("1,1", "nccl"), ("1,2", "gloo"))},
+        "sweep": start_script([sweep, "--scale", EXAMPLE_SCALE, *SWEEP_ARGS,
+                               "--device", DEVICE, "--out",
+                               tmp / "CALIB_sweep.json"], tmp)}
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_profile_sweep", sweep)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    cpu = mod.run_matrix(scale=EXAMPLE_SCALE, delegates=("auto", "ring"),
+                         nn_formats=("dense",), sweep_blocks=(4, 8),
+                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+
+    out = finish_script(started["quickstart"], "torch_quickstart.py")
     match_lines(out, 3, "quickstart")
     mem = [ln for ln in out.splitlines() if ln.startswith("memory:")]
     print(f"  quickstart: {mem[0] if mem else 'no memory line'}")
     check(bool(mem), "quickstart: memory ratios printed")
 
-    out = run_script([ex / "torch_bfs_serving.py", "--scale", EXAMPLE_SCALE,
-                      "--requests", EXAMPLE_REQUESTS, "--mixed", "--refill",
-                      "--overlap", "--trace", "--profile", "--device",
-                      DEVICE], tmp, "torch_bfs_serving.py --mixed --refill "
-                      "--overlap --trace --profile")
+    out = finish_script(started["serving"], "torch_bfs_serving.py --mixed "
+                        "--refill --overlap --trace --profile")
     for ln in out.splitlines():
         if ln.startswith(("served", "wire:", "msbfs", "profile:", "telemetry",
                           "engine ready")):
@@ -4681,36 +4788,14 @@ def examples_path() -> None:
           f"blocks={cell['sweep_blocks']} meta={doc['meta']}; trace "
           f"{len(trace['traceEvents'])} events")
 
-    # the two distributed runs side by side (their worlds' own processes;
-    # they print MTEPS, not judged), for the run's time since phase 22
-    runs = {(mesh, backend): start_script(
-        [ex / "torch_distributed_bfs.py", "--scale", EXAMPLE_SCALE, "--mesh",
-         mesh, "--backend", backend, "--device", DEVICE], tmp)
-        for mesh, backend in (("1,1", "nccl"), ("1,2", "gloo"))}
-    for (mesh, backend), started in runs.items():
-        out = finish_script(started, f"torch_distributed_bfs.py --mesh {mesh} "
-                            f"--backend {backend}")
+    for mesh, backend in (("1,1", "nccl"), ("1,2", "gloo")):
+        out = finish_script(started[mesh, backend], f"torch_distributed_bfs.py "
+                            f"--mesh {mesh} --backend {backend}")
         lines = match_lines(out, 3, f"distributed {mesh} {backend}")
         check(all("overflow=0" in ln for ln in lines),
               f"distributed {mesh}: no overflow")
 
-    # the sweep on the card beside the same matrix in this process on the
-    # CPU (since phase 22): the exact counters equal
-    sweep = ROOT / "scripts" / "torch_profile_sweep.py"
-    started = start_script([sweep, "--scale", EXAMPLE_SCALE, *SWEEP_ARGS,
-                            "--device", DEVICE, "--out",
-                            tmp / "CALIB_sweep.json"], tmp)
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("torch_profile_sweep", sweep)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    t0 = time.perf_counter()
-    cpu = mod.run_matrix(scale=EXAMPLE_SCALE, delegates=("auto", "ring"),
-                         nn_formats=("dense",), sweep_blocks=(4, 8),
-                         device="cpu")
-    cpu_s = time.perf_counter() - t0
-    finish_script(started, "torch_profile_sweep.py (2 x 1 x 2)")
+    finish_script(started["sweep"], "torch_profile_sweep.py (2 x 1 x 2)")
     card = load_bench(str(tmp / "CALIB_sweep.json"))
     check(card["meta"]["backend"] == "cuda", "sweep: taken on the card")
     cells = card["benchmarks"]["device_calibration"]["cells"]
@@ -5965,8 +6050,9 @@ MESH_B_BATCH = 1
 #: and the new parameters and AdamW state: two ranks on one card), B = 2
 MESH_C_LAYERS, MESH_C_BATCH = 1, 2
 #: (b), (c): steps timed after the compared one (host clock, synchronised:
-#: gloo stages the card's tensors through the host)
-MESH_GLOO_TIMED = 2
+#: gloo stages the card's tensors through the host); 2 until phase 23 came,
+#: cut for the run's time
+MESH_GLOO_TIMED = 1
 #: a bfloat16 mesh step at FULL widths against the one-card step: the loss
 #: within MESH_LOSS_REL of it (relative) and each leaf's change within
 #: MESH_SHARE_MAX of the one-card step's in L2. (b), (c) split the
@@ -6320,6 +6406,43 @@ def mesh_one_rank_and_one_card(tmp: Path) -> tuple:
     return a, one, cases
 
 
+def free_parent(what: str) -> None:
+    """Before ranks that share the card start: collect the parent's dead
+    objects and return its cached blocks to the card, and print what the
+    parent still holds."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{what}: the parent holds {gib(torch.cuda.memory_allocated())} "
+          f"({gib(torch.cuda.memory_reserved())} reserved) before its ranks "
+          "start")
+
+
+def spawn_sharing(fn, world: int, args: tuple, timeout: float) -> list:
+    """``comm.dist.spawn`` of a gloo world whose ranks share the card with
+    each other and the parent, each rank's caching allocator on
+    expandable segments: with fixed segments, the blocks a rank holds
+    but cannot reuse (GiBs at FULL widths) ran the card out of memory in
+    phase 22 (b) on some runs."""
+    import os
+
+    from repro_torch.core import comm as C
+
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    before = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"
+    try:
+        return C.dist.spawn(fn, world, args, backend="gloo", timeout=timeout)
+    finally:
+        if before is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = before
+
+
 def lm_mesh_path() -> dict:
     """Phase 22: the LM train step on a mesh (A13.5), TF32 off, (a)-(d);
     the port's kernel launches over the phase (the parent's and every
@@ -6330,7 +6453,6 @@ def lm_mesh_path() -> dict:
     import tempfile
 
     import torch
-    from repro_torch.core import comm as C
     from repro_torch.kernels import ops
 
     t_start = time.perf_counter()
@@ -6349,9 +6471,9 @@ def lm_mesh_path() -> dict:
         logs = finish_launchers(launcher, tmp)
     check_launchers(logs, tmp)
     launches = [a["launches"]]
+    free_parent("lm_mesh (b), (c)")
     t_world = time.perf_counter()
-    ranks = C.dist.spawn(mesh_gloo_rank, 2, (cases,), backend="gloo",
-                         timeout=900)
+    ranks = spawn_sharing(mesh_gloo_rank, 2, (cases,), timeout=900)
     t_world = time.perf_counter() - t_world
     for r in ranks:
         launches.append(r["launches"])
@@ -6409,6 +6531,578 @@ def lm_mesh_path() -> dict:
           f"rank, (b)-(c)'s ranks) {launches}; phase "
           f"{time.perf_counter() - t_start:.1f} s")
     return {"a": a, "one": one}
+
+
+#: phase 23, the cells and the H100 roofline. (a) the measured peaks
+CELLS_MATMUL_N, CELLS_COPY_BYTES, CELLS_PEAK_REPS = 8192, 4 << 30, 10
+#: (b) LM serving on a gloo world of 2 sharing the card, mesh (1, 2):
+#: (arch, layers (0: all), batch, max_seq, prompt) -- max_seq cut from
+#: 32,768 (decode_32k) to 8,192 and the prompt to 2,048 (set-up time and
+#: the gloo wire on the host)
+CELLS_SERVE = {"gemma3-1b": (0, 4, 8192, 2048),
+               "qwen2.5-14b": (2, 4, 8192, 2048)}
+CELLS_SERVE_STEPS, CELLS_SEED = 8, 0
+#: (b)'s bound: the mesh's logits and caches lie within CELLS_MESH_FACTOR
+#: times the one-card bfloat16 path's own distance to the same computation
+#: in float32 (plus CELLS_MESH_FLOOR) of the one-card path's: were both
+#: within that distance of float32, the triangle inequality gives twice it
+#: (a tensor-parallel sum rounds its partial products to bfloat16 before
+#: the all-reduce, where one card rounds the whole sum once)
+CELLS_MESH_FACTOR, CELLS_MESH_FLOOR = 2.0, 2.0 ** -16
+#: (b)'s float32 twin: the mesh run in float32 (TF32 off) on the same
+#: values upcast, against the one-card float32 run, within this share of
+#: the largest |float32 value| (only the order of float32 sums differs; a
+#: rank's split-KV partial dropped or misplaced moves the logits by more
+#: than 1e-2)
+CELLS_F32_REL = 1e-4
+#: (c) the dry run's cells on the production mesh (32, 8), a process for
+#: each of the two long ones (70-100 s each on the card's host: the train
+#: and prefill steps dispatch ~10^5 operators) and one for the rest, and
+#: the two measured at world 1 against their world-1 dry run's bound
+CELLS_DRY = (("qwen2.5-14b/train_4k",), ("gemma3-1b/prefill_32k",),
+             ("gemma3-1b/decode_32k", "gemma3-1b/long_500k",
+              "xdeepfm/serve_bulk", "bfs-rmat/rmat_weak"))
+CELLS_WORLD1 = ("gemma3-1b/decode_32k", "xdeepfm/serve_bulk")
+CELLS_WARMUP, CELLS_TIMED = 2, 5
+#: (c): a measured step is no faster than its dry-run bound, up to this
+#: factor (the bound is a datasheet rate; the card's measured copy and
+#: matmul peaks lie below it)
+CELLS_BOUND_SLACK = 1.05
+
+
+def start_dry_runs(tmp: Path) -> list:
+    """The dry runs of (c), each in a process of its own (it initialises a
+    fake default process group): CELLS_DRY's groups on (32, 8) and
+    CELLS_WORLD1 on (1, 1), their records in ``dry_32x8`` / ``dry_1x1``.
+    CPU only: the whole run starts them beside its set-up on the host
+    (the graph and its partition) and waits for them before its first
+    measured phase; ``--only cells`` beside (a) and (b)."""
+    import atexit
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    runs = [("32,8", g) for g in CELLS_DRY] + [("1,1", CELLS_WORLD1)]
+    for i, (mesh, cells) in enumerate(runs):
+        out = tmp / f"dry_{mesh.replace(',', 'x')}"
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+                mesh, "--out", str(out)]
+        for c in cells:
+            argv += ["--cell", c]
+        log = open(tmp / f"dry_{i}.log", "w")
+        procs.append((subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), out, log,
+                      time.perf_counter()))
+    # a run that fails before it waits for them stops them too
+    atexit.register(lambda: [p.kill() for p, *_ in procs if p.poll() is None])
+    return procs
+
+
+def finish_dry_runs(procs, timeout: float = 600.0) -> list:
+    """Wait for the dry runs; returns ``(records dir, seconds, the tail
+    of its log)`` each."""
+    out = []
+    for proc, d, log, t0 in procs:
+        try:
+            rc = proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        text = Path(log.name).read_text()
+        if rc != 0:
+            print(text[-3000:])
+        check(rc == 0, f"cells (c): the dry run {d.name} exited {rc}")
+        out.append((d, time.perf_counter() - t0, text[-3000:]))
+    return out
+
+
+def dry_dirs(runs) -> list:
+    """``(records dir, seconds to the last of its runs)``, one a mesh."""
+    last: dict = {}
+    for d, secs, _ in runs:
+        last[d] = max(last.get(d, 0.0), secs)
+    return list(last.items())
+
+
+def measured_peaks() -> dict:
+    """(a): a bfloat16 matmul of CELLS_MATMUL_N^3 (TFLOP/s) and a device
+    copy of CELLS_COPY_BYTES (bytes read and written over the time, GB/s),
+    CUDA events over CELLS_PEAK_REPS back-to-back calls, median of 3."""
+    import torch
+    from repro_torch.launch.roofline import H100
+
+    n = CELLS_MATMUL_N
+    gen = torch.Generator(device=DEVICE).manual_seed(CELLS_SEED)
+    a = torch.randn((n, n), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    ms_mm = time_ms(lambda: torch.matmul(a, b), CELLS_PEAK_REPS)
+    del a, b
+    src = torch.empty(CELLS_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    src.random_(generator=gen)
+    dst = torch.empty_like(src)
+    ms_cp = time_ms(lambda: dst.copy_(src), CELLS_PEAK_REPS)
+    check(torch.equal(dst[:1 << 20], src[:1 << 20]), "cells (a): the copy")
+    del src, dst
+    torch.cuda.empty_cache()
+    tflops = 2 * n ** 3 / ms_mm / 1e9
+    gbs = 2 * CELLS_COPY_BYTES / ms_cp / 1e6
+    print(f"cells (a) measured peaks ({card_line()}): bfloat16 matmul "
+          f"{n}^3 {ms_mm:.4f} ms = {tflops:.1f} TFLOP/s (datasheet "
+          f"{H100['flops']['bf16'] / 1e12:.1f}, {tflops * 1e12 / H100['flops']['bf16']:.3f} "
+          f"of it); device copy of {CELLS_COPY_BYTES / 2**30:.0f} GiB {ms_cp:.4f} "
+          f"ms = {gbs:.1f} GB/s read + written (datasheet HBM3 "
+          f"{H100['hbm'] / 1e9:.0f}, {gbs * 1e9 / H100['hbm']:.3f} of it)")
+    return {"matmul_ms": ms_mm, "tflops": tflops, "copy_ms": ms_cp,
+            "gbs": gbs}
+
+
+def serve_geometry(arch: str, mesh, dtype=None):
+    """The prefill and decode cells of a CELLS_SERVE case on ``mesh`` (a
+    :class:`PartitionMesh`, or anything with ``axes`` and ``sizes`` for
+    the one-card side, which uses only their config, rules and layouts);
+    ``dtype``: the config's, replaced (the float32 twin)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import cells as CL
+    from repro_torch.launch.sharding import rules_for
+
+    layers, b, s, _ = CELLS_SERVE[arch]
+    spec = get_arch(arch)
+    cfg = spec.model if not layers else dataclasses.replace(
+        spec.model, n_layers=layers, scan_layers=False)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    rules = rules_for(mesh, spec.rules_override)
+    return tuple(CL.lm_serve_cell({
+        "kind": kind, "global_batch": b, "seq_len": s}, cfg, rules, mesh)
+        for kind in ("prefill", "decode"))
+
+
+def serve_inputs(arch: str, cfg, device) -> tuple:
+    """The tokens of the CELLS_SERVE_STEPS decode steps ``[steps, B]`` and
+    the prompts ``[B, prompt]`` drawn from CELLS_SEED on the host."""
+    import torch
+
+    _, b, _, prompt = CELLS_SERVE[arch]
+    gen = torch.Generator().manual_seed(CELLS_SEED)
+    toks = torch.randint(0, cfg.vocab, (CELLS_SERVE_STEPS, b), generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (b, prompt), generator=gen)
+    return toks.to(device), prompts.to(device)
+
+
+def written_slots(cfg, s: int) -> list:
+    """Per layer, the cache slots the CELLS_SERVE_STEPS decode steps at
+    positions ``s - steps .. s - 1`` write (a global layer's slot is the
+    position, a window ring's the position modulo its length)."""
+    from repro_torch.models.lm import cache_len
+
+    pos = range(s - CELLS_SERVE_STEPS, s)
+    return [[p % cache_len(cfg, i, s) for p in pos]
+            for i in range(cfg.n_layers)]
+
+
+def serve_one_card(arch: str, tmp: Path) -> dict:
+    """(b)'s one-card side, on the whole parameters and cache the mesh's
+    ranks draw their blocks of (``draw_tree`` / ``draw_blocks`` without a
+    layout): CELLS_SERVE_STEPS decode steps fed the drawn tokens, then the
+    prefill, in bfloat16 and again in float32 (the same values upcast:
+    how far the one-card bfloat16 path lies from its own computation in
+    float32 is the bound the mesh is held to). Saved for the ranks (one
+    file): the logits, the decode steps' written cache slots, the
+    prefill's cache."""
+    import dataclasses
+    import types
+
+    import torch
+    from repro_torch.launch.sharding import draw_tree
+    from repro_torch.models import lm as TL
+    from repro_torch.tree import tree_map
+
+    geo = types.SimpleNamespace(axes=("data", "model"), sizes=(1, 2))
+    pre, dec = serve_geometry(arch, geo)
+    cfg = dec.cfg
+    _, _, s, prompt = CELLS_SERVE[arch]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    toks, prompts = serve_inputs(arch, cfg, DEVICE)
+    slots = written_slots(cfg, s)
+    want, ms, pre_ms = {}, [], None
+    for tag, c in (("bf16", cfg), ("f32", cfg32)):
+        params = draw_tree(TL.lm_param_specs(cfg), CELLS_SEED, dec.rules,
+                           geo.axes, geo.sizes, None, DEVICE, TL.lm_units(cfg))
+        cache = dec.draw_cache(CELLS_SEED + 1, DEVICE, whole=True)
+        if tag == "f32":
+            params = tree_map(lambda t: t.float(), params)
+            cache = tree_map(lambda t: t.float(), cache)
+        logits = []
+        for i in range(CELLS_SERVE_STEPS):
+            (out, cache), t = events_ms(lambda: TL.decode_step(
+                c, params, cache, toks[i], s - CELLS_SERVE_STEPS + i))
+            logits.append(out.cpu())
+            if tag == "bf16":
+                ms.append(t)
+        (pl, pc), t = events_ms(lambda: TL.prefill(c, params, prompts, s,
+                                                   last_only=True))
+        pre_ms = t if tag == "bf16" else pre_ms
+        want[tag] = {
+            "decode": torch.stack(logits),
+            "slots": [{k: v[:, sl].cpu() for k, v in layer.items()}
+                      for layer, sl in zip(cache, slots)],
+            "prefill": pl.cpu(),
+            "prefill_cache": [{k: v.cpu() for k, v in layer.items()}
+                              for layer in pc]}
+        del params, cache, pc
+        torch.cuda.empty_cache()
+    path = tmp / f"serve_{arch}.pt"
+    torch.save(want, path)
+    return {"path": str(path), "ms": ms, "prefill_ms": pre_ms,
+            "layers": cfg.n_layers}
+
+
+def cells_serve_rank(rank: int, world: int, spec: dict) -> dict:
+    """(b): one rank of a world of two gloo ranks sharing the card, mesh
+    (1, 2). Per case: its blocks of the parameters and of the cache drawn
+    on the card, CELLS_SERVE_STEPS decode steps (host clock, synchronised)
+    and the prefill, each against the one-card path (``spec[arch]``'s
+    file): the largest |diff| of its logits block, of the cache slots the
+    steps wrote in its block and of its block of the prefill's cache from
+    the one-card bfloat16 path's, beside that path's own from float32
+    (both over the largest |float32 value|); every slot the steps did not
+    write equal to its drawn value; the wire bytes each call counted
+    beside ``cells.lm_wire_bytes``. Then the float32 twin: the same steps
+    in float32 on the same values upcast, the same distances from the
+    one-card float32 run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import lm_wire_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import dim_span
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    mesh = make_test_mesh((1, 2))
+    out = {}
+
+    def dists(got, bf, f32) -> tuple:
+        """(|got - bf|, |bf - f32|), each over the largest |f32| (an
+        all-zero block, such as a prefill's slots past the prompt: 0, 0
+        if they are equal)."""
+        f32 = f32.to(got.device).float()
+        bf = bf.to(got.device).float()
+        scale = float(f32.abs().max())
+        d = (float((got.float() - bf).abs().max()),
+             float((bf - f32).abs().max()))
+        if scale == 0:
+            return (0.0, 0.0) if d == (0.0, 0.0) else (float("inf"), 0.0)
+        return d[0] / scale, d[1] / scale
+
+    def worst(pairs) -> tuple:
+        pairs = list(pairs)
+        return (max(p[0] for p in pairs), max(p[1] for p in pairs))
+
+    def serve(pre, dec, params, cache, toks, prompts, s, prompt) -> dict:
+        """The decode steps, then the prefill, on one rank's blocks."""
+        lo, hi = dec.row_span()
+        r = {"logits": [], "wire": [], "reckoned": [], "step_s": []}
+        for i in range(CELLS_SERVE_STEPS):
+            before = dict(dec.par.tally)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = dec.step(params, cache, dec.rows(toks[i]),
+                                     s - CELLS_SERVE_STEPS + i)
+            torch.cuda.synchronize()
+            r["step_s"].append(time.perf_counter() - t0)
+            r["wire"].append({k: v - before.get(k, 0) for k, v in
+                              dec.par.tally.items() if v != before.get(k, 0)})
+            r["reckoned"].append(lm_wire_bytes(dec, hi - lo, 1))
+            r["logits"].append(logits)
+        r["cache"] = cache
+        before = dict(pre.par.tally)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r["prefill"], r["prefill_cache"] = pre.step(params, pre.rows(prompts))
+        torch.cuda.synchronize()
+        r["prefill_s"] = time.perf_counter() - t0
+        r["wire"].append({k: v - before.get(k, 0) for k, v in
+                          pre.par.tally.items() if v != before.get(k, 0)})
+        r["reckoned"].append(lm_wire_bytes(pre, hi - lo, prompt))
+        return r
+
+    def against(r, pre, dec, cfg, s, bf, f32) -> dict:
+        """``r``'s largest distances from the one-card run ``bf`` (beside
+        ``bf``'s own from ``f32``): logits a step, the written slots in
+        this rank's block, the prefill's logits and cache."""
+        lo, hi = dec.row_span()
+        v0, v1 = dec.par.span("vocab", cfg.vocab)
+        blk = lambda t, i: t[i][lo:hi, v0:v1]
+        errs = [dists(x, blk(bf["decode"], i), blk(f32["decode"], i))
+                for i, x in enumerate(r["logits"])]
+        slot_errs = []
+        for layer, (c, sh, sl) in enumerate(zip(
+                r["cache"], dec.cache_shardings, written_slots(cfg, s))):
+            s0, s1 = dim_span(sh["k"].shape[1], dec.par.size(sh["k"].dims[1]),
+                              dec.par.index(sh["k"].dims[1]))
+            k0, k1 = dim_span(cfg.n_kv, dec.par.size(sh["k"].dims[2]),
+                              dec.par.index(sh["k"].dims[2]))
+            mine = [j for j, x in enumerate(sl) if s0 <= x < s1]
+            for name in ("k", "v") if mine else ():
+                got = c[name][:, [sl[j] - s0 for j in mine]]
+                cut = lambda w: w[layer][name][lo:hi, mine, k0:k1]
+                slot_errs.append(dists(got, cut(bf["slots"]),
+                                       cut(f32["slots"])))
+        pairs = zip(flatten_with_path(r["prefill_cache"]),
+                    flatten_with_path(pre.shard_cache(bf["prefill_cache"])),
+                    flatten_with_path(pre.shard_cache(f32["prefill_cache"])))
+        return {
+            "errs": errs, "slots": worst(slot_errs) if slot_errs else (0, 0),
+            "prefill": dists(r["prefill"], bf["prefill"][lo:hi, :, v0:v1],
+                             f32["prefill"][lo:hi, :, v0:v1]),
+            "prefill_cache": worst(dists(g, b_, f_) for (_, g), (_, b_),
+                                   (_, f_) in pairs),
+            "wire": r["wire"], "reckoned": r["reckoned"]}
+
+    for arch in CELLS_SERVE:
+        pre, dec = serve_geometry(arch, mesh)
+        cfg = dec.cfg
+        _, _, s, prompt = CELLS_SERVE[arch]
+        params = dec.draw_params(CELLS_SEED, DEVICE)
+        toks, prompts = serve_inputs(arch, cfg, DEVICE)
+        want = torch.load(spec[arch], mmap=True, weights_only=True)
+        bf, f32 = want["bf16"], want["f32"]
+        r = serve(pre, dec, params, dec.draw_cache(CELLS_SEED + 1, DEVICE),
+                  toks, prompts, s, prompt)
+        res = against(r, pre, dec, cfg, s, bf, f32)
+        # every slot the steps did not write keeps its drawn value
+        drawn = dec.draw_cache(CELLS_SEED + 1, DEVICE)
+        untouched = True
+        for c, d0, sh, sl in zip(r["cache"], drawn, dec.cache_shardings,
+                                 written_slots(cfg, s)):
+            s0, s1 = dim_span(sh["k"].shape[1], dec.par.size(sh["k"].dims[1]),
+                              dec.par.index(sh["k"].dims[1]))
+            keep = torch.ones(s1 - s0, dtype=torch.bool, device=DEVICE)
+            keep[[x - s0 for x in sl if s0 <= x < s1]] = False
+            for name in ("k", "v"):
+                untouched &= torch.equal(c[name][:, keep], d0[name][:, keep])
+        timing = {"step_s": r["step_s"], "prefill_s": r["prefill_s"]}
+        del r
+        # the float32 twin on the same values upcast
+        pre32, dec32 = serve_geometry(arch, mesh, torch.float32)
+        up = lambda tree: tree_map(lambda t: t.float(), tree)
+        r32 = serve(pre32, dec32, up(params), up(drawn), toks, prompts, s,
+                    prompt)
+        del drawn
+        f32_res = against(r32, pre32, dec32, dec32.cfg, s, f32, f32)
+        f32_res["step_s"] = r32["step_s"]
+        out[arch] = {**res, **timing, "untouched": untouched, "f32": f32_res,
+                     "layers": cfg.n_layers,
+                     "split": [sh["k"].dims for sh in dec.cache_shardings[:6]]}
+        del params, r32, want
+        torch.cuda.empty_cache()
+    out["launches"] = dict(ops.LAUNCHES)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def cells_world1_rank(rank: int, world: int, spec: dict) -> dict:
+    """(c): the one rank of a world-1 NCCL mesh (1, 1): each of
+    CELLS_WORLD1's cells (``build_cell``, FULL) on arguments drawn on the
+    card (``cell.args``), CELLS_WARMUP steps, then CELLS_TIMED timed by
+    CUDA events; the port's kernel launches over the timed steps."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh((1, 1))
+    out = {}
+    for name in CELLS_WORLD1:
+        arch, shape = name.split("/")
+        cell = build_cell(arch, shape, mesh)
+        t0 = time.perf_counter()
+        args = cell.args(CELLS_SEED, DEVICE)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        for _ in range(CELLS_WARMUP):
+            cell.step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ms = []
+        for _ in range(CELLS_TIMED):
+            _, t = events_ms(lambda: cell.step(*args))
+            ms.append(t)
+        out[name] = {"ms": ms, "draw_s": draw_s,
+                     "launches": dict(ops.LAUNCHES),
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "arg_bytes": tree_bytes(args)}
+        del args, cell
+        torch.cuda.empty_cache()
+    return out
+
+
+def cells_path(dry=None) -> dict:
+    """Phase 23 (a)-(c): the measured peaks, LM serving on a mesh against
+    the one-card path, the dry run's roofline and two cells measured
+    against their dry-run bound. ``dry``: the dry runs' results, run
+    beside the whole run's set-up (:func:`finish_dry_runs`); else they
+    start here, beside (a) and (b). (c)'s world-1 steps run after them,
+    alone on the host."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.core import comm as C
+    from repro_torch.launch import roofline as RF
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cells_"))
+    procs = start_dry_runs(tmp) if dry is None else []
+    try:
+        peaks = measured_peaks()
+        one = {arch: serve_one_card(arch, tmp) for arch in CELLS_SERVE}
+        free_parent("cells (b)")
+        t_world = time.perf_counter()
+        ranks = spawn_sharing(cells_serve_rank, 2,
+                              ({a: one[a]["path"] for a in one},), timeout=600)
+        t_world = time.perf_counter() - t_world
+        for arch, o in one.items():
+            for i, r in enumerate(ranks):
+                g = r[arch]
+                named = [(f"decode step {j}", e) for j, e in enumerate(g["errs"])]
+                named += [("written slots", g["slots"]), ("prefill", g["prefill"]),
+                          ("prefill cache", g["prefill_cache"])]
+                for what, (mesh_d, own) in named:
+                    check(mesh_d <= CELLS_MESH_FACTOR * own + CELLS_MESH_FLOOR,
+                          f"cells (b) {arch} rank {i} {what}: the mesh within "
+                          f"{CELLS_MESH_FACTOR} x the one-card bfloat16 path's "
+                          f"own distance to float32 ({own:.3e}) of that path "
+                          f"({mesh_d:.3e}; over the largest |float32 value|)")
+                f32 = g["f32"]
+                named = [(f"decode step {j}", e) for j, e in enumerate(f32["errs"])]
+                named += [("written slots", f32["slots"]),
+                          ("prefill", f32["prefill"]),
+                          ("prefill cache", f32["prefill_cache"])]
+                for what, (mesh_d, _) in named:
+                    check(mesh_d <= CELLS_F32_REL, f"cells (b) {arch} rank {i} "
+                          f"float32 {what}: the mesh within {CELLS_F32_REL} of "
+                          f"the one-card float32 run ({mesh_d:.3e}; over the "
+                          "largest |value|)")
+                check(g["untouched"], f"cells (b) {arch} rank {i}: every cache "
+                      "slot the steps did not write equals its drawn value")
+                for w in (g, f32):
+                    check(w["wire"] == w["reckoned"], f"cells (b) {arch} rank "
+                          f"{i}: wire bytes {w['wire']} equal the count from "
+                          f"shapes {w['reckoned']}")
+            g0, g1 = ranks[0][arch], ranks[1][arch]
+            worst32 = max(max(e[0] for e in g["f32"]["errs"] + [
+                g["f32"]["slots"], g["f32"]["prefill"],
+                g["f32"]["prefill_cache"]]) for g in (g0, g1))
+            _, b, s, prompt = CELLS_SERVE[arch]
+            fmt = lambda e: f"{e[0]:.2e} ({e[1]:.2e})"
+            print(f"cells (b) {arch} FULL widths, {o['layers']} layers, B={b}, "
+                  f"max_seq {s}, mesh (data 1, model 2) on 2 gloo ranks sharing "
+                  f"the card ({card_line()}); cache layout of the first layers "
+                  f"{g0['split']}: {CELLS_SERVE_STEPS} decode steps, largest "
+                  f"|mesh - one card| (|one card bfloat16 - float32|) over the "
+                  f"largest |float32 logit|, rank 0 "
+                  f"{[fmt(e) for e in g0['errs']]}, rank 1 "
+                  f"{[fmt(e) for e in g1['errs']]} (bound {CELLS_MESH_FACTOR} x "
+                  f"the latter + {CELLS_MESH_FLOOR}); written cache slots "
+                  f"{fmt(g0['slots'])} / {fmt(g1['slots'])}, the others equal "
+                  f"their drawn values; prefill of {prompt}: logits "
+                  f"{fmt(g0['prefill'])} / {fmt(g1['prefill'])}, cache "
+                  f"{fmt(g0['prefill_cache'])} / {fmt(g1['prefill_cache'])}; "
+                  f"s a decode step (host clock) "
+                  f"{[round(x, 3) for x in g0['step_s']]}, one card "
+                  f"{[round(x, 2) for x in o['ms']]} ms; prefill "
+                  f"{g0['prefill_s']:.3f} s, one card {o['prefill_ms']:.2f} ms;"
+                  f" wire bytes (rank 0, as counted = from shapes) a decode "
+                  f"step {g0['wire'][0]}, the prefill {g0['wire'][-1]}; "
+                  f"float32 twin: largest |mesh - one card| over the largest "
+                  f"|value| {worst32:.3e} (bound {CELLS_F32_REL}), s a decode "
+                  f"step {[round(x, 3) for x in g0['f32']['step_s']]}")
+        launches = [r["launches"] for r in ranks]
+        check(not any(v for d in launches for v in d.values()),
+              f"cells (b): no port kernel launched ({launches})")
+        print(f"cells (b): the gloo world {t_world:.1f} s, peak a rank "
+              f"{[gib(r['peak']) for r in ranks]}, kernel launches {launches}")
+    finally:
+        runs = finish_dry_runs(procs) if dry is None else dry
+    free_parent("cells (c)")
+    measured = C.dist.spawn(cells_world1_rank, 1, ({},), backend="nccl",
+                            timeout=600)[0]
+    # (c) the roofline of the dry run on (32, 8), and the world-1 fractions
+    for _, _, text in runs:
+        print(text)
+    rows = []
+    for d, secs in dry_dirs(runs):
+        recs = RF.load_records(str(d))
+        for rec in recs:
+            check(rec.get("ok"), f"cells (c): dry run {rec['arch']}/"
+                  f"{rec['shape']}/{rec['mesh']}: {rec.get('error')}")
+        print(f"cells (c) dry run {d.name}: {len(recs)} cells, {secs:.1f} s "
+              f"from the start to the end of the wait for it (wall, "
+              f"processes of their own, beside "
+              f"{'the set-up' if dry else '(a) and (b)'}; each run's own "
+              f"wall in its log above)")
+        if d.name == "dry_32x8":
+            rows = [RF.analyze(r) for r in recs]
+            print(RF.markdown_table(rows))
+            for r, rec in zip(rows, recs):
+                c = rec["collectives"]
+                print(f"cells (c) {r['arch']}/{r['shape']}/32x8: flops "
+                      f"{rec['cost']['flops_by_dtype']}, bytes "
+                      f"{rec['cost']['bytes accessed']:.4e}, wire by axes "
+                      f"{ {k: v['wire_bytes'] for k, v in c['by_axes'].items()} }"
+                      f", args {rec['memory']['argument_size_in_bytes']:.4e} B"
+                      f", peak {rec['memory']['peak_size_in_bytes']:.4e} B, "
+                      f"host reads {rec['host_reads']}, kernels "
+                      f"{rec['kernels']}: {RF.what_moves_it(r)}")
+        else:
+            for rec in recs:
+                r = RF.analyze(rec)
+                name = f"{rec['arch']}/{rec['shape']}"
+                m = measured[name]
+                med = statistics.median(m["ms"])
+                bound_ms = max(r["t_compute_s"], r["t_memory_s"],
+                               r["t_collective_s"]) * 1e3
+                check(all(x > 0 for x in m["ms"]), f"cells (c) {name}: timed")
+                check(bound_ms <= CELLS_BOUND_SLACK * med, f"cells (c) {name}: "
+                      f"the dry-run bound {bound_ms:.3f} ms within "
+                      f"{CELLS_BOUND_SLACK} x the measured step {med:.3f} ms "
+                      "(no step beats its bound)")
+                print(f"cells (c) {name} at world 1 ({card_line()}): measured "
+                      f"{med:.3f} ms a step (median of {CELLS_TIMED}, "
+                      f"{[round(x, 3) for x in m['ms']]}), dry-run bound "
+                      f"{bound_ms:.3f} ms ({r['dominant']}; compute "
+                      f"{r['t_compute_s'] * 1e3:.3f}, memory "
+                      f"{r['t_memory_s'] * 1e3:.3f}, collective "
+                      f"{r['t_collective_s'] * 1e3:.3f}), fraction "
+                      f"{bound_ms / med:.4f}; arguments "
+                      f"{m['arg_bytes'] / 1e9:.2f} GB (dry run "
+                      f"{rec['memory']['argument_size_in_bytes'] / 1e9:.2f}), "
+                      f"peak {gib(m['peak'])}, drawn in {m['draw_s']:.1f} s, "
+                      f"kernel launches over the timed steps {m['launches']}")
+                check(m["arg_bytes"] == rec["memory"]["argument_size_in_bytes"],
+                      f"cells (c) {name}: the dry run's argument bytes equal "
+                      f"the card's")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for d, _ in dry_dirs(runs):
+        shutil.rmtree(d.parent if dry else d, ignore_errors=True)
+    print(f"cells: phase {time.perf_counter() - t_start:.1f} s")
+    return {"peaks": peaks, "measured": measured}
 
 
 class HostPartitions:
@@ -6496,7 +7190,8 @@ def run() -> None:
 
 
 def run_phases(parts) -> None:
-    import numpy as np
+    import tempfile
+
     import torch
     from repro_torch.core import oracle as O
     from repro_torch.core.types import INF_LEVEL
@@ -6510,6 +7205,10 @@ def run_phases(parts) -> None:
     print(card_line())
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    # phase 23's dry runs (CPU only, processes of their own) run beside the
+    # build and the set-up on the host, and end before the first measured
+    # phase
+    dry = start_dry_runs(Path(tempfile.mkdtemp(prefix="chip_smoke_dry_")))
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -6530,6 +7229,11 @@ def run_phases(parts) -> None:
           f"E_max nn/nd/dn/dd={pg.nn.e_max}/{pg.nd.e_max}/{pg.dn.e_max}/"
           f"{pg.dd.e_max} cap_total={eng.plan.cap_total} "
           f"cap_peer={eng.plan.cap_peer}")
+    t0 = time.perf_counter()
+    dry = finish_dry_runs(dry)
+    print(f"set-up: waited {time.perf_counter() - t0:.1f} s for phase 23's "
+          f"dry runs (each ended {[round(r[1], 1) for r in dry]} s after "
+          "its start)")
 
     stamp("set-up done")
     # ---- launch cost in a fresh process, before any profiler session ------
@@ -6585,21 +7289,13 @@ def run_phases(parts) -> None:
     main_stats = s.as_dict()
 
     csr = O.csr_from_coo(g)
-    checked = {}
+    checked, picked = {}, []
     for q, a in zip(queries, answers):
-        if checked.get(q.kind, 0) >= 2:
-            continue
-        if q.kind is K.LEVELS:
-            ok = np.array_equal(a, O.bfs_levels(g, q.source, csr))
-        elif q.kind is K.REACHABILITY:
-            ok = np.array_equal(a, O.reachable_mask(g, q.source, csr))
-        elif q.kind is K.DISTANCE_LIMITED:
-            ok = np.array_equal(a, O.bfs_levels_limited(g, q.source,
-                                                        q.max_depth, csr))
-        else:
-            ok = a == O.target_depths(g, q.source, q.targets, csr)
+        if checked.get(q.kind, 0) < 2:
+            picked.append((q, a))
+            checked[q.kind] = checked.get(q.kind, 0) + 1
+    for (q, _), ok in zip(picked, oracle_checks(g, csr, picked)):
         check(ok, f"oracle: {q}")
-        checked[q.kind] = checked.get(q.kind, 0) + 1
     check(all(checked.get(k, 0) >= 2 for k in (K.LEVELS, K.REACHABILITY,
                                                K.DISTANCE_LIMITED,
                                                K.MULTI_TARGET)),
@@ -6712,6 +7408,10 @@ def run_phases(parts) -> None:
     torch.cuda.empty_cache()
     lm_mesh_path()
     stamp("lm_mesh done")
+    # ---- the cells and the H100 roofline (phase 23) -------------------------
+    torch.cuda.empty_cache()
+    cells_path(dry)
+    stamp("cells done")
 
     # ---- refill path last: after its long profiled runs, the short
     # profiler sessions of the phases above lost their device records -------
@@ -6914,6 +7614,9 @@ def run_alone(names) -> None:
     if "lm_mesh" in names:
         torch.cuda.empty_cache()
         lm_mesh_path()
+    if "cells" in names:
+        torch.cuda.empty_cache()
+        cells_path()
     if cin_bwd is not None and train is not None:
         print(json.dumps({"kernels": cin_bwd_rows(cin_bwd, train)}))
     print(json.dumps({"ok": True, "device": {
@@ -6961,7 +7664,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
               "memory", "obs", "frontend", "gnn", "examples", "cin_bwd",
-              "recsys_train", "recsys_shard", "mace", "lm", "lm_mesh")
+              "recsys_train", "recsys_shard", "mace", "lm", "lm_mesh",
+              "cells")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

@@ -55,9 +55,12 @@ class PartitionMesh:
 
     Must be built by every rank of an initialised default process group,
     in the same order relative to other group creations; the product of
-    ``sizes`` must equal the world size."""
+    ``sizes`` must equal the world size. ``backend``: the backend whose
+    code paths the collectives take (default the process group's; the
+    dry run's ``fake`` group takes NCCL's, ``launch.dryrun``)."""
 
-    def __init__(self, axes: Sequence[str], sizes: Sequence[int]):
+    def __init__(self, axes: Sequence[str], sizes: Sequence[int],
+                 backend: str | None = None):
         if not dist.is_initialized():
             raise RuntimeError("PartitionMesh needs an initialised process "
                                "group (torch.distributed.init_process_group)")
@@ -71,7 +74,7 @@ class PartitionMesh:
                              f"{math.prod(self.sizes)} ranks, world has "
                              f"{self.world}")
         self.rank = dist.get_rank()
-        self.backend = dist.get_backend()
+        self.backend = backend or dist.get_backend()
         self.coords = _unravel(self.rank, self.sizes)
         # one subgroup per non-empty set of axes, created by every rank in
         # the same order (a rank creates the groups it is not in as well)
@@ -179,8 +182,7 @@ def all_gather(mesh: PartitionMesh, x: torch.Tensor, axes=None
     in group order."""
     k = mesh.size(axes)
     src = _wire(x)
-    out = torch.empty((k,) + tuple(src.shape), dtype=src.dtype,
-                      device=src.device)
+    out = src.new_empty((k,) + tuple(src.shape))
     if mesh.backend == "nccl":
         dist.all_gather_into_tensor(out, src, group=mesh.group(axes))
     else:

@@ -50,6 +50,45 @@ def count_replay(per_replay: dict) -> None:
         REPLAYED[k] += n
 
 
+#: the dry run's hook (``launch.dryrun.StepCounter.kernel``): a wrapper
+#: given fake tensors (shapes without data) calls it with the kernel's name,
+#: inputs and outputs instead of launching or taking the plain version,
+#: whose data-dependent shapes a fake tensor cannot carry
+FAKE_HOOK = None
+
+
+def _fake_launch(name: str, ins: list, outs: list, flops: dict | None = None):
+    """Outputs of a kernel ``name`` on fake inputs (``outs``: fake tensors
+    of the kernel's output shapes), reported to :data:`FAKE_HOOK` with the
+    kernel's flops by the arithmetic that does them."""
+    if FAKE_HOOK is None:
+        raise RuntimeError(f"{name} given fake tensors outside the dry run")
+    FAKE_HOOK(name, ins, outs, flops or {})
+    return outs
+
+
+def _cin_flops(x0, xk, h: int) -> dict:
+    """A CIN product's flops, 2 B H F0 Fk D, on 3xTF32 (three TF32
+    tensor-core products a float32 product)."""
+    b, f0, d = x0.shape
+    return {"tf32x3": 2 * b * h * f0 * xk.shape[1] * d}
+
+
+def _is_fake(*ts: torch.Tensor) -> bool:
+    """True where any of ``ts`` is a fake tensor (the dry run's)."""
+    if all(type(t) is torch.Tensor for t in ts):   # the launch path
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(isinstance(t, FakeTensor) for t in ts)
+
+
+def _pull_outputs(offsets: torch.Tensor) -> list:
+    """``(found, work)`` of a single-bit pull, ``[p, R]`` int32 each."""
+    p, r = offsets.shape[0], offsets.shape[1] - 1
+    return [offsets.new_zeros((p, r)), offsets.new_zeros((p, r))]
+
+
 def _on_cuda(first: torch.Tensor, *rest: torch.Tensor) -> bool:
     """True where the first tensor lies on a card: the CUDA wrapper then
     checks every tensor's device itself, in its one pass. CPU tensors must
@@ -111,6 +150,9 @@ def ell_pull_bits(offsets, cols, mask, active, chunk: int, sched=None):
     partition: ``(found [p, R], work [p, R])`` int32 (see
     :mod:`repro_torch.kernels.ell_pull`); ``sched`` is the CSR's row
     schedule (built on the fly where None)."""
+    if _is_fake(offsets, cols, mask, active):
+        return tuple(_fake_launch("ell_pull", [offsets, cols, mask, active],
+                                  _pull_outputs(offsets)))
     if _on_cuda(offsets, cols, mask, active):
         out = ell_pull_bits_cuda(offsets, cols, mask, active, chunk, sched)
         LAUNCHES["ell_pull"] += 1
@@ -123,6 +165,10 @@ def ell_pull_bits_sweep(pulls, chunk: int):
     holds ``(csr, mask [p, ceil(N/32)], active [p, R])`` per subgraph
     (``csr`` a device CSR: offsets, cols and its schedule ``sched``) -> a
     list of ``(found, work)``, as :func:`ell_pull_bits` gives each."""
+    if _is_fake(*(t for c, m, a in pulls for t in (c.offsets, c.cols, m, a))):
+        return [tuple(_fake_launch("ell_pull", [c.offsets, c.cols, m, a],
+                                   _pull_outputs(c.offsets)))
+                for c, m, a in pulls]
     if _on_cuda(*(t for c, m, a in pulls for t in (c.offsets, c.cols, m, a))):
         out = ell_pull_bits_sweep_cuda(
             [(c.offsets, c.cols, c.sched, m, a) for c, m, a in pulls], chunk)
@@ -200,6 +246,10 @@ def cin_fused(x0, xk, w):
 
 def cin_fused_forward(x0, xk, w):
     """The forward of :func:`cin_fused` alone (no autograd record)."""
+    if _is_fake(x0, xk, w):
+        out = x0.new_empty((x0.shape[0], w.shape[0], x0.shape[2]))
+        return _fake_launch("cin_fused", [x0, xk, w], [out],
+                            _cin_flops(x0, xk, w.shape[0]))[0]
     if _on_cuda(x0, xk, w):
         out = cin_fused_cuda(x0, xk, w)
         LAUNCHES["cin_fused"] += 1
@@ -210,6 +260,10 @@ def cin_fused_forward(x0, xk, w):
 def cin_fused_bwd_w(x0, xk, g):
     """Weight gradient of a CIN step for ``g = dOut [B, H, D]`` -> ``dW [H,
     F0*Fk]``."""
+    if _is_fake(x0, xk, g):
+        out = x0.new_empty((g.shape[1], x0.shape[1] * xk.shape[1]))
+        return _fake_launch("cin_fused_bwd_w", [x0, xk, g], [out],
+                            _cin_flops(x0, xk, g.shape[1]))[0]
     if _on_cuda(x0, xk, g):
         out = cin_fused_bwd_w_cuda(x0, xk, g)
         LAUNCHES["cin_fused_bwd_w"] += 1
@@ -220,6 +274,10 @@ def cin_fused_bwd_w(x0, xk, g):
 def cin_fused_bwd_x(x0, xk, w, g):
     """Input gradients of a CIN step for ``g = dOut [B, H, D]`` -> ``(dx0,
     dxk)``."""
+    if _is_fake(x0, xk, w, g):
+        return tuple(_fake_launch("cin_fused_bwd_x", [x0, xk, w, g],
+                                  [torch.empty_like(x0), torch.empty_like(xk)],
+                                  _cin_flops(x0, xk, w.shape[0])))
     if _on_cuda(x0, xk, w, g):
         out = cin_fused_bwd_x_cuda(x0, xk, w, g)
         LAUNCHES["cin_fused_bwd_x"] += 1

@@ -19,6 +19,10 @@ dimension bound to mesh axes ``A`` is split over the ranks along ``A`` as
 * :class:`MeshLayout` -- a rank's coordinates without a live mesh, so a
   host can cut or join every rank's shards (:func:`shard_tree`,
   :func:`gather_tree`).
+* :func:`cache_shardings` -- the KV cache's decode layout (the
+  reference's ``_lm_cache_struct``): batch over the data axes and kv heads
+  over ``model`` where they divide it, else the sequence split
+  (flash-decoding's split-KV).
 * :func:`draw_tree` -- a config's initial parameters drawn block by block,
   each block from a generator seeded by the seed, the leaf and the
   block's coordinates along the leaf's sharded axes (never by the rank):
@@ -253,15 +257,29 @@ def _block_seed(seed: int, leaf: int, block: tuple) -> int:
 
 def draw_tree(specs, seed: int, rules: dict, axes: Sequence[str],
               sizes: Sequence[int], layout: MeshLayout | None = None,
-              device="cpu", units: dict | None = None) -> Any:
+              device="cuda", units: dict | None = None) -> Any:
     """Initial values of ``specs`` (``common.init_values``) cut into the
     blocks that ``rules`` make on a mesh of ``axes`` / ``sizes``, each block
     drawn on ``device`` from its own generator (:func:`_block_seed`): ``layout``
     given, a rank's blocks; otherwise the whole tree, every block in its
     place (the same values as the ranks draw)."""
+    sh = [leaf_sharding(spec, rules, units) for spec in leaves(specs, is_spec)]
+    out = draw_blocks(leaves(specs, is_spec), sh, seed, axes, sizes, layout,
+                      device)
+    return unflatten_like(specs, out, is_spec)
+
+
+def draw_blocks(specs: list, shardings: list, seed: int, axes: Sequence[str],
+                sizes: Sequence[int], layout: MeshLayout | None = None,
+                device="cuda") -> list:
+    """:func:`draw_tree` over a list of specs and their
+    :class:`LeafSharding` (such as a KV cache's,
+    :func:`cache_shardings`)."""
+    from repro_torch.core.bfs import resolve_device
+
+    device = resolve_device(device)
     out = []
-    for li, spec in enumerate(leaves(specs, is_spec)):
-        sh = leaf_sharding(spec, rules, units)
+    for li, (spec, sh) in enumerate(zip(specs, shardings)):
         grid = [math.prod(sizes[list(axes).index(a)] for a in d) if d else 1
                 for d in sh.dims]
         if layout is not None:
@@ -283,4 +301,48 @@ def draw_tree(specs, seed: int, rules: dict, axes: Sequence[str],
         for sl, t in parts:
             full[sl] = t
         out.append(full)
-    return unflatten_like(specs, out, is_spec)
+    return out
+
+
+# ------------------------------------------------------------ the KV cache
+def cache_shardings(cfg, mesh, batch: int, max_seq: int) -> list:
+    """A ``{"k", "v"}`` pair of :class:`LeafSharding` per layer of the KV
+    cache ``[B, T, n_kv, d_head]`` (``models.lm.init_cache_specs``) on
+    ``mesh`` (anything with ``axes`` and ``sizes``), the layout of the
+    reference's ``_lm_cache_struct``:
+
+    * the kv heads divide ``model`` (``n_kv % model == 0``, ``n_kv >=
+      model``): batch over the data axes, kv heads over ``model``;
+    * otherwise with one sequence (``batch == 1``): a global layer's
+      slots over the data axes and ``model``, a window layer's ring over
+      ``model``;
+    * otherwise: batch over the data axes, a global layer's slots over
+      ``model``; a window layer's ring whole.
+
+    A batch of one is never split (every data rank holds the sequence:
+    the reference's token is replicated then too). Decode attends over a
+    split sequence by combining each rank's partial softmax
+    (``models.attention.decode_attention``)."""
+    axes, sizes = tuple(mesh.axes), tuple(mesh.sizes)
+    model = sizes[axes.index("model")] if "model" in axes else 1
+    da = data_axes(mesh)
+    rows = da if batch > 1 else ()
+    out = []
+    for i in range(cfg.n_layers):
+        is_global = cfg.layer_is_global(i)
+        t = max_seq if is_global else min(cfg.window, max_seq)
+        m = ("model",) if "model" in axes else ()
+        if cfg.n_kv % model == 0 and cfg.n_kv >= model:
+            dims = (rows, (), m, ())
+        elif batch == 1:
+            dims = ((), da + m if t == max_seq else m, (), ())
+        else:
+            dims = (rows, m if t == max_seq else (), (), ())
+        sh = LeafSharding(dims, (batch, t, cfg.n_kv, cfg.d_head))
+        out.append({"k": sh, "v": sh})
+    return out
+
+
+def cache_seq_axes(sh: LeafSharding) -> tuple:
+    """The mesh axes a cache leaf's slots are split over."""
+    return sh.dims[1]

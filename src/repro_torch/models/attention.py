@@ -151,11 +151,24 @@ def banded_window_attention(q, k, v, *, window: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     cache_v: torch.Tensor, valid: torch.Tensor,
+                     par=None, seq_axes: tuple = ()) -> torch.Tensor:
     """Single-token attention over a (possibly ring-buffer) KV cache:
     q [B, 1, Hq, Dh], cache_k / cache_v [B, T, Hkv, Dh], valid [B, T] bool
-    (the cache entries to attend to) -> [B, 1, Hq, Dh]."""
+    (the cache entries to attend to) -> [B, 1, Hq, Dh].
+
+    Split-KV (flash-decoding; the reference leaves it to GSPMD): with
+    ``par`` (a :class:`~repro_torch.models.common.Parallel`) and the
+    cache's slots split over ``seq_axes``, the cache holds this rank's
+    slots. Each rank takes the partial max, the sum of exponentials and
+    the exponential-weighted values over its valid slots in float32: the
+    max is reduced over the axes first, each rank takes its exponentials
+    against that global max, and the sums and the weighted values are
+    summed over the axes in one all-reduce (both tallied under
+    ``"split_kv"``). Nothing gathers the cache."""
+    if par is not None and par.size(seq_axes) > 1:
+        return _split_decode_attention(q, cache_k, cache_v, valid, par,
+                                       seq_axes)
     b, _, hq, dh = q.shape
     hkv = cache_k.shape[2]
     qr = q.reshape(b, hkv, hq // hkv, dh)
@@ -165,3 +178,20 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     probs = torch.softmax(sc, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, cache_v)
     return out.reshape(b, 1, hq, dh)
+
+
+def _split_decode_attention(q, cache_k, cache_v, valid, par, seq_axes):
+    b, _, hq, dh = q.shape
+    hkv = cache_k.shape[2]
+    qr = q.reshape(b, hkv, hq // hkv, dh)
+    sc = torch.einsum("bkgd,btkd->bkgt", qr.float(),
+                      cache_k.float()) / math.sqrt(dh)
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    m_loc = sc.amax(-1)                                         # [B,Hkv,G]
+    m = par.all_reduce(m_loc, seq_axes, "max", "split_kv")
+    e = torch.exp(sc - m[..., None])            # exactly 0 off the valid slots
+    acc = torch.einsum("bkgt,btkd->bkgd", e, cache_v.float())
+    parts = par.all_reduce(torch.cat([e.sum(-1, keepdim=True), acc], -1),
+                           seq_axes, "sum", "split_kv")
+    out = parts[..., 1:] / parts[..., :1]
+    return out.to(cache_v.dtype).reshape(b, 1, hq, dh)

@@ -172,12 +172,14 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor,
 
 
 def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
-         par: Parallel | None = None):
+         par: Parallel | None = None, whole_kv: bool = False):
     """q, k, v of this rank's heads. With ``heads`` split (``par``): q (and
     k, v where ``kv_heads`` is split alike) column-parallel; replicated kv
     heads are computed whole, their gradient summed over the heads' axes,
     and each local q head ``j`` reads kv head ``global_j // (n_heads /
-    n_kv)``."""
+    n_kv)``. ``whole_kv`` (no gradient: a cache to fill) also returns
+    ``(k, v)`` of every kv head, gathered over ``kv_heads``' axes where
+    they are split (tallied under ``"cache"``)."""
     b, s, _ = h.shape
     heads = _axes(par, "heads")
     kv_axes = _axes(par, "kv_heads")
@@ -203,14 +205,24 @@ def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
     hk = k.shape[-1] // cfg.d_head
     k = A.apply_rope(k.reshape(b, s, hk, cfg.d_head), positions, cfg.rope_theta)
     v = v.reshape(b, s, hk, cfg.d_head)
+    whole = (k, v)
+    if kv_axes and whole_kv:
+        from repro_torch.core.comm.dist import gather_dim
+
+        whole = tuple(gather_dim(par.mesh, t, 2, cfg.n_kv, kv_axes, par.tally,
+                                 "cache") for t in (k, v))
     if heads and not kv_axes:
         k, v = par.copy(k, heads), par.copy(v, heads)
-        if h0 % grp == 0 and h1 % grp == 0:
-            k, v = k[:, :, h0 // grp:h1 // grp], v[:, :, h0 // grp:h1 // grp]
-        else:
-            idx = torch.arange(h0, h1, device=k.device) // grp
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
-    return q, k, v
+        k, v = _kv_of_heads(k, h0, h1, grp), _kv_of_heads(v, h0, h1, grp)
+    return (q, k, v, whole) if whole_kv else (q, k, v)
+
+
+def _kv_of_heads(t: torch.Tensor, h0: int, h1: int, grp: int) -> torch.Tensor:
+    """The kv heads (dim 2 of ``t``, every kv head) that q heads ``[h0,
+    h1)`` read, one a q head where the block is not whole groups."""
+    if h0 % grp == 0 and h1 % grp == 0:
+        return t[:, :, h0 // grp:h1 // grp]
+    return t.index_select(2, torch.arange(h0, h1, device=t.device) // grp)
 
 
 def _attend(cfg: LMConfig, q, k, v, window: int) -> torch.Tensor:
@@ -331,67 +343,152 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 @torch.no_grad()
 def decode_step(cfg: LMConfig, params: dict, cache: list,
-                token: torch.Tensor, pos) -> tuple:
+                token: torch.Tensor, pos, par: Parallel | None = None,
+                shardings: list | None = None) -> tuple:
     """One-token serve step. token [B] int, pos the current position (an
     int or a 0-d tensor). Writes this token's keys and values into
     ``cache`` in place (slot ``pos``, or ``pos % T`` on a ring) and returns
-    (logits [B, V] f32, cache)."""
+    (logits [B, V] f32, cache).
+
+    On a mesh (``par``): ``params`` are this rank's shards, ``token`` its
+    rows, ``cache`` its blocks in the decode layout ``shardings``
+    (``launch.sharding.cache_shardings``, one ``{"k", "v"}`` pair a
+    layer); the logits are its block of the vocabulary. The vocabulary,
+    heads, ff and experts split as in :func:`forward`. Only the rank
+    whose block holds the slot writes it. Where a layer's slots are split
+    over ranks, attention combines their partial softmax
+    (``attention.decode_attention``), reading every q head (gathered over
+    the heads' axes, under ``"split_kv"``) and keeping this rank's."""
     pos = int(pos)
     b = token.shape[0]
-    x = _embed(cfg, params, token[:, None])                        # [B,1,D]
+    x = _embed(cfg, params, token[:, None], par)                   # [B,1,D]
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    heads = _axes(par, "heads")
     for i, lp in enumerate(_layer_params(params)):
         c = cache[i]
-        t = c["k"].shape[1]
         is_global = cfg.layer_is_global(i)
-        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), posv)
+        sh = shardings[i]["k"] if par is not None else None
+        seq = sh.dims[1] if sh is not None else ()
+        kv_split = sh is not None and par.size(sh.dims[2]) > 1
+        h = rms_norm(x, lp["ln_attn"])
+        if par is None or kv_split:
+            q, k, v = _qkv(cfg, lp, h, posv, par)
+            if kv_split:
+                _check_kv_block(cfg, par, sh)
+            kw, vw = k, v
+        else:
+            q, k, v, (kw, vw) = _qkv(cfg, lp, h, posv, par, whole_kv=True)
+        t_all = sh.shape[1] if sh is not None else c["k"].shape[1]
+        lo, hi = _slots(par, seq, t_all)
         # lax.dynamic_update_slice clamps the start into the cache
-        slot = min(pos, t - 1) if is_global else pos % t
-        c["k"][:, slot] = k[:, 0]
-        c["v"][:, slot] = v[:, 0]
-        idx = torch.arange(t, device=x.device)
-        valid = (idx <= pos) if is_global else ((idx <= pos) | (pos >= t))
-        o = A.decode_attention(q, c["k"], c["v"], valid[None].expand(b, t))
-        x = x + o.reshape(b, 1, cfg.n_heads * cfg.d_head) @ lp["wo"]
+        slot = min(pos, t_all - 1) if is_global else pos % t_all
+        if lo <= slot < hi:
+            c["k"][:, slot - lo] = kw[:, 0]
+            c["v"][:, slot - lo] = vw[:, 0]
+        idx = torch.arange(lo, hi, device=x.device)
+        valid = (idx <= pos) if is_global else ((idx <= pos) | (pos >= t_all))
+        valid = valid[None].expand(b, hi - lo)
+        if par is None or kv_split:
+            o = A.decode_attention(q, c["k"], c["v"], valid)
+        elif par.size(seq) > 1:
+            qa = q
+            if heads:
+                from repro_torch.core.comm.dist import gather_dim
+
+                qa = gather_dim(par.mesh, q, 2, cfg.n_heads, heads, par.tally,
+                                "split_kv")
+            o = A.decode_attention(qa, c["k"], c["v"], valid, par, seq)
+            if heads:
+                o = o[:, :, slice(*par.span("heads", cfg.n_heads))]
+        else:
+            h0, h1 = par.span("heads", cfg.n_heads) if heads else \
+                (0, cfg.n_heads)
+            grp = cfg.n_heads // cfg.n_kv
+            o = A.decode_attention(q, _kv_of_heads(c["k"], h0, h1, grp),
+                                   _kv_of_heads(c["v"], h0, h1, grp), valid)
+        o = o.reshape(b, 1, q.shape[2] * cfg.d_head) @ lp["wo"]
+        x = x + (par.reduce(o, heads) if heads else o)
         hh = rms_norm(x, lp["ln_mlp"])
         if cfg.is_moe:
-            out, _ = moe_apply(lp, hh.reshape(b, cfg.d_model), cfg)
+            out, _ = moe_apply(lp, hh.reshape(b, cfg.d_model), cfg, par)
             x = x + out.reshape(b, 1, cfg.d_model)
         else:
-            x = x + _dense_ffn(cfg, lp, hh)
-    return _head(cfg, params, x)[:, 0], cache
+            x = x + _dense_ffn(cfg, lp, hh, par)
+    return _head(cfg, params, x, par)[:, 0], cache
+
+
+def _slots(par: Parallel | None, seq: tuple, t: int) -> tuple:
+    """``[lo, hi)``: the slots of a ``t``-slot cache this rank holds."""
+    if par is None or par.size(seq) == 1:
+        return 0, t
+    from repro_torch.launch.sharding import dim_span
+
+    return dim_span(t, par.size(seq), par.index(seq))
+
+
+def _check_kv_block(cfg: LMConfig, par: Parallel, sh) -> None:
+    """A cache split on kv heads is read by the q heads of this rank: its
+    block of kv heads must be the one they read."""
+    from repro_torch.launch.sharding import dim_span
+
+    heads = _axes(par, "heads")
+    k0, k1 = dim_span(cfg.n_kv, par.size(sh.dims[2]), par.index(sh.dims[2]))
+    h0, h1 = par.span("heads", cfg.n_heads) if heads else (0, cfg.n_heads)
+    grp = cfg.n_heads // cfg.n_kv
+    if (h0, h1) != (k0 * grp, k1 * grp):
+        raise ValueError(f"q heads [{h0}, {h1}) do not read the cache's kv "
+                         f"heads [{k0}, {k1})")
 
 
 @torch.no_grad()
 def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, max_seq: int,
-            last_only: bool = False) -> tuple:
+            last_only: bool = False, par: Parallel | None = None,
+            shardings: list | None = None) -> tuple:
     """Forward over a prompt, producing logits and a filled KV cache of
     :func:`init_cache`'s shapes: a global layer's keys padded to
     ``max_seq``, a window layer's in its ring (position p at slot p % T).
 
     ``last_only=True`` computes logits for the final position only (what
-    a server needs; no ``[B, S, vocab]`` tensor)."""
+    a server needs; no ``[B, S, vocab]`` tensor).
+
+    On a mesh (``par``, ``shardings`` as in :func:`decode_step`): this
+    rank's rows of the prompts, its shards; the logits are its block of
+    the vocabulary and the cache its blocks in the decode layout, so that
+    :func:`decode_step` continues from it."""
     b, s = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, par)
     positions = torch.arange(s, device=x.device)
+    heads = _axes(par, "heads")
     cache = []
     for i, lp in enumerate(_layer_params(params)):
         window = 0 if cfg.layer_is_global(i) else cfg.window
-        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), positions)
+        sh = shardings[i]["k"] if par is not None else None
+        h = rms_norm(x, lp["ln_attn"])
+        if par is None or par.size(sh.dims[2]) > 1:
+            q, k, v = _qkv(cfg, lp, h, positions, par)
+            if par is not None:
+                _check_kv_block(cfg, par, sh)
+            kc, vc = k, v
+        else:
+            q, k, v, (kc, vc) = _qkv(cfg, lp, h, positions, par, whole_kv=True)
         o = _attend(cfg, q, k, v, window)
         t = cache_len(cfg, i, max_seq)
         if window and window < s:
             # ring-buffer layout: position p lives at slot p % t, so slot j
             # holds position s - t + ((j - s % t) % t)
             sel = s - t + (torch.arange(t, device=x.device) - s % t) % t
-            ck, cv = k[:, sel], v[:, sel]
+            ck, cv = kc[:, sel], vc[:, sel]
         else:
             # every position fits: slot p holds position p, the rest zeros
             pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, t - s))
-            ck, cv = pad(k), pad(v)
-        x = x + o.reshape(b, s, cfg.n_heads * cfg.d_head) @ lp["wo"]
-        x, _ = _ffn_block(cfg, lp, x)
+            ck, cv = pad(kc), pad(vc)
+        if par is not None and par.size(sh.dims[1]) > 1:
+            lo, hi = _slots(par, sh.dims[1], t)
+            ck, cv = ck[:, lo:hi].contiguous(), cv[:, lo:hi].contiguous()
+        o = o.reshape(b, s, q.shape[2] * cfg.d_head) @ lp["wo"]
+        x = x + (par.reduce(o, heads) if heads else o)
+        x, _ = _ffn_block(cfg, lp, x, par)
         cache.append({"k": ck, "v": cv})
     if last_only:
         x = x[:, -1:, :]
-    return _head(cfg, params, x), cache
+    return _head(cfg, params, x, par), cache

@@ -408,12 +408,26 @@ def retrieval_scores(model: XDeepFM, hot_idx: torch.Tensor,
     """Queries ``[B, F]`` against a candidate matrix ``[n_cand, d_query]``;
     returns ``torch.topk``'s (values, indices), each ``[B, top_k]``,
     scores in descending order. Batched dot, not a loop."""
-    p = model.params()
-    x0 = embed_lookup(p, hot_idx, cold_idx, "emb")
-    q = x0.reshape(x0.shape[0], -1)
-    q = torch.relu(q @ p["q_w0"] + p["q_b0"]) @ p["q_w1"]          # [B, dq]
+    q = query_vectors(model.cfg, model.params(), hot_idx, cold_idx)
     scores = q @ candidates.T                                      # [B, n_cand]
     return torch.topk(scores, top_k)
+
+
+def query_vectors(cfg: XDeepFMConfig, params: dict, hot_idx: torch.Tensor,
+                  cold_idx: torch.Tensor, route: ColdRoute | None = None
+                  ) -> torch.Tensor:
+    """The retrieval tower's query vectors ``[B, d_query]`` of ``[B, F]``
+    lookups; with ``route`` the cold rows come from their owners, as in
+    :func:`xdeepfm_logits`."""
+    d = cfg.embed_dim
+    if route is None:
+        x0 = embed_lookup(params, hot_idx, cold_idx, "emb")
+    else:
+        cold = cold_rows(params, route).reshape(*cold_idx.shape, d + 1)
+        x0 = _two_class(hot_idx, cold_idx, _rows(params["emb_hot"], hot_idx),
+                        cold[..., :d])
+    q = x0.reshape(x0.shape[0], -1)
+    return torch.relu(q @ params["q_w0"] + params["q_b0"]) @ params["q_w1"]
 
 
 # ----------------------------------------------------------- data utilities

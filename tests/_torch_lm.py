@@ -99,6 +99,7 @@ def serve_case(arch: str, last_only: bool) -> dict:
     prompts = tokens_for(cfg, 2, 12, 2)
     logits, cache = jax.jit(lambda p, t: RL.prefill(rcfg, p, t, max_seq=20,
                                                     last_only=last_only))(params, prompts)
+    filled = np_tree(cache)     # the prefill's cache (last_only or not)
     step = jax.jit(lambda p, c, t, q: RL.decode_step(rcfg, p, c, t, q))
     tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
     steps = []
@@ -107,7 +108,7 @@ def serve_case(arch: str, last_only: bool) -> dict:
         steps.append((np.array(tok), np.asarray(out), np_tree(cache)))
         tok = jnp.argmax(out, -1).astype(jnp.int32)
     return dict(params=params, prompts=prompts, logits=np.asarray(logits),
-                cache=np_tree(RL.prefill(rcfg, params, prompts, max_seq=20)[1]),
+                cache=filled,
                 steps=steps)
 
 

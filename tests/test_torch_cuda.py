@@ -1709,6 +1709,26 @@ def test_lm_mesh_world1_nccl_equals_one_card(card):
             assert diff <= 1e-3 * moved, (arch, k, diff, moved)
 
 
+def test_lm_serve_cells_world1_nccl_equal_one_card(card):
+    """gemma3-1b's prefill and decode cells (``launch.cells.build_cell``,
+    smoke, float32, TF32 off) on a world of one rank under NCCL, in a
+    spawned process, equal the one-card path (``models.lm`` without
+    ``par``) on the same drawn arguments: logits and caches within rtol
+    1e-5 and 1e-6 of the largest |value|."""
+    import _torch_lm_serve_world as SW
+    from repro_torch.tree import flatten_with_path
+
+    (res,) = TC.dist.spawn(SW.one_rank_cells, 1, (), backend="nccl",
+                           timeout=300)
+    for shape in ("prefill_32k", "decode_32k"):
+        got, want = res[shape]["cell"], res[shape]["one"]
+        for (k, g), (_, w) in zip(flatten_with_path(got),
+                                  flatten_with_path(want)):
+            scale = max(float(np.abs(w).max()), 1.0)
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6 * scale,
+                                       err_msg=f"{shape} {k}")
+
+
 #: a bfloat16 mesh step against the one-card step at FULL widths: the loss
 #: within 1e-4 of it (relative; read 2e-7 to 5.1e-5 with the one-card
 #: rerun's spread, NVIDIA H100 80GB HBM3, 700.00 W) and each leaf's change

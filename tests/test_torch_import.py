@@ -92,3 +92,31 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     params = materialize(TL.lm_param_specs(SMOKE), 0, "cpu")
     logits, cache = TL.prefill(SMOKE, params, torch.zeros((1, 4), dtype=torch.int64), 8)
     assert logits.shape == (1, 4, SMOKE.vocab) and cache[0]["k"].device.type == "cpu"
+
+
+def test_cell_arguments_raise_without_a_card(monkeypatch):
+    """The cells' argument makers and ``sharding.draw_tree`` take the card
+    by default: without one they raise; ``device="cpu"`` draws."""
+    import types
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import cells, sharding
+    from repro_torch.models import lm as TL
+
+    mesh = types.SimpleNamespace(axes=("data", "model"), sizes=(1, 1),
+                                 coords=(0, 0), rank=0, p=1,
+                                 size=lambda axes=None: 1,
+                                 index=lambda axes=None: 0)
+    spec = get_arch("gemma3-1b")
+    rules = sharding.rules_for(mesh, spec.rules_override)
+    cell = cells.lm_serve_cell({"kind": "decode", "global_batch": 2,
+                                "seq_len": 16}, spec.smoke, rules, mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cell.args(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sharding.draw_tree(TL.lm_param_specs(spec.smoke), 0, rules,
+                           mesh.axes, mesh.sizes)
+    params, cache, token, pos = cell.args(0, "cpu")
+    assert token.shape == (2,) and pos == 15
+    assert cache[0]["k"].shape == (2, 8, 1, 16)

@@ -343,9 +343,11 @@ def test_drawn_blocks_make_the_whole():
     specs = TL.lm_param_specs(cfg)
     rules = TS.rules_for(types.SimpleNamespace(axes=axes), spec.rules_override)
     units = TL.lm_units(cfg)
-    whole = TS.draw_tree(specs, 7, rules, axes, sizes, units=units)
+    whole = TS.draw_tree(specs, 7, rules, axes, sizes, device="cpu",
+                         units=units)
     shards = [TS.draw_tree(specs, 7, rules, axes, sizes,
-                           TS.MeshLayout.of(axes, sizes, r), units=units)
+                           TS.MeshLayout.of(axes, sizes, r), device="cpu",
+                           units=units)
               for r in range(4)]
     back = TS.gather_tree(shards, TS.param_shardings(specs, rules, units),
                           axes, sizes)
