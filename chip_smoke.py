@@ -14,7 +14,11 @@
    real mid-BFS frontier, in one launch of the sweep entry, and the
    delegate OR fold over the p=2 partitions' candidate words. Each kernel
    must equal its plain PyTorch version exactly (found words and work;
-   both ``mask_reduce`` variants) and a second pull launch the first; the
+   every standalone ``mask_reduce`` body: the prev-less fold the paths
+   run, the group fold at K = 4 and of (2, 2) stacked rows by stride, the
+   fold into ``prev`` and the ``with_count`` body, each by events, device
+   us and bound, beside an empty launch through the same wrapper path,
+   the launch floor) and a second pull launch the first; the
    sweep launch's time (CUDA events), each pull's time alone (events and
    the profiler's device time), the plain version's time, the bytes bound
    and each subgraph's row schedule (rows and slots per length class,
@@ -39,22 +43,28 @@
    and a second miss fails the run.
 5. Single-source kernel phases: the three bit pulls of one sweep on a real
    mid-BFS frontier (2 sweeps from the highest-degree vertex) and the
-   delegate min fold of the p=2 partitions' level candidates (both
-   variants), each against its plain version, exactly, timed as in 3; the
-   fused min fold into the state's delegate levels
-   (``payload_min_fold_apply``) against its plain version and the chain
-   it replaced, as in 3; the ELL contract of the pull against its oracle
-   on 4 random shapes.
+   delegate min fold of the p=2 partitions' level candidates (every
+   standalone ``payload_min_fold`` body, as in 3, beside the ``amin``
+   that computes the same function: ``partials.amin(0)`` for the
+   prev-less fold, ``amin`` over ``[K + 1, NW]`` with ``prev``), each
+   against its plain version, exactly, timed as in 3; the fused min fold
+   into the state's delegate levels (``payload_min_fold_apply``) against
+   its plain version and the chain it replaced, as in 3, and through
+   ``comm`` under allgather and under hier on the axes (1, 2) of the
+   world-2 ranks (a group of one, then the apply: one launch); the ELL
+   contract of the pull against its oracle on 4 random shapes.
 6. Single-source path, Graph500 style: one warm-up BFS, then 16 search
    keys through ``run_bfs_emulated`` with the ``bfs-rmat`` FULL config
    (DO, pull_chunk=64, binned nn exchange, int32 min combine); each answer
    must equal the numpy oracle; per-BFS time, sweeps, TEPS and their
    harmonic mean are printed. Then 4 of the keys under OPT2
-   (``delegate_u8``, static exchange) and 4 under ``delegate="allgather"``:
-   answers equal the FULL run's. Each run zeroes the launch counts before
-   and reads them after: one pull launch (three pulls) per sweep, one min
-   fold per sweep in the allgather run only. One FULL and one allgather
-   BFS under ``torch.profiler``.
+   (``delegate_u8``, static exchange), 4 under ``delegate="allgather"``
+   and 4 under ``delegate="hier"``: answers equal the FULL run's (and,
+   under allgather and hier, every counter but the wire's). Each run
+   zeroes the launch counts before and reads them after: one pull launch
+   (three pulls) per sweep, one min fold (the fused update) per sweep in
+   the allgather and hier runs only; host ms and launches a sweep are
+   printed. One FULL and one allgather BFS under ``torch.profiler``.
 7. Comm strategies and the sharded drivers. (a) The 64-query serving run
    again on the same partition under ring / dense, hier / adaptive,
    allgather / adaptive and pinned sparse (a cap of every slot), beside
@@ -77,7 +87,9 @@
    gloo carries every collective of the step on CUDA tensors): each rank
    loads its own partition's rows and plan rows from a file written
    here, serves the 64 queries under the two-level combine over its
-   ``("rank", "gpu")`` = (1, 2) mesh (B2a then B2 a sweep) and runs 4
+   ``("rank", "gpu")`` = (1, 2) mesh (one B2 a sweep: the group over
+   ``"rank"`` has one member, so nothing is gathered or launched for
+   it) and runs 4
    FULL keys; answers (by digest), every stats field, levels and
    counters equal the emulated p = 2 runs.
 8. Recsys path (xDeepFM ``FULL``: 39 fields, D=10, CIN 200-200-200, MLP
@@ -117,15 +129,19 @@
    for ``torch.amin`` on the min fold's inputs, the host microseconds per
    call (host clock over the first 20 and over all 300 calls, then one
    synchronize); for the folds also the profiler's device microseconds
-   per call. Pairs of a design and the one it replaced are measured as
-   the median of 9 interleaved rounds of 20 calls: each pull kernel's
-   sweep entry and three single calls of the same pulls with no row
-   active (where the device never holds the host back), and each fused
-   delegate update and the chain it replaced (also with their device
-   time). The folds, ``torch.amin`` and the pairs (the delegate updates
-   on seeded planes of the paths' shapes) are also measured right after
-   set-up, before any profiler session (which raises the wrappers' host
-   cost for the rest of the process).
+   per call. Pairs of a design and the one it replaced (or the library
+   call it is held to) are measured as the median of 9 interleaved
+   rounds of 20 calls: each pull kernel's sweep entry and three single
+   calls of the same pulls with no row active (where the device never
+   holds the host back), each fused delegate update and the chain it
+   replaced (also with their device time), and each min fold beside the
+   ``amin`` of the same function. The folds, ``torch.amin`` and the pairs
+   (the delegate updates on seeded planes of the paths' shapes) are also
+   measured right after set-up, before any profiler session (which
+   raises the wrappers' host cost for the rest of the process), with the
+   fold wrapper's host cost split into its steps (the checks, the output
+   allocation, the bare ``ctypes`` launch of the fold and of an empty
+   kernel).
 10. Payload path (WEIGHTED_SSSP, COMPONENTS, KHOP_SAMPLE) on the same
    graph and partition at W = 32: (a) three lane batches of 32 queries
    (SSSP, COMPONENTS without component reuse, KHOP_SAMPLE with k = 3),
@@ -379,7 +395,7 @@
 
 Option: ``--only segment_bag,ell_pull_payload,sharded,payload,memory,obs,
 frontend,gnn,examples,cin_bwd,recsys_train,recsys_shard,mace,lm,lm_mesh,
-cells``
+cells,folds``
 (those phases alone, on the same inputs; ``sharded`` is 7 after the main
 serving run and 4 FULL keys it is held against, ``payload`` is 10 and 7(c),
 ``memory`` is 11 after the 64-query serving run it holds (c) against,
@@ -388,7 +404,9 @@ after its obs-off overlap run, ``frontend`` is 13, ``gnn`` is 15 on a
 fresh scale-20 partition, ``examples``, ``cin_bwd`` and ``recsys_train``
 are 16-18; with both of the last two, the kernels line of the two
 backward kernels; ``recsys_shard``, ``mace``, ``lm``, ``lm_mesh`` and
-``cells`` are 19-23).
+``cells`` are 19-23; ``folds`` is the fold phases of 3 and 5, 4 FULL
+search keys against the oracle and under allgather and hier, and 9's
+fresh-process fold cases).
 
 Any failure raises, so the script exits non-zero; it also exits non-zero,
 printing no result, without a CUDA device or without ``src/repro_torch``
@@ -453,18 +471,24 @@ _FLUSH: dict = {}
 CIN_TOL = 1e-4
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 LAUNCH_REPS, LAUNCH_FIRST, LAUNCH_ROUNDS, FOLD_PROFILE_REPS = 300, 20, 9, 50
+#: profiler sessions of each standalone fold body (standalone_folds)
+FOLD_SESSIONS = 5
 #: one call of each wrapper (and of torch.amin) at its path's shapes, filled
 #: by the kernel phases for the launch-cost phase: {name: fn}
 LAUNCH_CASES: dict = {}
 #: the folds, whose device time is printed beside their host cost
 FOLD_CASES = ("mask_reduce", "payload_min_fold", "torch.amin",
+              "group_fold [or]", "group_fold [min]", "partials.amin",
               "mask_reduce_apply", "mask_reduce chain",
               "payload_min_fold_apply", "payload_min_fold chain")
-#: launch-cost cases measured as interleaved pairs (new design, old design)
+#: launch-cost cases measured as interleaved pairs (new design, old design;
+#: a min fold beside the amin of the same function)
 PAIRS = (("ell_pull_multi [sweep, idle]", "ell_pull_multi [3 calls, idle]"),
          ("ell_pull [sweep, idle]", "ell_pull [3 calls, idle]"),
          ("mask_reduce_apply", "mask_reduce chain"),
-         ("payload_min_fold_apply", "payload_min_fold chain"))
+         ("payload_min_fold_apply", "payload_min_fold chain"),
+         ("group_fold [min]", "partials.amin"),
+         ("payload_min_fold", "torch.amin"))
 
 
 def check(cond, what: str) -> None:
@@ -768,20 +792,25 @@ def kernel_phase_pull(eng, masks):
 def or_apply_pair(plan, words, level, it, target) -> dict:
     """The serving step's delegate update from its packed candidate words
     ``[p, d, nw]``: through the fused kernel (``comm.delegate_or_apply``)
-    and as the chain it replaces ran (``delegate_combine``'s fold into a
-    fresh zero ``prev``, unpack, AND with the unvisited lanes, the row and
-    lane flags, ``where`` or OR into the plane, the target scan; the
-    unvisited mask comes from the step, as before). Both return the new
-    plane, frontier, lane flags, unhit flags and row flags."""
+    and as the chain it replaced ran under allgather (the fold of every
+    partition's words into a fresh zero ``prev``, unpack, AND with the
+    unvisited lanes, the row and lane flags, ``where`` or OR into the
+    plane, the target scan; the unvisited mask comes from the step, as
+    before). Both return the new plane, frontier, lane flags, unhit flags
+    and row flags."""
     import torch
     from repro_torch.core import comm as TC
+    from repro_torch.kernels import ops
 
     w = level.shape[-1]
     visited = level.dtype == torch.bool
     unvis = ~level if visited else level == 2**30
 
     def chain():
-        reduced, _ = TC.delegate_combine(plan, words, "or")
+        flat = words.reshape(words.shape[0], -1)
+        folded, _ = ops.mask_reduce(flat, flat.new_zeros(flat.shape[1:]),
+                                    with_count=False)
+        reduced = folded.reshape(words.shape[1:])[None].expand(words.shape)
         newly = TC.unpack_lanes(reduced, w) & unvis
         new_any = newly.reshape(newly.shape[0], -1).any(1)
         if visited:
@@ -798,17 +827,20 @@ def or_apply_pair(plan, words, level, it, target) -> dict:
 
 
 def min_apply_pair(plan, cand, prev) -> dict:
-    """The single-source step's delegate update under ``allgather`` from its
-    candidate levels ``[p, d]``: through the fused kernel
-    (``comm.delegate_min_apply``) and as the chain it replaces ran
-    (``delegate_combine``'s ``torch.full`` identity and fold, ``minimum``,
-    ``<``, ``any``)."""
+    """The single-source step's delegate update from its candidate levels
+    ``[p, d]``: through the fused kernel (``comm.delegate_min_apply``
+    under ``plan``) and as the chain it replaced ran under allgather (the
+    fold of every partition's candidates into a ``torch.full`` identity,
+    ``minimum``, ``<``, ``any``)."""
     import torch
     from repro_torch.core import comm as TC
+    from repro_torch.kernels import ops
 
     def chain():
-        reduced, _ = TC.delegate_combine(plan, cand, "min")
-        out = torch.minimum(prev, reduced)
+        ident = torch.full(cand.shape[1:], 2**30, dtype=torch.int32,
+                           device=cand.device)
+        folded, _ = ops.payload_min_fold(cand, ident, with_count=False)
+        out = torch.minimum(prev, folded[None])
         return out, (out < prev).any(1)
 
     return {"payload_min_fold_apply":
@@ -894,14 +926,155 @@ def kernel_phase_apply(eng, st, masks, cand) -> dict:
     return out
 
 
+def device_sessions(fn, name: str, sessions: int = FOLD_SESSIONS,
+                    reps: int = 30):
+    """The profiler's device us per call of ``fn()`` in kernels whose name
+    holds ``name`` (:func:`per_call_us`) in ``sessions`` sessions of
+    ``reps`` calls each, after one warm-up call -> (the median over the
+    sessions, [(us, records, shortest, median and longest record us,
+    records that start before the one before them ends)] a session). A
+    session with no such record is left out; none in all fails the run."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    taken = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = per_call_us(prof, reps, name)
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and name in e.name)
+        if us <= 0 or not spans:
+            continue
+        d = sorted(b - a for a, b in spans)
+        overlap = sum(spans[i + 1][0] < spans[i][1]
+                      for i in range(len(spans) - 1))
+        taken.append((us, len(spans), d[0], d[len(d) // 2], d[-1], overlap))
+    check(bool(taken), f"device time of {name} in the trace")
+    return statistics.median(t[0] for t in taken), taken
+
+
+def sessions_text(taken) -> str:
+    """:func:`device_sessions`' sessions, one ``us (records, shortest /
+    median / longest record, overlaps)`` each."""
+    return "sessions=[" + ", ".join(
+        f"{us:.2f} ({n}, {lo:.2f}/{mid:.2f}/{hi:.2f}, {ov})"
+        for us, n, lo, mid, hi, ov in taken) + "]"
+
+
+def standalone_folds(op: str, partials, prev, flag_prev) -> dict:
+    """Every standalone body of one fold kernel (``op`` "or": B2a, B2b;
+    "min": B4a, B4b) on the path's partials ``[K, NW]``, each exactly
+    against its plain version, timed (CUDA events), by the profiler's
+    device us (the median of FOLD_SESSIONS sessions, each printed with
+    its records' spread) and beside its bound for the bytes it moves and,
+    for the min, the ``amin`` that computes the same function: the
+    prev-less fold as the paths run it (``group_fold``; yardstick
+    ``partials.amin(0)``), the group fold at K = 4 (four rows folded into
+    one, and the strided fold of (outer, inner) = (2, 2) into two rows),
+    the public fold into ``prev`` (``amin`` over ``[K + 1, NW]``) and the
+    ``with_count`` body into ``flag_prev``. First the launch floor of each
+    wrapper path: the same wrapper (its checks, its allocations, the same
+    C signature) launching an empty kernel. A body whose device us read
+    below its floor's fails the run. Returns {case: numbers}."""
+    import torch
+    from repro_torch.kernels import mask_reduce as K
+
+    k, nw = partials.shape
+    rows4 = torch.cat([partials, partials.roll(1, 1)]).contiguous()
+    public = K.mask_reduce_cuda if op == "or" else K.payload_min_fold_cuda
+    plain = K.mask_reduce_plain if op == "or" else K.payload_min_fold_plain
+    amin = op == "min"
+    stacked = torch.cat([prev[None], partials])
+    name = "mask_reduce" if op == "or" else "payload_min_fold"
+    floors = {
+        "group_fold": lambda: K._group_fold_cuda("fold_empty", partials, op,
+                                                 k, 1, 1, 0),
+        name: lambda: K._fold_cuda("fold_empty", op, partials, prev, False)}
+    floor = {}
+    for path, fn in floors.items():
+        ms = time_ms(fn, 50)
+        dev, taken = device_sessions(fn, "empty_kernel")
+        print(f"kernel {name} [empty launch through {path}, the floor] "
+              f"({card_line()}): ms={ms:.4f} device_us={dev:.2f} "
+              f"{sessions_text(taken)}")
+        floor[path] = dict(ms=ms, device_us=dev)
+    # case: (K, wrapper path, kernel, plain version, bytes moved,
+    # operations, amin)
+    cases = {
+        "prev-less": (k, "group_fold", lambda: K.group_fold_cuda(partials,
+                                                                 op, k),
+                      lambda: K.group_fold_plain(partials, op, k),
+                      (k + 1) * nw * 4, k * nw,
+                      (lambda: partials.amin(0)) if amin else None),
+        "group fold K=4": (4, "group_fold",
+                           lambda: K.group_fold_cuda(rows4, op, 4),
+                           lambda: K.group_fold_plain(rows4, op, 4),
+                           5 * nw * 4, 4 * nw,
+                           (lambda: rows4.amin(0)) if amin else None),
+        "group fold (2, 2) -> 2 rows": (
+            2, "group_fold", lambda: K.group_fold_cuda(rows4, op, 2, 2, 2, 1),
+            lambda: K.group_fold_plain(rows4, op, 2, 2, 2, 1),
+            6 * nw * 4, 4 * nw, None),
+        "into prev": (k, name, lambda: public(partials, prev, False)[0],
+                      lambda: plain(partials, prev, False)[0],
+                      (k + 2) * nw * 4, (k + 1) * nw,
+                      (lambda: stacked.amin(0)) if amin else None),
+        "with_count": (k, name, lambda: public(partials, flag_prev, True),
+                       lambda: plain(partials, flag_prev, True),
+                       (k + 3) * nw * 4, (k + 2) * nw, None),
+    }
+    out = {"floor": floor}
+    for case, (kk, path, fn, ref, nbytes, nops, lib) in cases.items():
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"{name} [{case}]: kernel != plain")
+        if lib is not None:
+            check(torch.equal(lib(), got[0].reshape(-1)),
+                  f"{name} [{case}]: amin yardstick")
+        ms = time_ms(fn, 50)
+        plain_ms = time_ms(ref, 10)
+        dev, taken = device_sessions(fn, "fold_rows_kernel")
+        lib_ms = None if lib is None else time_ms(lib, 50)
+        b_ms, b_by = bound(nbytes, nops)
+        fl = floor[path]
+        print(f"kernel {name} [{case}] ({card_line()}): K={kk} NW={nw} "
+              f"ms={ms:.4f} device_us={dev:.2f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.6f} ({b_by}) bound/device="
+              f"{b_ms * 1e3 / dev:.3f} library_ms(amin)="
+              + ("none" if lib_ms is None else
+                 f"{lib_ms:.4f} kernel/amin={ms / lib_ms:.3f}")
+              + f" floor ({path}): ms={fl['ms']:.4f} device_us="
+              f"{fl['device_us']:.2f}, device above it "
+              f"{dev - fl['device_us']:.2f} us; {sessions_text(taken)} "
+              "exact=True")
+        check(dev >= fl["device_us"], f"{name} [{case}]: device us {dev:.2f}"
+              f" below the empty launch's {fl['device_us']:.2f}")
+        out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, device_us=dev, library_ms=lib_ms)
+    return out
+
+
 def kernel_phase_fold(eng, st, masks):
     """The delegate OR fold over the p partitions' candidate words (the
-    pushes of a sweep in which every lane pushes), both variants, then the
-    fused apply of the serving step on the same words."""
+    pushes of a sweep in which every lane pushes): every standalone body
+    (:func:`standalone_folds`), then the fused apply of the serving step
+    on the same words."""
     import torch
     from repro_torch.core import msbfs as M
     from repro_torch.core.comm import pack_lanes
-    from repro_torch.kernels import mask_reduce as K
     from repro_torch.kernels import ops
 
     pgv, d = eng.pgv, masks["unvis_d"].shape[1]
@@ -909,31 +1082,14 @@ def kernel_phase_fold(eng, st, masks):
             | M._push_multi(pgv.nd, masks["frontier_n"], d))
     partials = pack_lanes(cand).reshape(cand.shape[0], -1).contiguous()
     k, nw = partials.shape
-    out = {}
-    for with_count in (False, True):
-        prev = (torch.zeros(nw, dtype=torch.int32, device=partials.device)
-                if not with_count
-                else pack_lanes(~masks["unvis_d"][0]).reshape(-1).contiguous())
-        got = K.mask_reduce_cuda(partials, prev, with_count)
-        want = K.mask_reduce_plain(partials, prev, with_count)
-        if not with_count:
-            LAUNCH_CASES["mask_reduce"] = (
-                lambda a=(partials, prev): ops.mask_reduce(*a, with_count=False))
-        torch.cuda.synchronize()
-        err = int((got[0].long() - want[0].long()).abs().max())
-        if with_count:
-            err = max(err, int((got[1].long() - want[1].long()).abs().max()))
-        check(err == 0, f"mask_reduce(with_count={with_count}): kernel != plain")
-        ms = time_ms(lambda: K.mask_reduce_cuda(partials, prev, with_count), 50)
-        plain_ms = time_ms(lambda: K.mask_reduce_plain(partials, prev,
-                                                       with_count), 10)
-        nbytes = (k + 1) * nw * 4 + nw * 4 * (2 if with_count else 1)
-        b_ms, b_by = bound(nbytes, (k + (2 if with_count else 0)) * nw)
-        print(f"kernel mask_reduce [with_count={with_count}]: K={k} NW={nw} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
-              f"new_bits={int(got[1].sum()) if with_count else '-'} exact=True")
-        out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, err=err)
+    prev = torch.zeros(nw, dtype=torch.int32, device=partials.device)
+    LAUNCH_CASES["mask_reduce"] = (
+        lambda a=(partials, prev): ops.mask_reduce(*a, with_count=False))
+    LAUNCH_CASES["group_fold [or]"] = (
+        lambda a=partials: ops.group_fold(a, "or", k))
+    out = standalone_folds(
+        "or", partials, prev,
+        pack_lanes(~masks["unvis_d"][0]).reshape(-1).contiguous())
     out["apply"] = kernel_phase_apply(eng, st, masks, cand)
     return out
 
@@ -1086,7 +1242,8 @@ def mixed_queries(g, pg):
 def bfs_configs():
     """The ``bfs-rmat`` configurations the single-source phases run: FULL
     (the paper's path), OPT2 (1-byte delegate masks, static bitmask nn
-    exchange) and FULL under the all-gathered delegate combine."""
+    exchange) and FULL under the all-gathered and the two-level (``hier``)
+    delegate combine."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_arch
@@ -1095,7 +1252,8 @@ def bfs_configs():
     full = get_arch("bfs-rmat").model
     opt2 = get_arch("bfs-rmat-opt2").model
     return {"FULL": full, "OPT2": opt2,
-            "allgather": replace(full, comm=CommConfig(delegate="allgather"))}
+            "allgather": replace(full, comm=CommConfig(delegate="allgather")),
+            "hier": replace(full, comm=CommConfig(delegate="hier"))}
 
 
 def ss_mid_bfs(eng, g, cfg, sweeps: int = 2):
@@ -1164,8 +1322,9 @@ def kernel_phase_bit_pull(eng, masks, chunk: int):
 
 def kernel_phase_min_fold(eng, st, masks):
     """The delegate min fold of the p=2 partitions' int32 level candidates
-    (the pushes of the mid-BFS sweep), both variants; the library yardstick
-    is one ``torch.amin`` over the pre-stacked ``[K + 1, NW]``."""
+    (the pushes of the mid-BFS sweep): every standalone body
+    (:func:`standalone_folds`; the library yardstick ``amin`` over the
+    same rows), then the fused apply of the allgather and hier steps."""
     import torch
     from repro_torch.core import bfs as TB
     from repro_torch.core import comm as TC
@@ -1179,41 +1338,16 @@ def kernel_phase_min_fold(eng, st, masks):
     partials = torch.where(cand & masks["unvis_d"], st.it[:, None] + 1,
                            int(INF_LEVEL)).to(torch.int32).contiguous()
     k, nw = partials.shape
-    out = {}
-    for with_count in (False, True):
-        prev = (torch.full((nw,), int(INF_LEVEL), dtype=torch.int32,
-                           device=partials.device)
-                if not with_count else st.level_d[0].contiguous())
-        got = K.payload_min_fold_cuda(partials, prev, with_count)
-        want = K.payload_min_fold_plain(partials, prev, with_count)
-        torch.cuda.synchronize()
-        err = int((got[0].long() - want[0].long()).abs().max())
-        if with_count:
-            err = max(err, int((got[1].long() - want[1].long()).abs().max()))
-        check(err == 0, f"payload_min_fold(with_count={with_count}): "
-              "kernel != plain")
-        ms = time_ms(lambda: K.payload_min_fold_cuda(partials, prev,
-                                                     with_count), 50)
-        plain_ms = time_ms(lambda: K.payload_min_fold_plain(
-            partials, prev, with_count), 10)
-        stacked = torch.cat([prev[None], partials])
-        check(torch.equal(stacked.amin(0), got[0]), "amin yardstick")
-        lib_ms = time_ms(lambda: stacked.amin(0), 50)
-        if not with_count:
-            LAUNCH_CASES["payload_min_fold"] = (
-                lambda a=(partials, prev): ops.payload_min_fold(
-                    *a, with_count=False))
-            LAUNCH_CASES["torch.amin"] = lambda t=stacked: t.amin(0)
-        nbytes = (k + 1) * nw * 4 + nw * 4 * (2 if with_count else 1)
-        b_ms, b_by = bound(nbytes, (k + (1 if with_count else 0)) * nw)
-        print(f"kernel payload_min_fold [with_count={with_count}]: K={k} "
-              f"NW={nw} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms(amin)={lib_ms:.4f} kernel/amin={ms / lib_ms:.3f} "
-              f"bound_ms={b_ms:.6f} "
-              f"improved={int(got[1].sum()) if with_count else '-'} "
-              "exact=True")
-        out[with_count] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=lib_ms, err=err)
+    prev = torch.full((nw,), int(INF_LEVEL), dtype=torch.int32,
+                      device=partials.device)
+    stacked = torch.cat([prev[None], partials])
+    LAUNCH_CASES["payload_min_fold"] = (
+        lambda a=(partials, prev): ops.payload_min_fold(*a, with_count=False))
+    LAUNCH_CASES["torch.amin"] = lambda t=stacked: t.amin(0)
+    LAUNCH_CASES["group_fold [min]"] = (
+        lambda a=partials: ops.group_fold(a, "min", k))
+    LAUNCH_CASES["partials.amin"] = lambda a=partials: a.amin(0)
+    out = standalone_folds("min", partials, prev, st.level_d[0].contiguous())
 
     # the fused apply of the allgather step: the fold into the state's
     # delegate levels with the per-row improved flag
@@ -1247,6 +1381,12 @@ def kernel_phase_min_fold(eng, st, masks):
           f"ms={chain_ms:.4f} device_us={chain_dev:.2f} exact=True")
     span_check(pair["payload_min_fold_apply"], "payload_min_fold_apply_kernel",
                "single-source delegate update [allgather]")
+    # hier on the world-2 ranks' axes (1, k): the group over "rank" has one
+    # member (nothing launched for it), then the apply over "gpu"
+    hier = min_apply_pair(TC.plan_for(TC.CommConfig(delegate="hier"),
+                                      {"rank": 1, "gpu": k}), partials, prev)
+    span_check(hier["payload_min_fold_apply"], "payload_min_fold_apply_kernel",
+               "single-source delegate update [hier, (rank, gpu) = (1, 2)]")
     LAUNCH_CASES.update(pair)
     out["apply"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         err=0, device_us=dev, chain_device_us=chain_dev)
@@ -1322,17 +1462,17 @@ def check_bfs_launches(recs, name: str) -> None:
         la = r["launches"]
         check(la["ell_pull"] == r["sweeps"],
               f"{name}: ell_pull launches == sweeps (one for 3 pulls)")
-        check(la["payload_min_fold"] == (r["sweeps"] if name == "allgather"
-                                         else 0),
+        check(la["payload_min_fold"] == (r["sweeps"] if name in
+                                         ("allgather", "hier") else 0),
               f"{name}: payload_min_fold launches")
         check(la["ell_pull_multi"] == 0 and la["mask_reduce"] == 0,
               f"{name}: no msBFS kernel on the single-source path")
 
 
 def single_source_path(eng, g, csr):
-    """The Graph500-style search-key runs (FULL, then OPT2 and allgather
-    on the first keys); returns the first key, the FULL and allgather
-    launch totals and the FULL records."""
+    """The Graph500-style search-key runs (FULL, then OPT2, allgather and
+    hier on the first keys); returns the first key, the launch totals of
+    each configuration and the FULL records."""
     from repro_torch.graphs.rmat import pick_sources
 
     cfgs = bfs_configs()
@@ -1362,19 +1502,39 @@ def single_source_path(eng, g, csr):
                 recs[0]["launches"]}
 
     totals = {"FULL": summed(full)}
-    for name in ("OPT2", "allgather"):
-        sub = full[:N_VARIANT_KEYS]
-        recs = run_bfs_keys(eng, g, cfgs[name], [r["src"] for r in sub], csr,
-                            want_levels=[r["levels"] for r in sub])
-        check_bfs_launches(recs, name)
-        totals[name] = summed(recs)
-        print(f"bfs {name}: {len(recs)} keys equal the FULL run; ms "
-              f"{[round(r['time_s'] * 1e3, 1) for r in recs]} sweeps "
-              f"{[r['sweeps'] for r in recs]} wire_delegate "
-              f"{[r['wire_delegate'] for r in recs]} wire_nn "
-              f"{[r['wire_nn'] for r in recs]}")
+    for name in ("OPT2", "allgather", "hier"):
+        totals[name] = variant_keys(eng, g, csr, cfgs[name], name,
+                                    full[:N_VARIANT_KEYS])
     print(f"launches per single-source run set: {totals}")
     return full[0]["src"], totals, full
+
+
+def variant_keys(eng, g, csr, cfg, name: str, sub) -> dict:
+    """The search keys of the FULL records ``sub`` under ``cfg``: levels
+    equal the FULL run's (under another delegate combine alone, every
+    counter but the wire's too), launches checked
+    (:func:`check_bfs_launches`); prints ms, host ms and launches a sweep.
+    Returns the launch totals."""
+    recs = run_bfs_keys(eng, g, cfg, [r["src"] for r in sub], csr,
+                        want_levels=[r["levels"] for r in sub])
+    check_bfs_launches(recs, name)
+    if name in ("allgather", "hier"):
+        for r, f in zip(recs, sub):
+            check(all(r[k] == f[k] for k in ("sweeps", "work_fwd",
+                                             "work_bwd", "nn_sent")),
+                  f"bfs {name}: key {r['src']}: counters equal FULL's")
+    per_sweep = {k: sum(r["launches"][k] for r in recs)
+                 / sum(r["sweeps"] for r in recs)
+                 for k in ("ell_pull", "payload_min_fold")}
+    print(f"bfs {name} ({card_line()}): {len(recs)} keys equal the FULL "
+          f"run; ms {[round(r['time_s'] * 1e3, 1) for r in recs]} sweeps "
+          f"{[r['sweeps'] for r in recs]} host ms a sweep "
+          f"{[round(r['time_s'] * 1e3 / r['sweeps'], 3) for r in recs]} "
+          f"launches a sweep {per_sweep} wire_delegate "
+          f"{[r['wire_delegate'] for r in recs]} wire_nn "
+          f"{[r['wire_nn'] for r in recs]}")
+    return {k: sum(r["launches"][k] for r in recs) for k in
+            recs[0]["launches"]}
 
 
 def profile_bfs(eng, src: int) -> None:
@@ -2601,8 +2761,9 @@ def world2_rank(rank: int, world: int, spec: dict) -> dict:
     pg = convert.partition_from_arrays(part, meta["pg"])
     plan = convert.plan_from_arrays(part, meta["plan"])
     # the partition's own axes, (p_rank, p_gpu) = (1, 2), under the
-    # two-level combine: a fold over "rank" (B2a, K = 1), then the gathered
-    # fold and update over "gpu" (B2) -- the same bytes as allgather here
+    # two-level combine: "rank" is a group of one (the identity: nothing
+    # gathered or launched), then the gathered fold and update over "gpu"
+    # (B2) -- the same bytes as allgather here
     mesh = C.dist.PartitionMesh(("rank", "gpu"), (pg.p_rank, pg.p_gpu))
     eng = BFSServeEngine(pg=pg, plan=plan, graph_id=spec["gid"], mesh=mesh,
                          comm=C.CommConfig(delegate="hier"), device=dev)
@@ -2692,9 +2853,9 @@ def sharded_gloo_phase(eng, hplan, queries, want, stats, full) -> None:
                       f["wire_delegate"], f["wire_nn"], 0],
                   f"world 2 rank {r}: key {f['src']} levels and counters")
         check(res["launches"]["ell_pull_multi"] == res["sweeps"]
-              and res["launches"]["mask_reduce"] == 2 * res["sweeps"],
-              f"world 2 rank {r}: one B1, one B2a and one B2 launch a "
-              "sweep")
+              and res["launches"]["mask_reduce"] == res["sweeps"],
+              f"world 2 rank {r}: one B1 and one B2 launch a sweep (no "
+              "B2a: the group over \"rank\" has one member)")
     r0 = ranks[0]
     print(f"sharded, world 2, gloo on one card ({card_line()}): partition "
           f"files {write_s:.1f} s; rank set-up {r0['setup_s']:.1f} s; 64 "
@@ -4091,8 +4252,10 @@ def profile_serve(model, batch) -> None:
 
 def fold_cases(k: int, nw: int, w: int) -> dict:
     """The fold calls of the launch-cost phase on seeded words of the
-    delegate fold's shape ``[k, nw]``: both wrappers and ``torch.amin``;
-    and both fused delegate updates beside the chains they replaced, on
+    delegate fold's shape ``[k, nw]``: both public wrappers beside
+    ``torch.amin`` over ``[k + 1, nw]``, the prev-less fold (OR and min)
+    beside ``amin`` over ``[k, nw]``; and both fused delegate updates
+    beside the chains they replaced, on
     seeded planes of the paths' shapes (``k`` partitions, ``nw``
     delegates, ``w`` lanes; half the levels unvisited, 3 targets a lane)."""
     import torch
@@ -4123,6 +4286,9 @@ def fold_cases(k: int, nw: int, w: int) -> dict:
             "payload_min_fold": lambda: ops.payload_min_fold(
                 parts, prev, with_count=False),
             "torch.amin": lambda: stacked.amin(0),
+            "group_fold [or]": lambda: ops.group_fold(parts, "or", k),
+            "group_fold [min]": lambda: ops.group_fold(parts, "min", k),
+            "partials.amin": lambda: parts.amin(0),
             **or_apply_pair(TC.plan_for(TC.CommConfig(), k), words, level, it,
                             target),
             **min_apply_pair(TC.plan_for(TC.CommConfig(delegate="allgather"),
@@ -4246,9 +4412,92 @@ def launch_cost_phase(cases: dict, when: str) -> None:
             print(f"launch cost ({when}) [{new} | {old}]: device_us="
                   f"{dev[new]:.2f} | {dev[old]:.2f} per call; ratio="
                   f"{dev[new] / dev[old]:.3f}")
-    if "payload_min_fold" in host and "torch.amin" in host:
-        print(f"launch cost ({when}): payload_min_fold / torch.amin host "
-              f"time = {host['payload_min_fold'] / host['torch.amin']:.3f}")
+
+
+def fold_host_steps(k: int, nw: int) -> dict:
+    """The host cost of one prev-less min fold through ``ops.group_fold``
+    at the path's shape ``[k, nw]``, split into its steps: the checks
+    (the geometry and :func:`_build.require`), the output's allocation,
+    the card's current device and raw stream, the bare ``ctypes`` call of
+    ``fold_rows`` and of ``fold_empty`` (its signature, an empty kernel)
+    with every argument ready, the whole wrapper to each of the two, and
+    ``amin`` of the same rows beside them; the median host us per call of
+    interleaved rounds (:func:`interleaved_host_us`). Returns {step: us}."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import mask_reduce as K
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    parts = torch.randint(0, 2**30, (k, nw), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    out = torch.empty((1, nw), dtype=torch.int32, device=DEVICE)
+    ops.group_fold(parts, "min", k)          # builds and prototypes the entry
+    fold = _build.function("mask_reduce", "fold_rows", K._FOLD_ARGTYPES)
+    empty = _build.function("mask_reduce", "fold_empty", K._FOLD_ARGTYPES)
+    idx = parts.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    args = (parts.data_ptr(), None, out.data_ptr(), None, K._OPS["min"], k,
+            nw, 1, 0, nw, stream)
+    us = interleaved_host_us({
+        "checks": lambda: (K._group_check(parts, "min", k, 1, 1, 0),
+                           _build.require("group_fold", torch.int32,
+                                          ("rows",), parts)),
+        "output": lambda: parts.new_empty((1, nw)),
+        "device and stream": lambda: (
+            torch._C._cuda_getDevice(),
+            torch._C._cuda_getCurrentRawStream(idx)),
+        "ctypes fold_rows": lambda: fold(*args),
+        "ctypes fold_empty": lambda: empty(*args),
+        "ops.group_fold": lambda: ops.group_fold(parts, "min", k),
+        "group_fold to fold_empty": lambda: K._group_fold_cuda(
+            "fold_empty", parts, "min", k, 1, 1, 0),
+        "partials.amin": lambda: parts.amin(0)})
+    print(f"launch cost (fresh process) [group_fold [min] by step] "
+          f"({card_line()}): K={k} NW={nw} host_us per call "
+          + " ".join(f"{name}={v:.2f}" for name, v in us.items())
+          + f"; ops.group_fold / partials.amin = "
+          f"{us['ops.group_fold'] / us['partials.amin']:.3f}")
+    return us
+
+
+def folds_alone() -> None:
+    """``--only folds``: the fold phases on the scale-20 engine (as ``run``
+    makes it): the fresh-process fold cases and the fold wrapper's host
+    steps, the msBFS fold phase on the serving path's mid-BFS words, the
+    single-source pull and fold phases (in the order of the whole run),
+    then 4 FULL search keys against the oracle and the same keys under
+    allgather and hier."""
+    import torch
+    from repro_torch.core import oracle as O
+    from repro_torch.graphs.rmat import pick_sources, rmat_graph
+    from repro_torch.serve import BFSServeEngine
+
+    t0 = time.perf_counter()
+    g = rmat_graph(SCALE, seed=0)
+    eng = BFSServeEngine(g, th=TH, p_rank=P_RANK, p_gpu=P_GPU, device=DEVICE)
+    pg = eng.pg
+    print(f"folds: set-up {time.perf_counter() - t0:.1f} s; p={pg.p} "
+          f"d={pg.d}")
+    fold_host_steps(pg.p, pg.d)
+    launch_cost_phase(fold_cases(pg.p, pg.d, eng.cfg.n_queries),
+                      "fresh process")
+    st, masks = mid_bfs_inputs(eng, g)
+    kernel_phase_fold(eng, st, masks)
+    _, ss_st, ss_masks = ss_mid_bfs(eng, g, bfs_configs()["FULL"])
+    kernel_phase_bit_pull(eng, ss_masks, bfs_configs()["FULL"].pull_chunk)
+    kernel_phase_min_fold(eng, ss_st, ss_masks)
+    csr = O.csr_from_coo(g)
+    cfgs = bfs_configs()
+    keys = [int(s) for s in pick_sources(g, N_VARIANT_KEYS, seed=2)]
+    run_bfs_keys(eng, g, cfgs["FULL"], keys[:1], csr)          # warm-up
+    full = run_bfs_keys(eng, g, cfgs["FULL"], keys, csr)
+    check_bfs_launches(full, "FULL")
+    print(f"bfs FULL: {len(full)} keys exact vs oracle; ms "
+          f"{[round(r['time_s'] * 1e3, 1) for r in full]} sweeps "
+          f"{[r['sweeps'] for r in full]}")
+    for name in ("allgather", "hier"):
+        variant_keys(eng, g, csr, cfgs[name], name, full)
+    torch.cuda.synchronize()
 
 
 def recsys_path(g, csr) -> dict:
@@ -7238,6 +7487,7 @@ def run_phases(parts) -> None:
     stamp("set-up done")
     # ---- launch cost in a fresh process, before any profiler session ------
     pull_cases = pull_launch_cases(eng)
+    fold_host_steps(pg.p, pg.d)
     launch_cost_phase({**fold_cases(pg.p, pg.d, eng.cfg.n_queries),
                        **pull_cases},
                       "fresh process")
@@ -7423,7 +7673,8 @@ def run_phases(parts) -> None:
     print(f"single-source payload_min_fold_apply (n = d): ms="
           f"{min_fold['apply']['ms']:.4f} bound_ms="
           f"{min_fold['apply']['bound_ms']:.6f} launches over the 4 "
-          f"allgather keys {ss_launches['allgather']['payload_min_fold']}")
+          f"allgather keys {ss_launches['allgather']['payload_min_fold']}, "
+          f"over the 4 hier keys {ss_launches['hier']['payload_min_fold']}")
     pparts = payload["parts"]
     kernels = [
         {"name": "ell_pull_multi", "route": "cuda",
@@ -7617,6 +7868,9 @@ def run_alone(names) -> None:
     if "cells" in names:
         torch.cuda.empty_cache()
         cells_path()
+    if "folds" in names:
+        torch.cuda.empty_cache()
+        folds_alone()
     if cin_bwd is not None and train is not None:
         print(json.dumps({"kernels": cin_bwd_rows(cin_bwd, train)}))
     print(json.dumps({"ok": True, "device": {
@@ -7665,7 +7919,7 @@ def main() -> int:
     phases = ("segment_bag", "ell_pull_payload", "sharded", "payload",
               "memory", "obs", "frontend", "gnn", "examples", "cin_bwd",
               "recsys_train", "recsys_shard", "mace", "lm", "lm_mesh",
-              "cells")
+              "cells", "folds")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(phases))

@@ -79,10 +79,12 @@ class CommConfig:
     partials, fold locally), ``"ring"`` (reduce-scatter + all-gather rings
     per partition axis, O(1)-in-P volume) or ``"hier"`` (the gather-fold
     per axis group, ``axes[:hier_split]`` then the rest; on one axis it is
-    ``"allgather"``). In the port every K-way OR fold runs through
-    ``kernels.ops.mask_reduce`` and every all-gathered int32 min through
-    ``kernels.ops.payload_min_fold`` (on the traversal steps fused with
-    the delegate update: ``mask_reduce_apply``, ``payload_min_fold_apply``).
+    ``"allgather"``). In the port every K-way OR fold and every gathered
+    int32 min runs through the kernels of ``mask_reduce`` and
+    ``payload_min_fold``: the prev-less group fold
+    (``kernels.ops.group_fold``), and a traversal step's last fold fused
+    with its delegate update (``mask_reduce_apply``,
+    ``payload_min_fold_apply``).
     ``nn``: ``"dense"`` (one bit per (slot, query), fixed volume),
     ``"sparse"`` (only active slots, as (slot id, lane word) pairs or bare
     slot ids, ``sparse_cap`` per peer; slots beyond it are dropped and

@@ -10,38 +10,45 @@ bitmasks. Neither NCCL nor the emulated backend has an OR reduction, so an
                    ``"sum"`` (an ``all_reduce`` when distributed, ``amin`` /
                    ``amax`` / ``sum`` over the stacked rows when emulated);
                    ``"or"`` resolves to ``allgather``;
-* ``allgather`` -- gather every partition's partial, K-way fold
-                   (``mask_reduce`` for OR, ``payload_min_fold`` for the
-                   int32 min);
+* ``allgather`` -- gather every partition's partial, K-way fold (the
+                   ``mask_reduce`` kernel for OR, ``payload_min_fold`` for
+                   the int32 min);
 * ``ring``      -- the reference's reduce-scatter + all-gather over
                    ``ceil(L/p)``-element chunks, per axis, with the plain
                    elementwise op as its binop: the hops are rolls of the
                    stacked rows when emulated, ``ppermute`` over the axis
                    subgroup when distributed;
 * ``hier``      -- the gather-fold per axis group (``axes[:hier_split]``,
-                   then the rest); the intra-group OR folds run the
-                   standalone ``mask_reduce``.
+                   then the rest); a group of one member is the identity
+                   (nothing gathered, nothing launched).
 
 Every strategy is bit-exact with every other for the integer combines:
 the folds are associative and commutative (an int32 sum wraps, as the
 reference's does) and the result is replicated. A float ``"sum"`` is
 exact where the values' sums are order-free.
 
+Every fold but a step's last is the prev-less group fold
+(``kernels.ops.group_fold``: OR, or the int32 min): over the gathered
+``[K, n]`` of a mesh, or over the emulated stacked rows ``[p, n]`` in
+place, a group's members read by stride and folded into one row a group.
 The traversal steps call the ``*_apply`` combines: the same strategies,
 with the step's update of its delegate state fused into the last fold's
 launch (:func:`delegate_or_apply`: ``mask_reduce_apply`` over the last
 group's gathered words, or over the ring's one reduced row;
-:func:`delegate_min_apply`: ``payload_min_fold_apply`` under allgather,
-for the single-source levels and the payload plane's delegate values).
+:func:`delegate_min_apply`: ``payload_min_fold_apply`` over the last
+group's gathered candidates under allgather and hier, for the
+single-source levels and the payload plane's delegate values).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import ops
 
 from . import dist as D
-from .base import COMBINE_SPECS, CommPlan, plan_for
+from .base import CommPlan, plan_for
 
 _BINARY = {"or": torch.bitwise_or, "min": torch.minimum,
            "max": torch.maximum, "sum": torch.add}
@@ -60,20 +67,19 @@ def _sum_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return x.sum(dim, dtype=torch.int64).to(x.dtype)
 
 
-def _fold(partials: torch.Tensor, op: str) -> torch.Tensor:
-    """K-way fold of ``partials [K, n]`` -> ``[n]``."""
-    n = partials.shape[1:]
-    if op == "or":
-        return ops.mask_reduce(partials, partials.new_zeros(n),
-                               with_count=False)[0]
-    if op == "min" and partials.dtype == torch.int32:
-        return ops.payload_min_fold(
-            partials, torch.full(n, COMBINE_SPECS["min"].identity,
-                                 dtype=torch.int32, device=partials.device),
-            with_count=False)[0]
+def _fold_rows(x2: torch.Tensor, op: str, k: int, k_stride: int = 1,
+               groups: int = 1, g_stride: int = 0) -> torch.Tensor:
+    """``out[g] = op`` over ``i < k`` of ``x2[g * g_stride + i * k_stride]``
+    -> ``[groups, n]``, the members read in place: the OR and the int32
+    min through ``kernels.ops.group_fold``, the rest as a reduction over a
+    strided view."""
+    if op == "or" or (op == "min" and x2.dtype == torch.int32):
+        return ops.group_fold(x2, op, k, k_stride, groups, g_stride)
+    n = x2.shape[1]
+    v = x2.as_strided((groups, k, n), (g_stride * n, k_stride * n, 1))
     if op == "sum":
-        return _sum_rows(partials)
-    return partials.amin(0) if op == "min" else partials.amax(0)
+        return _sum_rows(v, 1)
+    return v.amin(1) if op == "min" else v.amax(1)
 
 
 # -----------------------------------------------------------------------------
@@ -84,29 +90,25 @@ def _axis_view(plan: CommPlan, x2: torch.Tensor) -> torch.Tensor:
     return x2.reshape(plan.sizes + x2.shape[1:])
 
 
-def _group_first(plan: CommPlan, group) -> list:
-    """Axis permutation putting ``group``'s axes first (payload last)."""
-    gi = [plan.axes.index(a) for a in group]
-    return gi + [i for i in range(len(plan.axes)) if i not in gi] + [
-        len(plan.axes)]
-
-
-def _emulated_gather(plan: CommPlan, x2: torch.Tensor, group):
-    """The stacked rows ``[p, n]`` regrouped as ``[K, rest, n]``: row ``k``
-    of column ``r`` is member ``k`` of the ``r``-th group over ``group``."""
-    perm = _group_first(plan, group)
-    t = _axis_view(plan, x2).permute(perm)
-    k = plan.group_size(group)
-    return t.reshape(k, -1, x2.shape[1]), perm, t.shape
-
-
-def _emulated_group_fold(plan: CommPlan, x2: torch.Tensor, group, op):
-    g, perm, shape = _emulated_gather(plan, x2, group)
-    k, rest, n = g.shape
-    folded = _fold(g.reshape(k, rest * n), op).reshape(
-        (1,) * len(group) + shape[len(group):]).expand(shape)
-    inv = [perm.index(i) for i in range(len(perm))]
-    return folded.permute(inv).reshape(x2.shape)
+def _fold_groups(plan: CommPlan, x2: torch.Tensor, groups, op: str):
+    """Fold ``x2`` over each axis group of ``groups`` in turn (``hier``'s
+    levels lead the axes not yet folded). Emulated, the rows are stacked
+    row-major over those axes, so member ``i`` of group ``g`` is row ``i *
+    rest + g`` (``rest`` the rows a member of the axes after the group) and
+    the rows left are the next group's members; over a mesh, ``[1, n]``. A
+    group of one member is the identity."""
+    sizes = plan.sizes
+    for group in groups:
+        k = plan.group_size(group)
+        sizes = sizes[len(group):]
+        if k == 1:
+            continue
+        if plan.mesh is not None:
+            x2 = _fold_rows(D.all_gather(plan.mesh, x2[0], group), op, k)
+        else:
+            rest = math.prod(sizes)
+            x2 = _fold_rows(x2, op, k, rest, rest, 1)
+    return x2
 
 
 def _emulated_ppermute(plan: CommPlan, blk: torch.Tensor, axis: str):
@@ -162,12 +164,6 @@ def _ring_1axis(plan: CommPlan, x2: torch.Tensor, axis: str, s: int,
     return out.reshape(rows, s * c)[:, :n]
 
 
-def _group_fold(plan: CommPlan, x2: torch.Tensor, group, op: str):
-    if plan.mesh is None:
-        return _emulated_group_fold(plan, x2, group, op)
-    return _fold(D.all_gather(plan.mesh, x2[0], group), op)[None]
-
-
 def _combine(plan: CommPlan, x2: torch.Tensor, op: str) -> torch.Tensor:
     strategy = plan.effective_delegate(op)
     if strategy == "auto":                      # native min / max / sum
@@ -180,9 +176,9 @@ def _combine(plan: CommPlan, x2: torch.Tensor, op: str) -> torch.Tensor:
         for a, s in zip(plan.axes, plan.sizes):
             x2 = _ring_1axis(plan, x2, a, s, op)
         return x2
-    for group in plan.delegate_groups():        # allgather / hier
-        x2 = _group_fold(plan, x2, group, op)
-    return x2
+    rows = x2.shape[0]                          # allgather / hier
+    return _fold_groups(plan, x2, plan.delegate_groups(), op).expand(
+        rows, -1)
 
 
 def delegate_combine(plan: CommPlan, x: torch.Tensor, op: str = "or"):
@@ -198,23 +194,20 @@ def delegate_combine(plan: CommPlan, x: torch.Tensor, op: str = "or"):
     return out.reshape(x.shape), nbytes
 
 
-def _or_gathered(plan: CommPlan, x2: torch.Tensor) -> torch.Tensor:
-    """The word rows the last OR fold reads, ``[K, n]``, the same for every
+def _gathered(plan: CommPlan, x2: torch.Tensor, op: str) -> torch.Tensor:
+    """The rows the last fold reads, ``[K, n]``, the same for every
     partition: the ring's reduced row (K = 1), or the last axis group's
-    members after the groups before it were folded."""
-    if plan.effective_delegate("or") == "ring":
+    members after the groups before it were folded (emulated: the rows
+    :func:`_fold_groups` leaves; over a mesh: gathered, where K > 1)."""
+    if plan.effective_delegate(op) == "ring":
         for a, s in zip(plan.axes, plan.sizes):
-            x2 = _ring_1axis(plan, x2, a, s, "or")
+            x2 = _ring_1axis(plan, x2, a, s, op)
         return x2[:1]
     *first, last = plan.delegate_groups()
-    for group in first:
-        x2 = _group_fold(plan, x2, group, "or")
-    if plan.mesh is not None:
+    x2 = _fold_groups(plan, x2, first, op)
+    if plan.mesh is not None and plan.group_size(last) > 1:
         return D.all_gather(plan.mesh, x2[0], last)
-    # every group over `last` holds the same members' words after the
-    # folds before it: take the first
-    g, _, _ = _emulated_gather(plan, x2, last)
-    return g[:, 0]
+    return x2
 
 
 def delegate_or_apply(plan: CommPlan, words: torch.Tensor,
@@ -231,7 +224,8 @@ def delegate_or_apply(plan: CommPlan, words: torch.Tensor,
     rows = words.shape[0]
     n_elems = words.numel() // rows
     nbytes = plan.delegate_bytes(n_elems, words.element_size(), "or")
-    gathered = _or_gathered(plan, words.reshape(rows, n_elems).contiguous())
+    gathered = _gathered(plan, words.reshape(rows, n_elems).contiguous(),
+                         "or")
     return ops.mask_reduce_apply(gathered.contiguous(), level, it,
                                  target), nbytes
 
@@ -284,18 +278,18 @@ def delegate_min_apply(plan: CommPlan, x: torch.Tensor, prev: torch.Tensor):
     n]`` folded into ``prev [rows, n]`` (the single-source levels, ``n =
     d``; the payload plane's values, ``n = d * W``):
     returns ``(min(prev, combined) [rows, d], improved [rows] bool,
-    wire_bytes)``. Under ``allgather`` the fold and the update are one
-    launch (``kernels.ops.payload_min_fold_apply``) over the gathered
-    candidates; the other strategies combine, then take ``minimum`` and
-    ``any``."""
+    wire_bytes)``. Under ``allgather`` and ``hier`` the last fold and the
+    update are one launch (``kernels.ops.payload_min_fold_apply``) over the
+    last group's gathered candidates (one axis: every partition's; two:
+    after one group fold); ``auto`` and ``ring`` combine, then take
+    ``minimum`` and ``any``."""
     rows = x.shape[0]
-    if plan.effective_delegate("min") == "allgather":
+    if plan.effective_delegate("min") in ("allgather", "hier"):
         nbytes = plan.delegate_bytes(x.numel() // rows, x.element_size(),
                                      "min")
-        x2 = x.reshape(rows, -1).contiguous()
-        gathered = (x2 if plan.mesh is None
-                    else D.all_gather(plan.mesh, x2[0]))
-        out, improved = ops.payload_min_fold_apply(gathered, prev)
+        gathered = _gathered(plan, x.reshape(rows, -1).contiguous(), "min")
+        out, improved = ops.payload_min_fold_apply(gathered.contiguous(),
+                                                   prev)
         return out, improved, nbytes
     reduced, nbytes = delegate_combine(plan, x, "min")
     out = torch.minimum(prev, reduced)

@@ -42,9 +42,10 @@ component labels, by min-label propagation). A payload sweep relaxes the
 pending vertices under each lane's bucket with a dense min-plus scatter
 along every edge, folds the delegate values with a global min
 (``comm.delegate_min_apply``: one ``payload_min_fold_apply`` launch under
-``allgather``) and ships per-slot minimums to the normal vertices' owners
-(``comm.nn_exchange_payload``); its convergence rows ride the bit lanes'
-one lane reduction. Payload lanes and bit lanes mix in one batch.
+``allgather`` and ``hier``) and ships per-slot minimums to the normal
+vertices' owners (``comm.nn_exchange_payload``); its convergence rows
+ride the bit lanes' one lane reduction. Payload lanes and bit lanes mix
+in one batch.
 
 The host drivers (:func:`run_msbfs_emulated`, :func:`make_sharded_msbfs`)
 loop one sweep at a time and read one scalar per sweep for their loop
@@ -806,7 +807,8 @@ def _payload_sweep(pgv, plan, state: MSBFSState, cplan, mesh,
     """The payload plane's part of one sweep: relax every pending vertex
     under its lane's bucket along all four subgraphs, combine the
     delegates' candidates with a global min (one ``payload_min_fold_apply``
-    launch under ``allgather``) and exchange the nn slots' minimums.
+    launch under ``allgather`` and ``hier``) and exchange the nn slots'
+    minimums.
     Returns the new payload leaves, the three convergence rows ``[rows,
     3, W]`` for the lane reduction, and the wire counters."""
     pv = payload_view(pgv, plan, mesh)

@@ -1,22 +1,28 @@
-// Delegate combine folds: K-way word OR into `prev` (optionally with the
-// per-word popcount of the newly set bits), and its payload sibling, the
-// K-way int32 min into `prev` (optionally with a 0/1 improved flag); and
-// each fold fused with the step code that consumes it (the `*_apply`
-// entries), so that a sweep's delegate update is one launch from the
-// gathered words to the new delegate state.
+// Delegate combine folds over the int32 words of K rows: the K-way word OR
+// (optionally into `prev`, with the per-word popcount of the newly set
+// bits) and its payload sibling, the K-way int32 min (optionally into
+// `prev`, with a 0/1 improved flag); and each fold fused with the step code
+// that consumes it (the `*_apply` entries), so that a sweep's delegate
+// update is one launch from the gathered words to the new delegate state.
 //
 // Replaces: src/repro/kernels/mask_reduce.py -- all four Pallas bodies:
 // mask_reduce's `_kernel_fold` (with_count=False, pallas_call at line 92)
 // and `_kernel` (with_count=True, line 101); payload_min_fold's
 // `_kernel_min_fold` (with_count=False, line 145) and `_kernel_min`
-// (with_count=True, line 154). The apply entries replace the fold-only
-// bodies (lines 92 and 145) on the paths, together with the jnp code the
+// (with_count=True, line 154), all four as instances of one template,
+// fold_rows_kernel. The apply entries replace the fold-only bodies (lines
+// 92 and 145) in a sweep's last fold, together with the jnp code the
 // reference steps run on the fold's output (src/repro/core/msbfs.py:853-965,
 // src/repro/core/bfs.py:445-447).
 //
-// What bounds them on an H100: memory. The standalone folds read
-// (K+1)*NW*4 bytes and write NW*4 (2*NW*4 with the count/flag) and do K
-// ORs or mins and one popcount or compare per element.
+// What bounds them on an H100: memory. A fold of K rows of n words reads
+// K*n*4 bytes and writes n*4 (with `prev`, n*4 more read; with the count
+// or flag, n*4 more written) and does K ORs or mins and one popcount or
+// compare a word, under one operation a byte. At the delegate shapes (K =
+// 2, n = 60,561) the prev-less fold moves 0.73 MB, 0.22 us at 3.35 TB/s:
+// a fraction of a launch, so the standalone folds are latency-bound, and
+// their design is about one round trip to memory a thread, no byte read
+// twice and no block more than the SMs take in one wave.
 // mask_reduce_apply reads the gathered words once (K*D*NW*4 bytes), the
 // delegate plane [P, D, W] (int32 levels, or bool visited bytes), the
 // target plane [P, D, W] bool where targets are on, and writes the new
@@ -24,19 +30,36 @@
 // P*(2*ceil(W/4)+1) flag words. payload_min_fold_apply reads K*D*4 +
 // P*D*4 bytes and writes P*D*4 plus ceil(P/4) flag words. At the serving
 // shapes (P=K=2, D=60,561, W=32, int32 levels with targets) that is
-// 35.4 MB, about 10.6 us at 3.35 TB/s: the fold alone (0.3 us of bytes) sits
-// at a launch's floor, so what the fusion saves is the dozen torch
-// operators that used to pass over the [P, D, W] planes after it (unpack,
-// AND, any, where, the target scan), each with its own launch and host
-// dispatch, and the zero `prev` each fold call allocated.
+// 35.4 MB, about 10.6 us at 3.35 TB/s: what the fusion saves is the dozen
+// torch operators that used to pass over the [P, D, W] planes after the
+// fold (unpack, AND, any, where, the target scan), each with its own
+// launch and host dispatch, and the identity `prev` each fold allocated.
 //
-// Design of the standalone folds: one thread per element, a loop over
-// the K partials inside the thread, neighbouring threads on neighbouring
-// elements so every load and store of a warp is one coalesced 128-byte
-// line. The TPU version tiles elements into VMEM blocks and unrolls the K
-// chain; on Hopper the grid-wide loop needs no tiling, and K (the
-// partition count) stays a runtime loop. The `with_count` variants are a
-// template flag, so the fold-only launch carries no second output.
+// Design of the standalone folds (fold_rows_kernel, one template for the
+// four bodies). Rows are read in place through two strides: out[g] = the
+// fold over i < K of rows[g*gs + i*ks]. So one C entry, fold_rows, serves
+// the public folds ([K, n] partials into `prev`), the prev-less fold of a
+// gathered [K, n], and the group fold of the emulated stacked rows [p, n],
+// whose axis groups' K members are read where they lie and folded into one
+// row a group: no permute copy before the fold and no expand copy after it.
+// Without `prev` the op's identity (OR 0, min INT_MAX) is a register
+// constant: nothing is read or allocated for it. A thread takes one unit
+// of a row: 4 words as one int4 (16-byte loads and stores) where every
+// row, `prev`, out and count start 16-byte aligned (n and the strides
+// multiples of 4), else one word, so a warp's loads stay whole 128-byte
+// lines at any word phase (an odd n, a view one word off) with no ragged
+// head or tail. K = 1..4 is a template parameter, so a thread issues
+// every load before its first combine; above 4, a runtime loop. The
+// block is the fewest threads, 128 to 1,024, that cover a row with one
+// block an SM (119 blocks of 512 at n = 60,561; 119 of 128 int4 units at
+// n = 60,560); longer rows take more blocks, no thread loops. On the card
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's fold phases) an empty
+// launch takes 0.87 us; a first design of int4 groups aligned to the
+// output, whose input rows at another word phase took two int4 loads and
+// a pick, with a ragged head and tail, took 1.84-2.17 us at an odd n, and
+// a grid-stride loop cost more than the wave it never needed at these
+// shapes. The `with_count` bodies are the same template with the second
+// output.
 //
 // Design of the apply kernels: a memory-bound pass, grid (blocks, P) with
 // about 8 blocks of 256 threads an SM in all, each thread striding over
@@ -67,39 +90,138 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kFoldMaxThreads = 1024;
+constexpr int kOr = 0, kMin = 1;
 
-template <bool COUNT>
-__global__ void __launch_bounds__(kThreads)
-mask_reduce_kernel(const int* __restrict__ partials,  // [K, NW]
-                   const int* __restrict__ prev,      // [NW]
-                   int* __restrict__ out,             // [NW]
-                   int* __restrict__ count,           // [NW] or unused
-                   int K, long long NW) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= NW) return;
-  const unsigned before = (unsigned)prev[i];
-  unsigned combined = before;
-  for (int k = 0; k < K; ++k) combined |= (unsigned)partials[k * NW + i];
-  out[i] = (int)combined;
-  if (COUNT) count[i] = __popc(combined & ~before);
+// A fold's unit: one int32 word, or 4 neighbouring words as one int4 where
+// every row is 16-byte aligned.
+template <bool VEC> struct Unit;
+template <> struct Unit<false> { using type = int; };
+template <> struct Unit<true> { using type = int4; };
+
+template <int OP> struct FoldOp;
+template <> struct FoldOp<kOr> {
+  static constexpr int kIdentity = 0;
+  static __device__ __forceinline__ int f(int a, int b) { return a | b; }
+  // the popcount of the newly set bits
+  static __device__ __forceinline__ int extra(int c, int before) {
+    return __popc(c & ~before);
+  }
+};
+template <> struct FoldOp<kMin> {
+  static constexpr int kIdentity = INT_MAX;
+  static __device__ __forceinline__ int f(int a, int b) { return min(a, b); }
+  // the improved flag
+  static __device__ __forceinline__ int extra(int c, int before) {
+    return c < before;
+  }
+};
+
+// F::f and F::extra on a unit, word by word
+template <class F> __device__ __forceinline__ int fold(int a, int b) {
+  return F::f(a, b);
+}
+template <class F> __device__ __forceinline__ int4 fold(int4 a, int4 b) {
+  return make_int4(F::f(a.x, b.x), F::f(a.y, b.y), F::f(a.z, b.z),
+                   F::f(a.w, b.w));
+}
+template <class F> __device__ __forceinline__ int extra(int c, int b) {
+  return F::extra(c, b);
+}
+template <class F> __device__ __forceinline__ int4 extra(int4 c, int4 b) {
+  return make_int4(F::extra(c.x, b.x), F::extra(c.y, b.y),
+                   F::extra(c.z, b.z), F::extra(c.w, b.w));
+}
+template <class U> __device__ __forceinline__ U splat(int x);
+template <> __device__ __forceinline__ int splat<int>(int x) { return x; }
+template <> __device__ __forceinline__ int4 splat<int4>(int x) {
+  return make_int4(x, x, x, x);
 }
 
-template <bool FLAG>
-__global__ void __launch_bounds__(kThreads)
-payload_min_fold_kernel(const int* __restrict__ partials,  // [K, NW]
-                        const int* __restrict__ prev,      // [NW]
-                        int* __restrict__ out,             // [NW]
-                        int* __restrict__ improved,        // [NW] or unused
-                        int K, long long NW) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= NW) return;
-  const int before = prev[i];
-  int combined = before;
-  for (int k = 0; k < K; ++k) combined = min(combined, partials[k * NW + i]);
-  out[i] = combined;
-  if (FLAG) improved[i] = combined < before ? 1 : 0;
+// out[g] = the fold of (prev,) rows[g*gs + i*ks] over i < K for g =
+// blockIdx.y, unit u of every row by thread u of the grid; count[g] = the
+// popcount of the newly set bits / the improved flag. KT = K for K = 1..4
+// (every load issued before the first combine), 0: a runtime loop over K.
+// Strides and n count words; VEC: units of 4 words.
+template <int OP, int KT, bool PREV, bool COUNT, bool VEC>
+__global__ void __launch_bounds__(kFoldMaxThreads)
+fold_rows_kernel(const int* __restrict__ rows, const int* __restrict__ prev,
+                 int* __restrict__ out, int* __restrict__ count, int K,
+                 long long ks, long long gs, long long n) {
+  using F = FoldOp<OP>;
+  using U = typename Unit<VEC>::type;
+  constexpr int W = VEC ? 4 : 1;
+  const long long g = blockIdx.y;
+  const U* src = reinterpret_cast<const U*>(rows + g * gs);
+  const U* pv = reinterpret_cast<const U*>(prev);
+  U* o = reinterpret_cast<U*>(out + g * n);
+  U* c = reinterpret_cast<U*>(COUNT ? count + g * n : nullptr);
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= n / W) return;
+  const long long kstep = ks / W;
+  U acc = splat<U>(F::kIdentity), before = acc;
+  if constexpr (KT > 0) {
+    U v[KT];
+#pragma unroll
+    for (int k = 0; k < KT; ++k) v[k] = __ldg(src + k * kstep + u);
+    if constexpr (PREV) before = __ldg(pv + u);
+#pragma unroll
+    for (int k = 0; k < KT; ++k) acc = fold<F>(acc, v[k]);
+  } else {
+    if constexpr (PREV) before = __ldg(pv + u);
+    for (int k = 0; k < K; ++k) acc = fold<F>(acc, __ldg(src + k * kstep + u));
+  }
+  if constexpr (PREV) acc = fold<F>(acc, before);
+  o[u] = acc;
+  if constexpr (COUNT) c[u] = extra<F>(acc, before);
 }
 
+__global__ void empty_kernel() {}
+
+int sm_count() {
+  static int sms[64] = {0};            // per device, read once
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (sms[dev] == 0) {
+    int s = 132;
+    cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = s > 0 ? s : 132;
+  }
+  return sms[dev];
+}
+
+template <int OP, int KT, bool VEC>
+void launch_fold(dim3 grid, unsigned threads, cudaStream_t s, const int* rows,
+                 const int* prev, int* out, int* count, int K, long long ks,
+                 long long gs, long long n) {
+  if (count != nullptr) {
+    fold_rows_kernel<OP, KT, true, true, VEC><<<grid, threads, 0, s>>>(
+        rows, prev, out, count, K, ks, gs, n);
+  } else if (prev != nullptr) {
+    fold_rows_kernel<OP, KT, true, false, VEC><<<grid, threads, 0, s>>>(
+        rows, prev, out, nullptr, K, ks, gs, n);
+  } else {
+    fold_rows_kernel<OP, KT, false, false, VEC><<<grid, threads, 0, s>>>(
+        rows, nullptr, out, nullptr, K, ks, gs, n);
+  }
+}
+
+template <int OP, bool VEC>
+void dispatch_k(dim3 grid, unsigned threads, cudaStream_t s, const int* rows,
+                const int* prev, int* out, int* count, int K, long long ks,
+                long long gs, long long n) {
+#define MR_FOLD(KT) launch_fold<OP, KT, VEC>(grid, threads, s, rows, prev, \
+                                             out, count, K, ks, gs, n)
+  switch (K) {
+    case 1: MR_FOLD(1); break;
+    case 2: MR_FOLD(2); break;
+    case 3: MR_FOLD(3); break;
+    case 4: MR_FOLD(4); break;
+    default: MR_FOLD(0);
+  }
+#undef MR_FOLD
+}
 
 // ---------------------------------------------------------------- apply
 
@@ -304,13 +426,28 @@ bool aligned(const void* p, int bytes) {
 
 // blocks along a row: enough to cover it, at most ~kBlocksPerSM an SM in all
 long long row_blocks(long long work, long long P) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long cap = (long long)sms * kBlocksPerSM / P;
+  long long cap = (long long)sm_count() * kBlocksPerSM / P;
   if (cap < 1) cap = 1;
   const long long need = (work + kThreads - 1) / kThreads;
   return need < cap ? need : cap;
+}
+
+// fold_rows_kernel's launch over `groups` rows of `units` units each: a
+// unit a thread, and the fewest threads a block (128 to 1,024) that cover
+// every row with at most one block an SM in all (119 blocks of 512 at n =
+// 60,561 words); longer rows take more blocks of 1,024.
+struct FoldLaunch {
+  dim3 grid;
+  unsigned threads;
+};
+
+FoldLaunch fold_launch(long long groups, long long units) {
+  long long per_row = sm_count() / groups;
+  if (per_row < 1) per_row = 1;
+  long long t = 128;
+  while (t < kFoldMaxThreads && (units + t - 1) / t > per_row) t *= 2;
+  return {dim3((unsigned)((units + t - 1) / t), (unsigned)groups),
+          (unsigned)t};
 }
 
 template <typename T, int V>
@@ -340,44 +477,49 @@ int launch_apply(const void* gathered, const void* level, const void* it,
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 = launched). `count` may be null:
-// then only the OR fold runs (the with_count=False variant).
-extern "C" int mask_reduce(const void* partials, const void* prev, void* out,
-                           void* count, int K, long long NW, void* stream) {
-  if (NW == 0) return (int)cudaSuccess;
-  const long long blocks = (NW + kThreads - 1) / kThreads;
-  const int* pa = static_cast<const int*>(partials);
+// fold_rows: out [groups, n] int32, out[g] = the fold (op 0: OR, 1: min) of
+// `prev` [n] (none where null: the op's identity) and rows[g*gs + i*ks] for
+// i < K (strides in words; each row n words); `count` [groups, n] (null:
+// none; needs `prev`) the popcount of the newly set bits / the 0/1 improved
+// flag. The one C entry of the four standalone bodies: mask_reduce and
+// payload_min_fold ([K, n] partials into `prev`, ks = n, one group) and the
+// prev-less group fold. Returns the launch's cudaError_t (0 = launched).
+extern "C" int fold_rows(const void* rows, const void* prev, void* out,
+                         void* count, int op, int K, long long ks,
+                         long long groups, long long gs, long long n,
+                         void* stream) {
+  if (n == 0 || groups == 0) return (int)cudaSuccess;
+  if (K < 1 || groups < 0 || groups > 65535 || (op != kOr && op != kMin)
+      || (count != nullptr && prev == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // int4 units where every row (and prev, out, count) starts 16-byte aligned
+  const bool vec = aligned(rows, 16) && aligned(out, 16)
+                   && (prev == nullptr || aligned(prev, 16))
+                   && (count == nullptr || aligned(count, 16))
+                   && ks % 4 == 0 && gs % 4 == 0 && n % 4 == 0;
+  const FoldLaunch l = fold_launch(groups, vec ? n / 4 : n);
+  const int* r = static_cast<const int*>(rows);
   const int* pv = static_cast<const int*>(prev);
   int* o = static_cast<int*>(out);
+  int* c = static_cast<int*>(count);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (count != nullptr) {
-    mask_reduce_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        pa, pv, o, static_cast<int*>(count), K, NW);
+#define MR_FOLD(OP, VEC) dispatch_k<OP, VEC>(l.grid, l.threads, s, r, pv, \
+                                             o, c, K, ks, gs, n)
+  if (op == kOr) {
+    if (vec) MR_FOLD(kOr, true); else MR_FOLD(kOr, false);
   } else {
-    mask_reduce_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        pa, pv, o, nullptr, K, NW);
+    if (vec) MR_FOLD(kMin, true); else MR_FOLD(kMin, false);
   }
+#undef MR_FOLD
   return (int)cudaGetLastError();
 }
 
-// Returns the launch's cudaError_t (0 = launched). `improved` may be null:
-// then only the min fold runs (the with_count=False variant).
-extern "C" int payload_min_fold(const void* partials, const void* prev,
-                                void* out, void* improved, int K,
-                                long long NW, void* stream) {
-  if (NW == 0) return (int)cudaSuccess;
-  const long long blocks = (NW + kThreads - 1) / kThreads;
-  const int* pa = static_cast<const int*>(partials);
-  const int* pv = static_cast<const int*>(prev);
-  int* o = static_cast<int*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (improved != nullptr) {
-    payload_min_fold_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        pa, pv, o, static_cast<int*>(improved), K, NW);
-  } else {
-    payload_min_fold_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        pa, pv, o, nullptr, K, NW);
-  }
+// fold_empty: fold_rows' signature, one block of an empty kernel -- the
+// launch floor of the fold wrappers' path. Returns the cudaError_t.
+extern "C" int fold_empty(const void*, const void*, void*, void*, int, int,
+                          long long, long long, long long, long long,
+                          void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

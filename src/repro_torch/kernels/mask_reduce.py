@@ -7,11 +7,16 @@ folded into one.
   bits (the bit-plane OR combine);
 * :func:`payload_min_fold_cuda` -- elementwise int32 min of K partials
   into ``prev``, plus (``with_count``) a 0/1 "improved" flag (the ``min``
-  combine of the single-source path's delegate levels).
+  combine of the single-source path's delegate levels);
+* :func:`group_fold_cuda` -- the same OR or min fold without ``prev`` (the
+  op's identity held in registers) over K rows read in place by two
+  strides, one output row a group: the prev-less fold of a gathered
+  ``[K, n]`` and the group fold of the emulated stacked rows ``[p, n]``
+  over one axis group (the combine's folds before its last).
 
-Each fold also has an ``*_apply`` sibling that fuses it with the step
-code consuming its output, so a sweep's delegate update is one launch
-from the gathered words to the new delegate state:
+Each fold also has an ``*_apply`` sibling that fuses it with the step code
+consuming its output, so a sweep's delegate update is one launch from the
+gathered words to the new delegate state:
 
 * :func:`mask_reduce_apply_cuda` -- the serving step's OR fold of the
   gathered lane words, the unvisited mask, the new level (or visited and
@@ -34,13 +39,19 @@ from repro_torch.core.types import INF_LEVEL
 
 from . import _build
 
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_void_p)
 _OR_APPLY_ARGTYPES = (ctypes.c_void_p,) * 7 + (
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _MIN_APPLY_ARGTYPES = (ctypes.c_void_p,) * 4 + (
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)
+#: ``fold_rows`` (and ``fold_empty``) of ``csrc/mask_reduce.cu``: rows,
+#: prev, out, count, op, K, the member stride, groups, the group stride,
+#: n (strides and n in words), the stream
+_FOLD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_int) + (
+    ctypes.c_longlong,) * 4 + (ctypes.c_void_p,)
+#: the folds' op codes in ``csrc/mask_reduce.cu``, and their kernels' names
+_OPS = {"or": 0, "min": 1}
+_NAMES = {"or": "mask_reduce", "min": "payload_min_fold"}
 
 
 class DelegateApply(NamedTuple):
@@ -91,36 +102,92 @@ def payload_min_fold_plain(partials: torch.Tensor, prev: torch.Tensor,
     return combined, (combined < prev).to(torch.int32)
 
 
-def _fold_cuda(entry: str, partials: torch.Tensor, prev: torch.Tensor,
-               with_count: bool):
-    """Launch the ``entry`` fold of ``csrc/mask_reduce.cu`` on the current
+def _fold_cuda(entry: str, op: str, partials: torch.Tensor,
+               prev: torch.Tensor, with_count: bool):
+    """Launch the ``op`` fold of ``partials [K, NW]`` into ``prev [NW]``
+    through the C entry ``entry`` of ``csrc/mask_reduce.cu`` (``fold_rows``;
+    ``fold_empty``: the same path to an empty kernel) on the current
     stream. Inputs are checked here (the kernel trusts them); raises if the
     launch fails."""
-    shape = partials.shape
+    name, shape = _NAMES[op], partials.shape
     if len(shape) != 2 or prev.shape != shape[1:]:
-        raise ValueError(f"{entry}: partials [K, NW] and prev [NW], got "
+        raise ValueError(f"{name}: partials [K, NW] and prev [NW], got "
                          f"{tuple(partials.shape)} and {tuple(prev.shape)}")
-    dev = _build.require(entry, torch.int32, ("partials", "prev"), partials,
+    dev = _build.require(name, torch.int32, ("partials", "prev"), partials,
                          prev)
-    k, nw = shape
     out = torch.empty_like(prev)
     count = torch.empty_like(prev) if with_count else None
-    _build.launch(entry, _build.function("mask_reduce", entry, _ARGTYPES), dev,
-                  partials.data_ptr(), prev.data_ptr(), out.data_ptr(),
-                  count.data_ptr() if with_count else None, k, nw)
+    n = shape[1]
+    _build.launch(name, _build.function("mask_reduce", entry, _FOLD_ARGTYPES),
+                  dev, partials.data_ptr(), prev.data_ptr(), out.data_ptr(),
+                  count.data_ptr() if with_count else None, _OPS[op],
+                  shape[0], n, 1, 0, n)
     return out, count
 
 
 def mask_reduce_cuda(partials: torch.Tensor, prev: torch.Tensor,
                      with_count: bool = True):
     """The OR fold on the card -> ``(or_mask, new_bits_per_word or None)``."""
-    return _fold_cuda("mask_reduce", partials, prev, with_count)
+    return _fold_cuda("fold_rows", "or", partials, prev, with_count)
 
 
 def payload_min_fold_cuda(partials: torch.Tensor, prev: torch.Tensor,
                           with_count: bool = True):
     """The int32 min fold on the card -> ``(combined, improved or None)``."""
-    return _fold_cuda("payload_min_fold", partials, prev, with_count)
+    return _fold_cuda("fold_rows", "min", partials, prev, with_count)
+
+
+def _group_check(rows: torch.Tensor, op: str, k: int, k_stride: int,
+                 groups: int, g_stride: int) -> int:
+    """The op's code in ``csrc/mask_reduce.cu`` where the geometry is one:
+    ``rows`` 2-D, k and groups in [1, 65535], strides >= 0 and every member
+    a row; raises ValueError otherwise."""
+    code = _OPS.get(op)
+    if (code is None or rows.dim() != 2 or k < 1 or groups < 1
+            or k_stride < 0 or g_stride < 0 or groups > 65535
+            or (groups - 1) * g_stride + (k - 1) * k_stride >= len(rows)):
+        raise ValueError(f"group_fold: rows [R, n], op 'or' or 'min', k and "
+                         f"groups in [1, 65535], strides >= 0 and every "
+                         f"member a row; got {tuple(rows.shape)}, {op!r}, k="
+                         f"{k} by {k_stride}, groups={groups} by {g_stride}")
+    return code
+
+
+def group_fold_plain(rows: torch.Tensor, op: str, k: int, k_stride: int = 1,
+                     groups: int = 1, g_stride: int = 0) -> torch.Tensor:
+    """Plain PyTorch ``group_fold``: ``out[g] = OR`` (``op="or"``) or
+    ``min`` (``"min"``) over ``i < k`` of ``rows[g * g_stride + i *
+    k_stride]`` -> ``[groups, n]``; no ``prev`` (the op's identity: 0, or
+    the int32 maximum)."""
+    _group_check(rows, op, k, k_stride, groups, g_stride)
+    idx = (torch.arange(groups, device=rows.device)[:, None] * g_stride
+           + torch.arange(k, device=rows.device) * k_stride)
+    members = rows[idx]                                  # [groups, k, n]
+    return or_fold(members, 1) if op == "or" else members.amin(1)
+
+
+def _group_fold_cuda(entry: str, rows: torch.Tensor, op: str, k: int,
+                     k_stride: int, groups: int, g_stride: int):
+    """Launch :func:`group_fold_plain`'s fold through the C entry ``entry``
+    of ``csrc/mask_reduce.cu`` (``fold_rows``; ``fold_empty``: the same
+    path to an empty kernel) on the current stream."""
+    code = _group_check(rows, op, k, k_stride, groups, g_stride)
+    dev = _build.require("group_fold", torch.int32, ("rows",), rows)
+    n = rows.shape[1]
+    out = rows.new_empty((groups, n))
+    _build.launch("group_fold",
+                  _build.function("mask_reduce", entry, _FOLD_ARGTYPES), dev,
+                  rows.data_ptr(), None, out.data_ptr(), None, code, k,
+                  k_stride * n, groups, g_stride * n, n)
+    return out
+
+
+def group_fold_cuda(rows: torch.Tensor, op: str, k: int, k_stride: int = 1,
+                    groups: int = 1, g_stride: int = 0) -> torch.Tensor:
+    """:func:`group_fold_plain` in one launch on the card: the members are
+    read in place (``rows`` int32, contiguous), one output row a group."""
+    return _group_fold_cuda("fold_rows", rows, op, k, k_stride, groups,
+                            g_stride)
 
 
 def mask_reduce_apply_plain(gathered: torch.Tensor, level: torch.Tensor,

@@ -24,7 +24,8 @@ from .ell_pull_multi import (ell_as_csr, ell_pull_chunked_cuda,
                              ell_pull_chunked_plain,
                              ell_pull_chunked_sweep_cuda)
 from .ell_pull_payload import ell_pull_payload_cuda, ell_pull_payload_plain
-from .mask_reduce import (mask_reduce_apply_cuda, mask_reduce_apply_plain,
+from .mask_reduce import (group_fold_cuda, group_fold_plain,
+                          mask_reduce_apply_cuda, mask_reduce_apply_plain,
                           mask_reduce_cuda, mask_reduce_plain,
                           payload_min_fold_apply_cuda,
                           payload_min_fold_apply_plain, payload_min_fold_cuda,
@@ -206,6 +207,20 @@ def payload_min_fold(partials, prev, *, with_count: bool = True):
         LAUNCHES["payload_min_fold"] += 1
         return out
     return payload_min_fold_plain(partials, prev, with_count)
+
+
+def group_fold(rows, op: str, k: int, k_stride: int = 1, groups: int = 1,
+               g_stride: int = 0):
+    """The OR (``op="or"``) or int32 min (``"min"``) of ``k`` int32 rows
+    without ``prev``, one output row a group: ``out[g] = fold over i < k
+    of rows[g * g_stride + i * k_stride]`` -> ``[groups, n]``. Counts
+    under ``mask_reduce`` (OR) or ``payload_min_fold`` (min): it is that
+    kernel's fold body."""
+    if _on_cuda(rows):
+        out = group_fold_cuda(rows, op, k, k_stride, groups, g_stride)
+        LAUNCHES["mask_reduce" if op == "or" else "payload_min_fold"] += 1
+        return out
+    return group_fold_plain(rows, op, k, k_stride, groups, g_stride)
 
 
 def mask_reduce_apply(gathered, level, it, target=None):

@@ -295,6 +295,120 @@ def test_payload_min_fold_cuda_matches_plain(card, k, nw, with_count):
         assert got[1] is None
 
 
+def on_card_at(card, t, offset):
+    """``t`` copied to the card at ``offset`` words past a 16-byte
+    boundary (1: every row of it unaligned where its width is even)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=card)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+FOLD_KEY = {"or": "mask_reduce", "min": "payload_min_fold"}
+
+
+@pytest.mark.parametrize("op", ["or", "min"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 9])
+@pytest.mark.parametrize("nw", [1, 3, 4, 5, 60560, 60561])
+def test_group_fold_cuda_matches_plain(card, op, k, nw):
+    """The prev-less fold of a gathered ``[K, NW]`` (the op's identity in
+    registers) equals its plain version bit for bit, on rows aligned and
+    offset by one word (the ragged head and tail, and each row read at
+    another phase than the output's); one launch a call, counted under
+    the fold's kernel."""
+    from repro_torch.kernels.mask_reduce import group_fold_plain
+    rng = np.random.default_rng(k * 1000 + nw)
+    rows = words(rng, (k, nw))
+    want = group_fold_plain(rows, op, k)
+    for offset in (0, 1, 3):
+        before = ops.LAUNCHES[FOLD_KEY[op]]
+        got = ops.group_fold(on_card_at(card, rows, offset), op, k)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[FOLD_KEY[op]] == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=f"offset {offset}")
+
+
+@pytest.mark.parametrize("op", ["or", "min"])
+@pytest.mark.parametrize("n", [1_000_001, 2_000_000])
+def test_group_fold_cuda_strides_past_one_wave(card, op, n):
+    """Rows longer than the card holds threads at once (one word a thread
+    at an odd n, one int4 at n % 4 == 0): longer rows take more blocks,
+    equal to the plain version bit for bit."""
+    from repro_torch.kernels.mask_reduce import group_fold_plain
+    rows = words(np.random.default_rng(n), (2, n))
+    got = ops.group_fold(rows.to(card), op, 2)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  group_fold_plain(rows, op, 2).numpy())
+
+
+@pytest.mark.parametrize("fold", ["mask_reduce", "payload_min_fold"])
+@pytest.mark.parametrize("k,nw", [(1, 3), (2, 60561), (3, 4), (5, 5),
+                                  (9, 513)])
+@pytest.mark.parametrize("with_count", [True, False])
+def test_public_folds_cuda_take_unaligned_rows(card, fold, k, nw,
+                                               with_count):
+    """``ops.mask_reduce`` / ``ops.payload_min_fold`` with ``prev``, both
+    bodies, on partials and ``prev`` offset by one and two words from a
+    16-byte boundary: equal to the plain version bit for bit."""
+    rng = np.random.default_rng(k * nw + with_count)
+    parts, prev = words(rng, (k, nw)), words(rng, nw)
+    if fold == "payload_min_fold":
+        parts[torch.from_numpy(rng.random((k, nw)) < 0.3)] = 2**30
+    want = getattr(ops, fold)(parts, prev, with_count=with_count)
+    got = getattr(ops, fold)(on_card_at(card, parts, 1),
+                             on_card_at(card, prev, 2),
+                             with_count=with_count)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("op", ["or", "min"])
+@pytest.mark.parametrize("n", [1, 5, 60561])
+def test_strided_group_fold_on_stacked_rows(card, op, n):
+    """The group fold of the emulated rows ``[4, n]`` of (outer, inner) =
+    (2, 2) over ``"outer"``, read in place by stride (member i of group g
+    at row 2 i + g), and over all four rows: equal to the plain version.
+    Through comm under ``hier``, the combine is that group fold and one
+    fold of the two rows it leaves (2 launches), the min update one group
+    fold and one ``payload_min_fold_apply`` (2), and with ``"outer"`` of
+    size 1 the apply alone (1): all equal to the CPU."""
+    from repro_torch.kernels.mask_reduce import group_fold_plain
+    rng = np.random.default_rng(n + len(op))
+    rows = words(rng, (4, n))
+    for geo in ((2, 2, 2, 1), (4, 1, 1, 1), (2, 1, 2, 2)):
+        want = group_fold_plain(rows, op, *geo)
+        got = ops.group_fold(on_card_at(card, rows, 1), op, *geo)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=str(geo))
+    hier = TC.CommConfig(delegate="hier")
+    plan = TC.plan_for(hier, {"outer": 2, "inner": 2})
+    want, _ = TC.delegate_combine(plan, rows, op)
+    ops.reset_launches()
+    got, _ = TC.delegate_combine(plan, rows.to(card), op)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[FOLD_KEY[op]] == 2
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    cand = torch.from_numpy(np.where(rng.random((4, n)) < 0.3, 5,
+                                     2**30).astype(np.int32))
+    prev = torch.from_numpy(np.broadcast_to(np.where(
+        rng.random(n) < 0.5, 3, 2**30), (4, n)).astype(np.int32).copy())
+    for sizes, launches in (((2, 2), 2), ((1, 4), 1)):
+        plan = TC.plan_for(hier, dict(zip(("outer", "inner"), sizes)))
+        want = TC.delegate_min_apply(plan, cand, prev)
+        ops.reset_launches()
+        got = TC.delegate_min_apply(plan, cand.to(card), prev.to(card))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["payload_min_fold"] == launches, sizes
+        assert got[2] == want[2]
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
 def or_apply_case(rng, k, p, d, w, track_levels):
     """Gathered words ``[k, d * nw]``, a level plane ``[p, d, w]`` (int32
     with INF delegates and visited lanes, or the bool visited plane), ``it``
@@ -422,13 +536,33 @@ def test_apply_wrappers_reject_bad_inputs(card):
     assert ops.LAUNCHES == before
 
 
+def test_group_fold_rejects_bad_inputs(card):
+    """The prev-less fold checks what it is given before any launch: a
+    float32 or non-contiguous rows tensor, rows off the card, an op it has
+    no kernel for and a member past the last row raise ValueError."""
+    from repro_torch.kernels.mask_reduce import group_fold_cuda
+    rows = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    before = dict(ops.LAUNCHES)
+    for args in ((rows.float(), "or", 2), (rows.t().contiguous().t(), "or", 2),
+                 (rows, "max", 2), (rows, "min", 5), (rows, "min", 2, 2, 3, 1),
+                 (rows, "or", 0), (rows[0], "or", 1)):
+        with pytest.raises(ValueError):
+            ops.group_fold(*args)
+    with pytest.raises(ValueError):
+        group_fold_cuda(rows.cpu(), "or", 2)
+    assert ops.LAUNCHES == before
+
+
 @pytest.mark.parametrize("kw", [
     dict(), dict(cap_nn=-4, delegate_u8=True),
     dict(static_exchange=True, delegate_u8=True),
-    dict(comm=TC.CommConfig(delegate="allgather"))])
+    dict(comm=TC.CommConfig(delegate="allgather")),
+    dict(comm=TC.CommConfig(delegate="hier"))])
 def test_single_source_bfs_on_card_equals_cpu(card, kw):
-    """A scale-10 single-source BFS: every BFSState leaf equal between the
-    card (kernels) and the CPU (plain versions)."""
+    """A scale-10 single-source BFS: every BFSState leaf (levels and every
+    counter) equal between the card (kernels) and the CPU (plain
+    versions). Under allgather and hier (one emulated axis: one group) the
+    delegate update is one ``payload_min_fold_apply`` launch a sweep."""
     g = rmat_graph(10, seed=7)
     pg = partition_graph(g, th=32, p_rank=2, p_gpu=2)
     plan = TE.build_exchange_plan(pg)
@@ -466,10 +600,10 @@ def test_launch_helpers(card):
     import ctypes
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.mask_reduce import _ARGTYPES
-    fn = _build.function("mask_reduce", "payload_min_fold", _ARGTYPES)
-    assert fn is _build.function("mask_reduce", "payload_min_fold", _ARGTYPES)
-    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 7
+    from repro_torch.kernels.mask_reduce import _FOLD_ARGTYPES
+    fn = _build.function("mask_reduce", "fold_rows", _FOLD_ARGTYPES)
+    assert fn is _build.function("mask_reduce", "fold_rows", _FOLD_ARGTYPES)
+    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 11
     x = torch.zeros((2, 8), dtype=torch.int32, device=card)
     names = ("partials", "prev")
     assert _build.require("f", torch.int32, names, x, x[0]) == x.get_device()
@@ -666,9 +800,9 @@ def payload_setup():
 def test_payload_batch_on_card_equals_cpu(card, comm):
     """The payload kinds in one lane batch beside the bit kinds: answers
     and every ServeStats field equal between the card and the CPU; under
-    allgather the payload delegate update is one ``payload_min_fold``
-    launch a sweep (under hier the standalone fold: one a sweep too),
-    beside one pull and one OR fold."""
+    allgather and hier the payload delegate update is one
+    ``payload_min_fold_apply`` launch a sweep, beside one pull and one OR
+    fold."""
     from repro_torch.core import msbfs as TM
     _, pg, qs = payload_setup()
     outs = []
@@ -685,8 +819,9 @@ def test_payload_batch_on_card_equals_cpu(card, comm):
     assert sa == sb and sa["wire_pay_delegate_bytes"] > 0
     assert_answers_equal(a, b)
     assert la["ell_pull_multi"] == la["mask_reduce"] == sweeps > 0
-    # allgather: the fused update; hier: the standalone fold of its one
-    # group (the emulated plan has one axis); auto: the native amin
+    # allgather and hier: the fused update (the emulated plan has one
+    # axis, so hier has one group: no group fold before it); auto: the
+    # native amin
     want = 0 if comm.get("delegate") is None else sweeps
     assert la["payload_min_fold"] == want
 
